@@ -8,9 +8,13 @@ Phases, each printing its results; any failure exits non-zero:
 1. device  -- the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build   -- compile every CUDA kernel of the serving path from
               `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in parallel);
-3. K1      -- decode attention kernel vs its plain PyTorch version, at the
-              Llama-3-8B attention geometry (Hq 32, Hkv 8, D 128, bs 32);
-4. K2      -- chunk attention kernel vs its plain version, same geometry;
+3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
+              versions at the Llama-3-8B attention geometry (Hq 32, Hkv 8,
+              D 128, bs 32);
+4. K1, K2  -- the same at the Gemma-2-9B geometry (Hq 16, Hkv 8, D 256) with
+              sliding windows (none, 4096, 100) and the tanh softcap (none,
+              50), q scaled so raw scores pass the cap; the capped result
+              must differ from the uncapped one;
 5. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 64
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
@@ -19,10 +23,25 @@ Phases, each printing its results; any failure exits non-zero:
               tier), then the same prompts on an ample HBM pool. Every
               request must finish, the tiered run must migrate both ways,
               and both runs must emit identical tokens;
-6. anatomy -- device time of one served decode round by kernel
-              (torch.profiler) and the W8A16 matmuls of one layer.
+6. anatomy -- device time of one served Llama decode round by kernel
+              (torch.profiler) and the W8A16 matmuls of one layer (again
+              for Gemma-2 after its short serve);
+7. gemma2  -- Gemma-2-9B at full width and depth (42 layers alternating
+              window-4096 and global attention, caps 50 / 30, tied 256000
+              vocabulary), same weights and KV formats: 64 requests x
+              (64 + 64) tiered (83 HBM blocks) and ample, then 2 requests x
+              (4608 + 32) -- prompts past the window -- with an HBM pool
+              that holds one request's blocks but not both, and ample. Same
+              checks, plus exact launch counts: every layer of every decode
+              step through K1, of every prefill dispatch through K2, half of
+              them with window 4096;
+8. mistral -- Mistral-7B at full width and depth (uniform window 4096):
+              2 requests x (4160 + 64), tiered and ample. Out-of-window KV
+              blocks must retire (`window_retired_blocks` > 0), tokens must
+              be identical, every launch must carry window 4096.
 
-Then one JSON line of per-kernel numbers (launches on the served path, error
+Each model's weights are freed before the next phase draws its own. Then
+one JSON line of per-kernel numbers (launches on the served path, error
 against the plain version, times, bounds), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card the script exits 1
 before printing any result.
@@ -36,30 +55,68 @@ one step of 2^-8 relative.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-HQ, HKV, D, BS = 32, 8, 128, 32          # Llama-3-8B attention geometry
+BS = 32                                  # KV block size (tokens)
 BATCH = 8                                # the served batch (max_batch_size)
 DEV = "cuda"
-
-# Serving geometry (the JAX package's bench.py): 64 x (64 + 64) tokens,
-# max_seq_len 64 + 64 + 32 = 160 -> 5 blocks per sequence, HBM 2*8*5 + 3.
-N_REQ, PROMPT, GEN = 64, 64, 64
-MAX_SEQ = PROMPT + GEN + BS
-BLOCKS_PER_SEQ = -(-MAX_SEQ // BS)
-HBM_TIERED = 2 * BATCH * BLOCKS_PER_SEQ + 3
-HOST_TIERED = N_REQ * BLOCKS_PER_SEQ + 8
-HBM_AMPLE = N_REQ * BLOCKS_PER_SEQ + BATCH * BLOCKS_PER_SEQ + 4
-CHUNK = 64                               # min(128, max(32, prompt_len))
+LLAMA_HEADS = (32, 8, 128)               # Hq, Hkv, D of Llama-3-8B
+GEMMA_HEADS = (16, 8, 256)               # Hq, Hkv, D of Gemma-2-9B
+WINDOW, CAP = 4096, 50.0                 # Gemma-2's (and Mistral's) window
 HORIZON, QUANTUM = 32, 4
+
+
+@dataclass(frozen=True)
+class Cell:
+    """One serving configuration: requests x (prompt + new tokens), and the
+    pool geometry derived from it (the JAX package's bench.py rule)."""
+    n_req: int
+    prompt: int
+    gen: int
+    batch: int
+    chunk: int
+    long: bool = False                   # HBM holds one request, not two
+
+    @property
+    def max_seq(self) -> int:
+        return self.prompt + self.gen + BS
+
+    @property
+    def blocks_per_seq(self) -> int:
+        return -(-self.max_seq // BS)
+
+    @property
+    def hbm_tiered(self) -> int:
+        if self.long:
+            return self.blocks_per_seq + 4
+        return 2 * self.batch * self.blocks_per_seq + 3
+
+    @property
+    def host_tiered(self) -> int:
+        return self.n_req * self.blocks_per_seq + 8
+
+    @property
+    def hbm_ample(self) -> int:
+        return (self.n_req + self.batch) * self.blocks_per_seq + 4
+
+
+# Llama-3-8B and Gemma-2-9B: 64 x (64 + 64), max_seq_len 160 -> 5 blocks
+# per sequence, HBM 2*8*5 + 3 = 83 blocks; chunk = min(128, max(32,
+# prompt_len)). At 32 requests this pool never overflows (the running set
+# peaks below 83 blocks), so Gemma-2 serves 64 requests as Llama does.
+SHORT = Cell(64, 64, 64, BATCH, 64)
+GEMMA_LONG = Cell(2, 4608, 32, 2, 256, long=True)
+MISTRAL = Cell(2, 4160, 64, 2, 256, long=True)
 
 
 def fail(msg: str) -> None:
@@ -113,7 +170,7 @@ def phase_build() -> None:
 
 
 # ---------------------------------------------------------------------------
-# timing and bounds
+# timing, bounds and launch counts
 # ---------------------------------------------------------------------------
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -147,51 +204,84 @@ def bound(peaks: dict, nbytes_moved: float, bf16_ops: float,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernels():
+    from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
+        paged_chunk_attention_cuda,
+    )
+    from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
+
+    return {"K1": paged_attention, "K2": paged_chunk_attention_cuda}
+
+
+def reset_launches() -> None:
+    for fn in kernels().values():
+        fn.launches = 0
+        fn.launches_by_window.clear()
+
+
+def read_launches() -> dict:
+    """{kernel: (launches, {window: launches})} since the last reset."""
+    return {k: (fn.launches, dict(fn.launches_by_window))
+            for k, fn in kernels().items()}
+
+
 # ---------------------------------------------------------------------------
-# random paged pools at the 8B attention geometry
+# random paged pools
 # ---------------------------------------------------------------------------
 
-def make_pools(gen, kv, lens, extra_blocks=0, slots=0, max_blocks=0,
-               dev=None):
+def make_pools(gen, kv, lens, heads, extra_blocks=0, slots=0, max_blocks=0):
     """Pools [S, Hkv, bs, D] (guard slot S - 1 last) holding ceil(len/bs)
     blocks per lane at shuffled slots; table rows past a lane's blocks hold
     the guard slot, as the engine fills them. `slots` / `max_blocks` (0 =
     just enough) give the served engine's pool and table geometry."""
     from cxl_speckv_tpu_torch.config import KVDtype
 
-    dev = dev or DEV
+    _, hkv, d = heads
     nblk = [-(-int(n) // BS) for n in lens]
     S = max(sum(nblk) + 1, slots)
     mb = max(max(max(nblk), 1) + extra_blocks, max_blocks)
-    shape = (S, HKV, BS, D)
+    shape = (S, hkv, BS, d)
     if kv == KVDtype.INT8:
-        k = torch.randint(-127, 128, shape, generator=gen, device=dev,
+        k = torch.randint(-127, 128, shape, generator=gen, device=DEV,
                           dtype=torch.int8)
-        v = torch.randint(-127, 128, shape, generator=gen, device=dev,
+        v = torch.randint(-127, 128, shape, generator=gen, device=DEV,
                           dtype=torch.int8)
-        ks = torch.rand(shape[:3], generator=gen, device=dev) * 0.02 + 0.005
-        vs = torch.rand(shape[:3], generator=gen, device=dev) * 0.02 + 0.005
+        ks = torch.rand(shape[:3], generator=gen, device=DEV) * 0.02 + 0.005
+        vs = torch.rand(shape[:3], generator=gen, device=DEV) * 0.02 + 0.005
     else:
-        k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        ks = torch.ones(shape[:3], device=dev)
-        vs = torch.ones(shape[:3], device=dev)
-    perm = torch.randperm(S - 1, generator=gen, device=dev).cpu().numpy()
+        k = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device=DEV).to(torch.bfloat16)
+        ks = torch.ones(shape[:3], device=DEV)
+        vs = torch.ones(shape[:3], device=DEV)
+    perm = torch.randperm(S - 1, generator=gen, device=DEV).cpu().numpy()
     table = np.full((len(lens), mb), S - 1, np.int32)
     at = 0
     for i, n in enumerate(nblk):
         table[i, :n] = perm[at:at + n]
         at += n
-    return (k, v, ks, vs), torch.from_numpy(table).to(dev)
+    return (k, v, ks, vs), torch.from_numpy(table).to(DEV)
 
 
-def attn_bytes(pools, table, ctx_lens) -> int:
-    """Bytes of the pool blocks a walk over ctx_lens tokens reads (each
-    block once: K, V and both scale rows) plus the table entries used."""
+def attn_bytes(pools, blocks: int) -> int:
+    """Bytes of `blocks` pool blocks read once each: K, V, both scale rows
+    and the table entry."""
     k, _, ks, _ = pools
     per_blk = 2 * (k[0].numel() * k.element_size()
                    + ks[0].numel() * ks.element_size()) + 4
-    return sum(-(-int(n) // BS) for n in ctx_lens) * per_blk
+    return blocks * per_blk
+
+
+def attended(start: int, T: int, window) -> tuple[int, int, int]:
+    """For one lane of T queries at start .. start + T - 1: (context
+    positions attended, summed over the queries; fresh columns attended,
+    summed; context blocks the kernel must read). T = 1 with start =
+    seq_len - 1 and the query's own token as the fresh column is decode."""
+    w = window or (1 << 30)
+    ctx = sum(start - min(start, max(0, start + t - w + 1)) for t in range(T))
+    fresh = sum(min(t + 1, w) for t in range(T))
+    lo = max(0, start - w + 1)
+    blocks = -(-start // BS) - lo // BS if start else 0
+    return ctx, fresh, blocks
 
 
 # ---------------------------------------------------------------------------
@@ -205,69 +295,95 @@ def compare(got, want, tol) -> tuple[float, bool]:
     return float(d.max()), bool((d <= tol + tol * want.float().abs()).all())
 
 
-def k1_case(gen, kv, cd, lens, peaks, timed=False, geometry=None):
+def variant(window, softcap) -> str:
+    return (f" window={window}" if window else "") + (
+        f" cap={softcap:g}" if softcap else "")
+
+
+def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
+            geometry=None, window=None, softcap=None, q_scale=1.0):
     from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
     from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
 
-    pools, table = make_pools(gen, kv, lens, extra_blocks=2,
+    hq, _, d = heads
+    pools, table = make_pools(gen, kv, lens, heads, extra_blocks=2,
                               **(geometry or {}))
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
-    q = torch.randn((len(lens), HQ, D), generator=gen, device=DEV).to(cd)
+    q = (torch.randn((len(lens), hq, d), generator=gen, device=DEV)
+         * q_scale).to(cd)
     args = (q, *pools, table, lens_t, kv)
-    got = paged_attention(*args, compute_dtype=cd)
-    want = paged_attention_ref(*args, compute_dtype=cd)
+    kw = dict(compute_dtype=cd, window=window, softcap=softcap)
+    got = paged_attention(*args, **kw)
+    want = paged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, ok = compare(got, want, TOL[cd])
+    name = f"K1 {kv.value} cd={str(cd)[6:]} D={d} lens={lens}" + variant(
+        window, softcap)
     if not torch.isfinite(got).all():
-        fail(f"K1 {kv.value}/{cd} produced non-finite values")
+        fail(f"{name} produced non-finite values")
     if 0 in lens and got[lens.index(0)].any():
-        fail("K1: a seq_len 0 lane must give zeros")
-    row = {"case": f"K1 {kv.value} cd={str(cd)[6:]} lens={lens}", "err": err,
-           "ok": ok, "tol": TOL[cd]}
+        fail(f"{name}: a seq_len 0 lane must give zeros")
+    if softcap and not timed:
+        plain = paged_attention_ref(*args, compute_dtype=cd, window=window)
+        if float((plain.float() - want.float()).abs().max()) <= 1e-3:
+            fail(f"{name}: the cap does not change the result")
+    row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
-        row["ms"] = time_ms(lambda: paged_attention(*args, compute_dtype=cd))
-        row["plain_ms"] = time_ms(
-            lambda: paged_attention_ref(*args, compute_dtype=cd), iters=5)
-        moved = (nbytes(q, lens_t) + attn_bytes(pools, table, lens)
-                 + nbytes(got))
-        ops = sum(4 * HQ * D * n for n in lens)
+        row["ms"] = time_ms(lambda: paged_attention(*args, **kw))
+        row["plain_ms"] = time_ms(lambda: paged_attention_ref(*args, **kw),
+                                  iters=5)
+        work = [attended(n - 1, 1, window) for n in lens if n]
+        moved = (nbytes(q, lens_t) + attn_bytes(pools, sum(
+            -(-n // BS) - max(0, n - (window or n)) // BS for n in lens if n))
+            + nbytes(got))
+        ops = sum(4 * hq * d * (c + f) for c, f, _ in work)
         row["bound_ms"], row["bound_by"] = bound(
             peaks, moved, ops if cd == torch.bfloat16 else 0,
             ops if cd == torch.float32 else 0)
     return row
 
 
-def k2_case(gen, kv, cd, T, starts, peaks, timed=False, geometry=None):
+def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
+            geometry=None, window=None, softcap=None, q_scale=1.0):
     from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
     from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
         paged_chunk_attention_cuda,
     )
 
-    pools, table = make_pools(gen, kv, starts, extra_blocks=1,
+    hq, hkv, d = heads
+    pools, table = make_pools(gen, kv, starts, heads, extra_blocks=1,
                               **(geometry or {}))
     B = len(starts)
     start_t = torch.tensor(starts, dtype=torch.int32, device=DEV)
-    q = torch.randn((B, T, HQ, D), generator=gen, device=DEV).to(cd)
-    kn = torch.randn((B, T, HKV, D), generator=gen, device=DEV) * 2
-    vn = torch.randn((B, T, HKV, D), generator=gen, device=DEV) * 2
+    q = (torch.randn((B, T, hq, d), generator=gen, device=DEV)
+         * q_scale).to(cd)
+    kn = torch.randn((B, T, hkv, d), generator=gen, device=DEV) * 2
+    vn = torch.randn((B, T, hkv, d), generator=gen, device=DEV) * 2
     args = (q, kn, vn, *pools, table, start_t, kv)
-    got = paged_chunk_attention_cuda(*args, compute_dtype=cd)
-    want = paged_chunk_attention(*args, compute_dtype=cd)
+    kw = dict(compute_dtype=cd, window=window, softcap=softcap)
+    got = paged_chunk_attention_cuda(*args, **kw)
+    want = paged_chunk_attention(*args, **kw)
     torch.cuda.synchronize()
     err, ok = compare(got, want, TOL[cd])
+    name = f"K2 {kv.value} cd={str(cd)[6:]} D={d} T={T} starts={starts}" + (
+        variant(window, softcap))
     if not torch.isfinite(got).all():
-        fail(f"K2 {kv.value}/{cd} produced non-finite values")
-    row = {"case": f"K2 {kv.value} cd={str(cd)[6:]} T={T} starts={starts}",
-           "err": err, "ok": ok, "tol": TOL[cd]}
+        fail(f"{name} produced non-finite values")
+    if softcap and not timed:
+        plain = paged_chunk_attention(*args, compute_dtype=cd, window=window)
+        if float((plain.float() - want.float()).abs().max()) <= 1e-3:
+            fail(f"{name}: the cap does not change the result")
+    row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
-        row["ms"] = time_ms(
-            lambda: paged_chunk_attention_cuda(*args, compute_dtype=cd))
-        row["plain_ms"] = time_ms(
-            lambda: paged_chunk_attention(*args, compute_dtype=cd), iters=5)
-        moved = (nbytes(q, kn, vn, start_t) + attn_bytes(pools, table, starts)
+        row["ms"] = time_ms(lambda: paged_chunk_attention_cuda(*args, **kw))
+        row["plain_ms"] = time_ms(lambda: paged_chunk_attention(*args, **kw),
+                                  iters=5)
+        work = [attended(s, T, window) for s in starts]
+        moved = (nbytes(q, kn, vn, start_t)
+                 + attn_bytes(pools, sum(b for _, _, b in work))
                  + nbytes(got))
-        ctx_ops = sum(4 * HQ * D * T * s for s in starts)
-        fresh_ops = B * 4 * HQ * D * T * (T + 1) // 2   # causal, IEEE f32
+        ctx_ops = sum(4 * hq * d * c for c, _, _ in work)
+        fresh_ops = sum(4 * hq * d * f for _, f, _ in work)  # IEEE f32
         row["bound_ms"], row["bound_by"] = bound(
             peaks, moved, ctx_ops if cd == torch.bfloat16 else 0,
             fresh_ops + (ctx_ops if cd == torch.float32 else 0))
@@ -277,8 +393,11 @@ def k2_case(gen, kv, cd, T, starts, peaks, timed=False, geometry=None):
 def report(row) -> None:
     extra = ""
     if "ms" in row:
-        extra = (f" | kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms,"
-                 f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        turns = ("" if "ms_turns" not in row else " (turns " + ", ".join(
+            f"{t:.4f}" for t in row["ms_turns"]) + ")")
+        extra = (f" | kernel {row['ms']:.4f} ms{turns}, plain "
+                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                 f"({row['bound_by']})")
     print(f"[{row['case'][:2]}] {row['case']}: max |err| {row['err']:.3e}"
           f" (rtol = atol = {row['tol']:g}){extra}", flush=True)
     if not row["ok"]:
@@ -286,8 +405,38 @@ def report(row) -> None:
              f"{row['tol']}")
 
 
+def timed_in_turns(case, *args, **kw) -> tuple[dict, dict]:
+    """Time one shape's sliding (window 4096) and global variants in turns
+    -- sliding, global, global, sliding, each on fresh inputs of that shape
+    -- so that clock drift falls on both alike. Each row keeps the mean of
+    its two timings (and both, as ms_turns) and the larger of its errors."""
+    runs = [case(*args, window=w, timed=True, **kw)
+            for w in (WINDOW, None, None, WINDOW)]
+    rows = []
+    for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
+        rows.append(dict(a, ms=(a["ms"] + b["ms"]) / 2,
+                         plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
+                         ms_turns=(a["ms"], b["ms"]),
+                         err=max(a["err"], b["err"]),
+                         ok=a["ok"] and b["ok"]))
+    return rows[0], rows[1]
+
+
+def served_geometry(cell: Cell) -> dict:
+    """The tiered engine's pool (HBM blocks + guard) and table geometry."""
+    return {"slots": cell.hbm_tiered + 1, "max_blocks": cell.blocks_per_seq}
+
+
+def served_lens(cell: Cell, seed: int) -> list[int]:
+    """Context lengths of one decode step of the served batch."""
+    rng = np.random.RandomState(seed)
+    return rng.randint(cell.prompt + 1, cell.prompt + cell.gen + 1,
+                       cell.batch).tolist()
+
+
 def phase_kernels(peaks) -> dict:
-    """Check both kernels; returns the main-path timing rows."""
+    """Check both kernels at the Llama-3-8B geometry; returns the
+    main-path timing rows."""
     from cxl_speckv_tpu_torch.config import KVDtype
 
     gen = torch.Generator(device=DEV)
@@ -304,24 +453,62 @@ def phase_kernels(peaks) -> dict:
     # the shapes the served path gives each kernel: a decode step of the
     # 8-lane batch at 65-128 tokens of context, and the first 64-token
     # prefill chunk of 8 lanes (bf16 compute, INT8 KV, bf16 q), in the
-    # tiered engine's pool (HBM_TIERED slots + guard) and table geometry
-    served = {"slots": HBM_TIERED + 1, "max_blocks": BLOCKS_PER_SEQ}
-    rng = np.random.RandomState(5)
-    main_k1 = k1_case(gen, KVDtype.INT8, torch.bfloat16,
-                      rng.randint(PROMPT + 1, PROMPT + GEN + 1, BATCH).tolist(),
-                      peaks, timed=True, geometry=served)
-    main_k2 = k2_case(gen, KVDtype.INT8, torch.bfloat16, CHUNK, [0] * BATCH,
-                      peaks, timed=True, geometry=served)
+    # tiered engine's pool and table geometry
+    main_k1 = k1_case(gen, KVDtype.INT8, torch.bfloat16, served_lens(SHORT, 5),
+                      peaks, timed=True, geometry=served_geometry(SHORT))
+    main_k2 = k2_case(gen, KVDtype.INT8, torch.bfloat16, SHORT.chunk,
+                      [0] * BATCH, peaks, timed=True,
+                      geometry=served_geometry(SHORT))
     report(main_k1)
     report(main_k2)
     return {"K1": main_k1, "K2": main_k2}
 
 
+def phase_kernels_gemma(peaks) -> dict:
+    """Both kernels at Gemma-2-9B's attention geometry (G = 2, D = 256) with
+    its window and softcap variants; q is scaled by 16 so raw scores pass
+    the cap of 50 (std ~17 with these pools). Returns the timing rows of
+    the served shapes, sliding ("win") and global ("glob")."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4321)
+    lanes = [0, 1, 31, 33, 100, 4096, 4097, 6000]
+    starts = [0, 3, 100, 4000, 4090, 4100, 5000, 6000]
+    g = GEMMA_HEADS
+    for kv in (KVDtype.INT8, KVDtype.BF16):
+        for cd in (torch.float32, torch.bfloat16):
+            for window in (None, WINDOW, 100):
+                for cap in (None, CAP):
+                    v = dict(heads=g, window=window, softcap=cap, q_scale=16.0)
+                    report(k1_case(gen, kv, cd, lanes, peaks, **v))
+                    for T in (5, 64):
+                        report(k2_case(gen, kv, cd, T, starts, peaks, **v))
+    # the served shapes: a decode step of the 8-lane batch and the first
+    # 64-token prefill chunk; then the long-context pair's, a decode step
+    # at ~4.6k tokens (the window skips blocks) and a late 256-token chunk
+    n = GEMMA_LONG.prompt + GEMMA_LONG.gen // 2
+    s = GEMMA_LONG.prompt - GEMMA_LONG.chunk
+    v = dict(heads=g, softcap=CAP, geometry=served_geometry(SHORT))
+    lv = dict(v, geometry=served_geometry(GEMMA_LONG))
+    rows = {}
+    for key, case, args, kw in (
+            ("K1", k1_case, (served_lens(SHORT, 6),), v),
+            ("K2", k2_case, (SHORT.chunk, [0] * BATCH), v),
+            ("K1 long", k1_case, ([n, n - 7],), lv),
+            ("K2 long", k2_case, (GEMMA_LONG.chunk, [s, s]), lv)):
+        rows[f"{key} win"], rows[f"{key} glob"] = timed_in_turns(
+            case, gen, KVDtype.INT8, torch.bfloat16, *args, peaks, **kw)
+    for row in rows.values():
+        report(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# serving Llama-3-8B through the engine
+# serving through the engine
 # ---------------------------------------------------------------------------
 
-def build_engine(cfg, params, hbm_blocks, host_blocks):
+def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks):
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -337,15 +524,16 @@ def build_engine(cfg, params, hbm_blocks, host_blocks):
                           prefetch_reserve_frac=0.25),
         prefetch=PrefetchConfig(depth=4, min_depth=3, enabled=False,
                                 train_online=False),
-        engine=EngineConfig(max_batch_size=BATCH, max_seq_len=MAX_SEQ,
-                            prefill_chunk=CHUNK, decode_horizon=HORIZON,
+        engine=EngineConfig(max_batch_size=cell.batch,
+                            max_seq_len=cell.max_seq,
+                            prefill_chunk=cell.chunk, decode_horizon=HORIZON,
                             sched_quantum=QUANTUM, weight_dtype="int8"))
     return Engine(cfg, sc, params=params, device=DEV)
 
 
-def serve(eng, prompts):
+def serve(eng, prompts, gen):
     for p in prompts:
-        eng.add_request(p, max_new_tokens=GEN)
+        eng.add_request(p, max_new_tokens=gen)
     torch.cuda.synchronize()
     t0 = time.monotonic()
     outs = eng.run()
@@ -354,94 +542,164 @@ def serve(eng, prompts):
     return {o.req_id: o for o in outs}, dt
 
 
-def phase_serve() -> dict:
-    from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+def init_model(cfg, label: str, seed: int):
     from cxl_speckv_tpu_torch.models.llama import init_params_quantized
-    from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
-        paged_chunk_attention_cuda,
-    )
-    from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
 
-    cfg = llama_3_8b()
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.monotonic()
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(0)
+    gen.manual_seed(seed)
     params = init_params_quantized(cfg, gen, device=DEV)
     torch.cuda.synchronize()
-    print(f"[serve] Llama-3-8B W8A16 random init on the card in "
+    print(f"[{label}] W8A16 random init on the card in "
           f"{time.monotonic() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(1, cfg.vocab_size, PROMPT).tolist()
-               for _ in range(N_REQ)]
+    return params
 
-    # warm-up: cuBLAS handles and heuristics, first launches
-    serve(build_engine(cfg, params, HBM_AMPLE, 0), prompts[:2])
 
-    paged_attention.launches = 0
-    paged_chunk_attention_cuda.launches = 0
-    tiered = build_engine(cfg, params, HBM_TIERED, HOST_TIERED)
-    outs_t, dt_t = serve(tiered, prompts)
-    launches = {"K1": paged_attention.launches,
-                "K2": paged_chunk_attention_cuda.launches}
+def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts):
+    """Serve `prompts` tiered (launches counted) and ample; require every
+    request finished, identical tokens, migrations both ways and the exact
+    launch counts (every layer of every decode step through K1, of every
+    prefill dispatch through K2). Returns (launches, tiered stats)."""
+    reset_launches()
+    tiered = build_engine(cfg, params, cell, cell.hbm_tiered,
+                          cell.host_tiered)
+    outs_t, dt_t = serve(tiered, prompts, cell.gen)
+    launches = read_launches()
     st = tiered.get_statistics()
-
-    ample = build_engine(cfg, params, HBM_AMPLE, 0)
-    outs_a, dt_a = serve(ample, prompts)
+    del tiered
+    ample = build_engine(cfg, params, cell, cell.hbm_ample, 0)
+    outs_a, dt_a = serve(ample, prompts, cell.gen)
     sa = ample.get_statistics()
+    del ample
 
     for tag, outs in (("tiered", outs_t), ("ample", outs_a)):
-        if len(outs) != N_REQ or any(o.finish_reason not in ("length", "eos")
-                                     for o in outs.values()):
-            fail(f"{tag}: not every request finished "
-                 f"({len(outs)}/{N_REQ}: "
+        if len(outs) != cell.n_req or any(
+                o.finish_reason not in ("length", "eos")
+                for o in outs.values()):
+            fail(f"{label} {tag}: not every request finished "
+                 f"({len(outs)}/{cell.n_req}: "
                  f"{sorted({o.finish_reason for o in outs.values()})})")
     diff = [i for i in outs_t if outs_t[i].tokens != outs_a[i].tokens]
     if diff:
-        fail(f"tiered tokens differ from ample tokens for requests {diff}")
+        fail(f"{label}: tiered tokens differ from ample tokens for requests "
+             f"{diff}")
     tr = st["transfer"]
     if not (tr["up_transfers"] > 0 and tr["down_transfers"] > 0):
-        fail(f"tiered run migrated nothing: {tr}")
-    # every decode step and every prefill dispatch went through the kernels
+        fail(f"{label}: tiered run migrated nothing both ways: {tr}")
     L = cfg.num_layers
-    want_k1 = st["scheduler"]["decode_batches"] * HORIZON * L
-    want_k2 = st["engine"]["prefill_dispatches"] * L
-    if launches != {"K1": want_k1, "K2": want_k2}:
-        fail(f"kernel launches {launches} != expected K1 {want_k1}, "
-             f"K2 {want_k2}")
+    want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+            "K2": st["engine"]["prefill_dispatches"] * L}
+    got = {k: n for k, (n, _) in launches.items()}
+    if got != want:
+        fail(f"{label}: kernel launches {got} != expected {want}")
 
-    demand = N_REQ * BLOCKS_PER_SEQ
-    rows = {}
+    demand = cell.n_req * cell.blocks_per_seq
+    rate = {}
     for tag, outs, dt, s in (("tiered", outs_t, dt_t, st),
                              ("ample", outs_a, dt_a, sa)):
         toks = sum(len(o.tokens) for o in outs.values())
         e = s["engine"]
         phases = {k: round(v["total_s"], 3) for k, v in sorted(
             s["phases"].items()) if v.get("total_s", 0) > 0.0005}
-        rows[tag] = toks / dt
-        print(f"[serve] {tag}: hbm {s['compression']['hbm_token_capacity'] // BS}"
-              f" blocks for a demand of {demand}: {toks} tokens in "
-              f"{dt:.2f} s = {toks / dt:.1f} tok/s | up "
-              f"{s['transfer']['up_transfers']} down "
-              f"{s['transfer']['down_transfers']} | hit rate "
-              f"{s['directory']['hit_rate']:.3f} | TTFT p50 "
+        rate[tag] = toks / dt
+        print(f"[{label}] {tag}: hbm "
+              f"{s['compression']['hbm_token_capacity'] // BS} blocks for a "
+              f"demand of {demand}: {toks} tokens in {dt:.2f} s = "
+              f"{toks / dt:.1f} tok/s | up {s['transfer']['up_transfers']} "
+              f"down {s['transfer']['down_transfers']} | hit rate "
+              f"{s['directory']['hit_rate']:.3f} | retired "
+              f"{s['runtime']['window_retired_blocks']} | TTFT p50 "
               f"{e['p50_ttft_ms']:.1f} ms, TPOT p50 {e['p50_tpot_ms']:.2f} ms "
               f"| phases (s) {phases}", flush=True)
-    print(f"[serve] tiered == ample tokens for all {N_REQ} requests; per-HBM "
-          f"ratio {rows['tiered'] / rows['ample'] * demand / HBM_TIERED:.3f}x "
-          f"at {demand / HBM_TIERED:.2f}x oversubscription; launches on the "
-          f"tiered run {launches}", flush=True)
+    print(f"[{label}] tiered == ample tokens for all {cell.n_req} requests; "
+          f"per-HBM ratio "
+          f"{rate['tiered'] / rate['ample'] * demand / cell.hbm_tiered:.3f}x "
+          f"at {demand / cell.hbm_tiered:.2f}x oversubscription; launches "
+          f"on the tiered run {launches}", flush=True)
+    return launches, st
+
+
+def phase_serve() -> tuple:
+    from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+
+    cfg = llama_3_8b()
+    params = init_model(cfg, "serve", 0)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab_size, SHORT.prompt).tolist()
+               for _ in range(SHORT.n_req)]
+    # warm-up: cuBLAS handles and heuristics, first launches
+    serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0), prompts[:2],
+          SHORT.gen)
+    launches, _ = tiered_vs_ample("serve", cfg, params, SHORT, prompts)
     return launches, cfg, params, prompts
+
+
+def check_windows(label, launches, want_windowed) -> None:
+    """Each kernel's launches split by window as the config says."""
+    for k, (n, by_window) in launches.items():
+        want = want_windowed(n)
+        if by_window != want:
+            fail(f"{label}: {k} launches by window {by_window} != {want}")
+
+
+def phase_gemma(peaks) -> dict:
+    """Gemma-2-9B: the 32-request serve and the long-context pair."""
+    from cxl_speckv_tpu_torch.models.configs import gemma2_9b
+
+    cfg = gemma2_9b()
+    if cfg.retirement_window is not None:     # global layers keep full KV
+        fail("gemma2: a model with global layers must not retire KV")
+    params = init_model(cfg, "gemma2", 1)
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, cfg.vocab_size, SHORT.prompt).tolist()
+               for _ in range(SHORT.n_req)]
+    serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0), prompts[:2],
+          SHORT.gen)
+    launches, _ = tiered_vs_ample("gemma2", cfg, params, SHORT, prompts)
+    # sliding layers alternate with global ones: half of every count
+    check_windows("gemma2", launches, lambda n: {WINDOW: n // 2, 0: n // 2})
+    phase_anatomy("Gemma-2-9B", cfg, params, prompts, peaks)
+
+    long_prompts = [rng.randint(1, cfg.vocab_size, GEMMA_LONG.prompt).tolist()
+                    for _ in range(GEMMA_LONG.n_req)]
+    long_launches, _ = tiered_vs_ample("gemma2-long", cfg, params, GEMMA_LONG,
+                                       long_prompts)
+    check_windows("gemma2-long", long_launches,
+                  lambda n: {WINDOW: n // 2, 0: n // 2})
+    del params
+    return launches
+
+
+def phase_mistral() -> None:
+    """Mistral-7B: uniform window, so out-of-window blocks retire."""
+    from cxl_speckv_tpu_torch.models.configs import mistral_7b
+
+    cfg = mistral_7b()
+    params = init_model(cfg, "mistral", 2)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, cfg.vocab_size, MISTRAL.prompt).tolist()
+               for _ in range(MISTRAL.n_req)]
+    launches, st = tiered_vs_ample("mistral", cfg, params, MISTRAL, prompts)
+    check_windows("mistral", launches, lambda n: {WINDOW: n})
+    retired = st["runtime"]["window_retired_blocks"]
+    if retired <= 0:
+        fail("mistral: no KV block retired below the window")
+    print(f"[mistral] {retired} blocks retired below the window on the "
+          f"tiered run; every launch carried window {WINDOW}", flush=True)
+    del params
 
 
 # ---------------------------------------------------------------------------
 # where a served decode step spends its time
 # ---------------------------------------------------------------------------
 
-def phase_anatomy(cfg, params, prompts, peaks) -> None:
-    """Where a served decode round spends its time: one group of BATCH
-    lanes (32-token prompts, 4 fused rounds of HORIZON steps), a round
+def phase_anatomy(model: str, cfg, params, prompts, peaks) -> None:
+    """Where a served decode round of `model` spends its time: one group of
+    BATCH lanes (32-token prompts, 4 fused rounds of HORIZON steps), a round
     timed on the host clock, the next one under torch.profiler for the
     device time by kernel (the profiler slows the host, so its own wall
     time is not used). Then the W8A16 matmuls of one layer (int8 -> bf16
@@ -451,9 +709,10 @@ def phase_anatomy(cfg, params, prompts, peaks) -> None:
 
     from cxl_speckv_tpu_torch.ops.wquant import mm
 
-    eng = build_engine(cfg, params, HBM_AMPLE, 0)
+    eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0)
     for p in prompts[:BATCH]:
-        eng.add_request(p[:MAX_SEQ - 4 * HORIZON], max_new_tokens=4 * HORIZON)
+        eng.add_request(p[:SHORT.max_seq - 4 * HORIZON],
+                        max_new_tokens=4 * HORIZON)
     eng.step()                          # prefill the group, first round
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -464,33 +723,33 @@ def phase_anatomy(cfg, params, prompts, peaks) -> None:
         eng.step()                      # third round, profiled
         torch.cuda.synchronize()
     eng.run()
-    kernels: dict[str, float] = {}
+    kernels_us: dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total
-    busy = sum(kernels.values()) / 1e6                       # us -> s
-    print(f"[anatomy] one fused round, {HORIZON} decode steps of {BATCH} "
-          f"lanes: {wall * 1e3:.1f} ms on the host clock "
+            kernels_us[e.key] = kernels_us.get(e.key, 0.0) + e.self_device_time_total
+    busy = sum(kernels_us.values()) / 1e6                     # us -> s
+    print(f"[anatomy] {model}: one fused round, {HORIZON} decode steps of "
+          f"{BATCH} lanes: {wall * 1e3:.1f} ms on the host clock "
           f"({wall / HORIZON * 1e3:.2f} ms a step); device time "
           f"{busy * 1e3:.1f} ms ({busy / HORIZON * 1e3:.2f} ms a step) = "
           f"{busy / wall:.1%} busy, {1 - busy / wall:.1%} idle "
-          f"({'profiler saw no device time' if not kernels else 'torch.profiler'})",
+          f"({'profiler saw no device time' if not kernels_us else 'torch.profiler'})",
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
               "K1 decode_kernel": "decode_kernel"}
     for label, keys in groups.items():
-        us = sum(v for k, v in kernels.items()
+        us = sum(v for k, v in kernels_us.items()
                  if any(x in k for x in np.atleast_1d(keys)))
         print(f"[anatomy]   {label}: {us / 1e3:.2f} ms "
               f"({us / 1e6 / max(busy, 1e-12):.1%} of device time)")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[anatomy]   {us / 1e3:9.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}"
               f"  {name[:110]}")
 
     lp = {k: v[0] for k, v in params["layers"].items()}
     names = ("q", "k", "v", "o", "gate", "up", "down")
-    for rows in (BATCH, BATCH * CHUNK):                      # decode, prefill
+    for rows in (BATCH, BATCH * SHORT.chunk):                # decode, prefill
         x = {n: torch.randn(rows, lp[n].shape[0], device=DEV,
                             dtype=torch.bfloat16) for n in names}
         wb = {n: lp[n].q.to(torch.bfloat16) for n in names}
@@ -498,12 +757,28 @@ def phase_anatomy(cfg, params, prompts, peaks) -> None:
         t_bf = time_ms(lambda: [(x[n] @ wb[n]) * lp[n].s.to(torch.bfloat16)
                                 for n in names])
         w_bytes = sum(lp[n].q.numel() for n in names)
-        print(f"[mm] one layer's 7 W8A16 matmuls at {rows} rows: "
+        print(f"[mm] {model}: one layer's 7 W8A16 matmuls at {rows} rows: "
               f"{t_mm:.3f} ms with the int8->bf16 copy per call, "
               f"{t_bf:.3f} ms on bf16 weights already converted; int8 "
               f"weight bytes / HBM rate {w_bytes / peaks['hbm'] * 1e3:.3f} "
               f"ms ({cfg.num_layers} layers a step)", flush=True)
         del wb
+
+
+def kernel_entry(name, key, row, launches) -> dict:
+    src, replaces = {
+        "K1": ("cxl_speckv_tpu_torch/csrc/paged_attention.cu",
+               "cxl_speckv_tpu/ops/paged_attention.py:232"),
+        "K2": ("cxl_speckv_tpu_torch/csrc/chunk_attention.cu",
+               "cxl_speckv_tpu/ops/chunk_attention_pallas.py:287")}[key]
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            # no single PyTorch call computes attention over a paged,
+            # quantized pool through a block table
+            "library_ms": None}
 
 
 def main() -> int:
@@ -515,29 +790,31 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository: the "
               "cxl_speckv_tpu_torch package is not beside it", file=sys.stderr)
         return 1
+    t_start = time.monotonic()
     smi, name = phase_device()
     peaks = card_peaks(name)
     phase_build()
     main_rows = phase_kernels(peaks)
+    gemma_rows = phase_kernels_gemma(peaks)
     launches, cfg, params, prompts = phase_serve()
-    phase_anatomy(cfg, params, prompts, peaks)
-    kernels = []
-    for key, name_, src, replaces in (
-            ("K1", "paged_attention", "cxl_speckv_tpu_torch/csrc/paged_attention.cu",
-             "cxl_speckv_tpu/ops/paged_attention.py:232"),
-            ("K2", "paged_chunk_attention",
-             "cxl_speckv_tpu_torch/csrc/chunk_attention.cu",
-             "cxl_speckv_tpu/ops/chunk_attention_pallas.py:287")):
-        r = main_rows[key]
-        kernels.append({
-            "name": name_, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            # no single PyTorch call computes attention over a paged,
-            # quantized pool through a block table
-            "library_ms": None})
-    print(json.dumps({"kernels": kernels}))
+    phase_anatomy("Llama-3-8B", cfg, params, prompts, peaks)
+    del params
+    gemma_launches = phase_gemma(peaks)
+    phase_mistral()
+    entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
+                            launches["K1"][0]),
+               kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
+                            launches["K2"][0])]
+    for key, kname in (("K1", "paged_attention"),
+                       ("K2", "paged_chunk_attention")):
+        for tag, window, label in (("win", WINDOW, "sliding"),
+                                   ("glob", 0, "global")):
+            entries.append(kernel_entry(
+                f"{kname} gemma2-9b {label}", key, gemma_rows[f"{key} {tag}"],
+                gemma_launches[key][1].get(window, 0)))
+    print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
+          flush=True)
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

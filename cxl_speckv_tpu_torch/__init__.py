@@ -23,8 +23,10 @@ from cxl_speckv_tpu_torch.config import (  # noqa: F401
 from cxl_speckv_tpu_torch.models.configs import (  # noqa: F401
     PRESETS,
     LlamaConfig,
+    gemma2_9b,
     llama_3_2_1b,
     llama_3_8b,
     llama_3_70b,
+    mistral_7b,
     tiny_test_config,
 )

@@ -117,7 +117,8 @@ class BlockPool:
             self.directory.free(bid)
             self.stats.blocks_freed += 1
 
-    def retire_below(self, seq_slot: int, first_live_block: int) -> int:
+    def retire_below(self, seq_slot: int,
+                     first_live_block: int) -> list[tuple[int, int]]:
         """Free leading blocks that fell wholly out of a sliding attention
         window (Mistral family): once every live query position is past a
         block, no current or future query can attend to it (windows only

@@ -11,7 +11,15 @@
 //     FMAs: k_new / v_new arrive as quantize->dequantized float32, and
 //     decode/verify agreement depends on no extra rounding there.
 // q is rounded through the compute dtype first and then used as float32 in
-// both parts, as the TPU kernel does.
+// both parts, as the TPU kernel does. Per-launch variants, one source for
+// every layer:
+//   - sliding window (window > 0): query t attends positions
+//     > start + t - window, i.e. context pos + window > start + t and fresh
+//     columns t - s < window;
+//   - tanh softcap (softcap > 0): s = cap * tanh(s / cap) in both parts,
+//     after scaling and before the mask (tanhf: the fresh part stays IEEE
+//     float32).
+// `tile_update`'s `valid` is the one place where both masks go.
 //
 // Layout: q [B, T, Hq, D] f32, k_new / v_new [B, T, Hkv, D] f32, pools
 // [S, Hkv, bs, D] (int8 or bf16) with scales [S, Hkv, bs] f32, block_table
@@ -21,8 +29,14 @@
 // kv head being (t, g) pairs, r = t * G + g. The CTA streams context blocks
 // and then fresh column tiles of bs tokens through shared memory with an
 // online softmax (float32 statistics and accumulator). Fresh tiles wholly
-// above the row tile's last token are skipped. A lane with start == 0 runs
-// only the fresh part.
+// above the row tile's last token are skipped. With a window, context
+// blocks and fresh tiles wholly below the window of the row tile's earliest
+// query (its first t) are skipped too, the per-tile form of the TPU kernel's
+// index-map clamp: retired context blocks (the engine frees out-of-window
+// blocks; their table entries may hold stale slots) are never read. A
+// masked score is -1e30 with p = 0, so a tile that masks a row wholly
+// leaves its m, l and accumulator unchanged (alpha = exp(m - m) = 1). A
+// lane with start == 0 runs only the fresh part.
 //
 // Bound: at prefill widths (T = 64-128, G = 4) the work is operations, not
 // bytes: every K/V element read serves R query rows. This first kernel does
@@ -69,7 +83,8 @@ struct Smem {
 template <bool CD_BF16, bool FRESH, typename Valid>
 __device__ __forceinline__ void tile_update(const Smem& sm, float (&acc)[MAX_ACC],
                                             int R, int D, int bs,
-                                            float sm_scale, Valid valid) {
+                                            float sm_scale, float softcap,
+                                            Valid valid) {
   const int tid = threadIdx.x;
   const int DK = D + 1;
   const int PB = bs + 1;
@@ -80,6 +95,7 @@ __device__ __forceinline__ void tile_update(const Smem& sm, float (&acc)[MAX_ACC
     float s = 0.f;
     for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
     s = FRESH ? s * sm_scale : s * sm.ks[t] * sm_scale;
+    if (softcap > 0.f) s = softcap * tanhf(s / softcap);
     sm.p[r * PB + t] = valid(r, t) ? s : NEG_INF;
   }
   __syncthreads();
@@ -121,7 +137,7 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
              const int* __restrict__ block_table,
              const int* __restrict__ start_pos, float* __restrict__ out,
              int Tn, int Hq, int Hkv, int D, int bs, int max_blocks, int R,
-             int n_tiles, float sm_scale) {
+             int n_tiles, int window, float sm_scale, float softcap) {
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
   const int DK = D + 1;
@@ -143,6 +159,11 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
   const int r0 = tile_id * R;                 // first row (t * G + g)
   const int rows = Tn * G;
   const int start = start_pos[b];
+  // the tile's earliest query t0 attends the lowest positions: context
+  // from start + t0 - window + 1, fresh columns from t0 - window + 1
+  const int t0 = r0 / G;
+  const int ctx_lo = window > 0 ? max(start + t0 - window + 1, 0) : 0;
+  const int new_lo = window > 0 ? max(t0 - window + 1, 0) : 0;
 
   // q rows of this tile, rounded through the compute dtype; padded rows 0
   for (int i = tid; i < R * D; i += NT) {
@@ -163,7 +184,7 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
   // ---- pool context: positions < start ----
   int nblk = (start + bs - 1) / bs;
   if (nblk > max_blocks) nblk = max_blocks;
-  for (int blk = 0; blk < nblk; ++blk) {
+  for (int blk = ctx_lo / bs; blk < nblk; ++blk) {
     const int slot = block_table[(size_t)b * max_blocks + blk];
     const size_t tile = ((size_t)slot * Hkv + h) * bs;
     __syncthreads();
@@ -184,14 +205,18 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
     }
     __syncthreads();
     const int pos0 = blk * bs;
-    tile_update<CD_BF16, false>(sm, acc, R, D, bs, sm_scale,
-                                [&](int, int t) { return pos0 + t < start; });
+    tile_update<CD_BF16, false>(
+        sm, acc, R, D, bs, sm_scale, softcap, [&](int r, int t) {
+          const int pos = pos0 + t;
+          return pos < start &&
+                 (window <= 0 || pos + window > start + (r0 + r) / G);
+        });
   }
 
   // ---- fresh chunk: causal, IEEE float32 ----
   const int r_last = min(r0 + R, rows) - 1;
   const int t_last = r_last / G;
-  for (int s0 = 0; s0 <= t_last; s0 += bs) {
+  for (int s0 = new_lo / bs * bs; s0 <= t_last; s0 += bs) {
     __syncthreads();
     for (int i = tid * 4; i < bs * D; i += NT * 4) {
       const int j = i / D, d = i % D;
@@ -209,12 +234,13 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
       }
     }
     __syncthreads();
-    tile_update<CD_BF16, true>(sm, acc, R, D, bs, sm_scale,
-                               [&](int r, int j) {
-                                 const int ra = r0 + r;
-                                 const int s = s0 + j;
-                                 return ra < rows && s < Tn && s <= ra / G;
-                               });
+    tile_update<CD_BF16, true>(
+        sm, acc, R, D, bs, sm_scale, softcap, [&](int r, int j) {
+          const int ra = r0 + r;
+          const int s = s0 + j;
+          return ra < rows && s < Tn && s <= ra / G &&
+                 (window <= 0 || ra / G - s < window);
+        });
   }
   __syncthreads();
 
@@ -237,8 +263,8 @@ cudaError_t launch(const float* q, const float* k_new, const float* v_new,
                    const float* k_scale, const float* v_scale,
                    const int* block_table, const int* start_pos, float* out,
                    int B, int Tn, int Hq, int Hkv, int D, int bs,
-                   int max_blocks, int R, float sm_scale,
-                   cudaStream_t stream) {
+                   int max_blocks, int R, int window, float sm_scale,
+                   float softcap, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int n_tiles = (Tn * G + R - 1) / R;
   const size_t smem =
@@ -253,21 +279,23 @@ cudaError_t launch(const float* q, const float* k_new, const float* v_new,
   kern<<<B * Hkv * n_tiles, NT, smem, stream>>>(
       q, k_new, v_new, static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), k_scale, v_scale, block_table, start_pos,
-      out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles, sm_scale);
+      out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles, window, sm_scale,
+      softcap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). R is the query rows per CTA;
-// the Python wrapper checks R * D <= 8192 and D a multiple of 4.
+// the Python wrapper checks R * D <= 8192 and D a multiple of 4. window <= 0
+// means no window, softcap <= 0 no cap.
 extern "C" int chunk_attention_launch(
     const float* q, const float* k_new, const float* v_new,
     const void* k_pool, const void* v_pool, const float* k_scale,
     const float* v_scale, const int* block_table, const int* start_pos,
     float* out, int B, int Tn, int Hq, int Hkv, int D, int bs,
-    int max_blocks, int R, int kv_bf16, int compute_bf16, float sm_scale,
-    void* stream) {
+    int max_blocks, int R, int kv_bf16, int compute_bf16, int window,
+    float sm_scale, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R * D > NT * MAX_ACC || D % 4 || R <= 0)
     return (int)cudaErrorInvalidValue;
@@ -277,17 +305,21 @@ extern "C" int chunk_attention_launch(
         ? launch<__nv_bfloat16, true>(q, k_new, v_new, k_pool, v_pool,
                                       k_scale, v_scale, block_table,
                                       start_pos, out, B, Tn, Hq, Hkv, D, bs,
-                                      max_blocks, R, sm_scale, s)
+                                      max_blocks, R, window, sm_scale,
+                                      softcap, s)
         : launch<__nv_bfloat16, false>(q, k_new, v_new, k_pool, v_pool,
                                        k_scale, v_scale, block_table,
                                        start_pos, out, B, Tn, Hq, Hkv, D, bs,
-                                       max_blocks, R, sm_scale, s);
+                                       max_blocks, R, window, sm_scale,
+                                       softcap, s);
   }
   return compute_bf16
       ? launch<int8_t, true>(q, k_new, v_new, k_pool, v_pool, k_scale,
                              v_scale, block_table, start_pos, out, B, Tn, Hq,
-                             Hkv, D, bs, max_blocks, R, sm_scale, s)
+                             Hkv, D, bs, max_blocks, R, window, sm_scale,
+                             softcap, s)
       : launch<int8_t, false>(q, k_new, v_new, k_pool, v_pool, k_scale,
                               v_scale, block_table, start_pos, out, B, Tn, Hq,
-                              Hkv, D, bs, max_blocks, R, sm_scale, s);
+                              Hkv, D, bs, max_blocks, R, window, sm_scale,
+                              softcap, s);
 }

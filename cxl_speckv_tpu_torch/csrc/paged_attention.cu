@@ -3,7 +3,16 @@
 // Replaces the Pallas TPU kernel `cxl_speckv_tpu/ops/paged_attention.py`
 // (`paged_attention`, body `_decode_kernel`). Computes, for each lane b and
 // query head, softmax(q . K^T * ks * sm_scale) (V * vs) over the lane's
-// seq_len pool tokens, reached through its block-table row.
+// seq_len pool tokens, reached through its block-table row. Two per-launch
+// variants (one source serves every layer of a model that mixes them):
+//   - sliding window (window > 0): the query at seq_len - 1 attends only
+//     positions >= seq_len - window, and the CTA's block walk starts at
+//     first = max((seq_len - window) / bs, 0), as the TPU kernel's index map
+//     does. Table entries below `first` may be retired (the engine frees
+//     out-of-window blocks; the row keeps a stale slot that may belong to
+//     another sequence by now), so they are never read;
+//   - tanh softcap (softcap > 0, Gemma-2): s = cap * tanh(s / cap), after
+//     s * ks * sm_scale and before the mask, in IEEE float32 (tanhf).
 //
 // Layout (per layer): K and V pools [S, Hkv, bs, D] (int8 or bf16,
 // token-major), scales [S, Hkv, bs] float32, block_table [B, max_blocks]
@@ -11,14 +20,17 @@
 //
 // Design: one CTA per (lane, kv head). The CTA keeps the G query rows of its
 // kv head in shared memory, walks the lane's ceil(seq_len / bs) blocks
-// through the table (never max_blocks: rows past the last block hold the
-// guard slot), converts each [bs, D] K/V tile to float in shared memory and
-// runs an online softmax with float32 statistics and a float32 accumulator.
+// through the table from `first` (never to max_blocks: rows past the last
+// block hold the guard slot), converts each [bs, D] K/V tile to float in
+// shared memory and runs an online softmax with float32 statistics and a
+// float32 accumulator.
 // Arithmetic follows the TPU kernel: q is rounded through the compute dtype,
 // K scales multiply the scores after q.K, V scales multiply p before PV and
 // p * vs is rounded through the compute dtype. Stored values (int8 integers,
 // bf16) are exact in float, so the products match a bf16 matmul with f32
-// accumulation. A lane with seq_len == 0 writes zeros.
+// accumulation. A lane with seq_len == 0 writes zeros. Masked tokens get a
+// score of -1e30 and p = 0, so a block wholly outside the window leaves m, l
+// and the accumulator as they were (alpha = exp(m - m) = 1).
 //
 // Bound: decode reads every context byte once and does 4 flops per K/V
 // element per query head of the group (8 per byte at G = 4 and int8), under
@@ -61,8 +73,8 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
               const float* __restrict__ v_scale,
               const int* __restrict__ block_table,
               const int* __restrict__ seq_lens, float* __restrict__ out,
-              int Hq, int Hkv, int D, int bs, int max_blocks,
-              float sm_scale) {
+              int Hq, int Hkv, int D, int bs, int max_blocks, int window,
+              float sm_scale, float softcap) {
   extern __shared__ float smem[];
   const int G = Hq / Hkv;
   const int DK = D + 1;                       // padded K rows: no bank conflicts
@@ -82,6 +94,9 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
   const int seq_len = seq_lens[b];
   int nblk = (seq_len + bs - 1) / bs;
   if (nblk > max_blocks) nblk = max_blocks;
+  // lowest position the query attends; blocks wholly below it are skipped
+  const int lo = window > 0 ? max(seq_len - window, 0) : 0;
+  auto valid = [&](int pos) { return pos < seq_len && pos >= lo; };
 
   const float* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
   for (int i = tid; i < G * D; i += NT) q_s[i] = round_cd(qb[i], CD_BF16);
@@ -93,7 +108,7 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
     for (int k = 0; k < MAX_ACC; ++k) acc[g][k] = 0.f;
 
-  for (int blk = 0; blk < nblk; ++blk) {
+  for (int blk = lo / bs; blk < nblk; ++blk) {
     const int slot = block_table[(size_t)b * max_blocks + blk];
     const size_t tile = ((size_t)slot * Hkv + h) * bs;
     __syncthreads();                          // smem free from the last block
@@ -122,7 +137,8 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
       float s = 0.f;
       for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
       s = s * ks_s[t] * sm_scale;
-      p_s[i] = (blk * bs + t < seq_len) ? s : NEG_INF;
+      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
+      p_s[i] = valid(blk * bs + t) ? s : NEG_INF;
     }
     __syncthreads();
 
@@ -135,7 +151,7 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
       for (int t = 0; t < bs; ++t) mx = fmaxf(mx, row[t]);
       float sum = 0.f;
       for (int t = 0; t < bs; ++t) {
-        const float p = (blk * bs + t < seq_len) ? expf(row[t] - mx) : 0.f;
+        const float p = valid(blk * bs + t) ? expf(row[t] - mx) : 0.f;
         sum += p;
         row[t] = round_cd(p * vs_s[t], CD_BF16);
       }
@@ -181,7 +197,8 @@ cudaError_t launch(const float* q, const void* k_pool, const void* v_pool,
                    const float* k_scale, const float* v_scale,
                    const int* block_table, const int* seq_lens, float* out,
                    int B, int Hq, int Hkv, int D, int bs, int max_blocks,
-                   float sm_scale, cudaStream_t stream) {
+                   int window, float sm_scale, float softcap,
+                   cudaStream_t stream) {
   const int G = Hq / Hkv;
   const size_t smem =
       sizeof(float) * ((size_t)G * D + bs * (D + 1) + (size_t)bs * D +
@@ -195,20 +212,21 @@ cudaError_t launch(const float* q, const void* k_pool, const void* v_pool,
   kern<<<B * Hkv, NT, smem, stream>>>(
       q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       k_scale, v_scale, block_table, seq_lens, out, Hq, Hkv, D, bs,
-      max_blocks, sm_scale);
+      max_blocks, window, sm_scale, softcap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Shapes are checked by the
-// Python wrapper: G <= 8, D <= 256 and a multiple of 4.
+// Python wrapper: G <= 8, D <= 256 and a multiple of 4. window <= 0 means
+// no window, softcap <= 0 no cap.
 extern "C" int paged_attention_launch(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_table,
     const int* seq_lens, float* out, int B, int Hq, int Hkv, int D, int bs,
-    int max_blocks, int kv_bf16, int compute_bf16, float sm_scale,
-    void* stream) {
+    int max_blocks, int kv_bf16, int compute_bf16, int window,
+    float sm_scale, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hq / Hkv > MAX_G || D > NT * MAX_ACC || D % 4)
     return (int)cudaErrorInvalidValue;
@@ -217,16 +235,18 @@ extern "C" int paged_attention_launch(
     return compute_bf16
         ? launch<__nv_bfloat16, true>(q, k_pool, v_pool, k_scale, v_scale,
                                       block_table, seq_lens, out, B, Hq, Hkv,
-                                      D, bs, max_blocks, sm_scale, s)
+                                      D, bs, max_blocks, window, sm_scale,
+                                      softcap, s)
         : launch<__nv_bfloat16, false>(q, k_pool, v_pool, k_scale, v_scale,
                                        block_table, seq_lens, out, B, Hq, Hkv,
-                                       D, bs, max_blocks, sm_scale, s);
+                                       D, bs, max_blocks, window, sm_scale,
+                                       softcap, s);
   }
   return compute_bf16
       ? launch<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, block_table,
                              seq_lens, out, B, Hq, Hkv, D, bs, max_blocks,
-                             sm_scale, s)
+                             window, sm_scale, softcap, s)
       : launch<int8_t, false>(q, k_pool, v_pool, k_scale, v_scale,
                               block_table, seq_lens, out, B, Hq, Hkv, D, bs,
-                              max_blocks, sm_scale, s);
+                              max_blocks, window, sm_scale, softcap, s);
 }

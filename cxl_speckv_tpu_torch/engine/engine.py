@@ -11,7 +11,8 @@ fused multi-step decode), stop / finish / OOM / preemption, and
 2. pick the decode group (round-robin over the oversubscribed running set),
    demand-fetch non-resident blocks, decode `decode_horizon` tokens
    (`models.llama.decode_multi_packed`);
-3. retire finished requests;
+3. retire finished requests, and the KV blocks that every running
+   sequence's sliding window has left (Mistral-style uniform windows);
 4. prefetch plan for upcoming groups, eviction, migration.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
@@ -150,6 +151,9 @@ class Engine:
         self.prefetcher = PrefetchController(
             system_config.prefetch, self.kvc)
         self.scheduler = Scheduler(ec, self.kvc)
+        # retirement needs EVERY layer windowed (Gemma-2 global layers
+        # keep full KV); Mistral-style uniform windows retire normally
+        self.scheduler.window_tokens = model_config.retirement_window
         self.stats = EngineStatistics()
         self.timers = PhaseTimer()
         self._next_req_id = 0
@@ -261,6 +265,7 @@ class Engine:
         with self.timers.phase("decode"):
             batch = self._decode_tick(finished)
         t2 = time.monotonic()
+        self._retire_window_blocks()
         with self.timers.phase("maintain"):
             # protect the current batch's and upcoming groups' blocks from
             # proactive eviction; plan prefetches for the upcoming groups
@@ -471,6 +476,23 @@ class Engine:
         self.scheduler.stats.decode_tokens += sum(
             min(h, len(r.output)) for r in batch)
         return batch
+
+    def _retire_window_blocks(self) -> None:
+        """Sliding-window KV retirement (Mistral family): free the blocks
+        every running sequence's window has moved past. The attention
+        kernels never read blocks below (seq_len - window) // block_size, so
+        live KV per sequence stays about one window, however long the
+        generation runs."""
+        window = self.model_config.retirement_window
+        if window is None:
+            return
+        bs = self.config.cache.block_size
+        live = set(self.kvc.pool.live_seqs())
+        for r in self.scheduler.running.values():
+            if r.seq_slot in live and r.num_tokens > window:
+                first = (r.num_tokens - window) // bs
+                if first > 0:
+                    self.kvc.retire_out_of_window(r.seq_slot, first)
 
     # -- bookkeeping ----------------------------------------------------------------
 

@@ -5,6 +5,9 @@ The input is the JAX package's tree with its leaves as numpy arrays (e.g.
 leaves arrive as `ml_dtypes.bfloat16` arrays, which `torch.from_numpy`
 rejects, so they cross as a uint16 view. A quantized weight arrives as its
 `(q, s, axis)` triple, or any object with those three attributes.
+Every leaf crosses as it is, so a Gemma-2 tree keeps its post-norm leaves
+(`post_attn_norm`, `post_mlp_norm`) and its tied `embed`, quantized per
+row under W8A16, which then also serves as the head through `.T`.
 """
 
 from __future__ import annotations

@@ -4,23 +4,29 @@ Counterpart of `cxl_speckv_tpu/models/llama.py`, main-path subset: the
 parameter tree and its random init (plain and quantize-at-init), the
 building blocks, `decode_step` / `decode_multi` / `decode_multi_packed`
 (fused multi-step decode with sampling on the device), the batched chunked
-prefill `prefill_batch_packed`, and `forward_dense`.
+prefill `prefill_batch_packed`, and `forward_dense`. Families: Llama,
+Mistral (uniform sliding window) and Gemma-2 (alternating sliding / global
+layers, tanh softcaps, GeGLU, sandwich norms, 1 + w RMSNorm, scaled
+embeddings, tied head).
 
 Parameters are a plain dict with the JAX package's tree layout (layer
 weights stacked on a leading [L] axis). PyTorch runs eagerly, so the layer
 scan and the horizon loop are Python loops, and the pools are updated IN
 PLACE (the JAX functions return new pools). Numerics follow the HF
-`LlamaForCausalLM` conventions as the JAX package does: rotate-half RoPE,
-Llama-3 banded rope scaling, RMSNorm in float32.
+conventions as the JAX package does: rotate-half RoPE, Llama-3 banded rope
+scaling, RMSNorm in float32. Each layer passes its own window
+(`config.layer_windows()[li]`) and the attention softcap to the kernels:
+the layer loop is Python, so the JAX package's period-grouped scan has no
+counterpart here.
 
 Attention goes through the kernel wrappers `ops.paged_attention.
 paged_attention` (K1, decode) and `ops.chunk_attention_cuda.
 paged_chunk_attention_cuda` (K2, prefill): the CUDA kernels for tensors on
 the card, their plain versions for tensors on the CPU.
 
-Model features outside this slice (sliding window, attention bias, qk-norm,
-MoE, softcaps, sinks, post-norms, Gemma conventions, YaRN / linear /
-per-layer rope, per-layer MIXED8 KV) raise NotImplementedError.
+Model features outside this slice (attention bias, qk-norm, MoE, sinks,
+YaRN / linear / per-layer rope, per-layer MIXED8 KV) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
     paged_chunk_attention_cuda,
 )
 from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
+from cxl_speckv_tpu_torch.ops.paged_attention_ref import soft_cap
 from cxl_speckv_tpu_torch.ops.quant import (
     dequantize_kv,
     encode_for_pool,
@@ -64,19 +71,12 @@ def check_supported(config: LlamaConfig) -> None:
     """Raise NotImplementedError for a config feature outside this slice."""
     c = config
     unported = {
-        "sliding_window": c.sliding_window is not None,
-        "attn_pattern": c.attn_pattern is not None,
         "attn_bias": c.attn_bias,
         "o_bias": c.o_bias,
         "qk_norm": c.qk_norm,
         "num_experts": c.num_experts > 0,
-        "attn_softcap": c.attn_softcap is not None,
-        "final_softcap": c.final_softcap is not None,
         "attn_sinks": c.attn_sinks,
-        "post_norms": c.post_norms,
-        "norm_offset": c.norm_offset,
-        "embed_scale": c.embed_scale,
-        "act_fn": c.act_fn != "silu",
+        "act_fn": c.act_fn not in ("silu", "gelu_tanh"),
         "rope_yarn": c.rope_yarn is not None,
         "rope_linear_factor": c.rope_linear_factor is not None,
         "rope_local_theta": c.rope_local_theta is not None,
@@ -107,7 +107,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
 
     embed [V, H]; layers: attn_norm [L, H], q [L, H, Hq*D], k/v [L, H, Hkv*D],
     o [L, Hq*D, H], mlp_norm [L, H], gate/up [L, H, I], down [L, I, H];
-    final_norm [H]; lm_head [H, V] (absent when tie_embeddings).
+    final_norm [H]; lm_head [H, V] (absent when tie_embeddings); with
+    `post_norms` (Gemma-2) also post_attn_norm / post_mlp_norm [L, H].
     Weights are N(0, 1/fan_in) draws from `generator` (a different stream
     from JAX's: carry JAX weights with `convert.params_from_jax`)."""
     c = config
@@ -131,9 +132,22 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         },
         "final_norm": torch.ones((H,), dtype=dtype, device=device),
     }
+    params["layers"].update(_post_norms(c, generator, device, dtype))
     if not c.tie_embeddings:
         params["lm_head"] = w((H, V), H)
     return params
+
+
+def _post_norms(config: LlamaConfig, generator, device, dtype) -> dict:
+    """Gemma-2 sandwich-norm weights [L, H] (HF post_attention_layernorm /
+    post_feedforward_layernorm), N(0, 0.05^2) as the JAX init draws them so
+    the path is exercised; {} without `post_norms`."""
+    if not config.post_norms:
+        return {}
+    shape = (config.num_layers, config.hidden_size)
+    return {name: (torch.randn(shape, generator=generator, device=device)
+                   * 0.05).to(dtype)
+            for name in ("post_attn_norm", "post_mlp_norm")}
 
 
 def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
@@ -161,6 +175,7 @@ def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
         layers[name] = QuantizedTensor(q, s, -2)
     layers["attn_norm"] = torch.ones((L, H), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, H), dtype=dtype, device=device)
+    layers.update(_post_norms(c, generator, device, dtype))
     params: Params = {
         "embed": quantize_tensor(_normal((V, H), H, generator, device),
                                  axis=-1),
@@ -182,28 +197,37 @@ def layer_params(params: Params, li: int) -> dict:
 # building blocks
 # ---------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: float = 0.0) -> torch.Tensor:
+    """RMSNorm; offset=1.0 gives the Gemma convention (multiply by 1 + w)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
-    return normed * weight
+    return normed * (weight + offset) if offset else normed * weight
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor,
           config: LlamaConfig) -> torch.Tensor:
-    return rms_norm(x, weight, config.rms_eps)
+    return rms_norm(x, weight, config.rms_eps,
+                    1.0 if config.norm_offset else 0.0)
 
 
 def _embed(params: Params, config: LlamaConfig,
            token_ids: torch.Tensor) -> torch.Tensor:
-    return take_rows(params["embed"], token_ids,
-                     dtype=torch_dtype(config.dtype))
+    x = take_rows(params["embed"], token_ids,
+                  dtype=torch_dtype(config.dtype))
+    if config.embed_scale:
+        # sqrt(H) rounded to the activation dtype first, as JAX and HF do
+        # (bf16: sqrt(3584) = 59.87 becomes 59.75)
+        x = x * torch.tensor(config.hidden_size ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
 
 
 def _final_logits(x: torch.Tensor, params: Params,
                   config: LlamaConfig) -> torch.Tensor:
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-    return mm(x, head).float()
+    return soft_cap(mm(x, head).float(), config.final_softcap)
 
 
 def rope_frequencies(config: LlamaConfig) -> torch.Tensor:
@@ -240,12 +264,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _mlp(x, gate, up, down):
-    return mm(torch.nn.functional.silu(mm(x, gate)) * mm(x, up), down)
+def _act(config: LlamaConfig):
+    if config.act_fn == "gelu_tanh":           # Gemma GeGLU
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    return torch.nn.functional.silu
+
+
+def _mlp(x, gate, up, down, act=torch.nn.functional.silu):
+    return mm(act(mm(x, gate)) * mm(x, up), down)
 
 
 def _ffn(x, lp, config):
-    return _mlp(x, lp["gate"], lp["up"], lp["down"])
+    return _mlp(x, lp["gate"], lp["up"], lp["down"], _act(config))
 
 
 def _qkv(h, lp, config: LlamaConfig = None):
@@ -253,20 +283,30 @@ def _qkv(h, lp, config: LlamaConfig = None):
 
 
 def _block_residuals(x, o_flat, lp, config):
-    """o-projection + residual, then the MLP block + residual."""
-    x = x + mm(o_flat.to(x.dtype), lp["o"])
-    return x + _ffn(_norm(x, lp["mlp_norm"], config), lp, config)
+    """o-projection (+ Gemma-2 post-attention norm) + residual, then the
+    MLP block (+ post-MLP norm) + residual."""
+    att = mm(o_flat.to(x.dtype), lp["o"])
+    if "post_attn_norm" in lp:
+        att = _norm(att, lp["post_attn_norm"], config)
+    x = x + att
+    mlp = _ffn(_norm(x, lp["mlp_norm"], config), lp, config)
+    if "post_mlp_norm" in lp:
+        mlp = _norm(mlp, lp["post_mlp_norm"], config)
+    return x + mlp
 
 
 def _attend_fns(config: LlamaConfig):
-    """(decode_attend, chunk_attend) with the config's compute dtype."""
+    """(decode_attend, chunk_attend) with the config's compute dtype and
+    attention softcap; callers pass each layer's window."""
     cd = torch_dtype(config.attn_compute_dtype)
+    cap = config.attn_softcap
 
     def decode(*args, **kw):
-        return paged_attention(*args, compute_dtype=cd, **kw)
+        return paged_attention(*args, compute_dtype=cd, softcap=cap, **kw)
 
     def chunk(*args, **kw):
-        return paged_chunk_attention_cuda(*args, compute_dtype=cd, **kw)
+        return paged_chunk_attention_cuda(*args, compute_dtype=cd,
+                                          softcap=cap, **kw)
 
     return decode, chunk
 
@@ -302,6 +342,7 @@ def _decode_core(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
     slots = torch.gather(block_table, 1, blk[:, None].long())[:, 0].long()
     offs = (positions % bs).long()
     attend, _ = _attend_fns(c)
+    windows = c.layer_windows()
     for li in range(c.num_layers):
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
@@ -316,7 +357,8 @@ def _decode_core(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
         _append_kv(pools, li, encode_for_pool(kq, kv_dtype),
                    encode_for_pool(vq, kv_dtype), ks, vs, slots, offs)
         o = attend(q, pools[0][li], pools[1][li], pools[2][li], pools[3][li],
-                   block_table, seq_lens, kv_dtype, sm_scale=c.sm_scale)
+                   block_table, seq_lens, kv_dtype, sm_scale=c.sm_scale,
+                   window=windows[li])
         x = _block_residuals(x, o.reshape(B, -1), lp, c)
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)
@@ -454,6 +496,7 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
     inv_freq = rope_frequencies(c).to(dev)
     x = _embed(params, c, token_ids)                         # [B, T, H]
     _, attend_chunk = _attend_fns(c)
+    windows = c.layer_windows()
     for li in range(c.num_layers):
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
@@ -468,7 +511,8 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         o = attend_chunk(q, dequantize_kv(kq, ks, kv_dtype),
                          dequantize_kv(vq, vs, kv_dtype), pools[0][li],
                          pools[1][li], pools[2][li], pools[3][li], tables,
-                         start, kv_dtype, sm_scale=c.sm_scale)
+                         start, kv_dtype, sm_scale=c.sm_scale,
+                         window=windows[li])
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
         _append_kv(pools, li, encode_for_pool(kq, kv_dtype),
                    encode_for_pool(vq, kv_dtype), ks, vs, slots, offs)
@@ -499,7 +543,10 @@ def forward_dense(params: Params, config: LlamaConfig,
     causal = positions[:, None] >= positions[None, :]
     x = _embed(params, c, token_ids)
     G = c.q_group
-    for li in range(c.num_layers):
+    for li, window in enumerate(c.layer_windows()):
+        mask = causal
+        if window is not None:
+            mask = causal & (positions[:, None] - positions[None, :] < window)
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
@@ -510,7 +557,7 @@ def forward_dense(params: Params, config: LlamaConfig,
         v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
         qg = q.reshape(B, T, c.num_kv_heads, G, c.head_dim).float()
         s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale
-        s = s.masked_fill(~causal, -1e30)
+        s = soft_cap(s, c.attn_softcap).masked_fill(~mask, -1e30)
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bhgts,bshd->bthgd", w, v.float())
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)

@@ -16,11 +16,11 @@ import torch
 from cxl_speckv_tpu_torch.config import KVDtype
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import (
     NEG_INF,
-    _cap,
     _round,
     finalize,
     gather_block,
     online_update,
+    soft_cap,
 )
 
 
@@ -65,7 +65,7 @@ def paged_chunk_attention(
     for i in range(nblk):
         k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype)
         s = (qg @ k.transpose(-1, -2)) * ks[:, :, None, :] * sm_scale
-        s = _cap(s, softcap)
+        s = soft_cap(s, softcap)
         pos = i * bs + torch.arange(bs, device=dev)
         ok = (pos[None, :] < start[:, None])[:, None, None, :]  # [B,1,1,bs]
         if window is not None:
@@ -79,7 +79,8 @@ def paged_chunk_attention(
     # ---- fresh chunk: causal, float32 ----
     kf = k_new.float().permute(0, 2, 1, 3)                     # [B, Hkv, T, D]
     vf = v_new.float().permute(0, 2, 1, 3)
-    s = _cap((qg @ kf.transpose(-1, -2)) * sm_scale, softcap)  # [B,Hkv,R,T]
+    s = soft_cap((qg @ kf.transpose(-1, -2)) * sm_scale,          # [B,Hkv,R,T]
+                 softcap)
     ok = row_t[:, None] >= t_idx[None, :]
     if window is not None:
         ok = ok & (row_t[:, None] - t_idx[None, :] < window)

@@ -8,18 +8,24 @@ context through the block table, then causally to the fresh chunk in IEEE
 float32 (batched chunked prefill; speculative verify with T = gamma + 1).
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
-version `ops/chunk_attention.paged_chunk_attention`. Variants the kernel
-does not cover yet raise NotImplementedError on CUDA.
+version `ops/chunk_attention.paged_chunk_attention`. Window and softcap are
+launch arguments, as in K1; variants the kernel does not cover yet (sinks,
+INT4 / FP8 / MIXED8 storage) raise NotImplementedError on CUDA.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from cxl_speckv_tpu_torch.config import KVDtype
 from cxl_speckv_tpu_torch.ops import cuda_build
 from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
-from cxl_speckv_tpu_torch.ops.paged_attention import check_cuda_call
+from cxl_speckv_tpu_torch.ops.paged_attention import (
+    check_cuda_call,
+    launch_variant,
+)
 
 # query rows per CTA: R * head_dim <= 8192 (the kernel's accumulator)
 _ROW_ELEMS = 8192
@@ -55,9 +61,10 @@ def paged_chunk_attention_cuda(
             sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
-    check_cuda_call("paged_chunk_attention", kv_dtype, compute_dtype, window,
-                    softcap, sinks, (k_pool, v_pool, k_scale, v_scale),
+    check_cuda_call("paged_chunk_attention", kv_dtype, compute_dtype, sinks,
+                    (k_pool, v_pool, k_scale, v_scale),
                     (q, k_new, v_new, block_table, start_pos))
+    win, cap = launch_variant(window, softcap)
     B, T, Hq, D = q.shape
     _, Hkv, bs, Dp = k_pool.shape
     if (Dp != D or Hq % Hkv or D % 4 or D > _ROW_ELEMS
@@ -81,12 +88,15 @@ def paged_chunk_attention_cuda(
              table.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, Hq,
              Hkv, D, bs, table.shape[1], rows_per_cta(T, Hq // Hkv, D),
              int(kv_dtype == KVDtype.BF16),
-             int(compute_dtype == torch.bfloat16), float(sm_scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(compute_dtype == torch.bfloat16), win, float(sm_scale),
+             cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_chunk_attention", err)
     paged_chunk_attention_cuda.launches += 1
+    paged_chunk_attention_cuda.launches_by_window[win] += 1
     return out.to(q.dtype)
 
 
-# kernel launches since the count was last set to 0 (CPU calls not counted)
+# kernel launches since the count was last set to 0 (CPU calls not counted),
+# and the same launches by their window (0 = none)
 paged_chunk_attention_cuda.launches = 0
+paged_chunk_attention_cuda.launches_by_window = Counter()

@@ -29,9 +29,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol and argument types of each source
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 8 + [_I] * 8 + [_F, _P]),
+                        [_P] * 8 + [_I] * 9 + [_F, _F, _P]),
     "chunk_attention": ("chunk_attention_launch",
-                        [_P] * 10 + [_I] * 10 + [_F, _P]),
+                        [_P] * 10 + [_I] * 11 + [_F, _F, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

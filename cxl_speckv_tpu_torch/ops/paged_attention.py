@@ -8,12 +8,15 @@ one query token per lane over its quantized pool context, reached through
 the block table, with dequantization fused into the attention.
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
-version `ops/paged_attention_ref.paged_attention_ref`. Variants the kernel
-does not cover yet (INT4, FP8 and MIXED8 storage; window, softcap, sinks)
-raise NotImplementedError on CUDA.
+version `ops/paged_attention_ref.paged_attention_ref`. The kernel takes the
+sliding window and the tanh softcap as launch arguments (Gemma-2, Mistral);
+variants it does not cover yet (INT4, FP8 and MIXED8 storage; sinks) raise
+NotImplementedError on CUDA.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -22,15 +25,15 @@ from cxl_speckv_tpu_torch.ops import cuda_build
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
 
 
-def check_cuda_call(name: str, kv_dtype: KVDtype, compute_dtype, window,
-                    softcap, sinks, pools, tensors) -> None:
+def check_cuda_call(name: str, kv_dtype: KVDtype, compute_dtype, sinks,
+                    pools, tensors) -> None:
     """Shared argument checks of the CUDA attention wrappers."""
     if kv_dtype not in (KVDtype.INT8, KVDtype.BF16):
         raise NotImplementedError(f"{name}: {kv_dtype} storage is not ported "
                                   "to CUDA (INT8 and BF16 are)")
-    if window is not None or softcap is not None or sinks is not None:
-        raise NotImplementedError(f"{name}: sliding window, softcap and "
-                                  "sinks are not ported to CUDA")
+    if sinks is not None:
+        raise NotImplementedError(f"{name}: attention sinks are not ported "
+                                  "to CUDA")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{name}: compute dtype {compute_dtype}")
     want = torch.bfloat16 if kv_dtype == KVDtype.BF16 else torch.int8
@@ -49,6 +52,15 @@ def check_cuda_call(name: str, kv_dtype: KVDtype, compute_dtype, window,
     for t in pools:
         if not t.is_contiguous():
             raise ValueError(f"{name}: pools must be contiguous")
+
+
+def launch_variant(window: int | None, softcap: float | None) -> tuple:
+    """(window, softcap) as the kernels take them: 0 = none."""
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return int(window or 0), float(softcap or 0.0)
 
 
 def paged_attention(
@@ -74,9 +86,10 @@ def paged_attention(
             window=window, softcap=softcap, sinks=sinks)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    check_cuda_call("paged_attention", kv_dtype, compute_dtype, window,
-                    softcap, sinks, (k_pool, v_pool, k_scale, v_scale),
+    check_cuda_call("paged_attention", kv_dtype, compute_dtype, sinks,
+                    (k_pool, v_pool, k_scale, v_scale),
                     (q, block_table, seq_lens))
+    win, cap = launch_variant(window, softcap)
     B, Hq, D = q.shape
     _, Hkv, bs, Dp = k_pool.shape
     if Dp != D or Hq % Hkv or Hq // Hkv > 8 or D > 256 or D % 4:
@@ -95,12 +108,15 @@ def paged_attention(
              k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
              lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, bs,
              table.shape[1], int(kv_dtype == KVDtype.BF16),
-             int(compute_dtype == torch.bfloat16), float(sm_scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             int(compute_dtype == torch.bfloat16), win, float(sm_scale),
+             cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_attention", err)
     paged_attention.launches += 1
+    paged_attention.launches_by_window[win] += 1
     return out.to(q.dtype)
 
 
-# kernel launches since the count was last set to 0 (CPU calls not counted)
+# kernel launches since the count was last set to 0 (CPU calls not counted),
+# and the same launches by their window (0 = none)
 paged_attention.launches = 0
+paged_attention.launches_by_window = Counter()

@@ -25,7 +25,7 @@ from cxl_speckv_tpu_torch.ops.quant import dequant_values
 NEG_INF = -1e30
 
 
-def _cap(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
+def soft_cap(s: torch.Tensor, softcap: float | None) -> torch.Tensor:
     """Gemma-2 tanh score softcapping (no-op when None)."""
     return s if softcap is None else softcap * torch.tanh(s / softcap)
 
@@ -114,7 +114,7 @@ def paged_attention_ref(
     for i in range(nblk):
         k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype)
         s = (qg @ k.transpose(-1, -2)) * ks[:, :, None, :] * sm_scale
-        s = _cap(s, softcap)
+        s = soft_cap(s, softcap)
         pos = i * bs + torch.arange(bs, device=q.device)
         ok = pos[None, :] < seq_lens[:, None]                   # [B, bs]
         if window is not None:
@@ -151,8 +151,8 @@ def prefill_attention_ref(
         sm_scale = D ** -0.5
     dev = q.device
     qg = q.reshape(T, Hkv, G, D).float()
-    scores_new = _cap(torch.einsum("thgd,shd->hgts", qg, k_new.float())
-                      * sm_scale, softcap)
+    scores_new = soft_cap(torch.einsum("thgd,shd->hgts", qg, k_new.float())
+                          * sm_scale, softcap)
     t_idx = torch.arange(T, device=dev)
     causal = t_idx[:, None] >= t_idx[None, :]
     if window is not None:
@@ -171,8 +171,8 @@ def prefill_attention_ref(
     v_ctx = flat(dequant_values(v_pool[slots], kv_dtype))
     ks = flat(k_scale[slots])                                  # [L, Hkv]
     vs = flat(v_scale[slots])
-    scores_ctx = _cap(torch.einsum("thgd,lhd->hgtl", qg, k_ctx)
-                      * ks.T[:, None, None, :] * sm_scale, softcap)
+    scores_ctx = soft_cap(torch.einsum("thgd,lhd->hgtl", qg, k_ctx)
+                          * ks.T[:, None, None, :] * sm_scale, softcap)
     pos = torch.arange(L, device=dev)
     ctx_ok = (pos[None, :] < start_pos).expand(T, L)
     if window is not None:

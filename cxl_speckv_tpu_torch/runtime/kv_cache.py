@@ -10,6 +10,7 @@ the engine
 - `prefetch_blocks`: asynchronous promote (the prefetch path);
 - `maintain`: eviction to keep the prefetch landing zone free, plus
   migration of what is queued;
+- `retire_out_of_window`: the sliding-window rolling buffer (Mistral);
 - the prefix cache (`match_prefix` / `claim_prefix` / `register_prefix`).
 
 Device pool layout (all layers stacked; one extra guard slot absorbs
@@ -59,7 +60,7 @@ class CacheRuntimeStatistics(Statistics):
     demand_fetch_blocks: int = 0
     maintain_demotes: int = 0
     migrate_dispatches: int = 0      # migrate batches applied
-    window_retired_blocks: int = 0   # (sliding windows are not ported: 0)
+    window_retired_blocks: int = 0   # blocks freed by sliding-window retirement
     prefix_hit_blocks: int = 0       # prompt blocks reused via prefix cache
     prefix_tokens_reused: int = 0    # prompt tokens NOT re-prefilled
 
@@ -219,6 +220,17 @@ class TieredKVCache:
         if len(self._prefix_map) > 8 * self.config.total_blocks:
             self._prefix_map = {k: b for k, b in self._prefix_map.items()
                                 if self.pool.is_live(b)}
+
+    def retire_out_of_window(self, seq_slot: int,
+                             first_live_block: int) -> list[tuple[int, int]]:
+        """Free a sequence's leading blocks once a sliding attention window
+        has moved past them (the Mistral-family rolling KV buffer): the
+        attention kernels never read blocks below
+        `(seq_len - window) // block_size`, so their slots return to the
+        pool at once. Returns the freed (block_idx, bid) pairs."""
+        freed = self.pool.retire_below(seq_slot, first_live_block)
+        self.stats.window_retired_blocks += len(freed)
+        return freed
 
     # -- residency management -------------------------------------------------
 

@@ -109,7 +109,8 @@ def test_plain_decode_other_schemes_match_jax_reference(kv):
 
 def test_plain_window_softcap_sinks_match_jax_reference():
     """The plain versions carry the window / softcap / sinks variants of
-    the JAX references (the CUDA kernels raise for them)."""
+    the JAX references (the CUDA kernels take window and softcap and raise
+    for sinks)."""
     lens = (6, 21, 30)
     jpools, tpools, table, seq_lens = make_pools(lens, "int8", seed=7)
     rng = np.random.RandomState(8)

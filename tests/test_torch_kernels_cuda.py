@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (decode) and K2 (chunk) against their plain PyTorch
-versions, on the card. Every test here needs an NVIDIA card and `nvcc`
-and skips without them; on the card run
+versions, on the card, with and without the sliding window and softcap.
+Every test here needs an NVIDIA card and `nvcc` and skips without them; on
+the card run
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
@@ -107,14 +108,56 @@ def test_unported_variants_raise_on_cuda(dev):
     p, table = pools([20], KVDtype.INT8, dev, seed=3)
     q = torch.randn(1, HQ, D, device=dev)
     sl = torch.tensor([20], dtype=torch.int32, device=dev)
+    sinks = torch.zeros(HQ, device=dev)
     with pytest.raises(NotImplementedError):
-        paged_attention(q, *p, table, sl, KVDtype.INT8, window=8)
+        paged_attention(q, *p, table, sl, KVDtype.INT8, sinks=sinks)
     with pytest.raises(NotImplementedError):
         paged_attention(q, *p, table, sl, KVDtype.INT4)
     kn = torch.randn(1, 4, HKV, D, device=dev)
     with pytest.raises(NotImplementedError):
         paged_chunk_attention_cuda(q[:, None].expand(1, 4, HQ, D), kn, kn, *p,
-                                   table, sl, KVDtype.INT8, softcap=5.0)
+                                   table, sl, KVDtype.INT8, sinks=sinks)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.BF16])
+@pytest.mark.parametrize("window,cap", [(40, None), (None, 5.0), (7, 5.0)])
+def test_decode_kernel_window_softcap_matches_plain(dev, kv, cd, window, cap):
+    """Windows that skip whole blocks and mask partial ones; q scaled so
+    raw scores pass the cap and the tanh bites."""
+    lens = [0, 1, 6, 17, 40, 41, 130]
+    p, table = pools(lens, kv, dev, seed=4)
+    q = (torch.randn(len(lens), HQ, D, device=dev) * 8).to(cd)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(compute_dtype=cd, window=window, softcap=cap)
+    got = paged_attention(q, *p, table, sl, kv, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, *p, table, sl, kv, **kw)
+    close(got, want, cd)
+    if cap is not None:
+        uncapped = paged_attention_ref(q, *p, table, sl, kv, compute_dtype=cd,
+                                       window=window)
+        assert float((uncapped.float() - want.float()).abs().max()) > 1e-2
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.BF16])
+@pytest.mark.parametrize("T", [5, 40])
+def test_chunk_kernel_window_softcap_matches_plain(dev, kv, cd, T):
+    """Window 20 with starts on both sides of it (context blocks and
+    fresh tiles below a row tile's window are skipped) and cap 5."""
+    starts = [0, 3, 16, 40, 100]
+    p, table = pools([max(s, 1) for s in starts], kv, dev, seed=5)
+    B = len(starts)
+    q = (torch.randn(B, T, HQ, D, device=dev) * 8).to(cd)
+    kn = torch.randn(B, T, HKV, D, device=dev)
+    vn = torch.randn(B, T, HKV, D, device=dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    kw = dict(compute_dtype=cd, window=20, softcap=5.0)
+    got = paged_chunk_attention_cuda(q, kn, vn, *p, table, st, kv, **kw)
+    torch.cuda.synchronize()
+    want = paged_chunk_attention(q, kn, vn, *p, table, st, kv, **kw)
+    close(got, want, cd)
 
 
 def test_engine_on_card_tiers_invisibly(dev):

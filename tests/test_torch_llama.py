@@ -69,8 +69,8 @@ def test_forward_dense_matches_jax(w8):
 def test_unported_features_raise():
     import dataclasses
 
-    for kw in ({"sliding_window": 8}, {"qk_norm": True},
-               {"attn_softcap": 30.0}, {"attn_bias": True}):
+    for kw in ({"attn_sinks": True}, {"qk_norm": True},
+               {"num_experts": 4}, {"attn_bias": True}):
         with pytest.raises(NotImplementedError):
             tl.init_params(dataclasses.replace(CFG, **kw),
                            torch.Generator().manual_seed(0))
