@@ -13,8 +13,10 @@ Phases, each printing its results; any failure exits non-zero:
               D 128, bs 32);
 4. K1, K2  -- the same at the Gemma-2-9B geometry (Hq 16, Hkv 8, D 256) with
               sliding windows (none, 4096, 100) and the tanh softcap (none,
-              50), q scaled so raw scores pass the cap; the capped result
-              must differ from the uncapped one;
+              50), q scaled so raw scores pass the cap; the uncapped plain
+              result must fail the comparison the kernel passes; then at
+              the Mistral-7B geometry (Hq 32, Hkv 8, D 128) with window
+              4096 at the lengths and chunk starts its serve gives them;
 5. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 64
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
@@ -85,7 +87,7 @@ class Cell:
     gen: int
     batch: int
     chunk: int
-    long: bool = False                   # HBM holds one request, not two
+    hbm_tiered: int                      # HBM blocks of the tiered run
 
     @property
     def max_seq(self) -> int:
@@ -94,12 +96,6 @@ class Cell:
     @property
     def blocks_per_seq(self) -> int:
         return -(-self.max_seq // BS)
-
-    @property
-    def hbm_tiered(self) -> int:
-        if self.long:
-            return self.blocks_per_seq + 4
-        return 2 * self.batch * self.blocks_per_seq + 3
 
     @property
     def host_tiered(self) -> int:
@@ -114,9 +110,12 @@ class Cell:
 # per sequence, HBM 2*8*5 + 3 = 83 blocks; chunk = min(128, max(32,
 # prompt_len)). At 32 requests this pool never overflows (the running set
 # peaks below 83 blocks), so Gemma-2 serves 64 requests as Llama does.
-SHORT = Cell(64, 64, 64, BATCH, 64)
-GEMMA_LONG = Cell(2, 4608, 32, 2, 256, long=True)
-MISTRAL = Cell(2, 4160, 64, 2, 256, long=True)
+SHORT = Cell(64, 64, 64, BATCH, 64, hbm_tiered=2 * BATCH * 5 + 3)
+# the long pairs: HBM holds one request's blocks (+ 4), not both --
+# 4608 + 32 + 32 -> 146 blocks a sequence, 4160 + 64 + 32 -> 133
+GEMMA_LONG = Cell(2, 4608, 32, 2, 256, hbm_tiered=146 + 4)
+MISTRAL = Cell(2, 4160, 64, 2, 256, hbm_tiered=133 + 4)
+MISTRAL_HEADS = (32, 8, 128)             # Hq, Hkv, D of Mistral-7B
 
 
 def fail(msg: str) -> None:
@@ -215,14 +214,16 @@ def kernels():
 
 def reset_launches() -> None:
     for fn in kernels().values():
-        fn.launches = 0
-        fn.launches_by_window.clear()
+        fn.launches.clear()
 
 
 def read_launches() -> dict:
-    """{kernel: (launches, {window: launches})} since the last reset."""
-    return {k: (fn.launches, dict(fn.launches_by_window))
-            for k, fn in kernels().items()}
+    """{kernel: {window: launches}} since the last reset (0 = none)."""
+    return {k: dict(fn.launches) for k, fn in kernels().items()}
+
+
+def total(by_window: dict) -> int:
+    return sum(by_window.values())
 
 
 # ---------------------------------------------------------------------------
@@ -324,9 +325,10 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
     if 0 in lens and got[lens.index(0)].any():
         fail(f"{name}: a seq_len 0 lane must give zeros")
     if softcap and not timed:
+        # a kernel that ignored the cap must fail the comparison
         plain = paged_attention_ref(*args, compute_dtype=cd, window=window)
-        if float((plain.float() - want.float()).abs().max()) <= 1e-3:
-            fail(f"{name}: the cap does not change the result")
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the uncapped result passes the comparison")
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_attention(*args, **kw))
@@ -371,8 +373,8 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
         fail(f"{name} produced non-finite values")
     if softcap and not timed:
         plain = paged_chunk_attention(*args, compute_dtype=cd, window=window)
-        if float((plain.float() - want.float()).abs().max()) <= 1e-3:
-            fail(f"{name}: the cap does not change the result")
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the uncapped result passes the comparison")
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_chunk_attention_cuda(*args, **kw))
@@ -504,6 +506,36 @@ def phase_kernels_gemma(peaks) -> dict:
     return rows
 
 
+def phase_kernels_mistral(peaks) -> dict:
+    """Both kernels at Mistral-7B's attention geometry (G = 4, D = 128, so
+    K2 runs 64-row tiles) with its window of 4096, in the Mistral serve's
+    pool and table geometry: decode lanes past the window and 256-token
+    chunks starting on both sides of it. Returns the timing rows of the
+    served shapes: a decode step of the pair, and the last prefill chunk
+    (start 4096, where the window masks)."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2024)
+    v = dict(heads=MISTRAL_HEADS, window=WINDOW,
+             geometry=served_geometry(MISTRAL))
+    top = MISTRAL.prompt + MISTRAL.gen
+    for kv in (KVDtype.INT8, KVDtype.BF16):
+        for cd in (torch.float32, torch.bfloat16):
+            report(k1_case(gen, kv, cd, [MISTRAL.prompt, top - 33, top],
+                           peaks, **v))
+            for starts in ([3840, 4096], [0, 4096]):
+                report(k2_case(gen, kv, cd, MISTRAL.chunk, starts, peaks, **v))
+    last = MISTRAL.prompt // MISTRAL.chunk * MISTRAL.chunk
+    rows = {"K1": k1_case(gen, KVDtype.INT8, torch.bfloat16,
+                          served_lens(MISTRAL, 7), peaks, timed=True, **v),
+            "K2": k2_case(gen, KVDtype.INT8, torch.bfloat16, MISTRAL.chunk,
+                          [last] * MISTRAL.batch, peaks, timed=True, **v)}
+    for row in rows.values():
+        report(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # serving through the engine
 # ---------------------------------------------------------------------------
@@ -593,7 +625,7 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts):
     L = cfg.num_layers
     want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
             "K2": st["engine"]["prefill_dispatches"] * L}
-    got = {k: n for k, (n, _) in launches.items()}
+    got = {k: total(by_window) for k, by_window in launches.items()}
     if got != want:
         fail(f"{label}: kernel launches {got} != expected {want}")
 
@@ -640,14 +672,14 @@ def phase_serve() -> tuple:
 
 def check_windows(label, launches, want_windowed) -> None:
     """Each kernel's launches split by window as the config says."""
-    for k, (n, by_window) in launches.items():
-        want = want_windowed(n)
+    for k, by_window in launches.items():
+        want = want_windowed(total(by_window))
         if by_window != want:
             fail(f"{label}: {k} launches by window {by_window} != {want}")
 
 
 def phase_gemma(peaks) -> dict:
-    """Gemma-2-9B: the 32-request serve and the long-context pair."""
+    """Gemma-2-9B: the 64-request serve and the long-context pair."""
     from cxl_speckv_tpu_torch.models.configs import gemma2_9b
 
     cfg = gemma2_9b()
@@ -674,7 +706,7 @@ def phase_gemma(peaks) -> dict:
     return launches
 
 
-def phase_mistral() -> None:
+def phase_mistral() -> dict:
     """Mistral-7B: uniform window, so out-of-window blocks retire."""
     from cxl_speckv_tpu_torch.models.configs import mistral_7b
 
@@ -691,6 +723,7 @@ def phase_mistral() -> None:
     print(f"[mistral] {retired} blocks retired below the window on the "
           f"tiered run; every launch carried window {WINDOW}", flush=True)
     del params
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -796,22 +829,26 @@ def main() -> int:
     phase_build()
     main_rows = phase_kernels(peaks)
     gemma_rows = phase_kernels_gemma(peaks)
+    mistral_rows = phase_kernels_mistral(peaks)
     launches, cfg, params, prompts = phase_serve()
     phase_anatomy("Llama-3-8B", cfg, params, prompts, peaks)
     del params
     gemma_launches = phase_gemma(peaks)
-    phase_mistral()
+    mistral_launches = phase_mistral()
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
-                            launches["K1"][0]),
+                            total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
-                            launches["K2"][0])]
+                            total(launches["K2"]))]
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         for tag, window, label in (("win", WINDOW, "sliding"),
                                    ("glob", 0, "global")):
             entries.append(kernel_entry(
                 f"{kname} gemma2-9b {label}", key, gemma_rows[f"{key} {tag}"],
-                gemma_launches[key][1].get(window, 0)))
+                gemma_launches[key].get(window, 0)))
+        entries.append(kernel_entry(
+            f"{kname} mistral-7b", key, mistral_rows[key],
+            total(mistral_launches[key])))
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

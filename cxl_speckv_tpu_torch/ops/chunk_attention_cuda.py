@@ -91,12 +91,10 @@ def paged_chunk_attention_cuda(
              int(compute_dtype == torch.bfloat16), win, float(sm_scale),
              cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_chunk_attention", err)
-    paged_chunk_attention_cuda.launches += 1
-    paged_chunk_attention_cuda.launches_by_window[win] += 1
+    paged_chunk_attention_cuda.launches[win] += 1
     return out.to(q.dtype)
 
 
-# kernel launches since the count was last set to 0 (CPU calls not counted),
-# and the same launches by their window (0 = none)
-paged_chunk_attention_cuda.launches = 0
-paged_chunk_attention_cuda.launches_by_window = Counter()
+# kernel launches by their window (0 = none) since the count was last
+# cleared; CPU calls are not counted. The total is the sum of the values.
+paged_chunk_attention_cuda.launches = Counter()

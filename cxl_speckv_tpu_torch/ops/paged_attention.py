@@ -111,12 +111,10 @@ def paged_attention(
              int(compute_dtype == torch.bfloat16), win, float(sm_scale),
              cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_attention", err)
-    paged_attention.launches += 1
-    paged_attention.launches_by_window[win] += 1
+    paged_attention.launches[win] += 1
     return out.to(q.dtype)
 
 
-# kernel launches since the count was last set to 0 (CPU calls not counted),
-# and the same launches by their window (0 = none)
-paged_attention.launches = 0
-paged_attention.launches_by_window = Counter()
+# kernel launches by their window (0 = none) since the count was last
+# cleared; CPU calls are not counted. The total is the sum of the values.
+paged_attention.launches = Counter()
