@@ -17,7 +17,15 @@ Phases, each printing its results; any failure exits non-zero:
               result must fail the comparison the kernel passes; then at
               the Mistral-7B geometry (Hq 32, Hkv 8, D 128) with window
               4096 at the lengths and chunk starts its serve gives them;
-5. serve   -- Llama-3-8B at full width and depth, random weights from a
+5. schemes -- INT4 and FP8 storage: K1 and K2 vs their plain versions at
+              the Llama-3-8B geometry (f32 and bf16 compute) and at
+              Gemma-2-9B's (bf16, window 4096, cap 50), FP8 pools holding
+              NaN bytes (0x7F) outside the context; the plain result with
+              the bytes read as another scheme (FP8 as INT8, INT4 with its
+              nibbles swapped) must fail the comparison the kernel passes;
+              MIXED8 with scheme id 0 / 1 must equal the INT8 / FP8 kernels
+              bit for bit;
+6. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 64
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
               32, an HBM pool of 83 blocks against a demand of 320 blocks
@@ -25,10 +33,19 @@ Phases, each printing its results; any failure exits non-zero:
               tier), then the same prompts on an ample HBM pool. Every
               request must finish, the tiered run must migrate both ways,
               and both runs must emit identical tokens;
-6. anatomy -- device time of one served Llama decode round by kernel
+7. anatomy -- device time of one served Llama decode round by kernel
               (torch.profiler) and the W8A16 matmuls of one layer (again
               for Gemma-2 after its short serve);
-7. gemma2  -- Gemma-2-9B at full width and depth (42 layers alternating
+8. serve-int4, serve-mixed -- the same Llama serve with INT4 KV, and with
+              a per-layer table of INT8 (even layers) and FP8 (odd layers):
+              same checks, launch counts exact per (scheme, window); then
+              the decode-round anatomy of each;
+9. switch  -- `Engine.set_kv_dtype` on the ample pool: 16 requests under
+              INT8, two steps, FP8 for 16 more; each cohort equals a fresh
+              engine fixed to its scheme; INT4 refused while busy, then
+              rebuilt when idle (pool rows halve), equal to a fresh INT4
+              engine;
+10. gemma2 -- Gemma-2-9B at full width and depth (42 layers alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 64 requests x
               (64 + 64) tiered (83 HBM blocks) and ample, then 2 requests x
@@ -37,7 +54,7 @@ Phases, each printing its results; any failure exits non-zero:
               checks, plus exact launch counts: every layer of every decode
               step through K1, of every prefill dispatch through K2, half of
               them with window 4096;
-8. mistral -- Mistral-7B at full width and depth (uniform window 4096):
+11. mistral -- Mistral-7B at full width and depth (uniform window 4096):
               2 requests x (4160 + 64), tiered and ample. Out-of-window KV
               blocks must retire (`window_retired_blocks` > 0), tokens must
               be identical, every launch must carry window 4096.
@@ -76,6 +93,8 @@ LLAMA_HEADS = (32, 8, 128)               # Hq, Hkv, D of Llama-3-8B
 GEMMA_HEADS = (16, 8, 256)               # Hq, Hkv, D of Gemma-2-9B
 WINDOW, CAP = 4096, 50.0                 # Gemma-2's (and Mistral's) window
 HORIZON, QUANTUM = 32, 4
+SWITCH_COHORT = 16                       # requests a scheme, switch phase
+MIXED_LAYERS = ("int8", "fp8")           # the per-layer table's period
 
 
 @dataclass(frozen=True)
@@ -162,7 +181,8 @@ def phase_build() -> None:
     for name, log in sorted(logs.items()):
         # ptxas: registers, shared memory and spills of each instantiation
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Function properties", "registers",
+                                       "spill")):
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {'compiled ' + ', '.join(sorted(logs)) if logs else 'cached'}"
           f" in {dt:.1f} s", flush=True)
@@ -218,12 +238,13 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """{kernel: {window: launches}} since the last reset (0 = none)."""
+    """{kernel: {(scheme, window): launches}} since the last reset (window
+    0 = none; a MIXED8 layer counts under the scheme its id selects)."""
     return {k: dict(fn.launches) for k, fn in kernels().items()}
 
 
-def total(by_window: dict) -> int:
-    return sum(by_window.values())
+def total(by_variant: dict) -> int:
+    return sum(by_variant.values())
 
 
 # ---------------------------------------------------------------------------
@@ -231,18 +252,26 @@ def total(by_window: dict) -> int:
 # ---------------------------------------------------------------------------
 
 def make_pools(gen, kv, lens, heads, extra_blocks=0, slots=0, max_blocks=0):
-    """Pools [S, Hkv, bs, D] (guard slot S - 1 last) holding ceil(len/bs)
-    blocks per lane at shuffled slots; table rows past a lane's blocks hold
-    the guard slot, as the engine fills them. `slots` / `max_blocks` (0 =
-    just enough) give the served engine's pool and table geometry."""
+    """Pools [S, Hkv, bs, D / pack] (guard slot S - 1 last) holding
+    ceil(len/bs) blocks per lane at shuffled slots; table rows past a lane's
+    blocks hold the guard slot, as the engine fills them. `slots` /
+    `max_blocks` (0 = just enough) give the served engine's pool and table
+    geometry. INT4 / FP8 pools hold quantized random K/V, as the engine
+    writes them, and in FP8 pools every row no lane holds (unused and guard
+    slots, the tails of partly filled blocks) holds NaN bytes (0x7F)."""
     from cxl_speckv_tpu_torch.config import KVDtype
+    from cxl_speckv_tpu_torch.ops.quant import encode_for_pool, quantize_kv
 
     _, hkv, d = heads
     nblk = [-(-int(n) // BS) for n in lens]
     S = max(sum(nblk) + 1, slots)
     mb = max(max(max(nblk), 1) + extra_blocks, max_blocks)
     shape = (S, hkv, BS, d)
-    if kv == KVDtype.INT8:
+    if kv in (KVDtype.INT4, KVDtype.FP8):
+        q, sc = quantize_kv(torch.randn((2, *shape), generator=gen,
+                                        device=DEV), kv)
+        (k, v), (ks, vs) = encode_for_pool(q, kv), sc[..., 0]
+    elif kv == KVDtype.INT8:
         k = torch.randint(-127, 128, shape, generator=gen, device=DEV,
                           dtype=torch.int8)
         v = torch.randint(-127, 128, shape, generator=gen, device=DEV,
@@ -256,11 +285,31 @@ def make_pools(gen, kv, lens, heads, extra_blocks=0, slots=0, max_blocks=0):
         vs = torch.ones(shape[:3], device=DEV)
     perm = torch.randperm(S - 1, generator=gen, device=DEV).cpu().numpy()
     table = np.full((len(lens), mb), S - 1, np.int32)
+    live = torch.zeros((S, BS), dtype=torch.bool)
     at = 0
-    for i, n in enumerate(nblk):
-        table[i, :n] = perm[at:at + n]
-        at += n
-    return (k, v, ks, vs), torch.from_numpy(table).to(DEV)
+    for i, (n, nb) in enumerate(zip(lens, nblk)):
+        table[i, :nb] = perm[at:at + nb]
+        at += nb
+        for j in range(nb):
+            live[table[i, j], :min(BS, n - j * BS)] = True
+    if kv == KVDtype.FP8:
+        dead = ~live.to(DEV)[:, None, :, None]
+        k, v = k.masked_fill(dead, 0x7F), v.masked_fill(dead, 0x7F)
+    return ((k.contiguous(), v.contiguous(), ks.contiguous(), vs.contiguous()),
+            torch.from_numpy(table).to(DEV))
+
+
+def misread(pools, kv):
+    """(pools, scheme) reading `kv`'s bytes under a wrong interpretation:
+    FP8 bytes as INT8, INT4 with the two nibbles of each byte swapped. A
+    kernel that decoded so must fail the comparison the right one passes."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    if kv == KVDtype.FP8:
+        return pools, KVDtype.INT8
+    swap = lambda x: ((x.view(torch.uint8) << 4)
+                      | (x.view(torch.uint8) >> 4)).view(torch.int8)
+    return (swap(pools[0]), swap(pools[1]), *pools[2:]), KVDtype.INT4
 
 
 def attn_bytes(pools, blocks: int) -> int:
@@ -329,6 +378,12 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
         plain = paged_attention_ref(*args, compute_dtype=cd, window=window)
         if compare(plain, want, TOL[cd])[1]:
             fail(f"{name}: the uncapped result passes the comparison")
+    if kv.value in ("int4", "fp8") and not timed:
+        # nor may a kernel that decoded the bytes as another scheme pass
+        wp, wkv = misread(pools, kv)
+        plain = paged_attention_ref(q, *wp, table, lens_t, wkv, **kw)
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the bytes read as {wkv.value} pass the comparison")
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_attention(*args, **kw))
@@ -375,6 +430,12 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
         plain = paged_chunk_attention(*args, compute_dtype=cd, window=window)
         if compare(plain, want, TOL[cd])[1]:
             fail(f"{name}: the uncapped result passes the comparison")
+    if kv.value in ("int4", "fp8") and not timed:
+        wp, wkv = misread(pools, kv)
+        plain = paged_chunk_attention(q, kn, vn, *wp, table, start_t, wkv,
+                                      **kw)
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the bytes read as {wkv.value} pass the comparison")
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_chunk_attention_cuda(*args, **kw))
@@ -407,21 +468,22 @@ def report(row) -> None:
              f"{row['tol']}")
 
 
+def merge_turns(a: dict, b: dict) -> dict:
+    """One row from two timings of the same shape: the mean time (both kept
+    as ms_turns) and the larger error."""
+    return dict(a, ms=(a["ms"] + b["ms"]) / 2,
+                plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
+                ms_turns=(a["ms"], b["ms"]), err=max(a["err"], b["err"]),
+                ok=a["ok"] and b["ok"])
+
+
 def timed_in_turns(case, *args, **kw) -> tuple[dict, dict]:
     """Time one shape's sliding (window 4096) and global variants in turns
     -- sliding, global, global, sliding, each on fresh inputs of that shape
-    -- so that clock drift falls on both alike. Each row keeps the mean of
-    its two timings (and both, as ms_turns) and the larger of its errors."""
+    -- so that clock drift falls on both alike."""
     runs = [case(*args, window=w, timed=True, **kw)
             for w in (WINDOW, None, None, WINDOW)]
-    rows = []
-    for a, b in ((runs[0], runs[3]), (runs[1], runs[2])):
-        rows.append(dict(a, ms=(a["ms"] + b["ms"]) / 2,
-                         plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
-                         ms_turns=(a["ms"], b["ms"]),
-                         err=max(a["err"], b["err"]),
-                         ok=a["ok"] and b["ok"]))
-    return rows[0], rows[1]
+    return merge_turns(runs[0], runs[3]), merge_turns(runs[1], runs[2])
 
 
 def served_geometry(cell: Cell) -> dict:
@@ -536,11 +598,98 @@ def phase_kernels_mistral(peaks) -> dict:
     return rows
 
 
+def mixed8_equal(gen, kv) -> None:
+    """MIXED8 with the scheme id of `kv` (INT8 0, FP8 1) must give the bits
+    of the `kv` kernel, in K1 and in K2, at the served shapes."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+    from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
+        paged_chunk_attention_cuda,
+    )
+    from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
+
+    sid = 0 if kv == KVDtype.INT8 else 1
+    hq, hkv, d = LLAMA_HEADS
+    T = SHORT.chunk
+    lens = served_lens(SHORT, 8) + [0]
+    pools, table = make_pools(gen, kv, lens, LLAMA_HEADS, extra_blocks=2,
+                              **served_geometry(SHORT))
+    B = len(lens)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
+    q = torch.randn((B, hq, d), generator=gen, device=DEV).to(torch.bfloat16)
+    kw = dict(compute_dtype=torch.bfloat16)
+    same = [torch.equal(
+        paged_attention(q, *pools, table, lens_t, KVDtype.MIXED8,
+                        scheme_id=sid, **kw),
+        paged_attention(q, *pools, table, lens_t, kv, **kw))]
+    qc = torch.randn((B, T, hq, d), generator=gen, device=DEV).to(torch.bfloat16)
+    kn = torch.randn((B, T, hkv, d), generator=gen, device=DEV)
+    args = (qc, kn, kn * 0.5, *pools, table, lens_t)
+    same.append(torch.equal(
+        paged_chunk_attention_cuda(*args, KVDtype.MIXED8, scheme_id=sid, **kw),
+        paged_chunk_attention_cuda(*args, kv, **kw)))
+    torch.cuda.synchronize()
+    if not all(same):
+        fail(f"MIXED8 scheme id {sid} differs from the {kv.value} kernel "
+             f"(K1, K2 equal: {same})")
+    print(f"[mixed8] scheme id {sid}: K1 and K2 equal the {kv.value} "
+          f"kernels bit for bit", flush=True)
+
+
+def phase_kernels_schemes(peaks) -> dict:
+    """INT4 and FP8 storage: both kernels against their plain versions at
+    the Llama-3-8B geometry (f32 and bf16 compute; K1 at the served lens
+    plus a seq_len 0 lane, K2 at T = 64 with starts 0 and > 0), then at
+    Gemma-2-9B's (D 256, bf16, window 4096, cap 50, q x 16); MIXED8 against
+    INT8 / FP8 bit for bit. FP8 pools hold NaN bytes outside the context,
+    and the plain result under the wrong interpretation must fail each
+    comparison (`k1_case`). Returns the timing rows of the served shapes
+    ("K1 int4", "K2 fp8", ...; INT8 too), timed in turns."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(777)
+    schemes = (KVDtype.INT4, KVDtype.FP8)
+    lens = served_lens(SHORT, 9) + [0]
+    starts = [0, 3, 31, 32, 33, 64, 100, 0]
+    for kv in schemes:
+        for cd in (torch.float32, torch.bfloat16):
+            report(k1_case(gen, kv, cd, lens, peaks))
+            report(k2_case(gen, kv, cd, SHORT.chunk, starts, peaks))
+        v = dict(heads=GEMMA_HEADS, window=WINDOW, softcap=CAP, q_scale=16.0)
+        report(k1_case(gen, kv, torch.bfloat16,
+                       [0, 1, 31, 33, 100, 4096, 4097, 6000], peaks, **v))
+        report(k2_case(gen, kv, torch.bfloat16, 64,
+                       [0, 3, 100, 4000, 4090, 4100, 5000, 6000], peaks, **v))
+    for kv in (KVDtype.INT8, KVDtype.FP8):
+        mixed8_equal(gen, kv)
+    # the served shapes in turns, INT8 beside them for comparison:
+    # int8, int4, fp8, fp8, int4, int8, each on fresh inputs
+    order = (KVDtype.INT8, *schemes)
+    order += order[::-1]
+    rows = {}
+    for key, case, args in (
+            ("K1", k1_case, (served_lens(SHORT, 5), peaks)),
+            ("K2", k2_case, (SHORT.chunk, [0] * BATCH, peaks))):
+        runs: dict = {}
+        for kv in order:
+            runs.setdefault(kv, []).append(case(
+                gen, kv, torch.bfloat16, *args, timed=True,
+                geometry=served_geometry(SHORT)))
+        for kv, (a, b) in runs.items():
+            rows[f"{key} {kv.value}"] = merge_turns(a, b)
+    for row in rows.values():
+        report(row)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # serving through the engine
 # ---------------------------------------------------------------------------
 
-def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks):
+def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
+                 kv="int8", layer_kv=None):
+    """The serving engine of `cell`; KV scheme `kv`, or the per-layer
+    table `layer_kv` (INT8 / FP8 entries)."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -552,7 +701,9 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks):
 
     sc = SystemConfig(
         cache=CacheConfig(block_size=BS, num_hbm_blocks=hbm_blocks,
-                          num_host_blocks=host_blocks, kv_dtype=KVDtype.INT8,
+                          num_host_blocks=host_blocks, kv_dtype=KVDtype(kv),
+                          layer_kv_dtypes=(tuple(map(KVDtype, layer_kv))
+                                           if layer_kv else None),
                           prefetch_reserve_frac=0.25),
         prefetch=PrefetchConfig(depth=4, min_depth=3, enabled=False,
                                 train_online=False),
@@ -591,19 +742,20 @@ def init_model(cfg, label: str, seed: int):
     return params
 
 
-def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts):
-    """Serve `prompts` tiered (launches counted) and ample; require every
-    request finished, identical tokens, migrations both ways and the exact
-    launch counts (every layer of every decode step through K1, of every
-    prefill dispatch through K2). Returns (launches, tiered stats)."""
+def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts, **kv):
+    """Serve `prompts` tiered (launches counted) and ample, with the KV
+    scheme arguments `kv` of `build_engine`; require every request
+    finished, identical tokens, migrations both ways and the exact launch
+    counts (every layer of every decode step through K1, of every prefill
+    dispatch through K2). Returns (launches, tiered stats)."""
     reset_launches()
     tiered = build_engine(cfg, params, cell, cell.hbm_tiered,
-                          cell.host_tiered)
+                          cell.host_tiered, **kv)
     outs_t, dt_t = serve(tiered, prompts, cell.gen)
     launches = read_launches()
     st = tiered.get_statistics()
     del tiered
-    ample = build_engine(cfg, params, cell, cell.hbm_ample, 0)
+    ample = build_engine(cfg, params, cell, cell.hbm_ample, 0, **kv)
     outs_a, dt_a = serve(ample, prompts, cell.gen)
     sa = ample.get_statistics()
     del ample
@@ -667,15 +819,93 @@ def phase_serve() -> tuple:
     serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0), prompts[:2],
           SHORT.gen)
     launches, _ = tiered_vs_ample("serve", cfg, params, SHORT, prompts)
+    check_windows("serve", launches, lambda n: {("int8", 0): n})
     return launches, cfg, params, prompts
 
 
-def check_windows(label, launches, want_windowed) -> None:
-    """Each kernel's launches split by window as the config says."""
-    for k, by_window in launches.items():
-        want = want_windowed(total(by_window))
-        if by_window != want:
-            fail(f"{label}: {k} launches by window {by_window} != {want}")
+def check_windows(label, launches, want_split) -> None:
+    """Each kernel's launches split by (scheme, window) as the config says:
+    `want_split(total)` gives the split."""
+    for k, by_variant in launches.items():
+        want = want_split(total(by_variant))
+        if by_variant != want:
+            fail(f"{label}: {k} launches by (scheme, window) {by_variant} "
+                 f"!= {want}")
+
+
+def phase_serve_schemes(cfg, params, prompts) -> tuple[dict, dict]:
+    """Llama-3-8B on the SHORT cell again, tiered and ample: INT4 KV, then
+    a per-layer table of INT8 (even layers) and FP8 (odd layers). Returns
+    the two runs' launches."""
+    int4, _ = tiered_vs_ample("serve-int4", cfg, params, SHORT, prompts,
+                              kv="int4")
+    check_windows("serve-int4", int4, lambda n: {("int4", 0): n})
+    mixed, _ = tiered_vs_ample("serve-mixed", cfg, params, SHORT, prompts,
+                               layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
+    check_windows("serve-mixed", mixed,
+                  lambda n: {("int8", 0): n // 2, ("fp8", 0): n // 2})
+    return int4, mixed
+
+
+def tokens_in_order(outs: dict) -> list:
+    return [outs[i].tokens for i in sorted(outs)]
+
+
+def phase_switch(cfg, params, prompts) -> None:
+    """The runtime scheme knob on the ample pool: SWITCH_COHORT requests
+    under INT8, two steps, `set_kv_dtype("fp8")`, as many more; each cohort
+    must equal a fresh engine fixed to its scheme (same pool geometry and
+    batch) serving only it, and a cross-width switch on the busy engine must
+    raise. Then, idle, INT4 (new pools, last dim halved): 8 requests equal a
+    fresh INT4 engine's."""
+    n = SWITCH_COHORT
+    p8, pf, p4 = prompts[:n], prompts[n:2 * n], prompts[2 * n:2 * n + 8]
+    ample = lambda kv: build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0,
+                                    kv=kv)
+    reset_launches()
+    t0 = time.monotonic()
+    eng = ample("int8")
+    ids8 = [eng.add_request(p, max_new_tokens=SHORT.gen) for p in p8]
+    outs = {o.req_id: o for o in eng.step() + eng.step()}
+    eng.set_kv_dtype("fp8")
+    idsf = [eng.add_request(p, max_new_tokens=SHORT.gen) for p in pf]
+    try:
+        eng.set_kv_dtype("int4")
+        fail("switch: a cross-width switch on a busy engine did not raise")
+    except ValueError as e:
+        print(f"[switch] busy engine refused INT4: {e}", flush=True)
+    outs.update((o.req_id, o) for o in eng.run())
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = read_launches()
+    st = eng.get_statistics()
+    if st["kv_scheme_current"] != "fp8":
+        fail(f"switch: kv_scheme_current {st['kv_scheme_current']}")
+    for k, by_variant in launches.items():
+        if {scheme for scheme, _ in by_variant} != {"int8", "fp8"}:
+            fail(f"switch: {k} launches {by_variant} lack a scheme")
+    for label, ids, ps, kv in (("int8", ids8, p8, "int8"),
+                               ("fp8", idsf, pf, "fp8")):
+        fixed, _ = serve(ample(kv), ps, SHORT.gen)
+        if [outs[i].tokens for i in ids] != tokens_in_order(fixed):
+            fail(f"switch: the {label} cohort differs from a fresh {kv} "
+                 f"engine")
+    dp = eng.kvc.k_pools.shape[-1]
+    eng.set_kv_dtype("int4")
+    if eng.kvc.k_pools.shape[-1] * 2 != dp:
+        fail(f"switch: INT4 pool rows {eng.kvc.k_pools.shape[-1]}, not "
+             f"{dp} / 2")
+    got, _ = serve(eng, p4, SHORT.gen)
+    want, _ = serve(ample("int4"), p4, SHORT.gen)
+    if tokens_in_order(got) != tokens_in_order(want):
+        fail("switch: after the idle INT4 rebuild the tokens differ from a "
+             "fresh INT4 engine's")
+    toks = sum(len(o.tokens) for o in outs.values())
+    print(f"[switch] {n} INT8 + {n} FP8 requests in one pool: {toks} tokens "
+          f"in {dt:.2f} s = {toks / dt:.1f} tok/s, launches {launches}; each "
+          f"cohort == its fixed-scheme engine; idle INT4 rebuild (pool rows "
+          f"{dp} -> {dp // 2}) == a fresh INT4 engine for {len(p4)} "
+          f"requests", flush=True)
 
 
 def phase_gemma(peaks) -> dict:
@@ -693,7 +923,8 @@ def phase_gemma(peaks) -> dict:
           SHORT.gen)
     launches, _ = tiered_vs_ample("gemma2", cfg, params, SHORT, prompts)
     # sliding layers alternate with global ones: half of every count
-    check_windows("gemma2", launches, lambda n: {WINDOW: n // 2, 0: n // 2})
+    check_windows("gemma2", launches,
+                  lambda n: {("int8", WINDOW): n // 2, ("int8", 0): n // 2})
     phase_anatomy("Gemma-2-9B", cfg, params, prompts, peaks)
 
     long_prompts = [rng.randint(1, cfg.vocab_size, GEMMA_LONG.prompt).tolist()
@@ -701,7 +932,7 @@ def phase_gemma(peaks) -> dict:
     long_launches, _ = tiered_vs_ample("gemma2-long", cfg, params, GEMMA_LONG,
                                        long_prompts)
     check_windows("gemma2-long", long_launches,
-                  lambda n: {WINDOW: n // 2, 0: n // 2})
+                  lambda n: {("int8", WINDOW): n // 2, ("int8", 0): n // 2})
     del params
     return launches
 
@@ -716,7 +947,7 @@ def phase_mistral() -> dict:
     prompts = [rng.randint(1, cfg.vocab_size, MISTRAL.prompt).tolist()
                for _ in range(MISTRAL.n_req)]
     launches, st = tiered_vs_ample("mistral", cfg, params, MISTRAL, prompts)
-    check_windows("mistral", launches, lambda n: {WINDOW: n})
+    check_windows("mistral", launches, lambda n: {("int8", WINDOW): n})
     retired = st["runtime"]["window_retired_blocks"]
     if retired <= 0:
         fail("mistral: no KV block retired below the window")
@@ -730,19 +961,21 @@ def phase_mistral() -> dict:
 # where a served decode step spends its time
 # ---------------------------------------------------------------------------
 
-def phase_anatomy(model: str, cfg, params, prompts, peaks) -> None:
+def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
+                  **kv) -> None:
     """Where a served decode round of `model` spends its time: one group of
     BATCH lanes (32-token prompts, 4 fused rounds of HORIZON steps), a round
     timed on the host clock, the next one under torch.profiler for the
     device time by kernel (the profiler slows the host, so its own wall
-    time is not used). Then the W8A16 matmuls of one layer (int8 -> bf16
+    time is not used); `kv` are the KV scheme arguments of `build_engine`.
+    Then, with `matmuls`, the W8A16 matmuls of one layer (int8 -> bf16
     copy per call, as `ops.wquant.mm` runs them) against the same
     products on bf16 weights that are already converted."""
     from torch.profiler import ProfilerActivity, profile
 
     from cxl_speckv_tpu_torch.ops.wquant import mm
 
-    eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0)
+    eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kv)
     for p in prompts[:BATCH]:
         eng.add_request(p[:SHORT.max_seq - 4 * HORIZON],
                         max_new_tokens=4 * HORIZON)
@@ -757,15 +990,18 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks) -> None:
         torch.cuda.synchronize()
     eng.run()
     kernels_us: dict[str, float] = {}
+    n_kernels = 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels_us[e.key] = kernels_us.get(e.key, 0.0) + e.self_device_time_total
+            n_kernels += e.count
     busy = sum(kernels_us.values()) / 1e6                     # us -> s
     print(f"[anatomy] {model}: one fused round, {HORIZON} decode steps of "
           f"{BATCH} lanes: {wall * 1e3:.1f} ms on the host clock "
           f"({wall / HORIZON * 1e3:.2f} ms a step); device time "
           f"{busy * 1e3:.1f} ms ({busy / HORIZON * 1e3:.2f} ms a step) = "
-          f"{busy / wall:.1%} busy, {1 - busy / wall:.1%} idle "
+          f"{busy / wall:.1%} busy, {1 - busy / wall:.1%} idle; "
+          f"{n_kernels / HORIZON:.0f} kernels a step "
           f"({'profiler saw no device time' if not kernels_us else 'torch.profiler'})",
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
@@ -776,9 +1012,11 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks) -> None:
                  if any(x in k for x in np.atleast_1d(keys)))
         print(f"[anatomy]   {label}: {us / 1e3:.2f} ms "
               f"({us / 1e6 / max(busy, 1e-12):.1%} of device time)")
-    for name, us in sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]:
+    for name, us in sorted(kernels_us.items(), key=lambda it: -it[1])[:10]:
         print(f"[anatomy]   {us / 1e3:9.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}"
               f"  {name[:110]}")
+    if not matmuls:
+        return
 
     lp = {k: v[0] for k, v in params["layers"].items()}
     names = ("q", "k", "v", "o", "gate", "up", "down")
@@ -830,8 +1068,15 @@ def main() -> int:
     main_rows = phase_kernels(peaks)
     gemma_rows = phase_kernels_gemma(peaks)
     mistral_rows = phase_kernels_mistral(peaks)
+    scheme_rows = phase_kernels_schemes(peaks)
     launches, cfg, params, prompts = phase_serve()
     phase_anatomy("Llama-3-8B", cfg, params, prompts, peaks)
+    int4_launches, mixed_launches = phase_serve_schemes(cfg, params, prompts)
+    phase_anatomy("Llama-3-8B INT4", cfg, params, prompts, peaks,
+                  matmuls=False, kv="int4")
+    phase_anatomy("Llama-3-8B INT8/FP8 layers", cfg, params, prompts, peaks,
+                  matmuls=False, layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
+    phase_switch(cfg, params, prompts)
     del params
     gemma_launches = phase_gemma(peaks)
     mistral_launches = phase_mistral()
@@ -845,10 +1090,15 @@ def main() -> int:
                                    ("glob", 0, "global")):
             entries.append(kernel_entry(
                 f"{kname} gemma2-9b {label}", key, gemma_rows[f"{key} {tag}"],
-                gemma_launches[key].get(window, 0)))
+                gemma_launches[key].get(("int8", window), 0)))
         entries.append(kernel_entry(
             f"{kname} mistral-7b", key, mistral_rows[key],
             total(mistral_launches[key])))
+        # INT4 launches from serve-int4, FP8 from serve-mixed's odd layers
+        for kv, served in (("int4", int4_launches), ("fp8", mixed_launches)):
+            entries.append(kernel_entry(
+                f"{kname} {kv}", key, scheme_rows[f"{key} {kv}"],
+                served[key].get((kv, 0), 0)))
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

@@ -6,7 +6,9 @@
 // Query t of lane b sits at absolute position start[b] + t and attends
 //   - the lane's quantized pool context, positions < start[b], through the
 //     block table, scaled as in K1 (ks after q.K, vs on p before PV, p * vs
-//     rounded through the compute dtype);
+//     rounded through the compute dtype), in any storage kind K1 reads
+//     (`kv_kind`: INT8, BF16, FP8 or INT4, with the same tile loader,
+//     kv_tile.cuh; MIXED8 launches INT8 or FP8 for the layer's scheme id);
 //   - the fresh chunk causally (columns s <= t), in IEEE float32 with plain
 //     FMAs: k_new / v_new arrive as quantize->dequantized float32, and
 //     decode/verify agreement depends on no extra rounding there.
@@ -22,7 +24,8 @@
 // `tile_update`'s `valid` is the one place where both masks go.
 //
 // Layout: q [B, T, Hq, D] f32, k_new / v_new [B, T, Hkv, D] f32, pools
-// [S, Hkv, bs, D] (int8 or bf16) with scales [S, Hkv, bs] f32, block_table
+// [S, Hkv, bs, D / pack] (int8 bytes or bf16; pack 2 for INT4) with scales
+// [S, Hkv, bs] f32, block_table
 // [B, max_blocks] int32, start [B] int32, out [B, T, Hq, D] f32.
 //
 // Design: one CTA per (lane, kv head, tile of R query rows), the rows of a
@@ -42,11 +45,13 @@
 // bytes: every K/V element read serves R query rows. This first kernel does
 // them as float32 FMAs from shared memory; tensor-core (wgmma) tiles for the
 // context part, and a pipelined load of the next tile, are later work. The
-// fresh part must stay IEEE float32 either way.
+// fresh part must stay IEEE float32 either way. Tiles are float in shared
+// memory whatever the storage, so INT4 needs no more of it than INT8 (at
+// Gemma-2's D = 256, R = 32: 103 KB).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "kv_tile.cuh"
 
 namespace {
 
@@ -54,20 +59,7 @@ constexpr int NT = 256;         // threads per CTA
 constexpr int MAX_ACC = 32;     // accumulator elements per thread: R*D <= 8192
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float round_cd(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  char4 v = *reinterpret_cast<const char4*>(p);
-  o[0] = (float)v.x; o[1] = (float)v.y; o[2] = (float)v.z; o[3] = (float)v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  uint2 v = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
+// four consecutive fresh float32 elements
 __device__ __forceinline__ void load4(const float* p, float* o) {
   float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
@@ -128,11 +120,11 @@ __device__ __forceinline__ void tile_update(const Smem& sm, float (&acc)[MAX_ACC
   }
 }
 
-template <typename T, bool CD_BF16>
+template <int KIND, bool CD_BF16>
 __global__ void __launch_bounds__(NT)
 chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
-             const float* __restrict__ v_new, const T* __restrict__ k_pool,
-             const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+             const float* __restrict__ v_new, const void* __restrict__ k_pool,
+             const void* __restrict__ v_pool, const float* __restrict__ k_scale,
              const float* __restrict__ v_scale,
              const int* __restrict__ block_table,
              const int* __restrict__ start_pos, float* __restrict__ out,
@@ -188,17 +180,7 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
     const int slot = block_table[(size_t)b * max_blocks + blk];
     const size_t tile = ((size_t)slot * Hkv + h) * bs;
     __syncthreads();
-    for (int i = tid * 4; i < bs * D; i += NT * 4) {
-      float kv[4], vv[4];
-      load4(k_pool + tile * D + i, kv);
-      load4(v_pool + tile * D + i, vv);
-      const int t = i / D, d = i % D;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sm.k[t * DK + d + j] = kv[j];
-        sm.v[i + j] = vv[j];
-      }
-    }
+    load_kv_tiles<KIND, NT>(k_pool, v_pool, tile, sm.k, DK, sm.v, D, bs, D);
     for (int t = tid; t < bs; t += NT) {
       sm.ks[t] = k_scale[tile + t];
       sm.vs[t] = v_scale[tile + t];
@@ -257,69 +239,55 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
   }
 }
 
-template <typename T, bool CD_BF16>
-cudaError_t launch(const float* q, const float* k_new, const float* v_new,
-                   const void* k_pool, const void* v_pool,
-                   const float* k_scale, const float* v_scale,
-                   const int* block_table, const int* start_pos, float* out,
-                   int B, int Tn, int Hq, int Hkv, int D, int bs,
-                   int max_blocks, int R, int window, float sm_scale,
-                   float softcap, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const int n_tiles = (Tn * G + R - 1) / R;
-  const size_t smem =
-      sizeof(float) * ((size_t)R * D + (size_t)bs * (D + 1) + (size_t)bs * D +
-                       (size_t)R * (bs + 1) + 2 * bs + 3 * R);
-  auto kern = chunk_kernel<T, CD_BF16>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+using Kernel = decltype(&chunk_kernel<KV_INT8, false>);
+
+// the instantiation for a storage kind and compute dtype (nullptr: no such
+// kind)
+Kernel pick(int kind, bool bf16) {
+  switch (kind) {
+    case KV_INT8: return bf16 ? chunk_kernel<KV_INT8, true>
+                              : chunk_kernel<KV_INT8, false>;
+    case KV_BF16: return bf16 ? chunk_kernel<KV_BF16, true>
+                              : chunk_kernel<KV_BF16, false>;
+    case KV_FP8: return bf16 ? chunk_kernel<KV_FP8, true>
+                             : chunk_kernel<KV_FP8, false>;
+    case KV_INT4: return bf16 ? chunk_kernel<KV_INT4, true>
+                              : chunk_kernel<KV_INT4, false>;
   }
-  kern<<<B * Hkv * n_tiles, NT, smem, stream>>>(
-      q, k_new, v_new, static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), k_scale, v_scale, block_table, start_pos,
-      out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles, window, sm_scale,
-      softcap);
-  return cudaGetLastError();
+  return nullptr;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). R is the query rows per CTA;
-// the Python wrapper checks R * D <= 8192 and D a multiple of 4. window <= 0
-// means no window, softcap <= 0 no cap.
+// the Python wrapper checks R * D <= 8192 and D a multiple of 4 (of 8 for
+// INT4). kv_kind is a KvKind (kv_tile.cuh); window <= 0 means no window,
+// softcap <= 0 no cap.
 extern "C" int chunk_attention_launch(
     const float* q, const float* k_new, const float* v_new,
     const void* k_pool, const void* v_pool, const float* k_scale,
     const float* v_scale, const int* block_table, const int* start_pos,
     float* out, int B, int Tn, int Hq, int Hkv, int D, int bs,
-    int max_blocks, int R, int kv_bf16, int compute_bf16, int window,
+    int max_blocks, int R, int kv_kind, int compute_bf16, int window,
     float sm_scale, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R * D > NT * MAX_ACC || D % 4 || R <= 0)
+  const Kernel kern = pick(kv_kind, compute_bf16 != 0);
+  if (!kern || R * D > NT * MAX_ACC || D % 4 || R <= 0 ||
+      (kv_kind == KV_INT4 && D % 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Tn == 0) return 0;
-  if (kv_bf16) {
-    return compute_bf16
-        ? launch<__nv_bfloat16, true>(q, k_new, v_new, k_pool, v_pool,
-                                      k_scale, v_scale, block_table,
-                                      start_pos, out, B, Tn, Hq, Hkv, D, bs,
-                                      max_blocks, R, window, sm_scale,
-                                      softcap, s)
-        : launch<__nv_bfloat16, false>(q, k_new, v_new, k_pool, v_pool,
-                                       k_scale, v_scale, block_table,
-                                       start_pos, out, B, Tn, Hq, Hkv, D, bs,
-                                       max_blocks, R, window, sm_scale,
-                                       softcap, s);
+  const int G = Hq / Hkv;
+  const int n_tiles = (Tn * G + R - 1) / R;
+  const size_t smem =
+      sizeof(float) * ((size_t)R * D + (size_t)bs * (D + 1) + (size_t)bs * D +
+                       (size_t)R * (bs + 1) + 2 * bs + 3 * R);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return compute_bf16
-      ? launch<int8_t, true>(q, k_new, v_new, k_pool, v_pool, k_scale,
-                             v_scale, block_table, start_pos, out, B, Tn, Hq,
-                             Hkv, D, bs, max_blocks, R, window, sm_scale,
-                             softcap, s)
-      : launch<int8_t, false>(q, k_new, v_new, k_pool, v_pool, k_scale,
-                              v_scale, block_table, start_pos, out, B, Tn, Hq,
-                              Hkv, D, bs, max_blocks, R, window, sm_scale,
-                              softcap, s);
+  kern<<<B * Hkv * n_tiles, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table,
+      start_pos, out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles, window,
+      sm_scale, softcap);
+  return (int)cudaGetLastError();
 }

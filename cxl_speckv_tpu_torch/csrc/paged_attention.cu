@@ -3,8 +3,11 @@
 // Replaces the Pallas TPU kernel `cxl_speckv_tpu/ops/paged_attention.py`
 // (`paged_attention`, body `_decode_kernel`). Computes, for each lane b and
 // query head, softmax(q . K^T * ks * sm_scale) (V * vs) over the lane's
-// seq_len pool tokens, reached through its block-table row. Two per-launch
+// seq_len pool tokens, reached through its block-table row. Per-launch
 // variants (one source serves every layer of a model that mixes them):
+//   - the storage kind (`kv_kind`, kv_tile.cuh): INT8, BF16, FP8 or INT4.
+//     A MIXED8 pool (a scheme per layer) launches INT8 or FP8 for the
+//     layer's scheme id, which the TPU kernel reads from SMEM instead;
 //   - sliding window (window > 0): the query at seq_len - 1 attends only
 //     positions >= seq_len - window, and the CTA's block walk starts at
 //     first = max((seq_len - window) / bs, 0), as the TPU kernel's index map
@@ -14,8 +17,9 @@
 //   - tanh softcap (softcap > 0, Gemma-2): s = cap * tanh(s / cap), after
 //     s * ks * sm_scale and before the mask, in IEEE float32 (tanhf).
 //
-// Layout (per layer): K and V pools [S, Hkv, bs, D] (int8 or bf16,
-// token-major), scales [S, Hkv, bs] float32, block_table [B, max_blocks]
+// Layout (per layer): K and V pools [S, Hkv, bs, D / pack] (int8 bytes or
+// bf16, token-major; pack 2 for INT4), scales [S, Hkv, bs] float32,
+// block_table [B, max_blocks]
 // int32, seq_lens [B] int32, q [B, Hq, D] float32, out [B, Hq, D] float32.
 //
 // Design: one CTA per (lane, kv head). The CTA keeps the G query rows of its
@@ -26,22 +30,23 @@
 // float32 accumulator.
 // Arithmetic follows the TPU kernel: q is rounded through the compute dtype,
 // K scales multiply the scores after q.K, V scales multiply p before PV and
-// p * vs is rounded through the compute dtype. Stored values (int8 integers,
-// bf16) are exact in float, so the products match a bf16 matmul with f32
-// accumulation. A lane with seq_len == 0 writes zeros. Masked tokens get a
+// p * vs is rounded through the compute dtype. Stored values (int8 and int4
+// integers, bf16, e4m3) are exact in float, so the products match a bf16
+// matmul with f32 accumulation. A lane with seq_len == 0 writes zeros. Masked tokens get a
 // score of -1e30 and p = 0, so a block wholly outside the window leaves m, l
 // and the accumulator as they were (alpha = exp(m - m) = 1).
 //
 // Bound: decode reads every context byte once and does 4 flops per K/V
-// element per query head of the group (8 per byte at G = 4 and int8), under
-// the H100's ~20 float32 flops per byte: it is bound by memory bytes. This
+// element per query head of the group (8 per byte at G = 4 and int8, 16 at
+// int4), under the H100's ~20 float32 flops per byte: it is bound by memory
+// bytes, and INT4 halves them (the tiles in shared memory stay float). This
 // first kernel is simple: one CTA per (lane, kv head) leaves SMs idle at
 // small batch, and tiles are not double-buffered. Split-context
 // (flash-decoding) grids, cp.async/TMA pipelining and wgmma are later work.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "kv_tile.cuh"
 
 namespace {
 
@@ -50,26 +55,10 @@ constexpr int MAX_G = 8;      // query heads per kv head
 constexpr int MAX_ACC = 2;    // head_dim elements per thread: D <= NT * 2
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float round_cd(float x, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
-
-// four consecutive stored elements -> float
-__device__ __forceinline__ void load4(const int8_t* p, float* o) {
-  char4 v = *reinterpret_cast<const char4*>(p);
-  o[0] = (float)v.x; o[1] = (float)v.y; o[2] = (float)v.z; o[3] = (float)v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  uint2 v = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-template <typename T, bool CD_BF16>
+template <int KIND, bool CD_BF16>
 __global__ void __launch_bounds__(NT)
-decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
-              const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
+              const void* __restrict__ v_pool, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               const int* __restrict__ block_table,
               const int* __restrict__ seq_lens, float* __restrict__ out,
@@ -112,17 +101,7 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
     const int slot = block_table[(size_t)b * max_blocks + blk];
     const size_t tile = ((size_t)slot * Hkv + h) * bs;
     __syncthreads();                          // smem free from the last block
-    for (int i = tid * 4; i < bs * D; i += NT * 4) {
-      float kv[4], vv[4];
-      load4(k_pool + tile * D + i, kv);
-      load4(v_pool + tile * D + i, vv);
-      const int t = i / D, d = i % D;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        k_s[t * DK + d + j] = kv[j];
-        v_s[i + j] = vv[j];
-      }
-    }
+    load_kv_tiles<KIND, NT>(k_pool, v_pool, tile, k_s, DK, v_s, D, bs, D);
     for (int t = tid; t < bs; t += NT) {
       ks_s[t] = k_scale[tile + t];
       vs_s[t] = v_scale[tile + t];
@@ -192,61 +171,52 @@ decode_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, bool CD_BF16>
-cudaError_t launch(const float* q, const void* k_pool, const void* v_pool,
-                   const float* k_scale, const float* v_scale,
-                   const int* block_table, const int* seq_lens, float* out,
-                   int B, int Hq, int Hkv, int D, int bs, int max_blocks,
-                   int window, float sm_scale, float softcap,
-                   cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const size_t smem =
-      sizeof(float) * ((size_t)G * D + bs * (D + 1) + (size_t)bs * D +
-                       (size_t)G * bs + 2 * bs + 3 * G);
-  auto kern = decode_kernel<T, CD_BF16>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+using Kernel = decltype(&decode_kernel<KV_INT8, false>);
+
+// the instantiation for a storage kind and compute dtype (nullptr: no such
+// kind)
+Kernel pick(int kind, bool bf16) {
+  switch (kind) {
+    case KV_INT8: return bf16 ? decode_kernel<KV_INT8, true>
+                              : decode_kernel<KV_INT8, false>;
+    case KV_BF16: return bf16 ? decode_kernel<KV_BF16, true>
+                              : decode_kernel<KV_BF16, false>;
+    case KV_FP8: return bf16 ? decode_kernel<KV_FP8, true>
+                             : decode_kernel<KV_FP8, false>;
+    case KV_INT4: return bf16 ? decode_kernel<KV_INT4, true>
+                              : decode_kernel<KV_INT4, false>;
   }
-  kern<<<B * Hkv, NT, smem, stream>>>(
-      q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      k_scale, v_scale, block_table, seq_lens, out, Hq, Hkv, D, bs,
-      max_blocks, window, sm_scale, softcap);
-  return cudaGetLastError();
+  return nullptr;
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched). Shapes are checked by the
-// Python wrapper: G <= 8, D <= 256 and a multiple of 4. window <= 0 means
-// no window, softcap <= 0 no cap.
+// Python wrapper: G <= 8, D <= 256 and a multiple of 4 (of 8 for INT4).
+// kv_kind is a KvKind (kv_tile.cuh); window <= 0 means no window, softcap
+// <= 0 no cap.
 extern "C" int paged_attention_launch(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_table,
     const int* seq_lens, float* out, int B, int Hq, int Hkv, int D, int bs,
-    int max_blocks, int kv_bf16, int compute_bf16, int window,
+    int max_blocks, int kv_kind, int compute_bf16, int window,
     float sm_scale, float softcap, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Hq / Hkv > MAX_G || D > NT * MAX_ACC || D % 4)
+  const Kernel kern = pick(kv_kind, compute_bf16 != 0);
+  if (!kern || Hq / Hkv > MAX_G || D > NT * MAX_ACC || D % 4 ||
+      (kv_kind == KV_INT4 && D % 8))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  if (kv_bf16) {
-    return compute_bf16
-        ? launch<__nv_bfloat16, true>(q, k_pool, v_pool, k_scale, v_scale,
-                                      block_table, seq_lens, out, B, Hq, Hkv,
-                                      D, bs, max_blocks, window, sm_scale,
-                                      softcap, s)
-        : launch<__nv_bfloat16, false>(q, k_pool, v_pool, k_scale, v_scale,
-                                       block_table, seq_lens, out, B, Hq, Hkv,
-                                       D, bs, max_blocks, window, sm_scale,
-                                       softcap, s);
+  const int G = Hq / Hkv;
+  const size_t smem =
+      sizeof(float) * ((size_t)G * D + bs * (D + 1) + (size_t)bs * D +
+                       (size_t)G * bs + 2 * bs + 3 * G);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  return compute_bf16
-      ? launch<int8_t, true>(q, k_pool, v_pool, k_scale, v_scale, block_table,
-                             seq_lens, out, B, Hq, Hkv, D, bs, max_blocks,
-                             window, sm_scale, softcap, s)
-      : launch<int8_t, false>(q, k_pool, v_pool, k_scale, v_scale,
-                              block_table, seq_lens, out, B, Hq, Hkv, D, bs,
-                              max_blocks, window, sm_scale, softcap, s);
+  kern<<<B * Hkv, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens, out, Hq,
+      Hkv, D, bs, max_blocks, window, sm_scale, softcap);
+  return (int)cudaGetLastError();
 }

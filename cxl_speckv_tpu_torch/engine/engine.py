@@ -15,12 +15,18 @@ fused multi-step decode), stop / finish / OOM / preemption, and
    sequence's sliding window has left (Mistral-style uniform windows);
 4. prefetch plan for upcoming groups, eviction, migration.
 
+Every request keeps the KV scheme it was submitted under: `set_kv_dtype`
+(the `speckv_set_compression_scheme` analog) changes it for new requests,
+live between INT8 and FP8, which share the pool's bytes, and on an idle
+engine across storage widths (INT4, BF16; `TieredKVCache.rebuild_storage`).
+`CacheConfig.layer_kv_dtypes` instead fixes a scheme per layer for every
+request. Prefill and decode dispatches each hold one scheme.
+
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
 the CPU. Host-streamed requests, sessions, speculative decoding, sampling
-penalties, logprobs, fused rounds, mesh serving, per-layer KV schemes, the
-prefetch LSTM and the automatic decode horizon are not ported yet: asking
-for one raises.
+penalties, logprobs, fused rounds, mesh serving, the prefetch LSTM and the
+automatic decode horizon are not ported yet: asking for one raises.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cxl_speckv_tpu_torch.config import SystemConfig
+from cxl_speckv_tpu_torch.config import KVDtype, SystemConfig
 from cxl_speckv_tpu_torch.core.directory import BlockState
 from cxl_speckv_tpu_torch.core.stats import Statistics, ratio
 from cxl_speckv_tpu_torch.engine.request import Request, RequestState
@@ -45,6 +51,7 @@ from cxl_speckv_tpu_torch.models.llama import (
     init_params_quantized,
     prefill_batch_packed,
 )
+from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
 from cxl_speckv_tpu_torch.prefetcher.controller import PrefetchController
 from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
@@ -118,7 +125,6 @@ class Engine:
         unported = {
             "mesh serving (parallel)": system_config.parallel.num_devices > 1,
             "fused_rounds": ec.fused_rounds,
-            "layer_kv_dtypes": cc.layer_kv_dtypes is not None,
             "weight_dtype int4": ec.weight_dtype == "int4",
             "the prefetch LSTM (enable_lstm)": enable_lstm,
         }
@@ -129,9 +135,18 @@ class Engine:
             raise ValueError(
                 "decode_horizon must be >= 1: the automatic horizon is not "
                 "ported (it needs a measured dispatch cost on this runtime)")
+        lkd = cc.layer_kv_dtypes
+        if lkd is not None and len(lkd) != model_config.num_layers:
+            raise ValueError(
+                f"layer_kv_dtypes has {len(lkd)} entries for a "
+                f"{model_config.num_layers}-layer model")
         self.device = resolve_device(device)
         self.model_config = model_config
         self.config = system_config
+        # the scheme new requests quantize with (set_kv_dtype), and the
+        # per-layer table that replaces it for every request when set
+        self._kv_scheme = cc.kv_dtype
+        self._layer_schemes = tuple(lkd) if lkd is not None else None
         max_blocks_per_seq = -(-ec.max_seq_len // cc.block_size)
         self.kvc = TieredKVCache(cc, model_config,
                                  max_seqs=ec.max_batch_size * 64,
@@ -215,7 +230,7 @@ class Engine:
                       top_p=top_p, eos_token_id=eos_token_id,
                       stop_token_ids=stop_token_ids,
                       stop_sequences=stop_sequences, ignore_eos=ignore_eos,
-                      kv_dtype=self.kvc.kv_dtype)
+                      kv_dtype=self._kv_scheme)
         self._next_req_id += 1
         self.scheduler.submit(req)
         return req.req_id
@@ -229,6 +244,36 @@ class Engine:
                for p in prompts]
         outs = {o.req_id: o.tokens for o in self.run()}
         return [outs.get(i, []) for i in ids]
+
+    def set_kv_dtype(self, kv_dtype) -> None:
+        """Runtime compression-scheme knob (`speckv_set_compression_scheme`):
+        requests submitted after the call quantize their KV with the new
+        scheme; blocks already written keep theirs and decode with their
+        own sequence's scheme. Schemes of one storage width switch live
+        (INT8 <-> FP8); another width (INT4, BF16) needs an idle engine and
+        rebuilds the pools. Refused under a per-layer scheme table."""
+        if self._layer_schemes is not None:
+            raise ValueError(
+                "engine uses a per-layer scheme table (layer_kv_dtypes); "
+                "the runtime scheme knob applies to uniform-scheme engines")
+        kv_dtype = KVDtype(kv_dtype)
+        base = self.config.cache.kv_dtype
+        if storage_width_class(kv_dtype) != storage_width_class(base):
+            busy = self.scheduler.num_waiting + self.scheduler.num_running
+            if busy:
+                raise ValueError(
+                    f"cross-width scheme switch {base.value} -> "
+                    f"{kv_dtype.value} requires an idle engine (live: "
+                    f"{busy} requests)")
+            self.kvc.rebuild_storage(kv_dtype)
+        self._kv_scheme = kv_dtype
+
+    def _req_scheme(self, req: Request):
+        """The scheme a request's KV is written and read with: the per-layer
+        table, else the scheme it was submitted under."""
+        if self._layer_schemes is not None:
+            return self._layer_schemes
+        return req.kv_dtype
 
     @property
     def has_work(self) -> bool:
@@ -303,7 +348,6 @@ class Engine:
         B = (self.config.engine.prefill_lanes
              or self.config.engine.max_batch_size)
         bs = self.config.cache.block_size
-        mb = self.kvc.pool.table.max_blocks_per_seq
         # the held decode group's blocks are a protected residency class:
         # the prefill wave sizes itself to the HBM they do not occupy
         live = set(self.kvc.pool.live_seqs())
@@ -326,7 +370,7 @@ class Engine:
             # blocks and start prefill past them
             if req.prefill_pos == 0 and req.context_len == 0:
                 matched, bids = self.kvc.match_prefix(
-                    req.prompt, self.kvc.kv_dtype)
+                    req.prompt, self._req_scheme(req))
                 if matched:
                     self.kvc.claim_prefix(req.seq_slot, bids)
                     req.prefill_pos = matched
@@ -353,8 +397,21 @@ class Engine:
         if not ready:
             return
         self.kvc.ensure_resident([r.seq_slot for r, _, _ in ready])
+        # one dispatch per KV scheme (normally one)
+        groups: dict = {}
+        for item in ready:
+            groups.setdefault(self._req_scheme(item[0]), []).append(item)
+        for scheme, group in groups.items():
+            self._prefill_dispatch(scheme, group, finished)
 
-        scheme = self.kvc.kv_dtype
+    def _prefill_dispatch(self, scheme, ready: list[tuple],
+                          finished: list[EngineOutput]) -> None:
+        """One prefill pass over `ready` [(req, n, start)], all of `scheme`."""
+        chunk = self.config.engine.prefill_chunk
+        B = (self.config.engine.prefill_lanes
+             or self.config.engine.max_batch_size)
+        bs = self.config.cache.block_size
+        mb = self.kvc.pool.table.max_blocks_per_seq
         self.stats.prefill_dispatches += 1
         self._rng_counter += 1
         packed = np.zeros((B, 4 + mb + chunk), np.int32)
@@ -403,7 +460,8 @@ class Engine:
 
     def _multi_decode_tick(self, batch: list[Request],
                            finished: list[EngineOutput]) -> list[Request]:
-        """Fused multi-token decode: one pass, `decode_horizon` tokens."""
+        """Fused multi-token decode: `decode_horizon` tokens in one pass per
+        KV scheme of the batch (normally one)."""
         h = self.config.engine.decode_horizon
         B = self.config.engine.max_batch_size
         bs = self.config.cache.block_size
@@ -434,40 +492,46 @@ class Engine:
 
         guard = self.kvc.guard_slot
         mb = self.kvc.pool.table.max_blocks_per_seq
-        t0 = time.monotonic()
-        packed = np.full((B, mb + 4), guard, np.int32)
-        packed[:, :4] = 0
-        self._rng_counter += 1
-        packed[:, 3] = self._rng_counter
-        for i, r in enumerate(batch):
-            packed[i, 0] = r.output[-1]
-            packed[i, 1] = r.num_tokens - 1
-            packed[i, 2] = encode_sampling(r.temperature, r.top_p)
-            row = self.kvc.pool.table.row(r.seq_slot)
-            packed[i, 4:4 + mb] = np.where(row >= 0, row, guard)
-        t_host += time.monotonic() - t0
-        t0 = time.monotonic()
-        toks = decode_multi_packed(
-            self.params, self.model_config, self.kvc.kv_dtype, packed,
-            self.kvc.pools, horizon=h, rng_seed=self._rng_seed).cpu().numpy()
-        t_prog = time.monotonic() - t0
-        t0 = time.monotonic()
-        for i, r in enumerate(batch):
-            blocks = self.kvc.pool.seq(r.seq_slot).blocks
-            pos0 = int(packed[i, 1])
-            lo, hi = pos0 // bs, min((pos0 + h - 1) // bs, len(blocks) - 1)
-            for bi in range(lo, hi + 1):
-                if blocks[bi] is not None:
-                    self.kvc.directory.mark_dirty(blocks[bi])
-            for j in range(h):
-                if r.state != RequestState.RUNNING:
-                    break
-                self._record_token(r, int(toks[i, j]))
-                out = self._maybe_finish(r)
-                if out is not None:
-                    finished.append(out)
-        self.scheduler.stats.decode_batches += 1
-        t_host += time.monotonic() - t0
+        t_prog = 0.0
+        groups: dict = {}
+        for r in batch:
+            groups.setdefault(self._req_scheme(r), []).append(r)
+        for scheme, group in groups.items():
+            t0 = time.monotonic()
+            packed = np.full((B, mb + 4), guard, np.int32)
+            packed[:, :4] = 0
+            self._rng_counter += 1
+            packed[:, 3] = self._rng_counter
+            for i, r in enumerate(group):
+                packed[i, 0] = r.output[-1]
+                packed[i, 1] = r.num_tokens - 1
+                packed[i, 2] = encode_sampling(r.temperature, r.top_p)
+                row = self.kvc.pool.table.row(r.seq_slot)
+                packed[i, 4:4 + mb] = np.where(row >= 0, row, guard)
+            t_host += time.monotonic() - t0
+            t0 = time.monotonic()
+            toks = decode_multi_packed(
+                self.params, self.model_config, scheme, packed,
+                self.kvc.pools, horizon=h,
+                rng_seed=self._rng_seed).cpu().numpy()
+            t_prog += time.monotonic() - t0
+            t0 = time.monotonic()
+            for i, r in enumerate(group):
+                blocks = self.kvc.pool.seq(r.seq_slot).blocks
+                pos0 = int(packed[i, 1])
+                lo, hi = pos0 // bs, min((pos0 + h - 1) // bs, len(blocks) - 1)
+                for bi in range(lo, hi + 1):
+                    if blocks[bi] is not None:
+                        self.kvc.directory.mark_dirty(blocks[bi])
+                for j in range(h):
+                    if r.state != RequestState.RUNNING:
+                        break
+                    self._record_token(r, int(toks[i, j]))
+                    out = self._maybe_finish(r)
+                    if out is not None:
+                        finished.append(out)
+            self.scheduler.stats.decode_batches += 1
+            t_host += time.monotonic() - t0
         for r in batch:
             if r.state == RequestState.RUNNING:
                 self.kvc.pin_seq(r.seq_slot, False)
@@ -550,9 +614,17 @@ class Engine:
         tf = sorted(self._ttfts)
         eng["p50_ttft_ms"] = tf[len(tf) // 2] if tf else 0.0
         eng["p95_ttft_ms"] = tf[min(len(tf) - 1, int(len(tf) * 0.95))] if tf else 0.0
+        # tokens live per scheme; a per-layer table counts as "mixed8" (the
+        # JAX engine raises on it there)
+        scheme_tokens: dict[str, int] = {}
+        for r in self.scheduler.running.values():
+            scheme = self._req_scheme(r)
+            k = (KVDtype.MIXED8 if isinstance(scheme, tuple) else scheme).value
+            scheme_tokens[k] = scheme_tokens.get(k, 0) + r.num_tokens
         return {
             "engine": eng,
-            "kv_scheme_current": self.kvc.kv_dtype.value,
+            "kv_scheme_current": self._kv_scheme.value,
+            "kv_scheme_live_tokens": scheme_tokens,
             "phases": self.timers.summary(),
             "scheduler": self.scheduler.get_statistics().as_dict(),
             "prefetch": self.prefetcher.get_statistics().as_dict(),

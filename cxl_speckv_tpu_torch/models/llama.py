@@ -24,9 +24,13 @@ paged_attention` (K1, decode) and `ops.chunk_attention_cuda.
 paged_chunk_attention_cuda` (K2, prefill): the CUDA kernels for tensors on
 the card, their plain versions for tensors on the CPU.
 
+`kv_dtype` is one scheme for every layer, or a tuple of per-layer schemes
+(INT8 / FP8, `CacheConfig.layer_kv_dtypes`): layer li then quantizes with
+its own scheme and attends as MIXED8 with its scheme id
+(`layer_kv_schemes`).
+
 Model features outside this slice (attention bias, qk-norm, MoE, sinks,
-YaRN / linear / per-layer rope, per-layer MIXED8 KV) raise
-NotImplementedError.
+YaRN / linear / per-layer rope) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from cxl_speckv_tpu_torch.ops.quant import (
     dequantize_kv,
     encode_for_pool,
     quantize_kv,
+    scheme_id_table,
 )
 from cxl_speckv_tpu_torch.ops.wquant import (
     QuantizedTensor,
@@ -87,9 +92,22 @@ def check_supported(config: LlamaConfig) -> None:
             f"model features not ported to PyTorch yet: {', '.join(bad)}")
 
 
-def check_kv_dtype(kv_dtype) -> None:
-    if isinstance(kv_dtype, tuple) or kv_dtype == KVDtype.MIXED8:
-        raise NotImplementedError("per-layer MIXED8 KV is not ported")
+def layer_kv_schemes(kv_dtype, num_layers: int) -> list[tuple]:
+    """Per layer: (the scheme its KV is quantized with, the kv_dtype its
+    attention reads, the scheme id). A per-layer tuple of INT8 / FP8
+    attends as MIXED8 with each layer's id, as the JAX package's layer scan
+    does with a traced id; a uniform scheme is the same in every layer."""
+    sids = scheme_id_table(kv_dtype)
+    if sids is None:
+        if kv_dtype == KVDtype.MIXED8:
+            raise ValueError("MIXED8 is internal: pass a tuple of per-layer "
+                             "schemes")
+        return [(kv_dtype, kv_dtype, None)] * num_layers
+    if len(kv_dtype) != num_layers or any(
+            d not in (KVDtype.INT8, KVDtype.FP8) for d in kv_dtype):
+        raise ValueError(f"a per-layer scheme tuple needs {num_layers} "
+                         f"entries of INT8 or FP8, got {kv_dtype}")
+    return [(d, KVDtype.MIXED8, sid) for d, sid in zip(kv_dtype, sids)]
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +344,13 @@ def _append_kv(pools: Pools, li: int, kenc, venc, ks, vs, slots, offs):
 # decode (paged attention over the pools)
 # ---------------------------------------------------------------------------
 
-def _decode_core(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
+def _decode_core(params: Params, config: LlamaConfig, schemes: list,
                  token_ids: torch.Tensor, positions: torch.Tensor,
                  pools: Pools, block_table: torch.Tensor,
                  seq_lens: torch.Tensor) -> torch.Tensor:
     """One decode step: append each lane's token KV at `positions`, attend
-    over the pool including it; returns logits [B, V] float32."""
+    over the pool including it; returns logits [B, V] float32. `schemes`
+    comes from `layer_kv_schemes`."""
     c = config
     B = token_ids.shape[0]
     bs = pools[1].shape[3]
@@ -352,27 +371,28 @@ def _decode_core(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
         k = apply_rope(k.reshape(B, c.num_kv_heads, c.head_dim), positions,
                        inv_freq)
         v = v.reshape(B, c.num_kv_heads, c.head_dim)
-        kq, ks = quantize_kv(k, kv_dtype)
-        vq, vs = quantize_kv(v, kv_dtype)
-        _append_kv(pools, li, encode_for_pool(kq, kv_dtype),
-                   encode_for_pool(vq, kv_dtype), ks, vs, slots, offs)
+        scheme, read_as, sid = schemes[li]
+        kq, ks = quantize_kv(k, scheme)
+        vq, vs = quantize_kv(v, scheme)
+        _append_kv(pools, li, encode_for_pool(kq, scheme),
+                   encode_for_pool(vq, scheme), ks, vs, slots, offs)
         o = attend(q, pools[0][li], pools[1][li], pools[2][li], pools[3][li],
-                   block_table, seq_lens, kv_dtype, sm_scale=c.sm_scale,
-                   window=windows[li])
+                   block_table, seq_lens, read_as, sm_scale=c.sm_scale,
+                   window=windows[li], scheme_id=sid)
         x = _block_residuals(x, o.reshape(B, -1), lp, c)
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)
 
 
-def decode_step(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
+def decode_step(params: Params, config: LlamaConfig, kv_dtype,
                 token_ids: torch.Tensor, positions: torch.Tensor,
                 pools: Pools, block_table: torch.Tensor,
                 seq_lens: torch.Tensor) -> torch.Tensor:
     """One decode step for a batch; the pools update in place. Returns
-    logits [B, V]."""
-    check_kv_dtype(kv_dtype)
-    return _decode_core(params, config, kv_dtype, token_ids, positions,
-                        pools, block_table, seq_lens)
+    logits [B, V]. `kv_dtype`: a scheme, or a tuple of per-layer schemes."""
+    return _decode_core(params, config,
+                        layer_kv_schemes(kv_dtype, config.num_layers),
+                        token_ids, positions, pools, block_table, seq_lens)
 
 
 def _token_logprobs(logits: torch.Tensor, toks: torch.Tensor, k: int):
@@ -384,7 +404,7 @@ def _token_logprobs(logits: torch.Tensor, toks: torch.Tensor, k: int):
     return chosen, ti.to(torch.int32), tv
 
 
-def decode_multi(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
+def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
                  first_tokens: torch.Tensor, start_positions: torch.Tensor,
                  pools: Pools, block_table: torch.Tensor,
                  generator: torch.Generator | None,
@@ -399,12 +419,12 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype: KVDtype,
     tokens [B, horizon] int32 on the device; the pools update in place."""
     from cxl_speckv_tpu_torch.engine.sampling import sample_tokens
 
-    check_kv_dtype(kv_dtype)
+    schemes = layer_kv_schemes(kv_dtype, config.num_layers)
     toks = first_tokens
     out = []
     for j in range(horizon):
         positions = start_positions + j
-        logits = _decode_core(params, config, kv_dtype, toks, positions,
+        logits = _decode_core(params, config, schemes, toks, positions,
                               pools, block_table, positions + 1)
         toks = sample_tokens(logits, temperatures, generator,
                              top_ps=top_ps if nucleus else None,
@@ -420,7 +440,7 @@ def _generator(device, rng_seed: int, counter: int) -> torch.Generator:
 
 
 def decode_multi_packed(params: Params, config: LlamaConfig,
-                        kv_dtype: KVDtype, packed: np.ndarray, pools: Pools,
+                        kv_dtype, packed: np.ndarray, pools: Pools,
                         *, horizon: int, rng_seed: int = 0) -> torch.Tensor:
     """`decode_multi` with every per-round host input in ONE int32 array
     (one host->device copy per round):
@@ -450,7 +470,7 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
 # ---------------------------------------------------------------------------
 
 def prefill_batch_packed(params: Params, config: LlamaConfig,
-                         kv_dtype: KVDtype, packed: np.ndarray, pools: Pools,
+                         kv_dtype, packed: np.ndarray, pools: Pools,
                          *, max_blocks: int, rng_seed: int = 0) -> torch.Tensor:
     """Batched chunked prefill: every prefilling lane's chunk in one pass
     (causal within the chunk + that lane's quantized pool context), each
@@ -469,8 +489,8 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         sample_tokens,
     )
 
-    check_kv_dtype(kv_dtype)
     c = config
+    schemes = layer_kv_schemes(kv_dtype, c.num_layers)
     packed = np.asarray(packed, np.int32)
     dev = pools[0].device
     B = packed.shape[0]
@@ -506,16 +526,17 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         k = apply_rope(k.reshape(B, T, c.num_kv_heads, c.head_dim),
                        positions, inv_freq)
         v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
-        kq, ks = quantize_kv(k, kv_dtype)
-        vq, vs = quantize_kv(v, kv_dtype)
-        o = attend_chunk(q, dequantize_kv(kq, ks, kv_dtype),
-                         dequantize_kv(vq, vs, kv_dtype), pools[0][li],
+        scheme, read_as, sid = schemes[li]
+        kq, ks = quantize_kv(k, scheme)
+        vq, vs = quantize_kv(v, scheme)
+        o = attend_chunk(q, dequantize_kv(kq, ks, scheme),
+                         dequantize_kv(vq, vs, scheme), pools[0][li],
                          pools[1][li], pools[2][li], pools[3][li], tables,
-                         start, kv_dtype, sm_scale=c.sm_scale,
-                         window=windows[li])
+                         start, read_as, sm_scale=c.sm_scale,
+                         window=windows[li], scheme_id=sid)
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
-        _append_kv(pools, li, encode_for_pool(kq, kv_dtype),
-                   encode_for_pool(vq, kv_dtype), ks, vs, slots, offs)
+        _append_kv(pools, li, encode_for_pool(kq, scheme),
+                   encode_for_pool(vq, scheme), ks, vs, slots, offs)
     # last valid hidden state per lane -> logits -> sampled token
     last = torch.clamp(valid - 1, 0, T - 1).long()
     x_last = x[torch.arange(B, device=dev), last]

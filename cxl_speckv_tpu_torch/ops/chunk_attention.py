@@ -40,6 +40,7 @@ def paged_chunk_attention(
     window: int | None = None,
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,   # [Hq] learned sink logits
+    scheme_id: int | None = None,        # MIXED8: 0 = INT8, 1 = FP8 bytes
 ) -> torch.Tensor:
     """Returns [B, T, Hq, D] in q's dtype."""
     B, T, Hq, D = q.shape
@@ -63,7 +64,8 @@ def paged_chunk_attention(
     pools = (k_pool, v_pool, k_scale, v_scale)
     nblk = min(-(-int(start.max()) // bs) if B else 0, block_table.shape[1])
     for i in range(nblk):
-        k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype)
+        k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype,
+                                    scheme_id)
         s = (qg @ k.transpose(-1, -2)) * ks[:, :, None, :] * sm_scale
         s = soft_cap(s, softcap)
         pos = i * bs + torch.arange(bs, device=dev)

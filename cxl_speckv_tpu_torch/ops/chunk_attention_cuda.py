@@ -8,9 +8,10 @@ context through the block table, then causally to the fresh chunk in IEEE
 float32 (batched chunked prefill; speculative verify with T = gamma + 1).
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
-version `ops/chunk_attention.paged_chunk_attention`. Window and softcap are
-launch arguments, as in K1; variants the kernel does not cover yet (sinks,
-INT4 / FP8 / MIXED8 storage) raise NotImplementedError on CUDA.
+version `ops/chunk_attention.paged_chunk_attention`. The storage kind
+(MIXED8 with its `scheme_id` as INT8 or FP8), window and softcap are launch
+arguments, as in K1; sinks, which the kernel does not cover yet, raise
+NotImplementedError on CUDA.
 """
 
 from __future__ import annotations
@@ -23,7 +24,9 @@ from cxl_speckv_tpu_torch.config import KVDtype
 from cxl_speckv_tpu_torch.ops import cuda_build
 from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
 from cxl_speckv_tpu_torch.ops.paged_attention import (
+    KV_KINDS,
     check_cuda_call,
+    check_head_dim,
     launch_variant,
 )
 
@@ -39,7 +42,7 @@ def paged_chunk_attention_cuda(
     q: torch.Tensor,             # [B, T, Hq, D]
     k_new: torch.Tensor,         # [B, T, Hkv, D] fresh keys (store-rounded)
     v_new: torch.Tensor,
-    k_pool: torch.Tensor,        # [S, Hkv, bs, D] int8 or bf16
+    k_pool: torch.Tensor,        # [S, Hkv, bs, D/pack] int8 bytes or bf16
     v_pool: torch.Tensor,
     k_scale: torch.Tensor,       # [S, Hkv, bs] f32
     v_scale: torch.Tensor,
@@ -51,6 +54,7 @@ def paged_chunk_attention_cuda(
     window: int | None = None,
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,
+    scheme_id: int | None = None,  # MIXED8: 0 = INT8, 1 = FP8 bytes
 ) -> torch.Tensor:
     """Chunk attention -> [B, T, Hq, D] in q's dtype."""
     if q.device.type == "cpu":
@@ -58,16 +62,18 @@ def paged_chunk_attention_cuda(
             q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table,
             start_pos, kv_dtype, sm_scale=sm_scale,
             compute_dtype=compute_dtype, window=window, softcap=softcap,
-            sinks=sinks)
+            sinks=sinks, scheme_id=scheme_id)
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
-    check_cuda_call("paged_chunk_attention", kv_dtype, compute_dtype, sinks,
-                    (k_pool, v_pool, k_scale, v_scale),
-                    (q, k_new, v_new, block_table, start_pos))
+    kind = check_cuda_call("paged_chunk_attention", kv_dtype, scheme_id,
+                           compute_dtype, sinks,
+                           (k_pool, v_pool, k_scale, v_scale),
+                           (q, k_new, v_new, block_table, start_pos))
     win, cap = launch_variant(window, softcap)
     B, T, Hq, D = q.shape
-    _, Hkv, bs, Dp = k_pool.shape
-    if (Dp != D or Hq % Hkv or D % 4 or D > _ROW_ELEMS
+    _, Hkv, bs, _ = k_pool.shape
+    check_head_dim("paged_chunk_attention", kind, D, k_pool)
+    if (Hq % Hkv or D > _ROW_ELEMS
             or k_new.shape != (B, T, Hkv, D) or v_new.shape != k_new.shape):
         raise ValueError(f"paged_chunk_attention: unsupported shape q "
                          f"{tuple(q.shape)} k_new {tuple(k_new.shape)} pool "
@@ -87,14 +93,14 @@ def paged_chunk_attention_cuda(
              v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
              table.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, Hq,
              Hkv, D, bs, table.shape[1], rows_per_cta(T, Hq // Hkv, D),
-             int(kv_dtype == KVDtype.BF16),
-             int(compute_dtype == torch.bfloat16), win, float(sm_scale),
-             cap, torch.cuda.current_stream(q.device).cuda_stream)
+             KV_KINDS[kind], int(compute_dtype == torch.bfloat16), win,
+             float(sm_scale), cap,
+             torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_chunk_attention", err)
-    paged_chunk_attention_cuda.launches[win] += 1
+    paged_chunk_attention_cuda.launches[kind.value, win] += 1
     return out.to(q.dtype)
 
 
-# kernel launches by their window (0 = none) since the count was last
-# cleared; CPU calls are not counted. The total is the sum of the values.
+# kernel launches by (scheme decoded, window), as K1's `launches`; CPU calls
+# are not counted. The total is the sum of the values.
 paged_chunk_attention_cuda.launches = Counter()

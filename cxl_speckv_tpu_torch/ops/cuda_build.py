@@ -3,7 +3,8 @@
 Each source `cxl_speckv_tpu_torch/csrc/<name>.cu` exports one function with a
 plain C interface. `nvcc` compiles it for `sm_90a` into a shared library in
 `cxl_speckv_tpu_torch/_build/` (listed in .gitignore), named by a digest of
-the source and flags so an edited source rebuilds; ctypes loads it. Nothing
+the source, the shared headers `csrc/*.cuh` and the flags, so an edit to
+any of them rebuilds; ctypes loads it. Nothing
 here runs at import: the first kernel call builds what it needs, and
 `build()` builds several sources at once, one nvcc process each.
 
@@ -46,7 +47,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) count as part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

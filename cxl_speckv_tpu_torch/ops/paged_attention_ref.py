@@ -72,12 +72,13 @@ def finalize(state, sinks: torch.Tensor | None) -> torch.Tensor:
     return acc / torch.clamp_min(l, 1e-30)
 
 
-def gather_block(pools, slots: torch.Tensor, kv_dtype: KVDtype):
+def gather_block(pools, slots: torch.Tensor, kv_dtype: KVDtype,
+                 scheme_id=None):
     """Block `slots` [B] of each lane -> float32 K, V [B, Hkv, bs, D] and
     scales [B, Hkv, bs]."""
     k_pool, v_pool, k_scale, v_scale = pools
-    return (dequant_values(k_pool[slots], kv_dtype),
-            dequant_values(v_pool[slots], kv_dtype),
+    return (dequant_values(k_pool[slots], kv_dtype, scheme_id),
+            dequant_values(v_pool[slots], kv_dtype, scheme_id),
             k_scale[slots], v_scale[slots])
 
 
@@ -95,6 +96,7 @@ def paged_attention_ref(
     window: int | None = None,
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,   # [Hq] learned sink logits
+    scheme_id: int | None = None,        # MIXED8: 0 = INT8, 1 = FP8 bytes
 ) -> torch.Tensor:
     """Decode-step attention, one query token per lane -> [B, Hq, D] in
     q's dtype. With `window`, the query at position len - 1 attends only to
@@ -112,7 +114,8 @@ def paged_attention_ref(
     pools = (k_pool, v_pool, k_scale, v_scale)
     nblk = min(-(-int(seq_lens.max()) // bs) if B else 0, block_table.shape[1])
     for i in range(nblk):
-        k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype)
+        k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype,
+                                    scheme_id)
         s = (qg @ k.transpose(-1, -2)) * ks[:, :, None, :] * sm_scale
         s = soft_cap(s, softcap)
         pos = i * bs + torch.arange(bs, device=q.device)
@@ -140,6 +143,7 @@ def prefill_attention_ref(
     window: int | None = None,
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,
+    scheme_id: int | None = None,
 ) -> torch.Tensor:
     """Chunked-prefill attention for one sequence, dense float32: causal
     over the fresh chunk plus full attention to the `start_pos` context
@@ -167,8 +171,8 @@ def prefill_attention_ref(
     slots = block_table_row.long()
     L = slots.shape[0] * bs
     flat = lambda x: x.transpose(1, 2).reshape(L, Hkv, *x.shape[3:])
-    k_ctx = flat(dequant_values(k_pool[slots], kv_dtype))      # [L, Hkv, D]
-    v_ctx = flat(dequant_values(v_pool[slots], kv_dtype))
+    k_ctx = flat(dequant_values(k_pool[slots], kv_dtype, scheme_id))
+    v_ctx = flat(dequant_values(v_pool[slots], kv_dtype, scheme_id))
     ks = flat(k_scale[slots])                                  # [L, Hkv]
     vs = flat(v_scale[slots])
     scores_ctx = soft_cap(torch.einsum("thgd,lhd->hgtl", qg, k_ctx)

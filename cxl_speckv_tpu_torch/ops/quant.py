@@ -11,6 +11,10 @@ one float32 scale per (token, head) row of the head_dim vector:
 - FP8: e4m3 with scale max(amax, 1e-8) / 448; the pool stores the e4m3 bits
   in int8 bytes, and NaN bytes decode to 0.
 - BF16: stored as is, scale 1.
+- MIXED8: a scheme per layer (`CacheConfig.layer_kv_dtypes`), INT8 or FP8
+  in the same int8 bytes; a layer's scheme id (0 = INT8, 1 = FP8) says how
+  its bytes read. The port's layer loop is Python, so the id is a host
+  integer (the JAX package carries it as a traced scalar).
 
 All functions are shape-polymorphic over leading dims and quantize along
 the last axis (head_dim).
@@ -36,6 +40,19 @@ def kv_storage_dtype(kv_dtype: KVDtype) -> torch.dtype:
         KVDtype.INT4: torch.int8,  # two nibbles packed per int8
         KVDtype.FP8: torch.int8,   # e4m3 bits stored in int8 bytes
         KVDtype.MIXED8: torch.int8,
+    }[kv_dtype]
+
+
+def storage_width_class(kv_dtype: KVDtype) -> str:
+    """Schemes in the same class share pool storage and may be switched
+    between on a live pool (`Engine.set_kv_dtype`); another class needs
+    new storage (`TieredKVCache.rebuild_storage`)."""
+    return {
+        KVDtype.BF16: "bf16",
+        KVDtype.INT8: "byte",
+        KVDtype.FP8: "byte",
+        KVDtype.MIXED8: "byte",
+        KVDtype.INT4: "byte-packed",
     }[kv_dtype]
 
 
@@ -99,18 +116,53 @@ def unpack_int4(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1).to(torch.int8)
 
 
-def dequant_values(raw: torch.Tensor, kv_dtype: KVDtype) -> torch.Tensor:
+def decoded_scheme(kv_dtype: KVDtype, scheme_id=None) -> KVDtype:
+    """The scheme a pool's bytes are read as: MIXED8 reads INT8 (scheme id
+    0) or FP8 (1); any other scheme reads as itself."""
+    if kv_dtype != KVDtype.MIXED8:
+        return kv_dtype
+    if scheme_id is None or int(scheme_id) not in (0, 1):
+        raise ValueError(f"MIXED8 needs a scheme id of 0 or 1, got {scheme_id}")
+    return KVDtype.INT8 if int(scheme_id) == 0 else KVDtype.FP8
+
+
+def scheme_id_table(kv_dtype) -> tuple[int, ...] | None:
+    """A per-layer scheme tuple -> its scheme ids (0 = INT8, 1 = FP8), or
+    None for a uniform scheme."""
+    if isinstance(kv_dtype, tuple):
+        return tuple(0 if d == KVDtype.INT8 else 1 for d in kv_dtype)
+    return None
+
+
+def quantize_kv_dual(x: torch.Tensor,
+                     scheme_id) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize [..., head_dim] under scheme id 0 (INT8) or 1 (FP8) ->
+    (pool bytes int8, scales): `quantize_kv` + `encode_for_pool` of the
+    selected scheme, bit-exact with the JAX package's `quantize_kv_dual`."""
+    scheme = decoded_scheme(KVDtype.MIXED8, scheme_id)
+    q, scale = quantize_kv(x, scheme)
+    return encode_for_pool(q, scheme), scale
+
+
+def dequantize_dual(raw: torch.Tensor, scale: torch.Tensor, scheme_id,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """Inverse of `quantize_kv_dual` on pool bytes; FP8 NaN bytes read 0."""
+    return (dequant_values(raw, KVDtype.MIXED8, scheme_id) * scale).to(out_dtype)
+
+
+def dequant_values(raw: torch.Tensor, kv_dtype: KVDtype,
+                   scheme_id=None) -> torch.Tensor:
     """Raw pool storage -> float32 values, scales NOT applied. Every stored
-    value is exact in float32 (and in bfloat16)."""
+    value is exact in float32 (and in bfloat16). MIXED8 needs the layer's
+    `scheme_id`."""
+    kv_dtype = decoded_scheme(kv_dtype, scheme_id)
     if kv_dtype == KVDtype.INT4:
         return unpack_int4(raw).float()
     if kv_dtype == KVDtype.FP8:
         x = (raw.view(torch.float8_e4m3fn) if raw.dtype == torch.int8
              else raw).float()
         return torch.nan_to_num(x, nan=0.0)
-    if kv_dtype in (KVDtype.INT8, KVDtype.BF16):
-        return raw.float()
-    raise NotImplementedError(f"kv_dtype {kv_dtype} is not ported")
+    return raw.float()
 
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, kv_dtype: KVDtype,

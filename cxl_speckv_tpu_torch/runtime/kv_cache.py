@@ -11,7 +11,8 @@ the engine
 - `maintain`: eviction to keep the prefetch landing zone free, plus
   migration of what is queued;
 - `retire_out_of_window`: the sliding-window rolling buffer (Mistral);
-- the prefix cache (`match_prefix` / `claim_prefix` / `register_prefix`).
+- the prefix cache (`match_prefix` / `claim_prefix` / `register_prefix`);
+- `rebuild_storage`: new pools in another storage width, when idle.
 
 Device pool layout (all layers stacked; one extra guard slot absorbs
 padded writes):
@@ -19,8 +20,9 @@ padded writes):
     k_scales, v_scales  [L, hbm_slots + 1, Hkv, block_size] float32 (init 1)
 K is token-major like V (the JAX package stores it transposed for the TPU
 matrix unit), which is the host store's row layout: migration is a row
-copy. The numpy host-store backend, the native C++ directory and
-`rebuild_storage` wait for a later slice.
+copy. INT8 and FP8 share the int8 bytes, so blocks of both schemes (and of
+a per-layer MIXED8 table) live in one pool. The numpy host-store backend
+and the native C++ directory wait for a later slice.
 """
 
 from __future__ import annotations
@@ -75,13 +77,12 @@ class TieredKVCache:
                 "the numpy host-store backend is not ported")
         self.config = cache_config
         self.model_config = model_config
-        self.kv_dtype = cache_config.kv_dtype
         self.device = torch.device(device)
         self.directory = ResidencyDirectory(cache_config)
         self.pool = BlockPool(cache_config, self.directory, max_seqs,
                               max_blocks_per_seq)
         self._prefix_map: dict[bytes, int] = {}
-        self._alloc_storage(self.kv_dtype)
+        self._alloc_storage(cache_config.kv_dtype)
         # blocks the scheduler expects to need soon (current + upcoming
         # decode groups): eviction takes them only as a last resort
         self.protected: set[int] = set()
@@ -91,6 +92,9 @@ class TieredKVCache:
         self.stats = CacheRuntimeStatistics()
 
     def _alloc_storage(self, kv_dtype: KVDtype) -> None:
+        """(Re)allocate the pools and the host store in `kv_dtype`'s storage
+        width; the directory and the tables do not depend on it."""
+        self.kv_dtype = kv_dtype
         c = self.model_config
         cc = self.config
         dp = c.head_dim // kv_pack(kv_dtype)
@@ -108,6 +112,24 @@ class TieredKVCache:
             cc.num_host_blocks, c.num_layers, cc.block_size, c.num_kv_heads,
             dp, elem, pin=dev.type == "cuda")
         self.transfer = MigrationPlanner(self.store.bytes_per_block)
+
+    def rebuild_storage(self, kv_dtype: KVDtype) -> None:
+        """Cross-width scheme switch (e.g. INT8 -> INT4 or -> BF16): new
+        pools and host store in the new storage width. Only when no block
+        is live, since bytes cannot be read across widths (same-width
+        schemes switch on a live pool, `Engine.set_kv_dtype`). The
+        directory stays; the prefix map clears (its blocks died with the
+        last live sequence)."""
+        d = self.directory
+        if (d.hbm_free != self.config.num_hbm_blocks
+                or d.host_free != self.config.num_host_blocks):
+            raise ValueError(
+                "cross-width scheme switch requires an idle cache "
+                f"(live blocks: hbm {self.config.num_hbm_blocks - d.hbm_free}, "
+                f"host {self.config.num_host_blocks - d.host_free})")
+        self._prefix_map.clear()
+        self.config.kv_dtype = kv_dtype
+        self._alloc_storage(kv_dtype)
 
     @property
     def pools(self):

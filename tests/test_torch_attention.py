@@ -1,9 +1,10 @@
 """Attention: the port's plain decode (K1) and chunk (K2) versions against
 the JAX package's Pallas kernels in interpret mode, on the same pools after
-the layout conversion. Tolerance 2e-4 (the JAX kernel tests' own), at both
-compute dtypes: the plain versions round q and p * v_scale through the
-compute dtype at the TPU kernels' points. Kernel-vs-plain cases need the
-card and live in tests/test_torch_kernels_cuda.py."""
+the layout conversion, for every storage scheme (INT8, BF16, INT4, FP8, and
+MIXED8 with either scheme id). Tolerance 2e-4 (the JAX kernel tests' own),
+at both compute dtypes: the plain versions round q and p * v_scale through
+the compute dtype at the TPU kernels' points. Kernel-vs-plain cases need
+the card and live in tests/test_torch_kernels_cuda.py."""
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ HQ, HKV, D = 4, 2, 32
 TOL = 2e-4
 CD = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+SCHEMES = ["int8", "bf16", "int4", "fp8"]
 
 
 def make_pools(lens, kv, seed):
@@ -58,7 +60,7 @@ def t(a) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("kv", SCHEMES)
 def test_decode_matches_jax_kernel(kv, cd):
     lens = (0, 5, 17, 32)                  # a seq_len 0 lane gives zeros
     jpools, tpools, table, seq_lens = make_pools(lens, kv, seed=1)
@@ -73,7 +75,7 @@ def test_decode_matches_jax_kernel(kv, cd):
 
 
 @pytest.mark.parametrize("cd", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("kv", SCHEMES)
 @pytest.mark.parametrize("T", [5, 12])
 def test_chunk_matches_jax_kernel(kv, cd, T):
     starts = (0, 13, 20)                   # lane 0: zero-context chunk
@@ -96,13 +98,69 @@ def test_chunk_matches_jax_kernel(kv, cd, T):
 
 @pytest.mark.parametrize("kv", ["int4", "fp8"])
 def test_plain_decode_other_schemes_match_jax_reference(kv):
-    """The plain version also reads INT4 / FP8 pools (the CUDA kernel does
-    not yet, and raises)."""
+    """The plain version reads INT4 / FP8 pools as the JAX package's plain
+    reference does, too."""
     lens = (3, 17, 26)
     jpools, tpools, table, seq_lens = make_pools(lens, kv, seed=5)
     q = np.random.RandomState(6).randn(len(lens), HQ, D).astype(np.float32)
     want = j_decode_ref(jnp.asarray(q), *jpools, table, seq_lens, JKV(kv))
     got = paged_attention(t(q), *tpools, t(table), t(seq_lens), KVDtype(kv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sid", [0, 1])
+def test_mixed8_matches_jax_kernel(sid, cd):
+    """A MIXED8 layer's bytes read as INT8 (scheme id 0) or FP8 (1), in
+    decode and chunk, as the JAX kernels' MIXED8 mode reads them."""
+    lens = (0, 7, 17, 30)
+    jpools, tpools, table, seq_lens = make_pools(lens, ("int8", "fp8")[sid],
+                                                 seed=12 + sid)
+    rng = np.random.RandomState(13)
+    q = rng.randn(len(lens), HQ, D).astype(np.float32)
+    kw = dict(compute_dtype=CD[cd][0], scheme_id=jnp.int32(sid))
+    want = j_decode(jnp.asarray(q), *jpools, table, seq_lens, JKV.MIXED8,
+                    interpret=True, **kw)
+    got = paged_attention(t(q), *tpools, t(table), t(seq_lens), KVDtype.MIXED8,
+                          compute_dtype=CD[cd][1], scheme_id=sid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    T = 6
+    qc = rng.randn(len(lens), T, HQ, D).astype(np.float32)
+    kn = rng.randn(len(lens), T, HKV, D).astype(np.float32)
+    vn = rng.randn(len(lens), T, HKV, D).astype(np.float32)
+    want = paged_chunk_attention_pallas(
+        jnp.asarray(qc), jnp.asarray(kn), jnp.asarray(vn), *jpools, table,
+        seq_lens, JKV.MIXED8, interpret=True, **kw)
+    got = paged_chunk_attention_cuda(t(qc), t(kn), t(vn), *tpools, t(table),
+                                     t(seq_lens), KVDtype.MIXED8,
+                                     compute_dtype=CD[cd][1], scheme_id=sid)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def test_fp8_nan_bytes_outside_the_context_read_as_zero():
+    """FP8 NaN bytes (0x7F) in every pool row no lane holds (the guard
+    slot, unused slots, the tails of partly filled blocks) leave the output
+    finite and equal to the JAX kernel's on the same bytes."""
+    lens = (5, 17, 26)
+    jpools, _, table, seq_lens = make_pools(lens, "fp8", seed=14)
+    live = np.zeros((32, BLOCK), bool)             # [slot, offset]
+    for row, n in zip(np.asarray(table), lens):
+        for i in range(-(-n // BLOCK)):
+            live[row[i], :min(BLOCK, n - i * BLOCK)] = True
+    kT, v = np.array(jpools[0]), np.array(jpools[1])
+    kT[~np.tile(live, (1, HKV))[:, None, :].repeat(D, 1)] = 0x7F
+    v[~live[:, None, :, None].repeat(HKV, 1).repeat(D, 3)] = 0x7F
+    jpools = (jnp.asarray(kT), jnp.asarray(v), *jpools[2:])
+    tpools = pools_from_jax(*jpools, HKV)
+    assert (tpools[1] == 0x7F).any() and (tpools[0] == 0x7F).any()
+    q = np.random.RandomState(15).randn(len(lens), HQ, D).astype(np.float32)
+    want = j_decode(jnp.asarray(q), *jpools, table, seq_lens, JKV.FP8,
+                    interpret=True)
+    got = paged_attention(t(q), *tpools, t(table), t(seq_lens), KVDtype.FP8)
+    assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
 

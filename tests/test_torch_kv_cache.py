@@ -1,8 +1,9 @@
 """The tiered KV cache: a scripted sequence of extend / ensure_resident /
 prefetch / maintain / free calls gives the port's `TieredKVCache` the same
 directory statistics, migration counts and block tables as the JAX
-package's, and blocks that migrate to the host tier and back keep their
-bytes."""
+package's, blocks that migrate to the host tier and back keep their bytes
+in every storage width, and `rebuild_storage` switches an idle cache to
+another width as the JAX package's does."""
 
 import numpy as np
 import pytest
@@ -124,7 +125,7 @@ def _fill(t, gen):
         p.copy_(torch.rand(p.shape, generator=gen))
 
 
-@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("kv", ["int8", "bf16", "int4", "fp8"])
 def test_blocks_survive_round_trip(kv):
     """Every block keeps its bytes through demotion to the host tier and
     promotion back into (another) HBM slot."""
@@ -149,6 +150,34 @@ def test_blocks_survive_round_trip(kv):
     for want, got in zip(before, blocks_of(a)):
         for w, g in zip(want, got):
             assert torch.equal(w, g)
+
+
+def test_rebuild_storage_when_idle():
+    """Idle: new pools and host store in the new width (INT4 halves the
+    last dim), the prefix map cleared, the directory kept, as in the JAX
+    cache. Busy: ValueError."""
+    j, t = caches()
+    prompt = list(range(1, 30))
+    for c in (j, t):
+        s = c.add_seq()
+        c.extend_seq(s, len(prompt))
+        c.register_prefix(s, prompt, len(prompt), c.kv_dtype)
+        with pytest.raises(ValueError, match="idle cache"):
+            c.rebuild_storage(c.kv_dtype)
+        c.free_seq(s)
+        c.maintain()
+    dirs = j.directory.get_statistics().as_dict()
+    assert t.directory.get_statistics().as_dict() == dirs
+    j.rebuild_storage(JKV.INT4)
+    t.rebuild_storage(KVDtype.INT4)
+    assert t.kv_dtype == t.config.kv_dtype == KVDtype.INT4
+    assert t.k_pools.shape[-1] == tiny_test_config().head_dim // 2
+    assert t.store.arrays[0].shape[-1] == tiny_test_config().head_dim // 2
+    assert not t._prefix_map and not j._prefix_map
+    assert t.directory.get_statistics().as_dict() == dirs
+    assert t.compression_statistics() == j.compression_statistics()
+    t.rebuild_storage(KVDtype.BF16)
+    assert t.k_pools.dtype == t.store.arrays[0].dtype == torch.bfloat16
 
 
 def test_migrate_program_rows():

@@ -4,11 +4,11 @@ over by `params_from_jax`:
 
 - `forward_dense` logits within 1e-4 (float32; the matmuls sum in another
   order);
-- batched chunked prefill then fused multi-step decode: greedy tokens equal
-  and the pools equal to the JAX pools after the layout conversion (stored
-  values to the last step, scales to a few ulps: `_assert_pools_equal`).
-  The JAX side runs its Pallas kernels in interpret mode, as its own tests
-  do.
+- batched chunked prefill then fused multi-step decode, for every KV
+  scheme and a per-layer INT8 / FP8 table: greedy tokens equal and the
+  pools equal to the JAX pools after the layout conversion (stored values
+  to the last step, scales to a few ulps: `_assert_pools_equal`). The JAX
+  side runs its Pallas kernels in interpret mode, as its own tests do.
 """
 
 import jax
@@ -74,15 +74,30 @@ def test_unported_features_raise():
         with pytest.raises(NotImplementedError):
             tl.init_params(dataclasses.replace(CFG, **kw),
                            torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        tl.check_kv_dtype(KVDtype.MIXED8)
+    with pytest.raises(ValueError, match="MIXED8 is internal"):
+        tl.layer_kv_schemes(KVDtype.MIXED8, CFG.num_layers)
+    with pytest.raises(ValueError, match="INT8 or FP8"):
+        tl.layer_kv_schemes((KVDtype.INT8, KVDtype.INT4), CFG.num_layers)
+
+
+# a per-layer table for the 2-layer tiny model: INT8, then FP8
+MIXED = "mixed"
+SCHEMES = ["int8", "bf16", "int4", "fp8", MIXED]
+
+
+def _schemes(kv):
+    """(JAX kv_dtype, the port's kv_dtype, the storage scheme) of `kv`."""
+    if kv == MIXED:
+        return ((JKV.INT8, JKV.FP8), (KVDtype.INT8, KVDtype.FP8), "int8")
+    return JKV(kv), KVDtype(kv), kv
 
 
 def _jax_pools(kv):
     from cxl_speckv_tpu.ops.quant import kv_storage_dtype
 
-    c, dt = JCFG, kv_storage_dtype(JKV(kv))
-    L, S, Hkv, D = c.num_layers, SLOTS + 1, c.num_kv_heads, c.head_dim
+    c, dt = JCFG, kv_storage_dtype(JKV(_schemes(kv)[2]))
+    L, S, Hkv = c.num_layers, SLOTS + 1, c.num_kv_heads
+    D = c.head_dim // (2 if kv == "int4" else 1)
     return [jnp.zeros((L, S, D, Hkv * BS), dt),
             jnp.zeros((L, S, Hkv, BS, D), dt),
             jnp.ones((L, S, 1, Hkv * BS), jnp.float32),
@@ -90,12 +105,13 @@ def _jax_pools(kv):
 
 
 def _torch_pools(kv):
-    from cxl_speckv_tpu_torch.ops.quant import kv_storage_dtype
+    from cxl_speckv_tpu_torch.ops.quant import kv_pack, kv_storage_dtype
 
-    c = CFG
-    shape = (c.num_layers, SLOTS + 1, c.num_kv_heads, BS, c.head_dim)
-    return (torch.zeros(shape, dtype=kv_storage_dtype(KVDtype(kv))),
-            torch.zeros(shape, dtype=kv_storage_dtype(KVDtype(kv))),
+    c, store = CFG, KVDtype(_schemes(kv)[2])
+    shape = (c.num_layers, SLOTS + 1, c.num_kv_heads, BS,
+             c.head_dim // kv_pack(store))
+    return (torch.zeros(shape, dtype=kv_storage_dtype(store)),
+            torch.zeros(shape, dtype=kv_storage_dtype(store)),
             torch.ones(shape[:-1]), torch.ones(shape[:-1]))
 
 
@@ -108,16 +124,40 @@ def _raw(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _assert_pools_equal(jpools, tpools):
+def _steps(t: torch.Tensor, kinds) -> np.ndarray:
+    """Stored values as positions on their grid, so that neighbours are one
+    apart: INT4 nibbles unpacked; FP8 bytes (sign and magnitude) as signed
+    magnitudes; other kinds as their bits (`_raw`). `kinds` gives each
+    layer's scheme."""
+    from cxl_speckv_tpu_torch.ops.quant import unpack_int4
+
+    out = []
+    for li, kind in enumerate(kinds):
+        x = t[li]
+        if kind == KVDtype.INT4:
+            x = unpack_int4(x).numpy().astype(np.int64)
+        elif kind == KVDtype.FP8:
+            b = x.numpy().view(np.uint8).astype(np.int64)
+            x = np.where(b & 0x80, -(b & 0x7F), b & 0x7F)
+        else:
+            x = _raw(x).astype(np.int64)
+        out.append(x)
+    return np.stack(out)
+
+
+def _assert_pools_equal(jpools, tpools, kv="int8"):
     """Stored K/V equal to the last step, scales to a few ulps. The K/V
     projections sum in another order in XLA and in PyTorch, so a float32
     value can differ in its last bits: a token's scale then differs by an
     ulp, and now and then a stored value lands one step away (one int8
-    LSB, a step of the token's int8 grid; for bfloat16, one step at the
-    pool's largest magnitude, BF16_STEP of it: bfloat16 attention compute
-    carries such a flip on into later layers' values) — the reference's
-    own near-tie rule (ROADMAP.md, "Token level"). At most LSB_SHARE of
-    the values may."""
+    LSB, a step of the token's int8 / int4 / e4m3 grid; for bfloat16, one
+    step at the pool's largest magnitude, BF16_STEP of it: bfloat16
+    attention compute carries such a flip on into later layers' values) —
+    the reference's own near-tie rule (ROADMAP.md, "Token level"). At most
+    LSB_SHARE of the values may."""
+    kv_dtype = _schemes(kv)[1]
+    kinds = (kv_dtype if isinstance(kv_dtype, tuple)
+             else (kv_dtype,) * CFG.num_layers)
     conv = pools_from_jax(*[np.asarray(a) for a in jpools], CFG.num_kv_heads)
     for want, got, name in zip(conv, tpools, ("k", "v", "k_scale", "v_scale")):
         assert want.shape == got.shape, name
@@ -133,16 +173,19 @@ def _assert_pools_equal(jpools, tpools):
                                        err_msg=f"pool {name}")
             assert (g != w).mean() <= LSB_SHARE, f"pool {name}"
             continue
-        d = np.abs(_raw(got).astype(np.int64) - _raw(want).astype(np.int64))
+        d = np.abs(_steps(got, kinds) - _steps(want, kinds))
         assert d.max() <= 1, f"pool {name}: a value off by {d.max()} steps"
         assert (d > 0).mean() <= LSB_SHARE, f"pool {name}: {(d > 0).sum()} off"
 
 
-@pytest.mark.parametrize("kv", ["int8", "bf16"])
+@pytest.mark.parametrize("kv", SCHEMES)
 def test_prefill_then_decode_matches_jax(kv):
     """Two prefill dispatches (the second with pool context and an idle
     lane), then a fused 3-step decode: tokens equal, pools equal
-    (`_assert_pools_equal`)."""
+    (`_assert_pools_equal`; for INT4 this also shows that the JAX pool's
+    sublane-packed kT rows convert to the port's token-major bytes as
+    they are)."""
+    jkv, tkv, _ = _schemes(kv)
     rng = np.random.RandomState(2)
     guard = SLOTS
     tables = np.array([[3, 7, 1, guard], [10, 0, 5, guard]], np.int32)
@@ -161,29 +204,29 @@ def test_prefill_then_decode_matches_jax(kv):
     jpools, tpools = _jax_pools(kv), _torch_pools(kv)
     jtoks, ttoks = [], []
     for packed in waves:
-        out = jl.prefill_batch_packed(JPARAMS, JCFG, JKV(kv), jnp.asarray(packed),
+        out = jl.prefill_batch_packed(JPARAMS, JCFG, jkv, jnp.asarray(packed),
                                       *jpools, max_blocks=MB, use_pallas=True)
         jtoks.append(np.asarray(out[0]))
         jpools = list(out[1:5])
-        ttoks.append(tl.prefill_batch_packed(carried(JPARAMS), CFG, KVDtype(kv),
+        ttoks.append(tl.prefill_batch_packed(carried(JPARAMS), CFG, tkv,
                                              packed, tpools,
                                              max_blocks=MB).numpy())
     np.testing.assert_array_equal(ttoks[0][1], jtoks[0][1])
     np.testing.assert_array_equal(ttoks[1][0], jtoks[1][0])
-    _assert_pools_equal(jpools, tpools)
+    _assert_pools_equal(jpools, tpools, kv)
 
     horizon = 3
     dp = np.zeros((2, MB + 4), np.int32)
     dp[:, 4:] = tables
     dp[0, :2] = ttoks[1][0], 21           # first token and its position
     dp[1, :2] = ttoks[0][1], 9
-    out = jl.decode_multi_packed(JPARAMS, JCFG, JKV(kv), jnp.asarray(dp),
+    out = jl.decode_multi_packed(JPARAMS, JCFG, jkv, jnp.asarray(dp),
                                  *jpools, horizon=horizon, use_pallas=True)
-    got = tl.decode_multi_packed(carried(JPARAMS), CFG, KVDtype(kv), dp, tpools,
+    got = tl.decode_multi_packed(carried(JPARAMS), CFG, tkv, dp, tpools,
                                  horizon=horizon)
     assert got.shape == (2, horizon) and got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(out[0]))
-    _assert_pools_equal(out[1:5], tpools)
+    _assert_pools_equal(out[1:5], tpools, kv)
 
 
 def test_decode_step_logits_match_jax():

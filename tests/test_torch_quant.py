@@ -113,3 +113,50 @@ def test_decode_from_pool_inverts_encoding(scheme):
     jback = jq.decode_from_pool(jq.encode_for_pool(jvals, JKV(scheme)),
                                 JKV(scheme))
     np.testing.assert_array_equal(_bytes(_to_np(back)), _bytes(jback))
+
+
+@pytest.mark.parametrize("sid", [0, 1])
+def test_quantize_dual_bit_exact(sid):
+    """Per-layer MIXED8: bytes and scales of either scheme id equal the JAX
+    package's `quantize_kv_dual`."""
+    x = _inputs(4)
+    jvals, jsc = jq.quantize_kv_dual(jnp.asarray(x), jnp.int32(sid))
+    tvals, tsc = tq.quantize_kv_dual(torch.from_numpy(x), sid)
+    assert tvals.dtype == torch.int8
+    np.testing.assert_array_equal(_bytes(tvals.numpy()), _bytes(jvals))
+    np.testing.assert_array_equal(tsc.numpy().view(np.uint32),
+                                  np.asarray(jsc).view(np.uint32))
+
+
+@pytest.mark.parametrize("sid", [0, 1])
+def test_dequantize_dual_matches_jax(sid):
+    """Every byte value, NaN bytes (0x7F, 0xFF) included: FP8 reads them as
+    0, INT8 as 127 / -1."""
+    raw = np.arange(-128, 128, dtype=np.int8).reshape(8, 32)
+    scale = np.random.RandomState(5).rand(8, 1).astype(np.float32)
+    want = np.asarray(jq.dequantize_dual(jnp.asarray(raw), jnp.asarray(scale),
+                                         jnp.int32(sid)))
+    got = tq.dequantize_dual(torch.from_numpy(raw), torch.from_numpy(scale),
+                             sid).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(
+        tq.dequant_values(torch.from_numpy(raw), KVDtype.MIXED8, sid).numpy(),
+        tq.dequant_values(torch.from_numpy(raw),
+                          (KVDtype.INT8, KVDtype.FP8)[sid]).numpy())
+
+
+@pytest.mark.parametrize("scheme", SCHEMES + ["mixed8"])
+def test_storage_width_class_matches_jax(scheme):
+    assert (tq.storage_width_class(KVDtype(scheme))
+            == jq.storage_width_class(JKV(scheme)))
+
+
+def test_scheme_id_table_matches_jax():
+    table = (KVDtype.INT8, KVDtype.FP8, KVDtype.FP8, KVDtype.INT8)
+    want = jq.scheme_id_table(tuple(JKV(d.value) for d in table))
+    assert tq.scheme_id_table(table) == tuple(np.asarray(want).tolist())
+    assert tq.scheme_id_table(KVDtype.INT8) is None
+    assert jq.scheme_id_table(JKV.INT8) is None
+    with pytest.raises(ValueError, match="scheme id"):
+        tq.dequant_values(torch.zeros(4, dtype=torch.int8), KVDtype.MIXED8)
