@@ -25,11 +25,19 @@ Phases, each printing its results; any failure exits non-zero:
               nibbles swapped) must fail the comparison the kernel passes;
               MIXED8 with scheme id 0 / 1 must equal the INT8 / FP8 kernels
               bit for bit;
+5b. gpt-oss kernels -- K1 and K2 with GPT-OSS attention sinks (N(0, 2^2)
+              logits) at its geometry (Hq 64, Hkv 8, D 64): INT8 at f32 and
+              bf16 compute with window none and 128, and one case each of
+              INT4 / FP8 / BF16; K1 lanes of 0, 1, 127, 128, 129 and the
+              served 193-256 tokens, K2 at the served chunks (T 128 at start
+              0 and at start 128); the plain result without sinks must fail
+              the comparison the kernel passes; then the served shapes timed
+              with and without sinks in turns;
 6. serve   -- Llama-3-8B at full width and depth, random weights from a
-              seeded generator, W8A16, INT8 KV in 32-token blocks: 64
+              seeded generator, W8A16, INT8 KV in 32-token blocks: 32
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
-              32, an HBM pool of 83 blocks against a demand of 320 blocks
-              (64 requests x 5; what does not fit lives in the pinned host
+              32, an HBM pool of 52 blocks against a demand of 160 blocks
+              (32 requests x 5; what does not fit lives in the pinned host
               tier), then the same prompts on an ample HBM pool. Every
               request must finish, the tiered run must migrate both ways,
               and both runs must emit identical tokens;
@@ -40,15 +48,15 @@ Phases, each printing its results; any failure exits non-zero:
               a per-layer table of INT8 (even layers) and FP8 (odd layers):
               same checks, launch counts exact per (scheme, window); then
               the decode-round anatomy of each;
-9. switch  -- `Engine.set_kv_dtype` on the ample pool: 16 requests under
-              INT8, two steps, FP8 for 16 more; each cohort equals a fresh
+9. switch  -- `Engine.set_kv_dtype` on the ample pool: 8 requests under
+              INT8, two steps, FP8 for 8 more; each cohort equals a fresh
               engine fixed to its scheme; INT4 refused while busy, then
               rebuilt when idle (pool rows halve), equal to a fresh INT4
               engine;
 10. gemma2 -- Gemma-2-9B at full width and depth (42 layers alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
-              vocabulary), same weights and KV formats: 64 requests x
-              (64 + 64) tiered (83 HBM blocks) and ample, then 2 requests x
+              vocabulary), same weights and KV formats: 32 requests x
+              (64 + 64) tiered (52 HBM blocks) and ample, then 2 requests x
               (4608 + 32) -- prompts past the window -- with an HBM pool
               that holds one request's blocks but not both, and ample. Same
               checks, plus exact launch counts: every layer of every decode
@@ -57,13 +65,25 @@ Phases, each printing its results; any failure exits non-zero:
 11. mistral -- Mistral-7B at full width and depth (uniform window 4096):
               2 requests x (4160 + 64), tiered and ample. Out-of-window KV
               blocks must retire (`window_retired_blocks` > 0), tokens must
-              be identical, every launch must carry window 4096.
+              be identical, every launch must carry window 4096;
+12. gpt-oss -- GPT-OSS-20B at full width and depth (24 layers alternating
+              window 128 and global attention, 32 experts top-4 in the dense
+              MoE mode, q/k/v/o biases, sinks, YaRN rope, vocabulary 201088),
+              W8A16 experts included: 64 requests x (192 + 64), so the second
+              prefill chunk and every decode step pass the window, on 88 HBM
+              blocks against a demand of 576, and ample. Same checks; half
+              of the launches with window 128, every launch of this serve
+              with sinks (`sink_launches` == `launches`; no other serve
+              launches with sinks), no block retired; then its decode-round
+              anatomy with the expert-weight copies' share.
 
 Each model's weights are freed before the next phase draws its own. Then
 one JSON line of per-kernel numbers (launches on the served path, error
 against the plain version, times, bounds), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card the script exits 1
 before printing any result.
+
+Every kernel launch with sinks also counts in the wrapper's `sink_launches`.
 
 Tolerances: kernel vs plain version within rtol = atol = 2e-4 at float32
 compute (the two sum in different orders) and rtol = atol = 2e-2 at bfloat16
@@ -93,7 +113,7 @@ LLAMA_HEADS = (32, 8, 128)               # Hq, Hkv, D of Llama-3-8B
 GEMMA_HEADS = (16, 8, 256)               # Hq, Hkv, D of Gemma-2-9B
 WINDOW, CAP = 4096, 50.0                 # Gemma-2's (and Mistral's) window
 HORIZON, QUANTUM = 32, 4
-SWITCH_COHORT = 16                       # requests a scheme, switch phase
+SWITCH_COHORT = 8                        # requests a scheme, switch phase
 MIXED_LAYERS = ("int8", "fp8")           # the per-layer table's period
 
 
@@ -125,16 +145,27 @@ class Cell:
         return (self.n_req + self.batch) * self.blocks_per_seq + 4
 
 
-# Llama-3-8B and Gemma-2-9B: 64 x (64 + 64), max_seq_len 160 -> 5 blocks
-# per sequence, HBM 2*8*5 + 3 = 83 blocks; chunk = min(128, max(32,
-# prompt_len)). At 32 requests this pool never overflows (the running set
-# peaks below 83 blocks), so Gemma-2 serves 64 requests as Llama does.
-SHORT = Cell(64, 64, 64, BATCH, 64, hbm_tiered=2 * BATCH * 5 + 3)
+# Llama-3-8B and Gemma-2-9B: 32 x (64 + 64), max_seq_len 160 -> 5 blocks
+# per sequence; chunk = min(128, max(32, prompt_len)). Four groups of 8: a
+# group decodes (40 blocks + growth) while the next ones prefill, so up to
+# 64 blocks are live; HBM 52 blocks against a demand of 160 (decode needs
+# 8 x 6 of them resident).
+SHORT = Cell(32, 64, 64, BATCH, 64, hbm_tiered=52)
 # the long pairs: HBM holds one request's blocks (+ 4), not both --
 # 4608 + 32 + 32 -> 146 blocks a sequence, 4160 + 64 + 32 -> 133
 GEMMA_LONG = Cell(2, 4608, 32, 2, 256, hbm_tiered=146 + 4)
 MISTRAL = Cell(2, 4160, 64, 2, 256, hbm_tiered=133 + 4)
 MISTRAL_HEADS = (32, 8, 128)             # Hq, Hkv, D of Mistral-7B
+# GPT-OSS-20B: 64 x (192 + 64), max_seq_len 288 -> 9 blocks a sequence, a
+# demand of 576 blocks, ample 652. The 192-token prompt (chunks of 128 +
+# 64) puts the second chunk and every decode step past the 128-token
+# window, so the window binds in both kernels. A group's two prefill
+# dispatches and two decode rounds interleave with the next group's, so at
+# most ~96 blocks are live at once (2*8*9 + 3 = 147 would never overflow):
+# HBM holds one decoding group's 72 blocks and 16 more, 88 (6.5x).
+GPT_OSS = Cell(64, 192, 64, BATCH, 128, hbm_tiered=BATCH * 9 + 16)
+GPT_OSS_HEADS = (64, 8, 64)              # Hq, Hkv, D of GPT-OSS-20B
+GPT_OSS_WINDOW = 128
 
 
 def fail(msg: str) -> None:
@@ -235,12 +266,14 @@ def kernels():
 def reset_launches() -> None:
     for fn in kernels().values():
         fn.launches.clear()
+        fn.sink_launches.clear()
 
 
-def read_launches() -> dict:
+def read_launches(counter: str = "launches") -> dict:
     """{kernel: {(scheme, window): launches}} since the last reset (window
-    0 = none; a MIXED8 layer counts under the scheme its id selects)."""
-    return {k: dict(fn.launches) for k, fn in kernels().items()}
+    0 = none; a MIXED8 layer counts under the scheme its id selects);
+    `counter="sink_launches"`: those that carried sinks."""
+    return {k: dict(getattr(fn, counter)) for k, fn in kernels().items()}
 
 
 def total(by_variant: dict) -> int:
@@ -345,13 +378,21 @@ def compare(got, want, tol) -> tuple[float, bool]:
     return float(d.max()), bool((d <= tol + tol * want.float().abs()).all())
 
 
-def variant(window, softcap) -> str:
+def variant(window, softcap, sinks=False) -> str:
     return (f" window={window}" if window else "") + (
-        f" cap={softcap:g}" if softcap else "")
+        f" cap={softcap:g}" if softcap else "") + (" sinks" if sinks else "")
+
+
+def draw_sinks(gen, with_sinks: bool, hq: int):
+    """GPT-OSS sink logits [Hq] drawn from N(0, 2^2), so they bind; None
+    without."""
+    return (torch.randn(hq, generator=gen, device=DEV) * 2
+            if with_sinks else None)
 
 
 def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
-            geometry=None, window=None, softcap=None, q_scale=1.0):
+            geometry=None, window=None, softcap=None, q_scale=1.0,
+            sinks=False):
     from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
     from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
 
@@ -361,23 +402,29 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
     lens_t = torch.tensor(lens, dtype=torch.int32, device=DEV)
     q = (torch.randn((len(lens), hq, d), generator=gen, device=DEV)
          * q_scale).to(cd)
+    sk = draw_sinks(gen, sinks, hq)
     args = (q, *pools, table, lens_t, kv)
-    kw = dict(compute_dtype=cd, window=window, softcap=softcap)
+    kw = dict(compute_dtype=cd, window=window, softcap=softcap, sinks=sk)
     got = paged_attention(*args, **kw)
     want = paged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, ok = compare(got, want, TOL[cd])
     name = f"K1 {kv.value} cd={str(cd)[6:]} D={d} lens={lens}" + variant(
-        window, softcap)
+        window, softcap, sinks)
     if not torch.isfinite(got).all():
         fail(f"{name} produced non-finite values")
     if 0 in lens and got[lens.index(0)].any():
         fail(f"{name}: a seq_len 0 lane must give zeros")
     if softcap and not timed:
         # a kernel that ignored the cap must fail the comparison
-        plain = paged_attention_ref(*args, compute_dtype=cd, window=window)
+        plain = paged_attention_ref(*args, **dict(kw, softcap=None))
         if compare(plain, want, TOL[cd])[1]:
             fail(f"{name}: the uncapped result passes the comparison")
+    if sinks and not timed:
+        # nor may one that ignored the sinks
+        plain = paged_attention_ref(*args, **dict(kw, sinks=None))
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the result without sinks passes the comparison")
     if kv.value in ("int4", "fp8") and not timed:
         # nor may a kernel that decoded the bytes as another scheme pass
         wp, wkv = misread(pools, kv)
@@ -390,7 +437,8 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
         row["plain_ms"] = time_ms(lambda: paged_attention_ref(*args, **kw),
                                   iters=5)
         work = [attended(n - 1, 1, window) for n in lens if n]
-        moved = (nbytes(q, lens_t) + attn_bytes(pools, sum(
+        moved = (nbytes(q, lens_t, *[x for x in (sk,) if x is not None])
+                 + attn_bytes(pools, sum(
             -(-n // BS) - max(0, n - (window or n)) // BS for n in lens if n))
             + nbytes(got))
         ops = sum(4 * hq * d * (c + f) for c, f, _ in work)
@@ -401,7 +449,8 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
 
 
 def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
-            geometry=None, window=None, softcap=None, q_scale=1.0):
+            geometry=None, window=None, softcap=None, q_scale=1.0,
+            sinks=False):
     from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
     from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
         paged_chunk_attention_cuda,
@@ -416,20 +465,25 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
          * q_scale).to(cd)
     kn = torch.randn((B, T, hkv, d), generator=gen, device=DEV) * 2
     vn = torch.randn((B, T, hkv, d), generator=gen, device=DEV) * 2
+    sk = draw_sinks(gen, sinks, hq)
     args = (q, kn, vn, *pools, table, start_t, kv)
-    kw = dict(compute_dtype=cd, window=window, softcap=softcap)
+    kw = dict(compute_dtype=cd, window=window, softcap=softcap, sinks=sk)
     got = paged_chunk_attention_cuda(*args, **kw)
     want = paged_chunk_attention(*args, **kw)
     torch.cuda.synchronize()
     err, ok = compare(got, want, TOL[cd])
     name = f"K2 {kv.value} cd={str(cd)[6:]} D={d} T={T} starts={starts}" + (
-        variant(window, softcap))
+        variant(window, softcap, sinks))
     if not torch.isfinite(got).all():
         fail(f"{name} produced non-finite values")
     if softcap and not timed:
-        plain = paged_chunk_attention(*args, compute_dtype=cd, window=window)
+        plain = paged_chunk_attention(*args, **dict(kw, softcap=None))
         if compare(plain, want, TOL[cd])[1]:
             fail(f"{name}: the uncapped result passes the comparison")
+    if sinks and not timed:
+        plain = paged_chunk_attention(*args, **dict(kw, sinks=None))
+        if compare(plain, want, TOL[cd])[1]:
+            fail(f"{name}: the result without sinks passes the comparison")
     if kv.value in ("int4", "fp8") and not timed:
         wp, wkv = misread(pools, kv)
         plain = paged_chunk_attention(q, kn, vn, *wp, table, start_t, wkv,
@@ -442,7 +496,8 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
         row["plain_ms"] = time_ms(lambda: paged_chunk_attention(*args, **kw),
                                   iters=5)
         work = [attended(s, T, window) for s in starts]
-        moved = (nbytes(q, kn, vn, start_t)
+        moved = (nbytes(q, kn, vn, start_t,
+                        *[x for x in (sk,) if x is not None])
                  + attn_bytes(pools, sum(b for _, _, b in work))
                  + nbytes(got))
         ctx_ops = sum(4 * hq * d * c for c, _, _ in work)
@@ -682,6 +737,54 @@ def phase_kernels_schemes(peaks) -> dict:
     return rows
 
 
+def phase_kernels_gpt_oss(peaks) -> dict:
+    """Both kernels with GPT-OSS attention sinks (N(0, 2^2) logits) at its
+    geometry (G = 8, D = 64) in its serve's pool and table geometry: INT8 at
+    f32 and bf16 compute, window none and 128, K1 lanes around the window
+    and at the served 193-256 tokens (a seq_len 0 lane must give zeros), K2
+    at the served chunks (T 128 at start 0 and at start 128); one case each
+    of INT4 / FP8 / BF16. The plain result without sinks must fail each
+    comparison the kernel passes. Returns the timing rows of the served
+    shapes -- K1 a decode step of the 8-lane batch, K2 the second prefill
+    chunk -- sliding ("win") and global ("glob"), with sinks and, timed in
+    turns with them (sinks, none, none, sinks), without ("... nosink")."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(2025)
+    v = dict(heads=GPT_OSS_HEADS, geometry=served_geometry(GPT_OSS))
+    lens = [0, 1, 127, 128, 129] + served_lens(GPT_OSS, 10)
+    T = GPT_OSS.chunk
+    for cd in (torch.float32, torch.bfloat16):
+        for window in (None, GPT_OSS_WINDOW):
+            report(k1_case(gen, KVDtype.INT8, cd, lens, peaks, window=window,
+                           sinks=True, **v))
+            for start in (0, T):
+                report(k2_case(gen, KVDtype.INT8, cd, T, [start] * BATCH,
+                               peaks, window=window, sinks=True, **v))
+    for kv in (KVDtype.INT4, KVDtype.FP8, KVDtype.BF16):
+        report(k1_case(gen, kv, torch.bfloat16, lens, peaks,
+                       window=GPT_OSS_WINDOW, sinks=True, **v))
+        report(k2_case(gen, kv, torch.bfloat16, T, [T] * BATCH, peaks,
+                       window=GPT_OSS_WINDOW, sinks=True, **v))
+    rows = {}
+    for key, case, args in (("K1", k1_case, (served_lens(GPT_OSS, 11),)),
+                            ("K2", k2_case, (T, [T] * BATCH))):
+        for tag, window in (("win", GPT_OSS_WINDOW), ("glob", None)):
+            runs = [case(gen, KVDtype.INT8, torch.bfloat16, *args, peaks,
+                         timed=True, window=window, sinks=sk, **v)
+                    for sk in (True, False, False, True)]
+            rows[f"{key} {tag}"] = merge_turns(runs[0], runs[3])
+            rows[f"{key} {tag} nosink"] = merge_turns(runs[1], runs[2])
+    for row in rows.values():
+        report(row)
+    for key in ("K1 win", "K1 glob", "K2 win", "K2 glob"):
+        a, b = rows[key]["ms"], rows[f"{key} nosink"]["ms"]
+        print(f"[gpt-oss] {key}: {a:.4f} ms with sinks, {b:.4f} ms without "
+              f"({a / b - 1:+.1%})", flush=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # serving through the engine
 # ---------------------------------------------------------------------------
@@ -747,12 +850,19 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts, **kv):
     scheme arguments `kv` of `build_engine`; require every request
     finished, identical tokens, migrations both ways and the exact launch
     counts (every layer of every decode step through K1, of every prefill
-    dispatch through K2). Returns (launches, tiered stats)."""
+    dispatch through K2; all of them with sinks for a model with sinks,
+    none of them otherwise). Returns (launches, tiered stats)."""
     reset_launches()
     tiered = build_engine(cfg, params, cell, cell.hbm_tiered,
                           cell.host_tiered, **kv)
     outs_t, dt_t = serve(tiered, prompts, cell.gen)
     launches = read_launches()
+    with_sinks = read_launches("sink_launches")
+    if with_sinks != (launches if cfg.attn_sinks else
+                      {k: {} for k in launches}):
+        fail(f"{label}: launches with sinks {with_sinks}, all launches "
+             f"{launches}, for a model {'with' if cfg.attn_sinks else 'without'}"
+             f" sinks")
     st = tiered.get_statistics()
     del tiered
     ample = build_engine(cfg, params, cell, cell.hbm_ample, 0, **kv)
@@ -817,7 +927,7 @@ def phase_serve() -> tuple:
                for _ in range(SHORT.n_req)]
     # warm-up: cuBLAS handles and heuristics, first launches
     serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0), prompts[:2],
-          SHORT.gen)
+          HORIZON)
     launches, _ = tiered_vs_ample("serve", cfg, params, SHORT, prompts)
     check_windows("serve", launches, lambda n: {("int8", 0): n})
     return launches, cfg, params, prompts
@@ -859,7 +969,7 @@ def phase_switch(cfg, params, prompts) -> None:
     raise. Then, idle, INT4 (new pools, last dim halved): 8 requests equal a
     fresh INT4 engine's."""
     n = SWITCH_COHORT
-    p8, pf, p4 = prompts[:n], prompts[n:2 * n], prompts[2 * n:2 * n + 8]
+    p8, pf, p4 = prompts[:n], prompts[n:2 * n], prompts[2 * n:3 * n]
     ample = lambda kv: build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0,
                                     kv=kv)
     reset_launches()
@@ -920,7 +1030,7 @@ def phase_gemma(peaks) -> dict:
     prompts = [rng.randint(1, cfg.vocab_size, SHORT.prompt).tolist()
                for _ in range(SHORT.n_req)]
     serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0), prompts[:2],
-          SHORT.gen)
+          HORIZON)
     launches, _ = tiered_vs_ample("gemma2", cfg, params, SHORT, prompts)
     # sliding layers alternate with global ones: half of every count
     check_windows("gemma2", launches,
@@ -957,6 +1067,35 @@ def phase_mistral() -> dict:
     return launches
 
 
+def phase_gpt_oss(peaks) -> dict:
+    """GPT-OSS-20B: sinks, the MoE MLP, biases and YaRN rope on alternating
+    window-128 / global layers, so nothing retires."""
+    from cxl_speckv_tpu_torch.models.configs import gpt_oss_20b
+
+    cfg = gpt_oss_20b()
+    if cfg.retirement_window is not None:     # global layers keep full KV
+        fail("gpt-oss: a model with global layers must not retire KV")
+    params = init_model(cfg, "gpt-oss", 3)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, GPT_OSS.prompt).tolist()
+               for _ in range(GPT_OSS.n_req)]
+    serve(build_engine(cfg, params, GPT_OSS, GPT_OSS.hbm_ample, 0),
+          prompts[:2], HORIZON)
+    launches, st = tiered_vs_ample("gpt-oss", cfg, params, GPT_OSS, prompts)
+    check_windows("gpt-oss", launches,
+                  lambda n: {("int8", GPT_OSS_WINDOW): n // 2,
+                             ("int8", 0): n // 2})
+    retired = st["runtime"]["window_retired_blocks"]
+    if retired:
+        fail(f"gpt-oss: {retired} blocks retired in a model with global "
+             f"layers")
+    print(f"[gpt-oss] every launch of the tiered run carried sinks; half "
+          f"with window {GPT_OSS_WINDOW}; no block retired", flush=True)
+    phase_anatomy("GPT-OSS-20B", cfg, params, prompts, peaks, matmuls=False)
+    del params
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # where a served decode step spends its time
 # ---------------------------------------------------------------------------
@@ -964,8 +1103,8 @@ def phase_mistral() -> dict:
 def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
                   **kv) -> None:
     """Where a served decode round of `model` spends its time: one group of
-    BATCH lanes (32-token prompts, 4 fused rounds of HORIZON steps), a round
-    timed on the host clock, the next one under torch.profiler for the
+    BATCH lanes (32-token prompts, 3 fused rounds of HORIZON steps), a round
+    timed on the host clock, the last one under torch.profiler for the
     device time by kernel (the profiler slows the host, so its own wall
     time is not used); `kv` are the KV scheme arguments of `build_engine`.
     Then, with `matmuls`, the W8A16 matmuls of one layer (int8 -> bf16
@@ -978,14 +1117,16 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
     eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kv)
     for p in prompts[:BATCH]:
         eng.add_request(p[:SHORT.max_seq - 4 * HORIZON],
-                        max_new_tokens=4 * HORIZON)
+                        max_new_tokens=3 * HORIZON)
     eng.step()                          # prefill the group, first round
     torch.cuda.synchronize()
     t0 = time.monotonic()
     eng.step()                          # second round, host clock
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # device activity only: recording the host ops as well doubles the
+    # phase's time (77 s against 38 s for a Llama-3-8B round on an H100)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.step()                      # third round, profiled
         torch.cuda.synchronize()
     eng.run()
@@ -1015,6 +1156,17 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
     for name, us in sorted(kernels_us.items(), key=lambda it: -it[1])[:10]:
         print(f"[anatomy]   {us / 1e3:9.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}"
               f"  {name[:110]}")
+    if cfg.num_experts:
+        # the dense MoE converts each layer's three int8 expert stacks to
+        # bf16 once a step (ops/wquant.py:qeinsum); timed alone
+        lp = {n: params["layers"][n][0] for n in ("gate", "up", "down")}
+        t_copy = time_ms(lambda: [w.q.to(torch.bfloat16) for w in lp.values()])
+        step_ms = busy / HORIZON * 1e3
+        print(f"[anatomy]   expert-weight int8->bf16 copies: {t_copy:.3f} ms "
+              f"a layer (CUDA events, alone) x {cfg.num_layers} layers = "
+              f"{t_copy * cfg.num_layers:.2f} ms = "
+              f"{t_copy * cfg.num_layers / max(step_ms, 1e-12):.1%} of the "
+              f"device time a step", flush=True)
     if not matmuls:
         return
 
@@ -1034,6 +1186,14 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
               f"weight bytes / HBM rate {w_bytes / peaks['hbm'] * 1e3:.3f} "
               f"ms ({cfg.num_layers} layers a step)", flush=True)
         del wb
+
+
+def timed(label: str, phase, *args, **kw):
+    """Run one phase and print its wall time."""
+    t0 = time.monotonic()
+    out = phase(*args, **kw)
+    print(f"[time] {label}: {time.monotonic() - t0:.1f} s", flush=True)
+    return out
 
 
 def kernel_entry(name, key, row, launches) -> dict:
@@ -1064,22 +1224,26 @@ def main() -> int:
     t_start = time.monotonic()
     smi, name = phase_device()
     peaks = card_peaks(name)
-    phase_build()
-    main_rows = phase_kernels(peaks)
-    gemma_rows = phase_kernels_gemma(peaks)
-    mistral_rows = phase_kernels_mistral(peaks)
-    scheme_rows = phase_kernels_schemes(peaks)
-    launches, cfg, params, prompts = phase_serve()
-    phase_anatomy("Llama-3-8B", cfg, params, prompts, peaks)
-    int4_launches, mixed_launches = phase_serve_schemes(cfg, params, prompts)
-    phase_anatomy("Llama-3-8B INT4", cfg, params, prompts, peaks,
-                  matmuls=False, kv="int4")
-    phase_anatomy("Llama-3-8B INT8/FP8 layers", cfg, params, prompts, peaks,
-                  matmuls=False, layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
-    phase_switch(cfg, params, prompts)
+    timed("build", phase_build)
+    main_rows = timed("kernels", phase_kernels, peaks)
+    gemma_rows = timed("kernels gemma2", phase_kernels_gemma, peaks)
+    mistral_rows = timed("kernels mistral", phase_kernels_mistral, peaks)
+    scheme_rows = timed("kernels schemes", phase_kernels_schemes, peaks)
+    gpt_rows = timed("kernels gpt-oss", phase_kernels_gpt_oss, peaks)
+    launches, cfg, params, prompts = timed("serve", phase_serve)
+    timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
+    int4_launches, mixed_launches = timed(
+        "serve-int4, serve-mixed", phase_serve_schemes, cfg, params, prompts)
+    timed("anatomy int4", phase_anatomy, "Llama-3-8B INT4", cfg, params,
+          prompts, peaks, matmuls=False, kv="int4")
+    timed("anatomy mixed", phase_anatomy, "Llama-3-8B INT8/FP8 layers", cfg,
+          params, prompts, peaks, matmuls=False,
+          layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
+    timed("switch", phase_switch, cfg, params, prompts)
     del params
-    gemma_launches = phase_gemma(peaks)
-    mistral_launches = phase_mistral()
+    gemma_launches = timed("gemma2", phase_gemma, peaks)
+    mistral_launches = timed("mistral", phase_mistral)
+    gpt_launches = timed("gpt-oss", phase_gpt_oss, peaks)
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
@@ -1094,6 +1258,11 @@ def main() -> int:
         entries.append(kernel_entry(
             f"{kname} mistral-7b", key, mistral_rows[key],
             total(mistral_launches[key])))
+        for tag, window, label in (("win", GPT_OSS_WINDOW, "sliding"),
+                                   ("glob", 0, "global")):
+            entries.append(kernel_entry(
+                f"{kname} gpt-oss-20b {label}", key, gpt_rows[f"{key} {tag}"],
+                gpt_launches[key].get(("int8", window), 0)))
         # INT4 launches from serve-int4, FP8 from serve-mixed's odd layers
         for kv, served in (("int4", int4_launches), ("fp8", mixed_launches)):
             entries.append(kernel_entry(

@@ -24,6 +24,7 @@ from cxl_speckv_tpu_torch.models.configs import (  # noqa: F401
     PRESETS,
     LlamaConfig,
     gemma2_9b,
+    gpt_oss_20b,
     llama_3_2_1b,
     llama_3_8b,
     llama_3_70b,

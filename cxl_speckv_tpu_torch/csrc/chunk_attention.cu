@@ -20,13 +20,17 @@
 //     columns t - s < window;
 //   - tanh softcap (softcap > 0): s = cap * tanh(s / cap) in both parts,
 //     after scaling and before the mask (tanhf: the fresh part stays IEEE
-//     float32).
+//     float32);
+//   - learned attention sinks (sinks != nullptr, GPT-OSS): row r = t * G + g
+//     of kv head h takes the raw logit sinks[h * G + g] (unscaled, uncapped)
+//     into its max and denominator at finalize, as in K1.
 // `tile_update`'s `valid` is the one place where both masks go.
 //
 // Layout: q [B, T, Hq, D] f32, k_new / v_new [B, T, Hkv, D] f32, pools
 // [S, Hkv, bs, D / pack] (int8 bytes or bf16; pack 2 for INT4) with scales
 // [S, Hkv, bs] f32, block_table
-// [B, max_blocks] int32, start [B] int32, out [B, T, Hq, D] f32.
+// [B, max_blocks] int32, start [B] int32, sinks [Hq] f32 or nullptr,
+// out [B, T, Hq, D] f32.
 //
 // Design: one CTA per (lane, kv head, tile of R query rows), the rows of a
 // kv head being (t, g) pairs, r = t * G + g. The CTA streams context blocks
@@ -127,7 +131,8 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
              const void* __restrict__ v_pool, const float* __restrict__ k_scale,
              const float* __restrict__ v_scale,
              const int* __restrict__ block_table,
-             const int* __restrict__ start_pos, float* __restrict__ out,
+             const int* __restrict__ start_pos,
+             const float* __restrict__ sinks, float* __restrict__ out,
              int Tn, int Hq, int Hkv, int D, int bs, int max_blocks, int R,
              int n_tiles, int window, float sm_scale, float softcap) {
   extern __shared__ float smem[];
@@ -226,6 +231,19 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
   }
   __syncthreads();
 
+  // finalize: row r's sink logit joins its max and denominator
+  for (int r = tid; r < R; r += NT) {
+    float a2 = 1.f;
+    if (sinks != nullptr && r0 + r < rows) {
+      const float sk = sinks[h * G + (r0 + r) % G];
+      const float m_fin = fmaxf(sm.m[r], sk);
+      a2 = expf(sm.m[r] - m_fin);
+      sm.l[r] = sm.l[r] * a2 + expf(sk - m_fin);
+    }
+    sm.a[r] = a2;
+  }
+  __syncthreads();
+
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) {
     const int e = tid + k * NT;
@@ -235,7 +253,7 @@ chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_new,
     if (ra >= rows) continue;
     const int t = ra / G, g = ra % G;
     out[(((size_t)b * Tn + t) * Hq + (size_t)h * G + g) * D + d] =
-        acc[k] / fmaxf(sm.l[r], 1e-30f);
+        acc[k] * sm.a[r] / fmaxf(sm.l[r], 1e-30f);
   }
 }
 
@@ -262,12 +280,13 @@ Kernel pick(int kind, bool bf16) {
 // Returns a cudaError_t code (0 = launched). R is the query rows per CTA;
 // the Python wrapper checks R * D <= 8192 and D a multiple of 4 (of 8 for
 // INT4). kv_kind is a KvKind (kv_tile.cuh); window <= 0 means no window,
-// softcap <= 0 no cap.
+// softcap <= 0 no cap; sinks nullptr no sinks.
 extern "C" int chunk_attention_launch(
     const float* q, const float* k_new, const float* v_new,
     const void* k_pool, const void* v_pool, const float* k_scale,
     const float* v_scale, const int* block_table, const int* start_pos,
-    float* out, int B, int Tn, int Hq, int Hkv, int D, int bs,
+    const float* sinks, float* out, int B, int Tn, int Hq, int Hkv, int D,
+    int bs,
     int max_blocks, int R, int kv_kind, int compute_bf16, int window,
     float sm_scale, float softcap, void* stream) {
   const Kernel kern = pick(kv_kind, compute_bf16 != 0);
@@ -287,7 +306,7 @@ extern "C" int chunk_attention_launch(
   }
   kern<<<B * Hkv * n_tiles, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table,
-      start_pos, out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles, window,
-      sm_scale, softcap);
+      start_pos, sinks, out, Tn, Hq, Hkv, D, bs, max_blocks, R, n_tiles,
+      window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }

@@ -15,12 +15,18 @@
 //     out-of-window blocks; the row keeps a stale slot that may belong to
 //     another sequence by now), so they are never read;
 //   - tanh softcap (softcap > 0, Gemma-2): s = cap * tanh(s / cap), after
-//     s * ks * sm_scale and before the mask, in IEEE float32 (tanhf).
+//     s * ks * sm_scale and before the mask, in IEEE float32 (tanhf);
+//   - learned attention sinks (sinks != nullptr, GPT-OSS): one float32
+//     logit per query head joins the softmax denominator at finalize, as
+//     the TPU kernel merges it: m' = max(m, sk), l' = l * exp(m - m') +
+//     exp(sk - m'), acc' = acc * exp(m - m'). The sink is a raw logit: not
+//     scaled by sm_scale, not capped.
 //
 // Layout (per layer): K and V pools [S, Hkv, bs, D / pack] (int8 bytes or
 // bf16, token-major; pack 2 for INT4), scales [S, Hkv, bs] float32,
 // block_table [B, max_blocks]
-// int32, seq_lens [B] int32, q [B, Hq, D] float32, out [B, Hq, D] float32.
+// int32, seq_lens [B] int32, q [B, Hq, D] float32, sinks [Hq] float32 or
+// nullptr, out [B, Hq, D] float32.
 //
 // Design: one CTA per (lane, kv head). The CTA keeps the G query rows of its
 // kv head in shared memory, walks the lane's ceil(seq_len / bs) blocks
@@ -32,7 +38,8 @@
 // K scales multiply the scores after q.K, V scales multiply p before PV and
 // p * vs is rounded through the compute dtype. Stored values (int8 and int4
 // integers, bf16, e4m3) are exact in float, so the products match a bf16
-// matmul with f32 accumulation. A lane with seq_len == 0 writes zeros. Masked tokens get a
+// matmul with f32 accumulation. A lane with seq_len == 0 writes zeros (with a
+// sink too: m stays -1e30, so l' = 1 and acc' = 0). Masked tokens get a
 // score of -1e30 and p = 0, so a block wholly outside the window leaves m, l
 // and the accumulator as they were (alpha = exp(m - m) = 1).
 //
@@ -61,7 +68,8 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
               const void* __restrict__ v_pool, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               const int* __restrict__ block_table,
-              const int* __restrict__ seq_lens, float* __restrict__ out,
+              const int* __restrict__ seq_lens,
+              const float* __restrict__ sinks, float* __restrict__ out,
               int Hq, int Hkv, int D, int bs, int max_blocks, int window,
               float sm_scale, float softcap) {
   extern __shared__ float smem[];
@@ -75,7 +83,7 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   float* vs_s = ks_s + bs;                    // [bs]
   float* m_s = vs_s + bs;                     // [G]
   float* l_s = m_s + G;                       // [G]
-  float* a_s = l_s + G;                       // [G] this block's rescale
+  float* a_s = l_s + G;                       // [G] a block's / the sink's rescale
 
   const int tid = threadIdx.x;
   const int b = blockIdx.x / Hkv;
@@ -158,6 +166,19 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   }
   __syncthreads();
 
+  // finalize: the sink logit joins max and denominator
+  if (tid < G) {
+    float a2 = 1.f;
+    if (sinks != nullptr) {
+      const float sk = sinks[h * G + tid];
+      const float m_fin = fmaxf(m_s[tid], sk);
+      a2 = expf(m_s[tid] - m_fin);
+      l_s[tid] = l_s[tid] * a2 + expf(sk - m_fin);
+    }
+    a_s[tid] = a2;
+  }
+  __syncthreads();
+
   float* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) {
@@ -166,7 +187,7 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) {
       if (g >= G) break;
-      ob[g * D + d] = acc[g][k] / fmaxf(l_s[g], 1e-30f);
+      ob[g * D + d] = acc[g][k] * a_s[g] / fmaxf(l_s[g], 1e-30f);
     }
   }
 }
@@ -194,11 +215,12 @@ Kernel pick(int kind, bool bf16) {
 // Returns a cudaError_t code (0 = launched). Shapes are checked by the
 // Python wrapper: G <= 8, D <= 256 and a multiple of 4 (of 8 for INT4).
 // kv_kind is a KvKind (kv_tile.cuh); window <= 0 means no window, softcap
-// <= 0 no cap.
+// <= 0 no cap; sinks nullptr no sinks.
 extern "C" int paged_attention_launch(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_table,
-    const int* seq_lens, float* out, int B, int Hq, int Hkv, int D, int bs,
+    const int* seq_lens, const float* sinks, float* out, int B, int Hq,
+    int Hkv, int D, int bs,
     int max_blocks, int kv_kind, int compute_bf16, int window,
     float sm_scale, float softcap, void* stream) {
   const Kernel kern = pick(kv_kind, compute_bf16 != 0);
@@ -216,7 +238,7 @@ extern "C" int paged_attention_launch(
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<B * Hkv, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens, out, Hq,
-      Hkv, D, bs, max_blocks, window, sm_scale, softcap);
+      q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens, sinks, out,
+      Hq, Hkv, D, bs, max_blocks, window, sm_scale, softcap);
   return (int)cudaGetLastError();
 }

@@ -3,12 +3,14 @@ from cxl_speckv_tpu_torch.models.configs import (  # noqa: F401
     LlamaConfig,
     RopeScaling,
     gemma2_9b,
+    gpt_oss_20b,
     llama_3_2_1b,
     llama_3_8b,
     llama_3_70b,
     mistral_7b,
     tiny_test_config,
 )
+from cxl_speckv_tpu_torch.models import moe  # noqa: F401
 from cxl_speckv_tpu_torch.models.llama import (  # noqa: F401
     decode_step,
     forward_dense,

@@ -7,7 +7,9 @@ rejects, so they cross as a uint16 view. A quantized weight arrives as its
 `(q, s, axis)` triple, or any object with those three attributes.
 Every leaf crosses as it is, so a Gemma-2 tree keeps its post-norm leaves
 (`post_attn_norm`, `post_mlp_norm`) and its tied `embed`, quantized per
-row under W8A16, which then also serves as the head through `.T`.
+row under W8A16, which then also serves as the head through `.T`; and a
+GPT-OSS tree keeps its biases, sinks and router in their own dtype and its
+quantized expert stacks as `(q, s, axis)` with s [L, E, 1, I].
 """
 
 from __future__ import annotations

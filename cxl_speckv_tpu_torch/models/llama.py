@@ -5,16 +5,19 @@ parameter tree and its random init (plain and quantize-at-init), the
 building blocks, `decode_step` / `decode_multi` / `decode_multi_packed`
 (fused multi-step decode with sampling on the device), the batched chunked
 prefill `prefill_batch_packed`, and `forward_dense`. Families: Llama,
-Mistral (uniform sliding window) and Gemma-2 (alternating sliding / global
+Mistral (uniform sliding window), Gemma-2 (alternating sliding / global
 layers, tanh softcaps, GeGLU, sandwich norms, 1 + w RMSNorm, scaled
-embeddings, tied head).
+embeddings, tied head) and GPT-OSS (learned attention sinks, q/k/v and o
+biases, YaRN rope, the clamped-activation MoE MLP of `models/moe.py`, on
+alternating sliding / global layers); the MoE MLP and the q/k/v bias also
+serve Mixtral / Qwen-MoE and Qwen2 trees.
 
 Parameters are a plain dict with the JAX package's tree layout (layer
 weights stacked on a leading [L] axis). PyTorch runs eagerly, so the layer
 scan and the horizon loop are Python loops, and the pools are updated IN
 PLACE (the JAX functions return new pools). Numerics follow the HF
-conventions as the JAX package does: rotate-half RoPE, Llama-3 banded rope
-scaling, RMSNorm in float32. Each layer passes its own window
+conventions as the JAX package does: rotate-half RoPE, Llama-3 banded or
+YaRN rope scaling, RMSNorm in float32. Each layer passes its own window
 (`config.layer_windows()[li]`) and the attention softcap to the kernels:
 the layer loop is Python, so the JAX package's period-grouped scan has no
 counterpart here.
@@ -29,8 +32,8 @@ the card, their plain versions for tensors on the CPU.
 its own scheme and attends as MIXED8 with its scheme id
 (`layer_kv_schemes`).
 
-Model features outside this slice (attention bias, qk-norm, MoE, sinks,
-YaRN / linear / per-layer rope) raise NotImplementedError.
+Model features outside this slice (qk-norm, linear / per-layer rope,
+activations other than SiLU and tanh-GELU) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,12 +45,14 @@ import numpy as np
 import torch
 
 from cxl_speckv_tpu_torch.config import KVDtype
+from cxl_speckv_tpu_torch.models import moe
 from cxl_speckv_tpu_torch.models.configs import LlamaConfig
+from cxl_speckv_tpu_torch.ops import wquant
 from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
     paged_chunk_attention_cuda,
 )
 from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
-from cxl_speckv_tpu_torch.ops.paged_attention_ref import soft_cap
+from cxl_speckv_tpu_torch.ops.paged_attention_ref import sink_softmax, soft_cap
 from cxl_speckv_tpu_torch.ops.quant import (
     dequantize_kv,
     encode_for_pool,
@@ -76,13 +81,8 @@ def check_supported(config: LlamaConfig) -> None:
     """Raise NotImplementedError for a config feature outside this slice."""
     c = config
     unported = {
-        "attn_bias": c.attn_bias,
-        "o_bias": c.o_bias,
         "qk_norm": c.qk_norm,
-        "num_experts": c.num_experts > 0,
-        "attn_sinks": c.attn_sinks,
         "act_fn": c.act_fn not in ("silu", "gelu_tanh"),
-        "rope_yarn": c.rope_yarn is not None,
         "rope_linear_factor": c.rope_linear_factor is not None,
         "rope_local_theta": c.rope_local_theta is not None,
     }
@@ -126,13 +126,14 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     embed [V, H]; layers: attn_norm [L, H], q [L, H, Hq*D], k/v [L, H, Hkv*D],
     o [L, Hq*D, H], mlp_norm [L, H], gate/up [L, H, I], down [L, I, H];
     final_norm [H]; lm_head [H, V] (absent when tie_embeddings); with
-    `post_norms` (Gemma-2) also post_attn_norm / post_mlp_norm [L, H].
-    Weights are N(0, 1/fan_in) draws from `generator` (a different stream
-    from JAX's: carry JAX weights with `convert.params_from_jax`)."""
+    `post_norms` (Gemma-2) also post_attn_norm / post_mlp_norm [L, H]; the
+    MoE, bias and sink leaves of `_extra_leaves`. Weights are N(0, 1/fan_in)
+    draws from `generator` (a different stream from JAX's: carry JAX
+    weights with `convert.params_from_jax`)."""
     c = config
     check_supported(c)
     dtype = dtype or torch_dtype(c.dtype)
-    L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
+    L, H, V = c.num_layers, c.hidden_size, c.vocab_size
     qd, kvd = c.num_q_heads * c.head_dim, c.num_kv_heads * c.head_dim
 
     def w(shape, fan_in):
@@ -145,55 +146,97 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
             "q": w((L, H, qd), H), "k": w((L, H, kvd), H),
             "v": w((L, H, kvd), H), "o": w((L, qd, H), qd),
             "mlp_norm": torch.ones((L, H), dtype=dtype, device=device),
-            "gate": w((L, H, I), H), "up": w((L, H, I), H),
-            "down": w((L, I, H), I),
         },
         "final_norm": torch.ones((H,), dtype=dtype, device=device),
     }
-    params["layers"].update(_post_norms(c, generator, device, dtype))
+    for name, (shape, fan_in) in _mlp_shapes(c).items():
+        params["layers"][name] = w((L, *shape), fan_in)
+    params["layers"].update(_extra_leaves(c, generator, device, dtype))
     if not c.tie_embeddings:
         params["lm_head"] = w((H, V), H)
     return params
 
 
-def _post_norms(config: LlamaConfig, generator, device, dtype) -> dict:
-    """Gemma-2 sandwich-norm weights [L, H] (HF post_attention_layernorm /
-    post_feedforward_layernorm), N(0, 0.05^2) as the JAX init draws them so
-    the path is exercised; {} without `post_norms`."""
-    if not config.post_norms:
-        return {}
-    shape = (config.num_layers, config.hidden_size)
-    return {name: (torch.randn(shape, generator=generator, device=device)
-                   * 0.05).to(dtype)
-            for name in ("post_attn_norm", "post_mlp_norm")}
+def _mlp_shapes(config: LlamaConfig) -> dict:
+    """{name: (per-layer shape, fan_in)} of the MLP matmul weights: the
+    dense gate / up / down, or with experts [E, ...] stacks of them, the
+    Qwen2-MoE shared expert's and the router [H, E] (which stays in full
+    precision under W8A16)."""
+    c = config
+    H, I = c.hidden_size, c.intermediate_size
+    if c.num_experts == 0:
+        return {"gate": ((H, I), H), "up": ((H, I), H), "down": ((I, H), I)}
+    E, Is = c.num_experts, c.moe_shared_expert
+    shapes = {"router": ((H, E), H), "gate": ((E, H, I), H),
+              "up": ((E, H, I), H), "down": ((E, I, H), I)}
+    if Is > 0:
+        shapes.update({"shared_gate": ((H, Is), H), "shared_up": ((H, Is), H),
+                       "shared_down": ((Is, H), Is),
+                       "shared_expert_gate": ((H,), H)})
+    return shapes
+
+
+def _extra_leaves(config: LlamaConfig, generator, device, dtype) -> dict:
+    """The layer leaves beyond the Llama set, [L, ...] in the activation
+    dtype, drawn with the JAX init's scales so every path is exercised:
+    GPT-OSS router / expert biases N(0, 0.05^2); q/k/v biases and o_bias
+    N(0, 0.02^2); sinks N(0, 0.5^2); Gemma-2 sandwich norms N(0, 0.05^2)."""
+    c = config
+    L, H, I, E = c.num_layers, c.hidden_size, c.intermediate_size, c.num_experts
+    qd, kvd = c.num_q_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    spec = {}
+    if E > 0 and c.moe_style == "gpt_oss":
+        spec.update({"router_bias": ((E,), 0.05), "gate_bias": ((E, I), 0.05),
+                     "up_bias": ((E, I), 0.05), "down_bias": ((E, H), 0.05)})
+    if c.attn_bias:
+        spec.update({"q_bias": ((qd,), 0.02), "k_bias": ((kvd,), 0.02),
+                     "v_bias": ((kvd,), 0.02)})
+    if c.attn_sinks:
+        spec["sinks"] = ((c.num_q_heads,), 0.5)
+    if c.o_bias:
+        spec["o_bias"] = ((H,), 0.02)
+    if c.post_norms:
+        spec.update({"post_attn_norm": ((H,), 0.05),
+                     "post_mlp_norm": ((H,), 0.05)})
+    return {name: (torch.randn((L, *shape), generator=generator, device=device)
+                   * scale).to(dtype)
+            for name, (shape, scale) in spec.items()}
 
 
 def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
                           device="cpu") -> Params:
-    """Random-init straight into W8A16 storage, one layer at a time: each
-    layer's weights are drawn in float32 and quantized before the next is
-    drawn, so the full-precision tree never exists (Llama-3-8B: ~8 GB of
-    int8 instead of 16 GB of bf16 plus a quantized copy). Same tree layout
-    as `init_params` followed by `quantize_weights`."""
+    """Random-init straight into W8A16 storage, one matrix at a time: each
+    layer's (and, with experts, each expert's) matrix is drawn in float32
+    and quantized before the next is drawn, so the full-precision tree
+    never exists (Llama-3-8B: ~8 GB of int8 instead of 16 GB of bf16 plus a
+    quantized copy; GPT-OSS-20B: one stacked expert leaf alone would need
+    ~25 GB of float32). Same tree layout as `init_params` followed by
+    `quantize_weights`; the MoE router, biases and sinks stay in the
+    activation dtype."""
     c = config
     check_supported(c)
     dtype = torch_dtype(c.dtype)
-    L, H, I, V = c.num_layers, c.hidden_size, c.intermediate_size, c.vocab_size
+    L, H, V = c.num_layers, c.hidden_size, c.vocab_size
     qd, kvd = c.num_q_heads * c.head_dim, c.num_kv_heads * c.head_dim
     shapes = {"q": ((H, qd), H), "k": ((H, kvd), H), "v": ((H, kvd), H),
-              "o": ((qd, H), qd), "gate": ((H, I), H), "up": ((H, I), H),
-              "down": ((I, H), I)}
+              "o": ((qd, H), qd), **_mlp_shapes(c)}
     layers = {}
     for name, (shape, fan_in) in shapes.items():
+        if name not in wquant.LAYER_MM_KEYS:
+            layers[name] = _normal((L, *shape), fan_in, generator,
+                                   device).to(dtype)
+            continue
         q = torch.empty((L, *shape), dtype=torch.int8, device=device)
-        s = torch.empty((L, 1, shape[1]), dtype=torch.float32, device=device)
-        for li in range(L):
-            qt = quantize_tensor(_normal(shape, fan_in, generator, device))
-            q[li], s[li] = qt.q, qt.s
+        s = torch.empty((L, *shape[:-2], 1, shape[-1]), dtype=torch.float32,
+                        device=device)
+        for idx in np.ndindex(L, *shape[:-2]):        # (layer[, expert])
+            qt = quantize_tensor(_normal(shape[-2:], fan_in, generator,
+                                         device))
+            q[idx], s[idx] = qt.q, qt.s
         layers[name] = QuantizedTensor(q, s, -2)
     layers["attn_norm"] = torch.ones((L, H), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, H), dtype=dtype, device=device)
-    layers.update(_post_norms(c, generator, device, dtype))
+    layers.update(_extra_leaves(c, generator, device, dtype))
     params: Params = {
         "embed": quantize_tensor(_normal((V, H), H, generator, device),
                                  axis=-1),
@@ -249,12 +292,34 @@ def _final_logits(x: torch.Tensor, params: Params,
 
 
 def rope_frequencies(config: LlamaConfig) -> torch.Tensor:
-    """Inverse frequencies [D/2] float32, with Llama-3 banded scaling
-    (HF-compatible)."""
+    """Inverse frequencies [D/2] float32, with Llama-3 banded or YaRN
+    scaling (HF-compatible). YaRN's cos/sin attention factor is folded into
+    `config.sm_scale`."""
     c = config
     inv = 1.0 / (c.rope_theta ** (torch.arange(0, c.head_dim, 2,
                                                dtype=torch.float32)
                                   / c.head_dim))
+    if c.rope_yarn is not None:
+        # HF _compute_yarn_parameters: a linear ramp between the beta_fast
+        # and beta_slow correction dims blends the factor-scaled and the
+        # unscaled frequencies
+        y, D = c.rope_yarn, c.head_dim
+
+        def corr_dim(rot):
+            return (D * math.log(y.original_max_position
+                                 / (rot * 2 * math.pi))
+                    / (2 * math.log(c.rope_theta)))
+
+        low, high = corr_dim(y.beta_fast), corr_dim(y.beta_slow)
+        if y.truncate:
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, D - 1)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp((torch.arange(D // 2, dtype=torch.float32) - low)
+                           / (high - low), 0, 1)
+        extrap = 1.0 - ramp       # 1 at the low (high-frequency) dims
+        return (inv / y.factor) * (1 - extrap) + inv * extrap
     if c.rope_scaling is not None:
         s = c.rope_scaling
         wavelen = 2.0 * math.pi / inv
@@ -293,17 +358,29 @@ def _mlp(x, gate, up, down, act=torch.nn.functional.silu):
 
 
 def _ffn(x, lp, config):
-    return _mlp(x, lp["gate"], lp["up"], lp["down"], _act(config))
+    """The dense gated MLP, or the sparse-MoE block over the flattened
+    tokens when the layer has a router."""
+    if "router" not in lp:
+        return _mlp(x, lp["gate"], lp["up"], lp["down"], _act(config))
+    return moe.moe_ffn(x.reshape(-1, x.shape[-1]), lp, config).reshape(
+        x.shape)
 
 
 def _qkv(h, lp, config: LlamaConfig = None):
-    return mm(h, lp["q"]), mm(h, lp["k"]), mm(h, lp["v"])
+    """q, k, v projections, plus the q/k/v biases (Qwen2, GPT-OSS) before
+    RoPE."""
+    q, k, v = mm(h, lp["q"]), mm(h, lp["k"]), mm(h, lp["v"])
+    if "q_bias" in lp:
+        q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
+    return q, k, v
 
 
 def _block_residuals(x, o_flat, lp, config):
-    """o-projection (+ Gemma-2 post-attention norm) + residual, then the
-    MLP block (+ post-MLP norm) + residual."""
+    """o-projection (+ its bias, + Gemma-2 post-attention norm) + residual,
+    then the MLP block (+ post-MLP norm) + residual."""
     att = mm(o_flat.to(x.dtype), lp["o"])
+    if "o_bias" in lp:
+        att = att + lp["o_bias"]
     if "post_attn_norm" in lp:
         att = _norm(att, lp["post_attn_norm"], config)
     x = x + att
@@ -378,7 +455,7 @@ def _decode_core(params: Params, config: LlamaConfig, schemes: list,
                    encode_for_pool(vq, scheme), ks, vs, slots, offs)
         o = attend(q, pools[0][li], pools[1][li], pools[2][li], pools[3][li],
                    block_table, seq_lens, read_as, sm_scale=c.sm_scale,
-                   window=windows[li], scheme_id=sid)
+                   window=windows[li], sinks=lp.get("sinks"), scheme_id=sid)
         x = _block_residuals(x, o.reshape(B, -1), lp, c)
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)
@@ -533,7 +610,8 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
                          dequantize_kv(vq, vs, scheme), pools[0][li],
                          pools[1][li], pools[2][li], pools[3][li], tables,
                          start, read_as, sm_scale=c.sm_scale,
-                         window=windows[li], scheme_id=sid)
+                         window=windows[li], sinks=lp.get("sinks"),
+                         scheme_id=sid)
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
         _append_kv(pools, li, encode_for_pool(kq, scheme),
                    encode_for_pool(vq, scheme), ks, vs, slots, offs)
@@ -579,7 +657,10 @@ def forward_dense(params: Params, config: LlamaConfig,
         qg = q.reshape(B, T, c.num_kv_heads, G, c.head_dim).float()
         s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale
         s = soft_cap(s, c.attn_softcap).masked_fill(~mask, -1e30)
-        w = torch.softmax(s, dim=-1)
+        sk = (lp["sinks"].reshape(c.num_kv_heads, G).float()[None, :, :,
+                                                             None, None]
+              if "sinks" in lp else None)
+        w = sink_softmax(s, sk)
         o = torch.einsum("bhgts,bshd->bthgd", w, v.float())
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
     x = _norm(x, params["final_norm"], c)

@@ -1,0 +1,119 @@
+"""Sparse mixture-of-experts MLP (Mixtral, Qwen-MoE and GPT-OSS families).
+
+Counterpart of `cxl_speckv_tpu/models/moe.py`, the whole module. Router
+semantics follow `config.moe_style`:
+
+- "mixtral" (HF `MixtralSparseMoeBlock`): softmax over ALL experts in
+  float32, top-k, then renormalize the selected weights (`moe_norm_topk`;
+  Qwen2-MoE keeps the raw probabilities);
+- "gpt_oss" (HF `GptOssTopKRouter` / `GptOssExperts`): biased router
+  logits, top-k on the LOGITS, softmax over the selected values; experts
+  use biased projections and the clamped gated activation
+  (u.clamp(-7, 7) + 1) * g * sigmoid(1.702 g) with g = min(g, 7).
+
+Two compute modes, as in the JAX package:
+
+- "dense" (the config default): every expert runs every token and the
+  combine weights zero the unselected ones. At decode batch sizes every
+  expert's weights are read anyway, so skipping work saves no bytes.
+- "dispatch": GShard capacity bucketing with one-hot dispatch products;
+  each expert takes at most C = ceil(N * k * cf / E) tokens (at least 1, at
+  most N) in arrival order, and a token past an expert's capacity loses
+  that expert's share of the output.
+
+The expert products are PyTorch matmuls (`ops.wquant.qeinsum`, W8A16 with
+a per-call int8 -> activation-dtype copy); the JAX package computes them
+outside any Pallas kernel too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cxl_speckv_tpu_torch.models.configs import LlamaConfig
+from cxl_speckv_tpu_torch.ops.wquant import mm, qeinsum
+
+_GPT_OSS_ALPHA = 1.702
+_GPT_OSS_LIMIT = 7.0
+
+
+def router_combine_weights(x2d: torch.Tensor, router_w: torch.Tensor,
+                           top_k: int, router_b: torch.Tensor | None = None,
+                           style: str = "mixtral",
+                           norm_topk: bool = True) -> torch.Tensor:
+    """Per-token combine weights over all experts: x2d [N, H], router_w
+    [H, E] -> [N, E] float32 with exactly `top_k` non-zero entries a row."""
+    logits = x2d.float() @ router_w.float()                       # [N, E]
+    if router_b is not None:
+        logits = logits + router_b.float()
+    if style == "gpt_oss":
+        vals, idx = torch.topk(logits, top_k, dim=-1)
+        vals = torch.softmax(vals, dim=-1)
+    else:
+        vals, idx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1)
+        if norm_topk:
+            vals = vals / vals.sum(dim=-1, keepdim=True)
+    return torch.zeros_like(logits).scatter(-1, idx, vals)
+
+
+def _shared_expert(x2d: torch.Tensor, lp) -> torch.Tensor:
+    """Qwen2-MoE shared expert: a dense SwiGLU on every token, scaled by
+    sigmoid(x @ shared_expert_gate); zero without shared-expert leaves."""
+    if "shared_gate" not in lp:
+        return torch.zeros_like(x2d)
+    h = (torch.nn.functional.silu(mm(x2d, lp["shared_gate"]))
+         * mm(x2d, lp["shared_up"]))
+    out = mm(h, lp["shared_down"])
+    scale = torch.sigmoid((x2d.float() @ lp["shared_expert_gate"].float())
+                          [:, None])
+    return out * scale.to(out.dtype)
+
+
+def _expert_ffn(xe: torch.Tensor, lp, style: str) -> torch.Tensor:
+    """Gated MLP batched over experts: xe [E, C, H] -> [E, C, H]. The
+    GPT-OSS biases are added in the activation dtype before the clamp."""
+    g = qeinsum("ech,ehi->eci", xe, lp["gate"])
+    u = qeinsum("ech,ehi->eci", xe, lp["up"])
+    if style == "gpt_oss":
+        g = torch.clamp(g + lp["gate_bias"][:, None, :], max=_GPT_OSS_LIMIT)
+        u = torch.clamp(u + lp["up_bias"][:, None, :], -_GPT_OSS_LIMIT,
+                        _GPT_OSS_LIMIT)
+        h = (u + 1.0) * (g * torch.sigmoid(g * _GPT_OSS_ALPHA))
+        return (qeinsum("eci,eih->ech", h, lp["down"])
+                + lp["down_bias"][:, None, :])
+    return qeinsum("eci,eih->ech", torch.nn.functional.silu(g) * u,
+                   lp["down"])
+
+
+def moe_ffn(x2d: torch.Tensor, lp, config: LlamaConfig) -> torch.Tensor:
+    """Sparse-MoE MLP over a flat token batch x2d [N, H]; lp holds router
+    [H, E], gate / up [E, H, I], down [E, I, H] (+ the GPT-OSS biases).
+    Returns [N, H] in x2d's dtype."""
+    c = config
+    E = lp["gate"].shape[0]
+    N, H = x2d.shape
+    cw = router_combine_weights(x2d, lp["router"], c.num_experts_per_tok,
+                                lp.get("router_bias"), c.moe_style,
+                                c.moe_norm_topk)
+    if c.moe_impl == "dense":
+        ye = _expert_ffn(x2d[None].expand(E, N, H), lp, c.moe_style)
+        out = torch.einsum("ne,enh->nh", cw.to(ye.dtype), ye)
+        return (out + _shared_expert(x2d, lp)).to(x2d.dtype)
+    if c.moe_impl != "dispatch":
+        raise ValueError(f"unknown moe_impl {c.moe_impl!r}")
+
+    # capacity per expert; cf >= E / k means no token can drop
+    cap = int(-(-N * c.num_experts_per_tok * c.moe_capacity_factor // E))
+    cap = max(1, min(cap, N))
+    selected = cw > 0                                             # [N, E]
+    # arrival-order position of each (token, expert) pair in e's bucket
+    pos = torch.cumsum(selected.int(), dim=0) - 1
+    pos = torch.where(selected & (pos < cap), pos, torch.full_like(pos, cap))
+    # one-hot over cap + 1 columns, the last (a drop) cut off
+    disp = torch.nn.functional.one_hot(pos.long(), cap + 1)[..., :cap]
+    disp = disp.to(x2d.dtype)                                     # [N, E, C]
+    xe = torch.einsum("nec,nh->ech", disp, x2d)                   # [E, C, H]
+    ye = _expert_ffn(xe, lp, c.moe_style)
+    comb = disp.float() * cw[..., None]                           # [N, E, C]
+    out = torch.einsum("nec,ech->nh", comb.to(ye.dtype), ye)
+    return (out + _shared_expert(x2d, lp)).to(x2d.dtype)

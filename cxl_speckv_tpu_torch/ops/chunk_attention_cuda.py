@@ -9,9 +9,8 @@ float32 (batched chunked prefill; speculative verify with T = gamma + 1).
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
 version `ops/chunk_attention.paged_chunk_attention`. The storage kind
-(MIXED8 with its `scheme_id` as INT8 or FP8), window and softcap are launch
-arguments, as in K1; sinks, which the kernel does not cover yet, raise
-NotImplementedError on CUDA.
+(MIXED8 with its `scheme_id` as INT8 or FP8), window, softcap and sinks are
+launch arguments, as in K1.
 """
 
 from __future__ import annotations
@@ -27,7 +26,9 @@ from cxl_speckv_tpu_torch.ops.paged_attention import (
     KV_KINDS,
     check_cuda_call,
     check_head_dim,
+    count_launch,
     launch_variant,
+    sink_logits,
 )
 
 # query rows per CTA: R * head_dim <= 8192 (the kernel's accumulator)
@@ -66,8 +67,7 @@ def paged_chunk_attention_cuda(
     if q.device.type != "cuda":
         raise ValueError(f"paged_chunk_attention: unsupported device {q.device}")
     kind = check_cuda_call("paged_chunk_attention", kv_dtype, scheme_id,
-                           compute_dtype, sinks,
-                           (k_pool, v_pool, k_scale, v_scale),
+                           compute_dtype, (k_pool, v_pool, k_scale, v_scale),
                            (q, k_new, v_new, block_table, start_pos))
     win, cap = launch_variant(window, softcap)
     B, T, Hq, D = q.shape
@@ -82,6 +82,7 @@ def paged_chunk_attention_cuda(
         raise ValueError("paged_chunk_attention: block_table / start_pos batch")
     if sm_scale is None:
         sm_scale = D ** -0.5
+    sk = sink_logits("paged_chunk_attention", sinks, Hq, q.device)
     qf = q.float().contiguous()
     kf = k_new.float().contiguous()
     vf = v_new.float().contiguous()
@@ -91,16 +92,19 @@ def paged_chunk_attention_cuda(
     fn = cuda_build.kernel("chunk_attention")
     err = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), k_pool.data_ptr(),
              v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-             table.data_ptr(), start.data_ptr(), out.data_ptr(), B, T, Hq,
+             table.data_ptr(), start.data_ptr(),
+             None if sk is None else sk.data_ptr(), out.data_ptr(), B, T, Hq,
              Hkv, D, bs, table.shape[1], rows_per_cta(T, Hq // Hkv, D),
              KV_KINDS[kind], int(compute_dtype == torch.bfloat16), win,
              float(sm_scale), cap,
              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_chunk_attention", err)
-    paged_chunk_attention_cuda.launches[kind.value, win] += 1
+    count_launch(paged_chunk_attention_cuda, kind, win, sk)
     return out.to(q.dtype)
 
 
-# kernel launches by (scheme decoded, window), as K1's `launches`; CPU calls
-# are not counted. The total is the sum of the values.
+# kernel launches by (scheme decoded, window), as K1's `launches` and
+# `sink_launches`; CPU calls are not counted. The total is the sum of the
+# values.
 paged_chunk_attention_cuda.launches = Counter()
+paged_chunk_attention_cuda.sink_launches = Counter()

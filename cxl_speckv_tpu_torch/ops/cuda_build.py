@@ -27,12 +27,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# exported symbol and argument types of each source
+# exported symbol and argument types of each source (a null pointer for
+# the optional sinks)
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 8 + [_I] * 9 + [_F, _F, _P]),
+                        [_P] * 9 + [_I] * 9 + [_F, _F, _P]),
     "chunk_attention": ("chunk_attention_launch",
-                        [_P] * 10 + [_I] * 11 + [_F, _F, _P]),
+                        [_P] * 11 + [_I] * 11 + [_F, _F, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

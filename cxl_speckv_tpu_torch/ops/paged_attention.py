@@ -10,8 +10,8 @@ the block table, with dequantization fused into the attention.
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
 version `ops/paged_attention_ref.paged_attention_ref`. The kernel takes the
 storage kind (INT8, BF16, FP8, INT4; MIXED8 with its `scheme_id` launches as
-INT8 or FP8), the sliding window and the tanh softcap as launch arguments;
-sinks, which it does not cover yet, raise NotImplementedError on CUDA.
+INT8 or FP8), the sliding window, the tanh softcap and the GPT-OSS sink
+logits (a float32 pointer, null for none) as launch arguments.
 """
 
 from __future__ import annotations
@@ -30,13 +30,10 @@ KV_KINDS = {KVDtype.INT8: 0, KVDtype.BF16: 1, KVDtype.FP8: 2, KVDtype.INT4: 3}
 
 
 def check_cuda_call(name: str, kv_dtype: KVDtype, scheme_id, compute_dtype,
-                    sinks, pools, tensors) -> KVDtype:
+                    pools, tensors) -> KVDtype:
     """Shared argument checks of the CUDA attention wrappers. Returns the
     scheme the kernel decodes (MIXED8 resolved by `scheme_id`)."""
     kind = decoded_scheme(kv_dtype, scheme_id)
-    if sinks is not None:
-        raise NotImplementedError(f"{name}: attention sinks are not ported "
-                                  "to CUDA")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"{name}: compute dtype {compute_dtype}")
     want = torch.bfloat16 if kind == KVDtype.BF16 else torch.int8
@@ -65,6 +62,25 @@ def check_head_dim(name: str, kind: KVDtype, D: int, k_pool) -> None:
     if k_pool.shape[-1] * pack != D or D % (4 * pack):
         raise ValueError(f"{name}: head_dim {D} does not fit pool rows of "
                          f"{k_pool.shape[-1]} for {kind}")
+
+
+def sink_logits(name: str, sinks, num_q_heads: int, device):
+    """The sinks as the kernels read them: float32 [Hq] on the card (the
+    tree stores them in the activation dtype), or None."""
+    if sinks is None:
+        return None
+    if sinks.shape != (num_q_heads,) or sinks.device != device:
+        raise ValueError(f"{name}: sinks must be [{num_q_heads}] on {device},"
+                         f" got {tuple(sinks.shape)} on {sinks.device}")
+    return sinks.float().contiguous()
+
+
+def count_launch(fn, kind: KVDtype, window: int, sinks) -> None:
+    """One launch of `fn`'s kernel, by (scheme decoded, window); launches
+    with sinks also count in `fn.sink_launches`."""
+    fn.launches[kind.value, window] += 1
+    if sinks is not None:
+        fn.sink_launches[kind.value, window] += 1
 
 
 def launch_variant(window: int | None, softcap: float | None) -> tuple:
@@ -101,8 +117,7 @@ def paged_attention(
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     kind = check_cuda_call("paged_attention", kv_dtype, scheme_id,
-                           compute_dtype, sinks,
-                           (k_pool, v_pool, k_scale, v_scale),
+                           compute_dtype, (k_pool, v_pool, k_scale, v_scale),
                            (q, block_table, seq_lens))
     win, cap = launch_variant(window, softcap)
     B, Hq, D = q.shape
@@ -115,6 +130,7 @@ def paged_attention(
         raise ValueError("paged_attention: block_table / seq_lens batch")
     if sm_scale is None:
         sm_scale = D ** -0.5
+    sk = sink_logits("paged_attention", sinks, Hq, q.device)
     qf = q.float().contiguous()
     table = block_table.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
@@ -122,16 +138,19 @@ def paged_attention(
     fn = cuda_build.kernel("paged_attention")
     err = fn(qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, bs,
+             lens.data_ptr(), None if sk is None else sk.data_ptr(),
+             out.data_ptr(), B, Hq, Hkv, D, bs,
              table.shape[1], KV_KINDS[kind],
              int(compute_dtype == torch.bfloat16), win, float(sm_scale),
              cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_attention", err)
-    paged_attention.launches[kind.value, win] += 1
+    count_launch(paged_attention, kind, win, sk)
     return out.to(q.dtype)
 
 
 # kernel launches by (the scheme decoded, e.g. "int8" also for a MIXED8
 # layer of scheme id 0; the window, 0 = none) since the count was last
 # cleared; CPU calls are not counted. The total is the sum of the values.
+# `sink_launches`: the launches among them that carried sinks, same keys.
 paged_attention.launches = Counter()
+paged_attention.sink_launches = Counter()

@@ -8,11 +8,14 @@ scale multiplies the result:
     (x @ q) * s  ==  x @ (q * s)        exactly, when s is per-out-column
 
 The embedding quantizes per ROW, so one table serves the gather and,
-transposed, the tied lm_head matmul.
+transposed, the tied lm_head matmul. MoE expert weights [L, E, in, out]
+quantize per output channel of each expert (s [L, E, 1, out]); the router,
+biases, sinks and norms stay in full precision.
 
-`mm` converts the int8 weight to the activation dtype on every call
-(`x @ q.to(x.dtype) * s` through torch.matmul): a full-width temporary copy
-per call, a known cost that a fused W8A16 kernel would remove.
+`mm` and `qeinsum` convert the int8 weight to the activation dtype on
+every call (`x @ q.to(x.dtype) * s`): a full-width temporary copy per call,
+a known cost that a fused W8A16 kernel would remove. The JAX package runs
+these products outside any Pallas kernel too (XLA fuses its convert).
 """
 
 from __future__ import annotations
@@ -75,22 +78,33 @@ def quantize_tensor(w: torch.Tensor, axis: int = -2,
 
 
 # matmul weights of a layer (quantized per output channel)
-LAYER_MM_KEYS = frozenset({"q", "k", "v", "o", "gate", "up", "down"})
+LAYER_MM_KEYS = frozenset({"q", "k", "v", "o", "gate", "up", "down",
+                           "shared_gate", "shared_up", "shared_down"})
+# kept in full precision: the MoE router (routing runs in float32, and
+# top-k ties depend on it), sinks and the shared expert's scalar gate
+SKIP_LAYER_KEYS = frozenset({"router", "router_bias", "shared_expert_gate",
+                             "sinks"})
 
 
 def quantize_weights(params: dict, bits: int = 8) -> dict:
     """Quantize an `init_params`-layout tree to W8A16: every layer matmul
-    weight and lm_head per output channel, the embedding per row; norms
-    stay as they are. Idempotent on already-quantized leaves."""
+    weight (dense and expert) and lm_head per output channel, the embedding
+    per row; norms, biases and `SKIP_LAYER_KEYS` stay as they are. A layer
+    leaf of 3 or more dimensions that is neither raises, as in the JAX
+    package. Idempotent on already-quantized leaves."""
     out = dict(params)
     if not isinstance(params["embed"], QuantizedTensor):
         out["embed"] = quantize_tensor(params["embed"], axis=-1, bits=bits)
     layers = dict(params["layers"])
     for k, w in layers.items():
-        if k in LAYER_MM_KEYS and not isinstance(w, QuantizedTensor):
+        if isinstance(w, QuantizedTensor):
+            continue
+        if k in LAYER_MM_KEYS:
             layers[k] = quantize_tensor(w, axis=-2, bits=bits)
-        elif k not in LAYER_MM_KEYS and not k.endswith("_norm"):
-            raise ValueError(f"unclassified layer weight {k!r}")
+        elif (k not in SKIP_LAYER_KEYS and w.ndim >= 3
+              and not k.endswith(("_norm", "_bias"))):
+            raise ValueError(f"unclassified layer weight {k!r} (shape "
+                             f"{tuple(w.shape)})")
     out["layers"] = layers
     if "lm_head" in params and not isinstance(params["lm_head"],
                                               QuantizedTensor):
@@ -109,6 +123,17 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
             raise ValueError(f"mm needs per-out-column scales, axis={w.axis}")
         return (x @ w.q.to(x.dtype)) * w.s.to(x.dtype)
     return x @ w
+
+
+def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
+    """einsum(spec, x, w) where w may be quantized. The einsum contracts
+    exactly w's scale axis, and w's kept axes line up with the result's
+    last axes as [E, 1, out] against [E, C, out] (the MoE expert einsums
+    "ech,ehi->eci" and "eci,eih->ech"), as in the JAX package."""
+    if isinstance(w, QuantizedTensor):
+        y = torch.einsum(spec, x, w.q.to(x.dtype))
+        return y * w.s.squeeze(w.axis).to(x.dtype)[..., None, :]
+    return torch.einsum(spec, x, w)
 
 
 def take_rows(w, ids: torch.Tensor, dtype=None) -> torch.Tensor:

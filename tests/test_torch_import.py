@@ -40,7 +40,8 @@ def test_port_imports_no_jax():
     assert res["bad"] == [], f"the port loaded {res['bad']}"
     # every module of the slice was imported
     for name in ("ops.paged_attention", "ops.chunk_attention_cuda",
-                 "ops.cuda_build", "models.llama", "models.convert",
+                 "ops.cuda_build", "models.llama", "models.moe",
+                 "models.convert",
                  "engine.engine", "runtime.kv_cache", "runtime.hoststore",
                  "prefetcher.controller"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]

@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (decode) and K2 (chunk) against their plain PyTorch
 versions, on the card, for every storage scheme (INT8, BF16, INT4, FP8;
-MIXED8 by scheme id), with and without the sliding window and softcap.
+MIXED8 by scheme id), with and without the sliding window, softcap and
+GPT-OSS attention sinks.
 Every test here needs an NVIDIA card and `nvcc` and skips without them; on
 the card run
 
@@ -180,17 +181,60 @@ def test_chunk_kernel_matches_plain(dev, kv, cd, T):
         assert not within(wrong, want, cd)
 
 
-def test_unported_variants_raise_on_cuda(dev):
-    p, table = pools([20], KVDtype.INT8, dev, seed=3)
-    q = torch.randn(1, HQ, D, device=dev)
-    sl = torch.tensor([20], dtype=torch.int32, device=dev)
-    sinks = torch.zeros(HQ, device=dev)
-    with pytest.raises(NotImplementedError):
-        paged_attention(q, *p, table, sl, KVDtype.INT8, sinks=sinks)
-    kn = torch.randn(1, 4, HKV, D, device=dev)
-    with pytest.raises(NotImplementedError):
-        paged_chunk_attention_cuda(q[:, None].expand(1, 4, HQ, D), kn, kn, *p,
-                                   table, sl, KVDtype.INT8, sinks=sinks)
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_decode_kernel_sinks_matches_plain(dev, kv, cd, window):
+    """GPT-OSS sinks (N(0, 2^2), so they bind): the kernel equals the plain
+    version, a seq_len 0 lane still gives zeros, the plain result without
+    sinks fails the comparison, and the launch counts in `sink_launches`."""
+    lens = [0, 1, 15, 16, 17, 130]
+    p, table = pools(lens, kv, dev, seed=3)
+    q = torch.randn(len(lens), HQ, D, device=dev).to(cd)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sinks = (torch.randn(HQ, device=dev) * 2).to(cd)
+    kw = dict(compute_dtype=cd, window=window)
+    key = (kv.value, window or 0)
+    n0 = paged_attention.sink_launches[key]
+    got = paged_attention(q, *p, table, sl, kv, sinks=sinks, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.sink_launches[key] == n0 + 1
+    want = paged_attention_ref(q, *p, table, sl, kv, sinks=sinks, **kw)
+    close(got, want, cd)
+    assert not got[0].any()
+    assert not within(paged_attention_ref(q, *p, table, sl, kv, **kw), want,
+                      cd)
+    with pytest.raises(ValueError, match="sinks"):
+        paged_attention(q, *p, table, sl, kv, sinks=sinks[:-1], **kw)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_chunk_kernel_sinks_matches_plain(dev, kv, cd, window):
+    """Row r = t * G + g takes sinks[h * G + g]; T = 44 leaves padded rows
+    in the last row tile."""
+    starts = [0, 3, 16, 40, 100]
+    T = 44
+    p, table = pools([max(s, 1) for s in starts], kv, dev, seed=7)
+    B = len(starts)
+    q = torch.randn(B, T, HQ, D, device=dev).to(cd)
+    kn = torch.randn(B, T, HKV, D, device=dev)
+    vn = torch.randn(B, T, HKV, D, device=dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    sinks = torch.randn(HQ, device=dev) * 2
+    kw = dict(compute_dtype=cd, window=window)
+    key = (kv.value, window or 0)
+    n0 = paged_chunk_attention_cuda.sink_launches[key]
+    got = paged_chunk_attention_cuda(q, kn, vn, *p, table, st, kv,
+                                     sinks=sinks, **kw)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention_cuda.sink_launches[key] == n0 + 1
+    want = paged_chunk_attention(q, kn, vn, *p, table, st, kv, sinks=sinks,
+                                 **kw)
+    close(got, want, cd)
+    assert not within(paged_chunk_attention(q, kn, vn, *p, table, st, kv,
+                                            **kw), want, cd)
 
 
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])

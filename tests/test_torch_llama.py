@@ -69,8 +69,9 @@ def test_forward_dense_matches_jax(w8):
 def test_unported_features_raise():
     import dataclasses
 
-    for kw in ({"attn_sinks": True}, {"qk_norm": True},
-               {"num_experts": 4}, {"attn_bias": True}):
+    # sinks, experts, biases and YaRN are ported (tests/test_torch_gpt_oss.py)
+    for kw in ({"qk_norm": True}, {"rope_linear_factor": 8.0},
+               {"rope_local_theta": 10000.0}, {"act_fn": "gelu"}):
         with pytest.raises(NotImplementedError):
             tl.init_params(dataclasses.replace(CFG, **kw),
                            torch.Generator().manual_seed(0))
