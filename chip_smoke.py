@@ -33,6 +33,14 @@ Phases, each printing its results; any failure exits non-zero:
               0 and at start 128); the plain result without sinks must fail
               the comparison the kernel passes; then the served shapes timed
               with and without sinks in turns;
+5c. anatomy probes -- the decode-anatomy probes P1-P3
+              (`ops/decode_anatomy.py`: K1's walk with parts stripped, K1's
+              math on the TPU's kT pool, a cp.async ring) against their
+              plain versions for INT8, INT4 and BF16 at Llama-3-8B's heads,
+              bs 32, lanes up to 1024 tokens, and v2 against K1; then the
+              probe's command line at its default geometry (B 8, ctx 8192,
+              512 MB pools) at bs 32 and 128, each variant timed back to
+              back, K1 also in single-launch windows;
 6. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 32
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
@@ -89,7 +97,9 @@ Tolerances: kernel vs plain version within rtol = atol = 2e-4 at float32
 compute (the two sum in different orders) and rtol = atol = 2e-2 at bfloat16
 compute, where q and p * v_scale are rounded to bfloat16 and the output is
 bfloat16: a different float32 sum can round to the neighbouring bfloat16,
-one step of 2^-8 relative.
+one step of 2^-8 relative. The anatomy probes' attention outputs (P2 and
+K1 there) are float32: within rtol = atol = 2e-4 of their plain versions,
+and v2 of K1; their sums and products as `decode_anatomy.agreement` says.
 """
 
 from __future__ import annotations
@@ -176,22 +186,13 @@ def fail(msg: str) -> None:
 # the card
 # ---------------------------------------------------------------------------
 
-def card_peaks(name: str) -> dict:
-    """Datasheet peaks of the H100 variant nvidia-smi names (dense rates):
-    HBM bytes/s, bf16 tensor-core FLOP/s, float32 (non-tensor) FLOP/s."""
-    if "PCIe" in name:
-        return {"hbm": 2.0e12, "bf16": 756e12, "f32": 51e12, "part": "PCIe"}
-    if "NVL" in name:
-        return {"hbm": 3.9e12, "bf16": 835e12, "f32": 60e12, "part": "NVL"}
-    return {"hbm": 3.35e12, "bf16": 989e12, "f32": 67e12, "part": "SXM"}
-
-
 def phase_device() -> tuple[str, str]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     from cxl_speckv_tpu_torch.ops import cuda_build
+    from cxl_speckv_tpu_torch.utils.card import card_peaks
 
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"],
                           capture_output=True, text=True, timeout=60,
@@ -225,33 +226,13 @@ def phase_build() -> None:
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Median of `iters` CUDA-event timings of one call each."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    from cxl_speckv_tpu_torch.utils.card import single_launch_ms
+
+    return single_launch_ms(fn, iters, warmup)
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(peaks: dict, nbytes_moved: float, bf16_ops: float,
-          f32_ops: float) -> tuple[float, str]:
-    """Least time in ms: bytes over the HBM rate vs operations over the peak
-    rate of their type; and which of the two bounds it."""
-    t_bytes = nbytes_moved / peaks["hbm"]
-    t_ops = bf16_ops / peaks["bf16"] + f32_ops / peaks["f32"]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernels():
@@ -395,6 +376,7 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
             sinks=False):
     from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
     from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
 
     hq, _, d = heads
     pools, table = make_pools(gen, kv, lens, heads, extra_blocks=2,
@@ -442,9 +424,9 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
             -(-n // BS) - max(0, n - (window or n)) // BS for n in lens if n))
             + nbytes(got))
         ops = sum(4 * hq * d * (c + f) for c, f, _ in work)
-        row["bound_ms"], row["bound_by"] = bound(
-            peaks, moved, ops if cd == torch.bfloat16 else 0,
-            ops if cd == torch.float32 else 0)
+        row["bound_ms"], row["bound_by"] = bound_ms(peaks, moved, {
+            "bf16": ops if cd == torch.bfloat16 else 0,
+            "f32": ops if cd == torch.float32 else 0})
     return row
 
 
@@ -455,6 +437,7 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
     from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
         paged_chunk_attention_cuda,
     )
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
 
     hq, hkv, d = heads
     pools, table = make_pools(gen, kv, starts, heads, extra_blocks=1,
@@ -502,9 +485,9 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
                  + nbytes(got))
         ctx_ops = sum(4 * hq * d * c for c, _, _ in work)
         fresh_ops = sum(4 * hq * d * f for _, f, _ in work)  # IEEE f32
-        row["bound_ms"], row["bound_by"] = bound(
-            peaks, moved, ctx_ops if cd == torch.bfloat16 else 0,
-            fresh_ops + (ctx_ops if cd == torch.float32 else 0))
+        row["bound_ms"], row["bound_by"] = bound_ms(peaks, moved, {
+            "bf16": ctx_ops if cd == torch.bfloat16 else 0,
+            "f32": fresh_ops + (ctx_ops if cd == torch.float32 else 0)})
     return row
 
 
@@ -783,6 +766,155 @@ def phase_kernels_gpt_oss(peaks) -> dict:
         print(f"[gpt-oss] {key}: {a:.4f} ms with sinks, {b:.4f} ms without "
               f"({a / b - 1:+.1%})", flush=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the decode-anatomy probes P1-P3 and K1 timed against them
+# ---------------------------------------------------------------------------
+
+PROBE_LENS = [1024, 1023, 999, 512, 33, 32, 1, 0]     # the check's lanes
+# what the wrappers refuse at Llama-3-8B's heads (D 128), by scheme and bs:
+# w8a8 on BF16 pools, and a ring over the 227 KB of shared memory a block
+# may have (a stage is K + V + scales of one block: 8.25 KB at INT8 bs 32,
+# 16.25 KB at BF16 bs 32, 33 KB at INT8 bs 128)
+PROBE_REFUSED = {("int8", BS): set(), ("int4", BS): set(),
+                 ("bf16", BS): {"w8a8", "v5ring16"},
+                 ("int8", 128): {"v5ring8", "v5ring16"}}
+PROBE_SOURCES = {    # probe -> (source, the TPU kernel it replaces)
+    "P1": ("cxl_speckv_tpu_torch/csrc/anatomy_variants.cu",
+           "scripts/kernel_anatomy.py:204"),
+    "P2": ("cxl_speckv_tpu_torch/csrc/anatomy_kt.cu",
+           "scripts/kernel_anatomy.py:360"),
+    "P3": ("cxl_speckv_tpu_torch/csrc/anatomy_ring.cu",
+           "scripts/kernel_anatomy.py:462")}
+
+
+def probe_of(label: str) -> str:
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    return ("P1" if label in da.P1_MODES else
+            "P2" if label in da.P2_VARIANTS else "P3")
+
+
+def check_probes(scheme: str, seed: int) -> None:
+    """Every probe against its plain version at Llama-3-8B's heads, bs 32,
+    lanes of PROBE_LENS tokens at shuffled slots; v2 against K1 on the same
+    data; what PROBE_REFUSED names must raise ValueError, and nothing
+    else."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+    from cxl_speckv_tpu_torch.scripts.kernel_anatomy import LABELS
+
+    p = da.build_pools(scheme, BS, max(PROBE_LENS), heads=LLAMA_HEADS,
+                       seed=seed, lens=PROBE_LENS, shuffle=True, device=DEV)
+    kern, plain = da.probe_calls(p), da.plain_calls(p)
+    refuse = PROBE_REFUSED[(scheme, BS)]
+    errs = []
+    for label in LABELS[1:]:
+        try:
+            got = kern[label]()
+        except ValueError as e:
+            if label not in refuse:
+                fail(f"probe {scheme} {label}: refused: {e}")
+            errs.append(f"{label} refused")
+            continue
+        if label in refuse:
+            fail(f"probe {scheme} {label}: the wrapper did not refuse it")
+        torch.cuda.synchronize()
+        err, ok, tol = da.agreement(label, got, plain[label](), p)
+        if not ok:
+            fail(f"probe {scheme} {label}: error {err} beyond {tol}")
+        errs.append(f"{label} {err:.2e}")
+    # both round q and p * vs to bf16 and sum in float32: rtol = atol = 2e-4
+    err, ok = compare(kern["v2"](), kern["full"](), TOL[torch.float32])
+    torch.cuda.synchronize()
+    if not ok:
+        fail(f"probe {scheme}: v2 differs from K1 by {err}")
+    print(f"[probe] {scheme} lens={PROBE_LENS}: every probe within its "
+          f"tolerance of its plain version (max |err|: {', '.join(errs)}); "
+          f"v2 vs K1 {err:.2e} (rtol = atol = {TOL[torch.float32]:g})",
+          flush=True)
+
+
+def phase_probe(peaks) -> list:
+    """The decode-anatomy probe. First every P1 mode, P2 variant and P3
+    ring against its plain version for INT8, INT4 and BF16 (`check_probes`,
+    ctx 1024). Then the probe's own path, its command line
+    (`cxl_speckv_tpu_torch.scripts.kernel_anatomy`) at the default geometry
+    -- B 8, Hq 32, Hkv 8, D 128, ctx 8192, INT8, 512 MB pools, seeded
+    random values -- at the served bs 32 and the script's bs 128, its
+    launch counts read from 0; every variant that fits must have launched.
+    Returns the kernel-line entries (bs 32): each probe's time back to back,
+    its error, plain and library times and bound at that geometry."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+    from cxl_speckv_tpu_torch.scripts import kernel_anatomy as ka
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
+
+    for i, scheme in enumerate(da.SCHEMES):
+        check_probes(scheme, 50 + i)
+    da.reset_probe_launches()
+    runs = {}
+    for bs in (BS, 128):
+        runs[bs] = ka.run(ka.parse_args(["--scheme", "int8", "--bs", str(bs),
+                                         "--seed", "7"]))
+        rows, p = runs[bs]
+        failed = {label for label, row in rows.items() if "fail" in row}
+        if failed != PROBE_REFUSED[("int8", bs)]:
+            fail(f"probe bs {bs}: refused {sorted(failed)}, expected "
+                 f"{sorted(PROBE_REFUSED[('int8', bs)])}")
+        if bs != BS:
+            del p, runs[bs]
+    launches = da.probe_launches()
+    rows, p = runs[BS]
+    missing = [lb for lb in ka.LABELS[1:] if not launches.get(lb)]
+    if missing:
+        fail(f"probe: no launch of {missing} on the probe's path ({launches})")
+    full = rows["full"]["us"]
+    print(f"[probe] K1 at ctx {int(p.lens.max())}, bs {BS}: {full:.1f} us back to back, "
+          f"{rows['full'].get('single_us', float('nan')):.1f} us in a "
+          f"single-launch window; "
+          "share of K1: " + ", ".join(
+              f"{lb} {rows[lb]['us'] / full:.1%}" for lb in ka.LABELS[1:]
+              if "us" in rows[lb]) + f"; launches {launches}", flush=True)
+    # K1 at the served decode shape, back to back against single-launch
+    # event windows: how much of a ~0.1 ms window is the kernel
+    sp = da.build_pools("int8", BS, SHORT.prompt + SHORT.gen,
+                        heads=LLAMA_HEADS, seed=8, lens=served_lens(SHORT, 5),
+                        device=DEV)
+    k1 = da.probe_calls(sp)["full"]
+    b2b, one = ka.back_to_back_us(k1, 200, DEV), time_ms(k1) * 1e3
+    print(f"[probe] K1 at the served decode shape (8 lanes, lens "
+          f"{sp.lens.tolist()}): {b2b:.2f} us back to back (200 launches), "
+          f"{one:.2f} us in single-launch windows (median of 20)", flush=True)
+    del sp
+
+    kern, plain = da.probe_calls(p), da.plain_calls(p)
+    entries = []
+    for label in ka.LABELS[1:]:
+        got = kern[label]()
+        want = plain[label]()
+        torch.cuda.synchronize()
+        err, ok, tol = da.agreement(label, got, want, p)
+        if not ok:
+            fail(f"probe {label} at ctx 8192: error {err} beyond {tol}")
+        lib = da.contiguous_sums(label, p)
+        nb, ops = da.probe_work(label, p)
+        b_ms, by = bound_ms(peaks, nb, ops)
+        src, replaces = PROBE_SOURCES[probe_of(label)]
+        entry = {"name": f"anatomy {label}", "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches[label],
+                 "max_abs_err": err, "ms": rows[label]["us"] / 1e3,
+                 "plain_ms": time_ms(plain[label], iters=2, warmup=1),
+                 "bound_ms": b_ms, "bound_by": by,
+                 # the PyTorch reductions of the same sums over the
+                 # contiguous table (decode_anatomy.contiguous_sums), where
+                 # there are such; none for dequant, the products and P2
+                 "library_ms": time_ms(lib, iters=5) if lib else None}
+        print(f"[probe] {label}: {entry['ms']:.4f} ms back to back, plain "
+              f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({by}), "
+              f"library {entry['library_ms']}, max |err| {err:.3e} ({tol})",
+              flush=True)
+        entries.append(entry)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -1221,6 +1353,8 @@ def main() -> int:
         print("chip_smoke: run it from a checkout of the repository: the "
               "cxl_speckv_tpu_torch package is not beside it", file=sys.stderr)
         return 1
+    from cxl_speckv_tpu_torch.utils.card import card_peaks
+
     t_start = time.monotonic()
     smi, name = phase_device()
     peaks = card_peaks(name)
@@ -1230,6 +1364,7 @@ def main() -> int:
     mistral_rows = timed("kernels mistral", phase_kernels_mistral, peaks)
     scheme_rows = timed("kernels schemes", phase_kernels_schemes, peaks)
     gpt_rows = timed("kernels gpt-oss", phase_kernels_gpt_oss, peaks)
+    probe_entries = timed("anatomy probes", phase_probe, peaks)
     launches, cfg, params, prompts = timed("serve", phase_serve)
     timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
     int4_launches, mixed_launches = timed(
@@ -1268,6 +1403,7 @@ def main() -> int:
             entries.append(kernel_entry(
                 f"{kname} {kv}", key, scheme_rows[f"{key} {kv}"],
                 served[key].get((kv, 0), 0)))
+    entries += probe_entries
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

@@ -34,6 +34,10 @@ SIGNATURES = {
                         [_P] * 9 + [_I] * 9 + [_F, _F, _P]),
     "chunk_attention": ("chunk_attention_launch",
                         [_P] * 11 + [_I] * 11 + [_F, _F, _P]),
+    # the decode-anatomy probes P1, P2, P3 (ops/decode_anatomy.py)
+    "anatomy_variants": ("anatomy_variants_launch", [_P] * 8 + [_I] * 9 + [_P]),
+    "anatomy_kt": ("anatomy_kt_launch", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "anatomy_ring": ("anatomy_ring_launch", [_P] * 7 + [_I] * 7 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -41,7 +41,8 @@ def test_port_imports_no_jax():
     # every module of the slice was imported
     for name in ("ops.paged_attention", "ops.chunk_attention_cuda",
                  "ops.cuda_build", "models.llama", "models.moe",
-                 "models.convert",
+                 "models.convert", "ops.decode_anatomy",
+                 "scripts.kernel_anatomy", "utils.card",
                  "engine.engine", "runtime.kv_cache", "runtime.hoststore",
                  "prefetcher.controller"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]

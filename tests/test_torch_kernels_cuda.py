@@ -311,3 +311,90 @@ def test_engine_on_card_tiers_invisibly(dev):
     assert st["transfer"]["up_transfers"] > 0
     assert launched(paged_attention) > k1
     assert launched(paged_chunk_attention_cuda) > k2
+
+
+# ---------------------------------------------------------------------------
+# the decode-anatomy probes P1-P3 (ops/decode_anatomy.py): every mode,
+# variant and ring depth against its plain version, at Llama-3-8B's heads
+# and the served block size, lanes of 300, 257, 33 and 0 tokens at shuffled
+# slots. Sums within 1e-5 of (|plain| + the plain sum of |terms|); matmul /
+# matmulT within 2e-3 of each (lane, head)'s largest value; P2 (float32
+# outputs) within the float32 tolerance above, against its plain version
+# and against K1.
+# ---------------------------------------------------------------------------
+
+def probe_pools(scheme, seed=11):
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    return da.build_pools(scheme, 32, 300, batch=4, heads=(32, 8, 128),
+                          seed=seed, lens=[300, 257, 33, 0], shuffle=True,
+                          device="cuda")
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("mode", ["fetchrow", "fetchint", "fetch", "dequant",
+                                  "matmul", "matmulT"])
+def test_anatomy_variant_kernel_matches_plain(dev, scheme, mode):
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme)
+    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
+    n0 = da.variant.launches[mode]
+    got = da.variant(mode, *args)
+    torch.cuda.synchronize()
+    assert da.variant.launches[mode] == n0 + 1
+    want = da.variant_plain(mode, *args)
+    if mode == "fetchint":
+        assert torch.equal(got, want)
+    elif mode in da.SUM_MODES:
+        err, ok = da.within_sum(got, want,
+                                da.variant_plain(mode, *args, absolute=True))
+        assert ok, err
+    else:
+        err, ok = da.within_rows(got, want)
+        assert ok, err
+    assert not got[3].any()                       # seq_len 0 -> zeros
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("name", ["v2", "v3fused", "w8a8"])
+def test_anatomy_kt_kernel_matches_plain(dev, scheme, name):
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme)
+    sc = (p.scf, None) if name == "v3fused" else (p.ks, p.vs)
+    args = (p.q, p.kt, p.v, *sc, p.table, p.lens, p.kv, name)
+    if name == "w8a8" and scheme == "bf16":
+        with pytest.raises(ValueError, match="w8a8"):
+            da.kt_attention(*args)
+        return
+    got = da.kt_attention(*args)
+    torch.cuda.synchronize()
+    close(got, da.kt_attention_plain(*args), torch.float32)
+    assert not got[3].any()
+    if name != "w8a8":
+        k1 = paged_attention(p.q, *p.token_major(), p.table, p.lens, p.kv,
+                             compute_dtype=torch.bfloat16)
+        close(got, k1, torch.float32)
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("nbuf", [4, 8, 16])
+def test_anatomy_ring_kernel_matches_plain(dev, scheme, nbuf):
+    """bs 32, D 128: a BF16 stage is 16 KB + 256 B, so 16 of them (264 KB)
+    do not fit in the 227 KB a block may have and must be refused."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme)
+    args = (*p.token_major(), p.table, p.lens, p.kv)
+    if scheme == "bf16" and nbuf == 16:
+        with pytest.raises(ValueError, match="shared memory"):
+            da.ring(nbuf, *args)
+        return
+    got = da.ring(nbuf, *args)
+    torch.cuda.synchronize()
+    assert da.ring.launches[f"v5ring{nbuf}"] > 0
+    want = da.variant_plain("fetchrow", p.q, *args)
+    err, ok = da.within_sum(got, want, da.variant_plain(
+        "fetchrow", p.q, *args, absolute=True))
+    assert ok, err
