@@ -7,7 +7,10 @@ Phases, each printing its results; any failure exits non-zero:
 
 1. device  -- the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build   -- compile every CUDA kernel of the serving path from
-              `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in parallel);
+              `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in
+              parallel), print each kernel's registers and spills, and
+              require tensor-core (HMMA) instructions in the SASS of K2's
+              bf16-compute kernels and none in its float32 ones;
 3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
               versions at the Llama-3-8B attention geometry (Hq 32, Hkv 8,
               D 128, bs 32);
@@ -87,7 +90,8 @@ Phases, each printing its results; any failure exits non-zero:
 
 Each model's weights are freed before the next phase draws its own. Then
 one JSON line of per-kernel numbers (launches on the served path, error
-against the plain version, times, bounds), the nvidia-smi line, and last
+against the plain version, times in single-launch windows and K1 / K2's
+back to back, bounds), the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card the script exits 1
 before printing any result.
 
@@ -218,6 +222,18 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {'compiled ' + ', '.join(sorted(logs)) if logs else 'cached'}"
           f" in {dt:.1f} s", flush=True)
+    # K2: the bf16-compute kernel runs its context products on the tensor
+    # cores, the float32-compute kernel on none
+    hmma = {"chunk_mma_kernel": 0, "chunk_kernel": 0}
+    for fn, n in cuda_build.sass_counts("chunk_attention", "HMMA").items():
+        hmma["chunk_mma_kernel" if "chunk_mma_kernel" in fn
+             else "chunk_kernel"] += n
+    print(f"[build] chunk_attention: HMMA instructions in the SASS of the "
+          f"bf16-compute kernels {hmma['chunk_mma_kernel']}, of the "
+          f"float32-compute kernels {hmma['chunk_kernel']}", flush=True)
+    if not hmma["chunk_mma_kernel"] or hmma["chunk_kernel"]:
+        fail(f"chunk_attention: HMMA counts {hmma}: tensor cores must run "
+             f"the bf16-compute kernels and only them")
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +245,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     from cxl_speckv_tpu_torch.utils.card import single_launch_ms
 
     return single_launch_ms(fn, iters, warmup)
+
+
+def b2b_ms(fn, iters: int = 30) -> float:
+    """ms a call, `iters` calls back to back between two CUDA events: no
+    host dispatch between launches, unlike `time_ms`."""
+    from cxl_speckv_tpu_torch.utils.card import back_to_back_us
+
+    return back_to_back_us(fn, iters, DEV) / 1e3
 
 
 def nbytes(*ts) -> int:
@@ -416,6 +440,7 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_attention(*args, **kw))
+        row["b2b_ms"] = b2b_ms(lambda: paged_attention(*args, **kw))
         row["plain_ms"] = time_ms(lambda: paged_attention_ref(*args, **kw),
                                   iters=5)
         work = [attended(n - 1, 1, window) for n in lens if n]
@@ -476,6 +501,8 @@ def k2_case(gen, kv, cd, T, starts, peaks, heads=LLAMA_HEADS, timed=False,
     row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
     if timed:
         row["ms"] = time_ms(lambda: paged_chunk_attention_cuda(*args, **kw))
+        row["b2b_ms"] = b2b_ms(lambda: paged_chunk_attention_cuda(*args,
+                                                                  **kw))
         row["plain_ms"] = time_ms(lambda: paged_chunk_attention(*args, **kw),
                                   iters=5)
         work = [attended(s, T, window) for s in starts]
@@ -496,7 +523,8 @@ def report(row) -> None:
     if "ms" in row:
         turns = ("" if "ms_turns" not in row else " (turns " + ", ".join(
             f"{t:.4f}" for t in row["ms_turns"]) + ")")
-        extra = (f" | kernel {row['ms']:.4f} ms{turns}, plain "
+        extra = (f" | kernel {row['ms']:.4f} ms{turns}, back to back "
+                 f"{row['b2b_ms']:.4f} ms, plain "
                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                  f"({row['bound_by']})")
     print(f"[{row['case'][:2]}] {row['case']}: max |err| {row['err']:.3e}"
@@ -510,6 +538,7 @@ def merge_turns(a: dict, b: dict) -> dict:
     """One row from two timings of the same shape: the mean time (both kept
     as ms_turns) and the larger error."""
     return dict(a, ms=(a["ms"] + b["ms"]) / 2,
+                b2b_ms=(a["b2b_ms"] + b["b2b_ms"]) / 2,
                 plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
                 ms_turns=(a["ms"], b["ms"]), err=max(a["err"], b["err"]),
                 ok=a["ok"] and b["ok"])
@@ -881,7 +910,7 @@ def phase_probe(peaks) -> list:
                         heads=LLAMA_HEADS, seed=8, lens=served_lens(SHORT, 5),
                         device=DEV)
     k1 = da.probe_calls(sp)["full"]
-    b2b, one = ka.back_to_back_us(k1, 200, DEV), time_ms(k1) * 1e3
+    b2b, one = b2b_ms(k1, 200) * 1e3, time_ms(k1) * 1e3
     print(f"[probe] K1 at the served decode shape (8 lanes, lens "
           f"{sp.lens.tolist()}): {b2b:.2f} us back to back (200 launches), "
           f"{one:.2f} us in single-launch windows (median of 20)", flush=True)
@@ -1337,6 +1366,7 @@ def kernel_entry(name, key, row, launches) -> dict:
     return {"name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["err"], "ms": row["ms"],
+            "b2b_ms": row["b2b_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             # no single PyTorch call computes attention over a paged,

@@ -1,10 +1,12 @@
-// The pool tile loader shared by K1 (paged_attention.cu) and K2
+// The pool tile loaders shared by K1 (paged_attention.cu) and K2
 // (chunk_attention.cu): a block's [bs, D] K and V tiles of the quantized
-// pool, converted to float32 in shared memory, for each storage kind the
-// pool may hold. Counterpart of `_dequant_tile` in `cxl_speckv_tpu/ops/
-// paged_attention.py`. Every stored value is exact in float32 (int8 and
-// int4 integers, bf16, e4m3), so a kernel's arithmetic does not depend on
-// the kind; only the bytes it reads do (INT4 reads half of INT8's).
+// pool, decoded into shared memory, for each storage kind the pool may
+// hold. Counterpart of `_dequant_tile` in `cxl_speckv_tpu/ops/
+// paged_attention.py`. `load_kv_tiles` writes float32 (K1, and K2 at
+// float32 compute); `load_kv_tiles_bf16` writes bfloat16 (K2's tensor-core
+// path). Every stored value is exact in both (int8 and int4 integers, bf16,
+// e4m3 with its 3 mantissa bits), so a kernel's arithmetic does not depend
+// on the kind; only the bytes it reads do (INT4 reads half of INT8's).
 //
 // Kinds (the launch argument `kv_kind`; the wrappers map MIXED8 with a
 // scheme id onto INT8 or FP8):
@@ -110,6 +112,128 @@ __device__ __forceinline__ void load_kv_tiles(const void* k_pool,
       for (int c = 0; c < 4; ++c) {
         k_dst[t * k_ds + d + c] = kv[c];
         v_dst[t * v_ds + d + c] = vv[c];
+      }
+    }
+  }
+}
+
+// two floats -> a bf16x2 word, round to nearest even (exact for stored values)
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// four int8 / e4m3 bytes of a word (lowest address in the low byte) ->
+// two bf16x2 words
+template <int KIND>
+__device__ __forceinline__ uint2 decode4_bf16(uint32_t w) {
+  float f[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t b = (w >> (8 * c)) & 0xFFu;
+    f[c] = KIND == KV_FP8 ? fp8_e4m3(b) : (float)(int8_t)b;
+  }
+  return make_uint2(bf16x2(f[0], f[1]), bf16x2(f[2], f[3]));
+}
+
+// eight INT4 bytes (elements j .. j + 7 in the low nibbles, j + D/2 .. in
+// the high ones) -> eight bf16 elements each
+__device__ __forceinline__ void decode_int4_bf16(uint2 w, uint4& lo,
+                                                 uint4& hi) {
+  uint32_t l[4], h[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint32_t x = ((c < 2 ? w.x : w.y) >> ((c & 1) * 16)) & 0xFFFFu;
+    l[c] = bf16x2(nibble(x & 0xF), nibble((x >> 8) & 0xF));
+    h[c] = bf16x2(nibble((x >> 4) & 0xF), nibble(x >> 12));
+  }
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+// The K and V tiles `tile` of the pools -> bf16 k_dst[t * ld + d] and
+// v_dst[t * ld + d], for t < bs and d < D, in one loop (two loops made
+// ptxas spill in K1): NT threads share the work, each with U = 2 16-byte
+// vectors of K and of V in flight (INT4: 8-byte vectors) before it decodes
+// and stores them (an INT8 [32, 256] tile pair is 1024 vectors: one step
+// of 256 threads). Needs D % 16 == 0 and ld % 8 == 0 (16-byte stores).
+template <int KIND, int NT>
+__device__ __forceinline__ void load_kv_tiles_bf16(
+    const void* k_pool, const void* v_pool, size_t tile, __nv_bfloat16* k_dst,
+    __nv_bfloat16* v_dst, int ld, int bs, int D) {
+  constexpr int U = 2;
+  const int tid = threadIdx.x;
+  if constexpr (KIND == KV_INT4) {
+    const int H = D / 2;                      // bytes a row, 8 a vector
+    const uint2* ks = reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(k_pool) + tile * H);
+    const uint2* vs = reinterpret_cast<const uint2*>(
+        static_cast<const uint8_t*>(v_pool) + tile * H);
+    const int n = bs * H / 8;
+    for (int i0 = tid; i0 < n; i0 += NT * U) {
+      uint2 kw[U], vw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n) { kw[u] = __ldg(ks + i); vw[u] = __ldg(vs + i); }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n) {
+          const int t = i * 8 / H, j = i * 8 % H;
+          uint4 lo, hi;
+          decode_int4_bf16(kw[u], lo, hi);
+          *reinterpret_cast<uint4*>(k_dst + t * ld + j) = lo;
+          *reinterpret_cast<uint4*>(k_dst + t * ld + j + H) = hi;
+          decode_int4_bf16(vw[u], lo, hi);
+          *reinterpret_cast<uint4*>(v_dst + t * ld + j) = lo;
+          *reinterpret_cast<uint4*>(v_dst + t * ld + j + H) = hi;
+        }
+      }
+    }
+  } else {
+    // 16-byte vectors: 8 bf16 elements, or 16 int8 / e4m3 bytes
+    constexpr int E = KIND == KV_BF16 ? 8 : 16;
+    const uint4* ks = reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(k_pool) + tile * D * (16 / E));
+    const uint4* vs = reinterpret_cast<const uint4*>(
+        static_cast<const uint8_t*>(v_pool) + tile * D * (16 / E));
+    const int n = bs * D / E;
+    for (int i0 = tid; i0 < n; i0 += NT * U) {
+      uint4 kw[U], vw[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n) { kw[u] = __ldg(ks + i); vw[u] = __ldg(vs + i); }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * NT;
+        if (i < n) {
+          const int t = i * E / D, d = i * E % D;
+          __nv_bfloat16* kr = k_dst + t * ld + d;
+          __nv_bfloat16* vr = v_dst + t * ld + d;
+          if constexpr (KIND == KV_BF16) {
+            *reinterpret_cast<uint4*>(kr) = kw[u];
+            *reinterpret_cast<uint4*>(vr) = vw[u];
+          } else {
+            const uint2 k0 = decode4_bf16<KIND>(kw[u].x),
+                        k1 = decode4_bf16<KIND>(kw[u].y),
+                        k2 = decode4_bf16<KIND>(kw[u].z),
+                        k3 = decode4_bf16<KIND>(kw[u].w);
+            *reinterpret_cast<uint4*>(kr) = make_uint4(k0.x, k0.y, k1.x, k1.y);
+            *reinterpret_cast<uint4*>(kr + 8) =
+                make_uint4(k2.x, k2.y, k3.x, k3.y);
+            const uint2 v0 = decode4_bf16<KIND>(vw[u].x),
+                        v1 = decode4_bf16<KIND>(vw[u].y),
+                        v2 = decode4_bf16<KIND>(vw[u].z),
+                        v3 = decode4_bf16<KIND>(vw[u].w);
+            *reinterpret_cast<uint4*>(vr) = make_uint4(v0.x, v0.y, v1.x, v1.y);
+            *reinterpret_cast<uint4*>(vr + 8) =
+                make_uint4(v2.x, v2.y, v3.x, v3.y);
+          }
+        }
       }
     }
   }

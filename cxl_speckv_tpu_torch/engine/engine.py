@@ -245,6 +245,12 @@ class Engine:
         outs = {o.req_id: o.tokens for o in self.run()}
         return [outs.get(i, []) for i in ids]
 
+    def set_prefetch_depth(self, depth: int) -> None:
+        """Runtime knob (`speckv_set_prefetch_depth`): the groups ahead that
+        the prefetcher plans for, clamped to [min_depth, max_depth]."""
+        pf = self.config.prefetch
+        self.prefetcher.depth = max(pf.min_depth, min(pf.max_depth, depth))
+
     def set_kv_dtype(self, kv_dtype) -> None:
         """Runtime compression-scheme knob (`speckv_set_compression_scheme`):
         requests submitted after the call quantize their KV with the new

@@ -7,10 +7,13 @@ and bound: T fresh queries per lane attend to the lane's quantized pool
 context through the block table, then causally to the fresh chunk in IEEE
 float32 (batched chunked prefill; speculative verify with T = gamma + 1).
 
-On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
-version `ops/chunk_attention.paged_chunk_attention`. The storage kind
-(MIXED8 with its `scheme_id` as INT8 or FP8), window, softcap and sinks are
-launch arguments, as in K1.
+On a CUDA tensor it launches a kernel; on a CPU tensor it runs the plain
+version `ops/chunk_attention.paged_chunk_attention`. bf16 compute launches
+the tensor-core kernel (64 query rows a CTA, head_dim % 16 == 0 and <= 256),
+float32 compute the float32 FMA kernel; a launch the chosen kernel refuses
+raises, and neither falls back to the other. The storage kind (MIXED8 with
+its `scheme_id` as INT8 or FP8), window, softcap and sinks are launch
+arguments, as in K1.
 """
 
 from __future__ import annotations
@@ -31,11 +34,16 @@ from cxl_speckv_tpu_torch.ops.paged_attention import (
     sink_logits,
 )
 
-# query rows per CTA: R * head_dim <= 8192 (the kernel's accumulator)
+# float32 kernel: query rows per CTA with R * head_dim <= 8192 (its
+# accumulator); the bf16 tensor-core kernel: four row groups of 16 rows
 _ROW_ELEMS = 8192
+MMA_ROWS = 64
+MMA_MAX_HEAD_DIM = 256
 
 
-def rows_per_cta(T: int, group: int, head_dim: int) -> int:
+def rows_per_cta(T: int, group: int, head_dim: int, bf16: bool) -> int:
+    if bf16:
+        return MMA_ROWS
     return max(1, min(64, _ROW_ELEMS // head_dim, T * group))
 
 
@@ -73,6 +81,11 @@ def paged_chunk_attention_cuda(
     B, T, Hq, D = q.shape
     _, Hkv, bs, _ = k_pool.shape
     check_head_dim("paged_chunk_attention", kind, D, k_pool)
+    bf16 = compute_dtype == torch.bfloat16
+    if bf16 and (D % 16 or D > MMA_MAX_HEAD_DIM):
+        raise ValueError(f"paged_chunk_attention: head_dim {D} at bf16 "
+                         f"compute needs a multiple of 16 up to "
+                         f"{MMA_MAX_HEAD_DIM}")
     if (Hq % Hkv or D > _ROW_ELEMS
             or k_new.shape != (B, T, Hkv, D) or v_new.shape != k_new.shape):
         raise ValueError(f"paged_chunk_attention: unsupported shape q "
@@ -94,8 +107,8 @@ def paged_chunk_attention_cuda(
              v_pool.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
              table.data_ptr(), start.data_ptr(),
              None if sk is None else sk.data_ptr(), out.data_ptr(), B, T, Hq,
-             Hkv, D, bs, table.shape[1], rows_per_cta(T, Hq // Hkv, D),
-             KV_KINDS[kind], int(compute_dtype == torch.bfloat16), win,
+             Hkv, D, bs, table.shape[1], rows_per_cta(T, Hq // Hkv, D, bf16),
+             KV_KINDS[kind], int(bf16), win,
              float(sm_scale), cap,
              torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_chunk_attention", err)

@@ -102,6 +102,32 @@ def kernel(name: str):
     return fn
 
 
+def sass_counts(name: str, opcode: str) -> dict[str, int]:
+    """{kernel (mangled name): how many of its SASS instructions start
+    with `opcode`} in source `name`'s built library (e.g. "HMMA", the
+    tensor-core products), by `cuobjdump -sass` from the toolkit beside
+    nvcc."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+            continue
+        # an instruction: "/*0a70*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"
+        # (predicated: "/*0a70*/  @P0 HMMA...")
+        if fn is None or "*/" not in line:
+            continue
+        words = line.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        counts[fn] += bool(words) and words[0].startswith(opcode)
+    return counts
+
+
 def check_launch(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "

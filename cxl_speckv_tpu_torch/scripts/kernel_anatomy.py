@@ -33,12 +33,15 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import torch
 
 from cxl_speckv_tpu_torch.ops import decode_anatomy as da
-from cxl_speckv_tpu_torch.utils.card import card_peaks, single_launch_ms
+from cxl_speckv_tpu_torch.utils.card import (
+    back_to_back_us,
+    card_peaks,
+    single_launch_ms,
+)
 
 # the script's order (`scripts/kernel_anatomy.py:495-528`), then the modes
 # its loop skips
@@ -67,27 +70,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(zero K, V and q, unit scales) instead")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return ap.parse_args(argv)
-
-
-def back_to_back_us(fn, iters: int, device: str) -> float:
-    """µs a call: `iters` calls back to back between two CUDA events (the
-    host clock on the CPU), after two warm-up calls."""
-    fn()
-    fn()
-    if device == "cpu":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters * 1e3
 
 
 def run(args: argparse.Namespace) -> tuple[dict, da.ProbePools]:

@@ -1,7 +1,8 @@
 """Datasheet peaks of the NVIDIA H100 variants (NVIDIA's data sheets, dense
 rates without sparsity, at the full power limit) and the least time a
 kernel's work could take on them: the bounds that `chip_smoke.py` and the
-decode-anatomy probe print; and the single-launch event timing both use."""
+decode-anatomy probe print; and the two timings both use, single-launch
+event windows and launches back to back."""
 
 from __future__ import annotations
 
@@ -51,3 +52,30 @@ def single_launch_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def back_to_back_us(fn, iters: int, device: str = "cuda") -> float:
+    """µs a call: `iters` calls back to back between two CUDA events (the
+    host clock on the CPU), after two warm-up calls. Unlike a
+    single-launch window, the host's dispatch of one call overlaps the
+    device's run of the one before."""
+    import time
+
+    import torch
+
+    fn()
+    fn()
+    if device == "cpu":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters * 1e3

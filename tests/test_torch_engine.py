@@ -157,6 +157,23 @@ def test_sampled_requests_finish_and_are_seeded():
     assert all(1 <= len(t) <= 8 for t in a)
 
 
+def test_runtime_prefetch_depth_knob():
+    """`set_prefetch_depth` clamps to [min_depth, max_depth], as the JAX
+    engine's does (`tests/test_engine.py:191-196`)."""
+    eng, ref = engine(), jax_engine()
+    pf = eng.config.prefetch
+    eng.set_prefetch_depth(6)
+    assert eng.prefetcher.depth == 6
+    eng.set_prefetch_depth(100)
+    assert eng.prefetcher.depth == pf.max_depth
+    eng.set_prefetch_depth(0)
+    assert eng.prefetcher.depth == pf.min_depth
+    for depth in (6, 100, 0, -3, pf.min_depth, pf.max_depth):
+        eng.set_prefetch_depth(depth)
+        ref.set_prefetch_depth(depth)
+        assert eng.prefetcher.depth == ref.prefetcher.depth
+
+
 def test_unported_paths_raise():
     with pytest.raises(ValueError, match="decode_horizon"):
         engine(horizon=0)

@@ -8,10 +8,13 @@ the card run
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 
 (`--noconftest`: the JAX test settings in tests/conftest.py import jax,
-which the card's machine does not need). Tolerances: 2e-4 at float32
-compute (the kernel sums in another order) and rtol = atol = 2e-2 at
-bfloat16 compute (q and p * v_scale round to bfloat16; a different float32
-sum can round to the neighbouring value). This file imports no JAX.
+which the card's machine does not need). K2 at bf16 compute runs the
+tensor-core kernel, at float32 compute the float32 FMA kernel. Tolerances:
+2e-4 at float32 compute (the kernel sums in another order) and rtol = atol
+= 2e-2 at bfloat16 compute with bf16 q (q and p * v_scale round to
+bfloat16, and so does the output; a different float32 sum can round to the
+neighbouring value); float32 q at bf16 compute: `TOL_F32_Q`. This file
+imports no JAX.
 """
 
 import numpy as np
@@ -41,16 +44,16 @@ def dev():
     return torch.device("cuda")
 
 
-def pools(lens, kv, dev, seed):
-    """Pools holding ceil(len / BS) blocks a lane at shuffled slots, the
+def pools(lens, kv, dev, seed, bs=BS, hkv=HKV, d=D):
+    """Pools holding ceil(len / bs) blocks a lane at shuffled slots, the
     guard slot last. INT4 / FP8 hold quantized random K/V, as the engine
     writes them; in FP8 pools every row no lane holds (the guard slot, the
     tails of partly filled blocks) holds NaN bytes (0x7F), which must read
     as 0."""
     rng = np.random.RandomState(seed)
-    nblk = [-(-n // BS) for n in lens]
+    nblk = [-(-n // bs) for n in lens]
     S = sum(nblk) + 1
-    shape = (S, HKV, BS, D)
+    shape = (S, hkv, bs, d)
     if kv == KVDtype.INT8:
         k = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
         v = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
@@ -67,12 +70,12 @@ def pools(lens, kv, dev, seed):
     perm = rng.permutation(S - 1)
     table = np.full((len(lens), max(nblk) + 1), S - 1, np.int32)
     at = 0
-    live = torch.zeros((S, BS), dtype=torch.bool)
+    live = torch.zeros((S, bs), dtype=torch.bool)
     for i, (n, nb) in enumerate(zip(lens, nblk)):
         table[i, :nb] = perm[at:at + nb]
         at += nb
         for j in range(nb):
-            live[table[i, j], :min(BS, n - j * BS)] = True
+            live[table[i, j], :min(bs, n - j * bs)] = True
     if kv == KVDtype.FP8:
         k = k.masked_fill(~live[:, None, :, None], 0x7F)
         v = v.masked_fill(~live[:, None, :, None], 0x7F)
@@ -277,6 +280,103 @@ def test_chunk_kernel_window_softcap_matches_plain(dev, kv, cd, T):
     torch.cuda.synchronize()
     want = paged_chunk_attention(q, kn, vn, *p, table, st, kv, **kw)
     close(got, want, cd)
+
+
+def chunk_case(dev, kv, cd, T, starts, seed, heads=(HQ, HKV, D), bs=BS,
+               q_dtype=None, **kw):
+    """K2 on random pools and chunks against its plain version: (got,
+    want, plain call). One launch, counted under (scheme, window)."""
+    hq, hkv, d = heads
+    p, table = pools([max(s, 1) for s in starts], kv, dev, seed, bs=bs,
+                     hkv=hkv, d=d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    B = len(starts)
+    q = torch.randn(B, T, hq, d, device=dev, generator=gen).to(q_dtype or cd)
+    kn = torch.randn(B, T, hkv, d, device=dev, generator=gen)
+    vn = torch.randn(B, T, hkv, d, device=dev, generator=gen)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    args = (q, kn, vn, *p, table, st, kv)
+    kw = dict(kw, compute_dtype=cd)
+    key = (kv.value, kw.get("window") or 0)
+    n0 = paged_chunk_attention_cuda.launches[key]
+    got = paged_chunk_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_chunk_attention_cuda.launches[key] == n0 + 1
+    plain = lambda **over: paged_chunk_attention(*args, **dict(kw, **over))
+    return got, plain(), plain
+
+
+@pytest.mark.parametrize("sinks", [False, True])
+@pytest.mark.parametrize("window", [None, 700])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_chunk_kernel_long_context_matches_plain(dev, kv, cd, window, sinks):
+    """Long lanes (starts 1000-4100, most not a multiple of bs) beside
+    start-0 lanes, Mistral-like heads (G 4, D 128: T * G = 160 rows, not a
+    multiple of the tensor-core kernel's 64); window 700 starts each row's
+    context in the middle of a block; sinks join at finalize."""
+    hq = 8
+    sk = (torch.randn(hq, device=dev) * 2) if sinks else None
+    got, want, plain = chunk_case(dev, kv, cd, 40, [1000, 0, 2049, 4100, 0,
+                                                    3333], seed=11,
+                                  heads=(hq, 2, 128), window=window,
+                                  sinks=sk)
+    close(got, want, cd)
+    if sinks:
+        assert not within(plain(sinks=None), want, cd)
+
+
+@pytest.mark.parametrize("bs", [8, 32])
+@pytest.mark.parametrize("heads", [(4, 4, 96), (14, 2, 64)],
+                         ids=["G1-D96", "G7-D64"])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_chunk_kernel_groups_and_block_sizes(dev, kv, heads, bs):
+    """G = 1 (Phi-3's MHA, D 96) and G = 7, T = 37 (37 and 259 rows: the
+    last 64-row tile part padding, tiles spanning several t), bs 8 (the
+    tensor-core kernel pads its k-dimension to 16 with zero rows) and 32,
+    with a window cutting blocks and fresh tiles in the middle."""
+    for cd in (torch.float32, torch.bfloat16):
+        for window in (None, 45):
+            got, want, _ = chunk_case(dev, kv, cd, 37, [0, 5, 100, 517, 64],
+                                      seed=12, heads=heads, bs=bs,
+                                      window=window)
+            close(got, want, cd)
+
+
+# float32 q at bf16 compute: the output stays float32, so it is not rounded
+# to bf16 at the end; kernel and plain version round q and p * vs to bf16
+# alike and differ only in the order of float32 sums, which can move a
+# value of p * vs across a bf16 rounding boundary (one step of 2^-8 on one
+# term of a sum over thousands). Measured on an H100 80GB HBM3 at 700 W
+# (PERF.md): the
+# largest |got - want| / (1 + |want|) was 1.6e-4 at this test's cases and
+# 2.7e-4 at Gemma-2's heads (D 256, window 4096, cap 50); 1e-3 leaves a
+# margin of ~4x, 20x tighter than the bf16-output tolerance.
+TOL_F32_Q = 1e-3
+
+
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_chunk_kernel_f32_query_bf16_compute(dev, kv):
+    got, want, _ = chunk_case(dev, kv, torch.bfloat16, 40,
+                              [1000, 0, 2049, 4100], seed=13,
+                              heads=(8, 2, 128), q_dtype=torch.float32,
+                              window=700, softcap=30.0)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    d = (got - want).abs()
+    assert bool((d <= TOL_F32_Q + TOL_F32_Q * want.abs()).all()), float(d.max())
+
+
+def test_chunk_kernel_bf16_refuses_head_dim(dev):
+    """At bf16 compute the tensor-core kernel needs head_dim % 16 == 0: any
+    other raises (nothing falls back to the float32 kernel or the plain
+    version); float32 compute takes it."""
+    with pytest.raises(ValueError, match="head_dim 72"):
+        chunk_case(dev, KVDtype.INT8, torch.bfloat16, 5, [0, 20], seed=14,
+                   heads=(4, 2, 72))
+    got, want, _ = chunk_case(dev, KVDtype.INT8, torch.float32, 5, [0, 20],
+                              seed=14, heads=(4, 2, 72))
+    close(got, want, torch.float32)
 
 
 def test_engine_on_card_tiers_invisibly(dev):
