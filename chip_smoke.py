@@ -13,7 +13,12 @@ Phases, each printing its results; any failure exits non-zero:
               bf16-compute kernels and none in its float32 ones;
 3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
               versions at the Llama-3-8B attention geometry (Hq 32, Hkv 8,
-              D 128, bs 32);
+              D 128, bs 32). K1 runs the split count its rule chooses
+              (`ops/paged_attention.decode_splits`, printed as S=) and is
+              held also to the plain version's split form at that count;
+              its timed rows also time, in turns, S = 1 against the chosen
+              S (S = 2 where the rule chose 1), back to back and replayed
+              from a CUDA graph, and rows at S > 1 a few other counts;
 4. K1, K2  -- the same at the Gemma-2-9B geometry (Hq 16, Hkv 8, D 256) with
               sliding windows (none, 4096, 100) and the tanh softcap (none,
               50), q scaled so raw scores pass the cap; the uncapped plain
@@ -40,10 +45,12 @@ Phases, each printing its results; any failure exits non-zero:
               (`ops/decode_anatomy.py`: K1's walk with parts stripped, K1's
               math on the TPU's kT pool, a cp.async ring) against their
               plain versions for INT8, INT4 and BF16 at Llama-3-8B's heads,
-              bs 32, lanes up to 1024 tokens, and v2 against K1; then the
-              probe's command line at its default geometry (B 8, ctx 8192,
-              512 MB pools) at bs 32 and 128, each variant timed back to
-              back, K1 also in single-launch windows;
+              bs 32, lanes up to 1024 tokens, and v2 against K1 at one
+              split (the arithmetic v2 mirrors); then the probe's command
+              line at its default geometry (B 8, ctx 8192, 512 MB pools) at
+              bs 32 and 128, each variant timed back to back, K1 also in
+              single-launch windows and by split count (1, the chosen S
+              and multiples of it);
 6. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 32
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
@@ -72,11 +79,14 @@ Phases, each printing its results; any failure exits non-zero:
               that holds one request's blocks but not both, and ample. Same
               checks, plus exact launch counts: every layer of every decode
               step through K1, of every prefill dispatch through K2, half of
-              them with window 4096;
+              them with window 4096; the long pair's decode at S > 1 in
+              every launch (`split_launches`), and its ample serve again
+              with K1 at S = 1 for TTFT / TPOT beside it;
 11. mistral -- Mistral-7B at full width and depth (uniform window 4096):
               2 requests x (4160 + 64), tiered and ample. Out-of-window KV
               blocks must retire (`window_retired_blocks` > 0), tokens must
-              be identical, every launch must carry window 4096;
+              be identical, every launch must carry window 4096, every K1
+              launch S > 1; the ample serve again at S = 1, as for Gemma-2;
 12. gpt-oss -- GPT-OSS-20B at full width and depth (24 layers alternating
               window 128 and global attention, 32 experts top-4 in the dense
               MoE mode, q/k/v/o biases, sinks, YaRN rope, vocabulary 201088),
@@ -88,10 +98,13 @@ Phases, each printing its results; any failure exits non-zero:
               launches with sinks), no block retired; then its decode-round
               anatomy with the expert-weight copies' share.
 
-Each model's weights are freed before the next phase draws its own. Then
-one JSON line of per-kernel numbers (launches on the served path, error
-against the plain version, times in single-launch windows and K1 / K2's
-back to back, bounds), the nvidia-smi line, and last
+Each serve prints K1's launches by split count. Each model's weights are
+freed before the next phase draws its own. Then a `[loss]` line per kernel
+(launches x (back to back - bound) summed over its served rows), one JSON
+line of per-kernel numbers (launches on the served path, error against the
+plain version, times in single-launch windows and K1 / K2's back to back,
+bounds; K1's split count and its S = 1 (or S = 2) time beside it), the
+nvidia-smi line, and last
 `{"ok": true, "device": {...}}`. Without a CUDA card the script exits 1
 before printing any result.
 
@@ -255,6 +268,14 @@ def b2b_ms(fn, iters: int = 30) -> float:
     return back_to_back_us(fn, iters, DEV) / 1e3
 
 
+def graph_ms(fn, iters: int = 30) -> float:
+    """ms a call on the device alone: `iters` calls replayed from one CUDA
+    graph (`utils.card.graph_us`), no host dispatch between launches."""
+    from cxl_speckv_tpu_torch.utils.card import graph_us
+
+    return graph_us(fn, iters) / 1e3
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -272,6 +293,7 @@ def reset_launches() -> None:
     for fn in kernels().values():
         fn.launches.clear()
         fn.sink_launches.clear()
+    kernels()["K1"].split_launches.clear()
 
 
 def read_launches(counter: str = "launches") -> dict:
@@ -398,7 +420,18 @@ def draw_sinks(gen, with_sinks: bool, hq: int):
 def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
             geometry=None, window=None, softcap=None, q_scale=1.0,
             sinks=False):
-    from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
+    """K1 at the split count its rule chooses (`default_splits`, the row's
+    "splits") against the unsplit plain version and, where S > 1, against
+    the plain version's split form at the same S. Timed rows also time, in
+    turns with it (chosen, other, other, chosen), the other of S = 1 and
+    S = 2 when the rule chose 1, else S = 1 ("alt_splits"): back to back
+    ("b2b_ms", "alt_b2b_ms") and replayed from a CUDA graph ("graph_ms",
+    "alt_graph_ms": the device's time without the host's dispatch), so each
+    row holds its own before and after."""
+    from cxl_speckv_tpu_torch.ops.paged_attention import (
+        default_splits,
+        paged_attention,
+    )
     from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
     from cxl_speckv_tpu_torch.utils.card import bound_ms
 
@@ -411,12 +444,20 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
     sk = draw_sinks(gen, sinks, hq)
     args = (q, *pools, table, lens_t, kv)
     kw = dict(compute_dtype=cd, window=window, softcap=softcap, sinks=sk)
+    S = default_splits(q, pools[0], table, window)
     got = paged_attention(*args, **kw)
     want = paged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, ok = compare(got, want, TOL[cd])
     name = f"K1 {kv.value} cd={str(cd)[6:]} D={d} lens={lens}" + variant(
-        window, softcap, sinks)
+        window, softcap, sinks) + f" S={S}"
+    if S > 1:
+        # the same split arithmetic in the plain version's split form
+        err_s, ok_s = compare(got, paged_attention_ref(
+            *args, num_splits=S, **kw), TOL[cd])
+        if not ok_s:
+            fail(f"{name}: error {err_s} against the plain version at "
+                 f"S = {S}, above rtol = atol = {TOL[cd]}")
     if not torch.isfinite(got).all():
         fail(f"{name} produced non-finite values")
     if 0 in lens and got[lens.index(0)].any():
@@ -437,10 +478,24 @@ def k1_case(gen, kv, cd, lens, peaks, heads=LLAMA_HEADS, timed=False,
         plain = paged_attention_ref(q, *wp, table, lens_t, wkv, **kw)
         if compare(plain, want, TOL[cd])[1]:
             fail(f"{name}: the bytes read as {wkv.value} pass the comparison")
-    row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd]}
+    row = {"case": name, "err": err, "ok": ok, "tol": TOL[cd], "splits": S}
     if timed:
+        alt = 2 if S == 1 else 1
+        turns = {S: [], alt: []}
+        for n in (S, alt, alt, S):
+            call = lambda: paged_attention(*args, num_splits=n, **kw)
+            turns[n].append((b2b_ms(call), graph_ms(call)))
+        mean = lambda n, i: (turns[n][0][i] + turns[n][1][i]) / 2
         row["ms"] = time_ms(lambda: paged_attention(*args, **kw))
-        row["b2b_ms"] = b2b_ms(lambda: paged_attention(*args, **kw))
+        row["b2b_ms"], row["graph_ms"] = mean(S, 0), mean(S, 1)
+        row["alt_splits"] = alt
+        row["alt_b2b_ms"], row["alt_graph_ms"] = mean(alt, 0), mean(alt, 1)
+        if S > 1:
+            # around the chosen count, back to back, for the rule's next
+            # tuning (not in the kernels line)
+            others = sorted({max(2, S // 2), S + S // 2, min(2 * S, 64)})
+            row["sweep"] = {n: b2b_ms(lambda: paged_attention(
+                *args, num_splits=n, **kw)) for n in others}
         row["plain_ms"] = time_ms(lambda: paged_attention_ref(*args, **kw),
                                   iters=5)
         work = [attended(n - 1, 1, window) for n in lens if n]
@@ -523,10 +578,18 @@ def report(row) -> None:
     if "ms" in row:
         turns = ("" if "ms_turns" not in row else " (turns " + ", ".join(
             f"{t:.4f}" for t in row["ms_turns"]) + ")")
+        alt = ("" if "alt_splits" not in row else
+               f" (S={row['alt_splits']}: {row['alt_b2b_ms']:.4f} ms, "
+               f"{row['alt_b2b_ms'] / row['b2b_ms']:.2f}x), from a CUDA "
+               f"graph {row['graph_ms']:.4f} ms (S={row['alt_splits']}: "
+               f"{row['alt_graph_ms']:.4f} ms)")
         extra = (f" | kernel {row['ms']:.4f} ms{turns}, back to back "
-                 f"{row['b2b_ms']:.4f} ms, plain "
+                 f"{row['b2b_ms']:.4f} ms{alt}, plain "
                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                  f"({row['bound_by']})")
+    if "sweep" in row:
+        extra += "; back to back at other S: " + ", ".join(
+            f"S={n} {t:.4f} ms" for n, t in row["sweep"].items())
     print(f"[{row['case'][:2]}] {row['case']}: max |err| {row['err']:.3e}"
           f" (rtol = atol = {row['tol']:g}){extra}", flush=True)
     if not row["ok"]:
@@ -537,11 +600,15 @@ def report(row) -> None:
 def merge_turns(a: dict, b: dict) -> dict:
     """One row from two timings of the same shape: the mean time (both kept
     as ms_turns) and the larger error."""
-    return dict(a, ms=(a["ms"] + b["ms"]) / 2,
-                b2b_ms=(a["b2b_ms"] + b["b2b_ms"]) / 2,
-                plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
-                ms_turns=(a["ms"], b["ms"]), err=max(a["err"], b["err"]),
-                ok=a["ok"] and b["ok"])
+    out = dict(a, ms=(a["ms"] + b["ms"]) / 2,
+               b2b_ms=(a["b2b_ms"] + b["b2b_ms"]) / 2,
+               plain_ms=(a["plain_ms"] + b["plain_ms"]) / 2,
+               ms_turns=(a["ms"], b["ms"]), err=max(a["err"], b["err"]),
+               ok=a["ok"] and b["ok"])
+    for k in ("graph_ms", "alt_b2b_ms", "alt_graph_ms"):
+        if k in a:
+            out[k] = (a[k] + b[k]) / 2
+    return out
 
 
 def timed_in_turns(case, *args, **kw) -> tuple[dict, dict]:
@@ -791,9 +858,11 @@ def phase_kernels_gpt_oss(peaks) -> dict:
     for row in rows.values():
         report(row)
     for key in ("K1 win", "K1 glob", "K2 win", "K2 glob"):
-        a, b = rows[key]["ms"], rows[f"{key} nosink"]["ms"]
-        print(f"[gpt-oss] {key}: {a:.4f} ms with sinks, {b:.4f} ms without "
-              f"({a / b - 1:+.1%})", flush=True)
+        a, b = rows[key], rows[f"{key} nosink"]
+        print(f"[gpt-oss] {key}: {a['ms']:.4f} ms with sinks, {b['ms']:.4f} "
+              f"ms without ({a['ms'] / b['ms'] - 1:+.1%}); back to back "
+              f"{a['b2b_ms']:.4f} / {b['b2b_ms']:.4f} ms "
+              f"({a['b2b_ms'] / b['b2b_ms'] - 1:+.1%})", flush=True)
     return rows
 
 
@@ -853,15 +922,19 @@ def check_probes(scheme: str, seed: int) -> None:
         if not ok:
             fail(f"probe {scheme} {label}: error {err} beyond {tol}")
         errs.append(f"{label} {err:.2e}")
-    # both round q and p * vs to bf16 and sum in float32: rtol = atol = 2e-4
-    err, ok = compare(kern["v2"](), kern["full"](), TOL[torch.float32])
+    # both round q and p * vs to bf16 against the walk's running max and sum
+    # in float32: rtol = atol = 2e-4 against K1 unsplit, the arithmetic v2
+    # mirrors ("full" runs K1's chosen split count, held to the plain
+    # version's split form at that count above)
+    err, ok = compare(kern["v2"](), da.k1_call(p, num_splits=1)(),
+                      TOL[torch.float32])
     torch.cuda.synchronize()
     if not ok:
-        fail(f"probe {scheme}: v2 differs from K1 by {err}")
+        fail(f"probe {scheme}: v2 differs from K1 (num_splits=1) by {err}")
     print(f"[probe] {scheme} lens={PROBE_LENS}: every probe within its "
           f"tolerance of its plain version (max |err|: {', '.join(errs)}); "
-          f"v2 vs K1 {err:.2e} (rtol = atol = {TOL[torch.float32]:g})",
-          flush=True)
+          f"K1 at S={da.k1_splits(p)}; v2 vs K1 at S=1 {err:.2e} "
+          f"(rtol = atol = {TOL[torch.float32]:g})", flush=True)
 
 
 def phase_probe(peaks) -> list:
@@ -898,6 +971,18 @@ def phase_probe(peaks) -> list:
     if missing:
         fail(f"probe: no launch of {missing} on the probe's path ({launches})")
     full = rows["full"]["us"]
+    # K1 at ctx 8192 by split count, back to back in turns (S = 1 and the
+    # chosen S first and last, a few others between)
+    chosen = da.k1_splits(p)
+    sweep = [1, chosen, min(2 * chosen, 64), min(4 * chosen, 64), chosen, 1]
+    by_s: dict = {}
+    for n in sweep:
+        by_s.setdefault(n, []).append(b2b_ms(da.k1_call(p, num_splits=n)))
+    print(f"[probe] K1 at ctx {int(p.lens.max())}, bs {BS}, back to back by "
+          f"split count (chosen S={chosen}): " + ", ".join(
+              f"S={n} {sum(t) / len(t):.4f} ms" for n, t in by_s.items())
+          + f"; S=1 / S={chosen}: "
+          f"{sum(by_s[1]) / sum(by_s[chosen]):.2f}x", flush=True)
     print(f"[probe] K1 at ctx {int(p.lens.max())}, bs {BS}: {full:.1f} us back to back, "
           f"{rows['full'].get('single_us', float('nan')):.1f} us in a "
           f"single-launch window; "
@@ -1006,18 +1091,26 @@ def init_model(cfg, label: str, seed: int):
     return params
 
 
-def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts, **kv):
+def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts,
+                    min_splits: int = 1, **kv):
     """Serve `prompts` tiered (launches counted) and ample, with the KV
     scheme arguments `kv` of `build_engine`; require every request
     finished, identical tokens, migrations both ways and the exact launch
     counts (every layer of every decode step through K1, of every prefill
     dispatch through K2; all of them with sinks for a model with sinks,
-    none of them otherwise). Returns (launches, tiered stats)."""
+    none of them otherwise), and every K1 launch at a split count of at
+    least `min_splits`. With `min_splits` > 1 the ample serve runs again
+    with every K1 launch at S = 1 (the unsplit grid), and its TTFT / TPOT
+    print beside the split serve's. Returns (launches, tiered stats)."""
     reset_launches()
     tiered = build_engine(cfg, params, cell, cell.hbm_tiered,
                           cell.host_tiered, **kv)
     outs_t, dt_t = serve(tiered, prompts, cell.gen)
     launches = read_launches()
+    splits = dict(sorted(kernels()["K1"].split_launches.items()))
+    if not splits and min_splits > 1 or min(splits, default=1) < min_splits:
+        fail(f"{label}: K1 launches by split count {splits}: every decode "
+             f"step must run at S >= {min_splits}")
     with_sinks = read_launches("sink_launches")
     if with_sinks != (launches if cfg.attn_sinks else
                       {k: {} for k in launches}):
@@ -1030,6 +1123,13 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts, **kv):
     outs_a, dt_a = serve(ample, prompts, cell.gen)
     sa = ample.get_statistics()
     del ample
+    if min_splits > 1:
+        one = ample_at_one_split(cfg, params, cell, prompts, **kv)
+        e, e1 = sa["engine"], one["engine"]
+        print(f"[{label}] ample at the rule's S against S = 1: TTFT p50 "
+              f"{e['p50_ttft_ms']:.1f} / {e1['p50_ttft_ms']:.1f} ms, TPOT "
+              f"p50 {e['p50_tpot_ms']:.2f} / {e1['p50_tpot_ms']:.2f} ms",
+              flush=True)
 
     for tag, outs in (("tiered", outs_t), ("ample", outs_a)):
         if len(outs) != cell.n_req or any(
@@ -1074,8 +1174,26 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts, **kv):
           f"per-HBM ratio "
           f"{rate['tiered'] / rate['ample'] * demand / cell.hbm_tiered:.3f}x "
           f"at {demand / cell.hbm_tiered:.2f}x oversubscription; launches "
-          f"on the tiered run {launches}", flush=True)
+          f"on the tiered run {launches}; K1 launches by split count S "
+          f"{splits}", flush=True)
     return launches, st
+
+
+def ample_at_one_split(cfg, params, cell: Cell, prompts, **kv) -> dict:
+    """The ample serve with every K1 launch at S = 1 -- the unsplit grid,
+    the parent kernel's arithmetic -- by the rule's entry point
+    `default_splits` answering 1 for its duration. Returns its statistics;
+    its tokens may differ from the split serve's in near ties (bf16
+    roundings against each split's max)."""
+    mod = sys.modules["cxl_speckv_tpu_torch.ops.paged_attention"]
+    rule = mod.default_splits
+    mod.default_splits = lambda *args: 1
+    try:
+        eng = build_engine(cfg, params, cell, cell.hbm_ample, 0, **kv)
+        serve(eng, prompts, cell.gen)
+        return eng.get_statistics()
+    finally:
+        mod.default_splits = rule
 
 
 def phase_serve() -> tuple:
@@ -1180,7 +1298,8 @@ def phase_switch(cfg, params, prompts) -> None:
 
 
 def phase_gemma(peaks) -> dict:
-    """Gemma-2-9B: the 64-request serve and the long-context pair."""
+    """Gemma-2-9B: the 32-request serve and the long-context pair; returns
+    the launches of both."""
     from cxl_speckv_tpu_torch.models.configs import gemma2_9b
 
     cfg = gemma2_9b()
@@ -1201,11 +1320,11 @@ def phase_gemma(peaks) -> dict:
     long_prompts = [rng.randint(1, cfg.vocab_size, GEMMA_LONG.prompt).tolist()
                     for _ in range(GEMMA_LONG.n_req)]
     long_launches, _ = tiered_vs_ample("gemma2-long", cfg, params, GEMMA_LONG,
-                                       long_prompts)
+                                       long_prompts, min_splits=2)
     check_windows("gemma2-long", long_launches,
                   lambda n: {("int8", WINDOW): n // 2, ("int8", 0): n // 2})
     del params
-    return launches
+    return launches, long_launches
 
 
 def phase_mistral() -> dict:
@@ -1217,7 +1336,8 @@ def phase_mistral() -> dict:
     rng = np.random.RandomState(2)
     prompts = [rng.randint(1, cfg.vocab_size, MISTRAL.prompt).tolist()
                for _ in range(MISTRAL.n_req)]
-    launches, st = tiered_vs_ample("mistral", cfg, params, MISTRAL, prompts)
+    launches, st = tiered_vs_ample("mistral", cfg, params, MISTRAL, prompts,
+                                   min_splits=2)
     check_windows("mistral", launches, lambda n: {("int8", WINDOW): n})
     retired = st["runtime"]["window_retired_blocks"]
     if retired <= 0:
@@ -1308,7 +1428,8 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
-              "K1 decode_kernel": "decode_kernel"}
+              "K1 decode_kernel + decode_merge_kernel": (
+                  "decode_kernel", "decode_merge_kernel")}
     for label, keys in groups.items():
         us = sum(v for k, v in kernels_us.items()
                  if any(x in k for x in np.atleast_1d(keys)))
@@ -1363,15 +1484,21 @@ def kernel_entry(name, key, row, launches) -> dict:
                "cxl_speckv_tpu/ops/paged_attention.py:232"),
         "K2": ("cxl_speckv_tpu_torch/csrc/chunk_attention.cu",
                "cxl_speckv_tpu/ops/chunk_attention_pallas.py:287")}[key]
-    return {"name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": row["err"], "ms": row["ms"],
-            "b2b_ms": row["b2b_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"],
-            # no single PyTorch call computes attention over a paged,
-            # quantized pool through a block table
-            "library_ms": None}
+    entry = {"name": name, "route": "cuda", "source": src,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": row["err"], "ms": row["ms"],
+             "b2b_ms": row["b2b_ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"],
+             # no single PyTorch call computes attention over a paged,
+             # quantized pool through a block table
+             "library_ms": None}
+    if key == "K1":
+        # the split count the rule chose, and the other count timed in
+        # turns with it (S = 1, or S = 2 where the rule chose 1)
+        entry.update({k: row[k] for k in (
+            "splits", "graph_ms", "alt_splits", "alt_b2b_ms", "alt_graph_ms")})
+    return entry
 
 
 def main() -> int:
@@ -1406,7 +1533,7 @@ def main() -> int:
           layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
     timed("switch", phase_switch, cfg, params, prompts)
     del params
-    gemma_launches = timed("gemma2", phase_gemma, peaks)
+    gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
     gpt_launches = timed("gpt-oss", phase_gpt_oss, peaks)
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
@@ -1420,6 +1547,10 @@ def main() -> int:
             entries.append(kernel_entry(
                 f"{kname} gemma2-9b {label}", key, gemma_rows[f"{key} {tag}"],
                 gemma_launches[key].get(("int8", window), 0)))
+            entries.append(kernel_entry(
+                f"{kname} gemma2-9b long {label}", key,
+                gemma_rows[f"{key} long {tag}"],
+                gemma_long_launches[key].get(("int8", window), 0)))
         entries.append(kernel_entry(
             f"{kname} mistral-7b", key, mistral_rows[key],
             total(mistral_launches[key])))
@@ -1433,6 +1564,23 @@ def main() -> int:
             entries.append(kernel_entry(
                 f"{kname} {kv}", key, scheme_rows[f"{key} {kv}"],
                 served[key].get((kv, 0), 0)))
+    for key, kname in (("K1", "paged_attention"),
+                       ("K2", "paged_chunk_attention")):
+        # time lost over the serves against the bound, back to back
+        rows = [e for e in entries if e["name"].startswith(kname + " ")
+                or e["name"] == kname]
+        loss = {e["name"][len(kname):].strip() or "llama":
+                e["launches"] * (e["b2b_ms"] - e["bound_ms"]) / 1e3
+                for e in rows}
+        print(f"[loss] {key}: launches x (back to back - bound) over the "
+              f"serves = {sum(loss.values()):.3f} s (" + ", ".join(
+                  f"{k} {v:.3f}" for k, v in loss.items()) + ")", flush=True)
+        if key == "K1":
+            # the device's share: CUDA-graph times, no host dispatch
+            dev = sum(e["launches"] * (e["graph_ms"] - e["bound_ms"]) / 1e3
+                      for e in rows)
+            print(f"[loss] K1 on the device alone (CUDA-graph times): "
+                  f"{dev:.3f} s", flush=True)
     entries += probe_entries
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)

@@ -9,7 +9,7 @@
 //     A MIXED8 pool (a scheme per layer) launches INT8 or FP8 for the
 //     layer's scheme id, which the TPU kernel reads from SMEM instead;
 //   - sliding window (window > 0): the query at seq_len - 1 attends only
-//     positions >= seq_len - window, and the CTA's block walk starts at
+//     positions >= seq_len - window, and the lane's block walk starts at
 //     first = max((seq_len - window) / bs, 0), as the TPU kernel's index map
 //     does. Table entries below `first` may be retired (the engine frees
 //     out-of-window blocks; the row keeps a stale slot that may belong to
@@ -17,8 +17,8 @@
 //   - tanh softcap (softcap > 0, Gemma-2): s = cap * tanh(s / cap), after
 //     s * ks * sm_scale and before the mask, in IEEE float32 (tanhf);
 //   - learned attention sinks (sinks != nullptr, GPT-OSS): one float32
-//     logit per query head joins the softmax denominator at finalize, as
-//     the TPU kernel merges it: m' = max(m, sk), l' = l * exp(m - m') +
+//     logit per query head joins the softmax denominator once, as the TPU
+//     kernel merges it: m' = max(m, sk), l' = l * exp(m - m') +
 //     exp(sk - m'), acc' = acc * exp(m - m'). The sink is a raw logit: not
 //     scaled by sm_scale, not capped.
 //
@@ -28,28 +28,47 @@
 // int32, seq_lens [B] int32, q [B, Hq, D] float32, sinks [Hq] float32 or
 // nullptr, out [B, Hq, D] float32.
 //
-// Design: one CTA per (lane, kv head). The CTA keeps the G query rows of its
-// kv head in shared memory, walks the lane's ceil(seq_len / bs) blocks
-// through the table from `first` (never to max_blocks: rows past the last
-// block hold the guard slot), converts each [bs, D] K/V tile to float in
-// shared memory and runs an online softmax with float32 statistics and a
-// float32 accumulator.
+// Design: a split-context (flash-decoding) grid (B * Hkv, S). A lane's
+// attended blocks [first, nblk), nblk = min(ceil(seq_len / bs), max_blocks),
+// are divided evenly among its S splits (split s walks
+// [first + n * s / S, first + n * (s + 1) / S), n = nblk - first), so every
+// split has work, or none when the lane has fewer than S blocks. CTA
+// (lane, kv head, split) keeps the G query rows of its kv head in shared
+// memory, converts each of its [bs, D] K/V tiles to float in shared memory
+// and runs an online softmax with float32 statistics and a float32
+// accumulator. With S == 1 the CTA finalizes (acc / l, the sink) and writes
+// `out`: the unsplit kernel, arithmetic and cost. With S > 1 it writes its
+// float32 (m, l) [B, Hq, S] and its accumulator [B, Hq, S, D], relative to
+// its own m, to a workspace the wrapper allocates; an empty split writes
+// m = -1e30, l = 0, acc = 0. The merge kernel, launched after it by the same
+// entry point, one CTA per (lane, query head), takes M = max_s m_s (and the
+// sink: M = max(M, sk)) and writes
+//   out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M) [+ e^(sk - M)],
+//         1e-30),
+// summing the splits in order s = 0 .. S - 1. An empty split adds exactly 0
+// (e^(-1e30 - M) = 0; never exp(-inf + inf)), and a seq_len 0 lane gives
+// zeros, with a sink too. The wrapper chooses S from static shapes only
+// (`ops/paged_attention.py:decode_splits`), never from seq_lens.
 // Arithmetic follows the TPU kernel: q is rounded through the compute dtype,
 // K scales multiply the scores after q.K, V scales multiply p before PV and
-// p * vs is rounded through the compute dtype. Stored values (int8 and int4
-// integers, bf16, e4m3) are exact in float, so the products match a bf16
-// matmul with f32 accumulation. A lane with seq_len == 0 writes zeros (with a
-// sink too: m stays -1e30, so l' = 1 and acc' = 0). Masked tokens get a
-// score of -1e30 and p = 0, so a block wholly outside the window leaves m, l
-// and the accumulator as they were (alpha = exp(m - m) = 1).
+// p * vs is rounded through the compute dtype, p taken against the split's
+// running max (at S > 1 the roundings differ from the unsplit walk's by
+// bf16 steps at bf16 compute). Stored values (int8 and int4 integers, bf16,
+// e4m3) are exact in float, so the products match a bf16 matmul with f32
+// accumulation. Masked tokens get a score of -1e30 and p = 0, so a block
+// wholly outside the window leaves m, l and the accumulator as they were
+// (alpha = exp(m - m) = 1).
 //
 // Bound: decode reads every context byte once and does 4 flops per K/V
 // element per query head of the group (8 per byte at G = 4 and int8, 16 at
 // int4), under the H100's ~20 float32 flops per byte: it is bound by memory
-// bytes, and INT4 halves them (the tiles in shared memory stay float). This
-// first kernel is simple: one CTA per (lane, kv head) leaves SMs idle at
-// small batch, and tiles are not double-buffered. Split-context
-// (flash-decoding) grids, cp.async/TMA pipelining and wgmma are later work.
+// bytes, and INT4 halves them (the tiles in shared memory stay float). The
+// split grid fills the SMs at small batch and long context (16 CTAs of a
+// 2-lane Gemma-2 / Mistral decode become ~270); what bounds a CTA now is its
+// serial walk: the per-block scalar products and the one-thread-a-row
+// softmax (~78% of the parent's time at ctx 8192, PERF.md), then loads that
+// are not double-buffered. Tensor-core products with a warp-parallel
+// softmax, and pipelined tiles, are the next steps.
 
 #include <cuda_runtime.h>
 
@@ -60,16 +79,21 @@ namespace {
 constexpr int NT = 128;       // threads per CTA
 constexpr int MAX_G = 8;      // query heads per kv head
 constexpr int MAX_ACC = 2;    // head_dim elements per thread: D <= NT * 2
+constexpr int MAX_SPLITS = 64;  // splits a lane (ops/paged_attention.py)
 constexpr float NEG_INF = -1e30f;
 
+// At most 85 registers a thread (six CTAs an SM, as many as D 128's shared
+// memory admits): without the bound ptxas held 64 and spilled 12 bytes.
 template <int KIND, bool CD_BF16>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 6)
 decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
               const void* __restrict__ v_pool, const float* __restrict__ k_scale,
               const float* __restrict__ v_scale,
               const int* __restrict__ block_table,
               const int* __restrict__ seq_lens,
               const float* __restrict__ sinks, float* __restrict__ out,
+              float* __restrict__ part_m, float* __restrict__ part_l,
+              float* __restrict__ part_acc,
               int Hq, int Hkv, int D, int bs, int max_blocks, int window,
               float sm_scale, float softcap) {
   extern __shared__ float smem[];
@@ -88,12 +112,18 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   const int tid = threadIdx.x;
   const int b = blockIdx.x / Hkv;
   const int h = blockIdx.x % Hkv;
+  const int split = blockIdx.y, S = gridDim.y;
   const int seq_len = seq_lens[b];
   int nblk = (seq_len + bs - 1) / bs;
   if (nblk > max_blocks) nblk = max_blocks;
   // lowest position the query attends; blocks wholly below it are skipped
   const int lo = window > 0 ? max(seq_len - window, 0) : 0;
   auto valid = [&](int pos) { return pos < seq_len && pos >= lo; };
+  // this split's share of the lane's attended blocks [first, nblk)
+  const int first = lo / bs;
+  const int n = max(nblk - first, 0);
+  const int blk_begin = first + n * split / S;
+  const int blk_end = first + n * (split + 1) / S;
 
   const float* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
   for (int i = tid; i < G * D; i += NT) q_s[i] = round_cd(qb[i], CD_BF16);
@@ -105,7 +135,7 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
 #pragma unroll
     for (int k = 0; k < MAX_ACC; ++k) acc[g][k] = 0.f;
 
-  for (int blk = lo / bs; blk < nblk; ++blk) {
+  for (int blk = blk_begin; blk < blk_end; ++blk) {
     const int slot = block_table[(size_t)b * max_blocks + blk];
     const size_t tile = ((size_t)slot * Hkv + h) * bs;
     __syncthreads();                          // smem free from the last block
@@ -166,6 +196,27 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   }
   __syncthreads();
 
+  const size_t row0 = (size_t)b * Hq + (size_t)h * G;   // first query head
+  if (S > 1) {
+    // partial state of this split, relative to its own max; the merge
+    // kernel finalizes
+    if (tid < G) {
+      part_m[(row0 + tid) * S + split] = m_s[tid];
+      part_l[(row0 + tid) * S + split] = l_s[tid];
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_ACC; ++k) {
+      const int d = tid + k * NT;
+      if (d >= D) break;
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g) {
+        if (g >= G) break;
+        part_acc[((row0 + g) * S + split) * D + d] = acc[g][k];
+      }
+    }
+    return;
+  }
+
   // finalize: the sink logit joins max and denominator
   if (tid < G) {
     float a2 = 1.f;
@@ -179,7 +230,7 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   }
   __syncthreads();
 
-  float* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
+  float* ob = out + row0 * D;
 #pragma unroll
   for (int k = 0; k < MAX_ACC; ++k) {
     const int d = tid + k * NT;
@@ -189,6 +240,44 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
       if (g >= G) break;
       ob[g * D + d] = acc[g][k] * a_s[g] / fmaxf(l_s[g], 1e-30f);
     }
+  }
+}
+
+// The splits' partial states of one (lane, query head) -> its output row.
+// One CTA a row; the weights e^(m_s - M) in shared memory, the sums over
+// s = 0 .. S - 1 in that order.
+constexpr int MERGE_NT = 128;
+
+__global__ void __launch_bounds__(MERGE_NT)
+decode_merge_kernel(const float* __restrict__ part_m,
+                    const float* __restrict__ part_l,
+                    const float* __restrict__ part_acc,
+                    const float* __restrict__ sinks, float* __restrict__ out,
+                    int Hq, int D, int S) {
+  __shared__ float w_s[MAX_SPLITS];
+  __shared__ float den_s;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;              // b * Hq + query head
+  const float* pm = part_m + row * S;
+  float M = NEG_INF;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, pm[s]);
+  const float sk = sinks != nullptr ? sinks[row % Hq] : NEG_INF;
+  if (sinks != nullptr) M = fmaxf(M, sk);
+  if (tid < S) w_s[tid] = expf(pm[tid] - M);
+  __syncthreads();
+  if (tid == 0) {
+    const float* pl = part_l + row * S;
+    float l = 0.f;
+    for (int s = 0; s < S; ++s) l += pl[s] * w_s[s];
+    if (sinks != nullptr) l += expf(sk - M);
+    den_s = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  const float* pa = part_acc + row * S * D;
+  for (int d = tid; d < D; d += MERGE_NT) {
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) a += pa[(size_t)s * D + d] * w_s[s];
+    out[row * D + d] = a / den_s;
   }
 }
 
@@ -215,30 +304,48 @@ Kernel pick(int kind, bool bf16) {
 // Returns a cudaError_t code (0 = launched). Shapes are checked by the
 // Python wrapper: G <= 8, D <= 256 and a multiple of 4 (of 8 for INT4).
 // kv_kind is a KvKind (kv_tile.cuh); window <= 0 means no window, softcap
-// <= 0 no cap; sinks nullptr no sinks.
+// <= 0 no cap; sinks nullptr no sinks. num_splits S in [1, MAX_SPLITS]; at
+// S > 1 part_m, part_l ([B, Hq, S]) and part_acc ([B, Hq, S, D]) are the
+// float32 workspace and the merge kernel runs after the split kernel, on
+// the same stream; at S == 1 they are unused (may be nullptr).
 extern "C" int paged_attention_launch(
     const float* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* block_table,
-    const int* seq_lens, const float* sinks, float* out, int B, int Hq,
+    const int* seq_lens, const float* sinks, float* out, float* part_m,
+    float* part_l, float* part_acc, int B, int Hq,
     int Hkv, int D, int bs,
-    int max_blocks, int kv_kind, int compute_bf16, int window,
+    int max_blocks, int kv_kind, int compute_bf16, int window, int num_splits,
     float sm_scale, float softcap, void* stream) {
   const Kernel kern = pick(kv_kind, compute_bf16 != 0);
+  // dynamic shared memory each instantiation is allowed so far: the
+  // attribute is set when a launch needs more, not on every launch (a
+  // CUDA API call less a launch, and none inside a captured CUDA graph)
+  static size_t smem_allowed[4][2] = {};
   if (!kern || Hq / Hkv > MAX_G || D > NT * MAX_ACC || D % 4 ||
-      (kv_kind == KV_INT4 && D % 8))
+      (kv_kind == KV_INT4 && D % 8) || num_splits < 1 ||
+      num_splits > MAX_SPLITS ||
+      (num_splits > 1 && (!part_m || !part_l || !part_acc)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int G = Hq / Hkv;
   const size_t smem =
       sizeof(float) * ((size_t)G * D + bs * (D + 1) + (size_t)bs * D +
                        (size_t)G * bs + 2 * bs + 3 * G);
-  if (smem > 48 * 1024) {
+  size_t& allowed = smem_allowed[kv_kind][compute_bf16 != 0];
+  if (smem > 48 * 1024 && smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
+    allowed = smem;
   }
-  kern<<<B * Hkv, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kern<<<dim3(B * Hkv, num_splits), NT, smem, st>>>(
       q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens, sinks, out,
-      Hq, Hkv, D, bs, max_blocks, window, sm_scale, softcap);
+      part_m, part_l, part_acc, Hq, Hkv, D, bs, max_blocks, window, sm_scale,
+      softcap);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || num_splits == 1) return (int)e;
+  decode_merge_kernel<<<B * Hq, MERGE_NT, 0, st>>>(
+      part_m, part_l, part_acc, sinks, out, Hq, D, num_splits);
   return (int)cudaGetLastError();
 }

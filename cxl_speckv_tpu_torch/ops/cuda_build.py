@@ -28,10 +28,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported symbol and argument types of each source (a null pointer for
-# the optional sinks)
+# the optional sinks, and for K1's three split-state workspace pointers at
+# one split)
 SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
-                        [_P] * 9 + [_I] * 9 + [_F, _F, _P]),
+                        [_P] * 12 + [_I] * 10 + [_F, _F, _P]),
     "chunk_attention": ("chunk_attention_launch",
                         [_P] * 11 + [_I] * 11 + [_F, _F, _P]),
     # the decode-anatomy probes P1, P2, P3 (ops/decode_anatomy.py)

@@ -63,7 +63,11 @@ import torch
 from cxl_speckv_tpu_torch.config import KVDtype
 from cxl_speckv_tpu_torch.models.convert import pools_from_jax
 from cxl_speckv_tpu_torch.ops import cuda_build
-from cxl_speckv_tpu_torch.ops.paged_attention import KV_KINDS, paged_attention
+from cxl_speckv_tpu_torch.ops.paged_attention import (
+    KV_KINDS,
+    default_splits,
+    paged_attention,
+)
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import (
     NEG_INF,
     finalize,
@@ -507,13 +511,26 @@ def _scales(label: str, p: ProbePools) -> tuple:
     return (p.scf, None) if label == "v3fused" else (p.ks, p.vs)
 
 
+def k1_splits(p: ProbePools) -> int:
+    """The split count K1 chooses on `p` (1 on the CPU)."""
+    return default_splits(p.q, p.k, p.table, None)
+
+
+def k1_call(p: ProbePools, num_splits: int | None = None):
+    """K1 at bf16 compute on `p` as a function of no arguments; None: the
+    split count it chooses."""
+    tm = (*p.token_major(), p.table, p.lens, p.kv)
+    return lambda: paged_attention(p.q, *tm, compute_dtype=torch.bfloat16,
+                                   num_splits=num_splits)
+
+
 def probe_calls(p: ProbePools) -> dict:
     """{label: a function of no arguments making one call on `p`}: "full"
-    is K1 at bf16 compute, then every P1 mode, P2 variant and ring depth
-    ("v5ring4", ...) under the TPU script's names."""
+    is K1 at bf16 compute and its chosen split count, then every P1 mode,
+    P2 variant and ring depth ("v5ring4", ...) under the TPU script's
+    names."""
     tm = (*p.token_major(), p.table, p.lens, p.kv)
-    fns = {"full": lambda: paged_attention(p.q, *tm,
-                                           compute_dtype=torch.bfloat16)}
+    fns = {"full": k1_call(p)}
     for mode in P1_MODES:
         fns[mode] = lambda mode=mode: variant(mode, p.q, *tm)
     for name in P2_VARIANTS:
@@ -525,10 +542,11 @@ def probe_calls(p: ProbePools) -> dict:
 
 
 def plain_calls(p: ProbePools) -> dict:
-    """{label: its plain version on `p`}, the labels of `probe_calls`."""
+    """{label: its plain version on `p`}, the labels of `probe_calls` ("full"
+    in the split form of K1's chosen count)."""
     tm = (*p.token_major(), p.table, p.lens, p.kv)
-    fns = {"full": lambda: paged_attention_ref(p.q, *tm,
-                                               compute_dtype=torch.bfloat16)}
+    fns = {"full": lambda: paged_attention_ref(
+        p.q, *tm, compute_dtype=torch.bfloat16, num_splits=k1_splits(p))}
     for mode in P1_MODES:
         fns[mode] = lambda mode=mode: variant_plain(mode, p.q, *tm)
     for name in P2_VARIANTS:

@@ -12,10 +12,17 @@ version `ops/paged_attention_ref.paged_attention_ref`. The kernel takes the
 storage kind (INT8, BF16, FP8, INT4; MIXED8 with its `scheme_id` launches as
 INT8 or FP8), the sliding window, the tanh softcap and the GPT-OSS sink
 logits (a float32 pointer, null for none) as launch arguments.
+
+The kernel's grid is split-context: each lane's attended blocks are divided
+among `num_splits` CTAs a kv head, and a merge kernel combines their partial
+softmax states. `decode_splits` chooses the count from the call's static
+shapes and the card's SM count, never from `seq_lens`, so that two engines
+of the same batch and table geometry run the same arithmetic.
 """
 
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
 import torch
@@ -27,6 +34,47 @@ from cxl_speckv_tpu_torch.ops.quant import decoded_scheme, kv_pack
 
 # the kernels' storage kinds (csrc/kv_tile.cuh)
 KV_KINDS = {KVDtype.INT8: 0, KVDtype.BF16: 1, KVDtype.FP8: 2, KVDtype.INT4: 3}
+
+MAX_SPLITS = 64           # csrc/paged_attention.cu
+SPLIT_WAVES = 2           # CTAs the split grid aims at, per SM
+MIN_SPLIT_BLOCKS = 6      # least attended blocks a split, at most splits
+
+
+def decode_splits(B: int, Hkv: int, max_blocks: int, window: int | None,
+                  bs: int, sm_count: int) -> int:
+    """Context splits a lane for K1 at these static shapes: about
+    SPLIT_WAVES CTAs an SM (B * Hkv * S ~ SPLIT_WAVES * sm_count), at
+    least MIN_SPLIT_BLOCKS of the most blocks a lane can attend a split
+    (the table width, or under a window ceil(window / bs) + 1 of it), and
+    1 where B * Hkv CTAs already fill the card. Reads no sequence lengths."""
+    ctas = B * Hkv
+    if ctas == 0 or ctas >= sm_count:
+        return 1
+    attended = max_blocks if not window else min(max_blocks,
+                                                 -(-window // bs) + 1)
+    s = min(-(-SPLIT_WAVES * sm_count // ctas), attended // MIN_SPLIT_BLOCKS,
+            MAX_SPLITS)
+    return max(s, 1)
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA card `device_index`."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def default_splits(q: torch.Tensor, k_pool: torch.Tensor,
+                   block_table: torch.Tensor, window: int | None) -> int:
+    """The splits `paged_attention(..., num_splits=None)` launches for these
+    arguments: `decode_splits` of their shapes on a CUDA tensor, 1 (the
+    unsplit plain version) on the CPU."""
+    if q.device.type != "cuda":
+        return 1
+    return decode_splits(q.shape[0], k_pool.shape[1], block_table.shape[1],
+                         window, k_pool.shape[2],
+                         sm_count(torch.cuda.current_device()
+                                  if q.device.index is None
+                                  else q.device.index))
 
 
 def check_cuda_call(name: str, kv_dtype: KVDtype, scheme_id, compute_dtype,
@@ -107,13 +155,19 @@ def paged_attention(
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,
     scheme_id: int | None = None,  # MIXED8: 0 = INT8, 1 = FP8 bytes
+    num_splits: int | None = None,  # context splits a lane; None: the rule
 ) -> torch.Tensor:
-    """Decode attention -> [B, Hq, D] in q's dtype."""
+    """Decode attention -> [B, Hq, D] in q's dtype. `num_splits` forces the
+    split count (tests, timing); None takes `default_splits`."""
+    if num_splits is not None and not 1 <= num_splits <= MAX_SPLITS:
+        raise ValueError(f"paged_attention: num_splits {num_splits} not in "
+                         f"[1, {MAX_SPLITS}]")
     if q.device.type == "cpu":
         return paged_attention_ref(
             q, k_pool, v_pool, k_scale, v_scale, block_table, seq_lens,
             kv_dtype, sm_scale=sm_scale, compute_dtype=compute_dtype,
-            window=window, softcap=softcap, sinks=sinks, scheme_id=scheme_id)
+            window=window, softcap=softcap, sinks=sinks, scheme_id=scheme_id,
+            num_splits=num_splits)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     kind = check_cuda_call("paged_attention", kv_dtype, scheme_id,
@@ -134,17 +188,27 @@ def paged_attention(
     qf = q.float().contiguous()
     table = block_table.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
+    S = num_splits or default_splits(q, k_pool, table, window)
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=q.device)
+    # the splits' partial (m, l, acc), float32 [B, Hq, S] x 2 and
+    # [B, Hq, S, D], from the caching allocator (no host sync)
+    parts = [None] * 3
+    if S > 1:
+        n = B * Hq * S
+        ws = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        base = ws.data_ptr()
+        parts = [base, base + 4 * n, base + 8 * n]
     fn = cuda_build.kernel("paged_attention")
     err = fn(qf.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
              lens.data_ptr(), None if sk is None else sk.data_ptr(),
-             out.data_ptr(), B, Hq, Hkv, D, bs,
+             out.data_ptr(), *parts, B, Hq, Hkv, D, bs,
              table.shape[1], KV_KINDS[kind],
-             int(compute_dtype == torch.bfloat16), win, float(sm_scale),
+             int(compute_dtype == torch.bfloat16), win, S, float(sm_scale),
              cap, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check_launch("paged_attention", err)
     count_launch(paged_attention, kind, win, sk)
+    paged_attention.split_launches[S] += 1
     return out.to(q.dtype)
 
 
@@ -152,5 +216,8 @@ def paged_attention(
 # layer of scheme id 0; the window, 0 = none) since the count was last
 # cleared; CPU calls are not counted. The total is the sum of the values.
 # `sink_launches`: the launches among them that carried sinks, same keys.
+# `split_launches`: the same launches by their split count S (a call at
+# S > 1 also launches the merge kernel; it counts once).
 paged_attention.launches = Counter()
 paged_attention.sink_launches = Counter()
+paged_attention.split_launches = Counter()

@@ -13,6 +13,10 @@ the kernels, and rounds at the kernels' points: q through `compute_dtype`
 before q.K, the K scale on the scores after q.K, and p * v_scale through
 `compute_dtype` before PV. Softmax statistics and the accumulator are
 float32. With compute_dtype float32 it equals the JAX reference's math.
+`paged_attention_ref(..., num_splits=k)` is the split form of K1's grid:
+each lane's attended blocks divided evenly among k walks (`split_ranges`),
+whose (m, l, acc) `merge_splits` combines with the sink, as the kernel's
+merge pass does.
 """
 
 from __future__ import annotations
@@ -72,6 +76,44 @@ def finalize(state, sinks: torch.Tensor | None) -> torch.Tensor:
     return acc / torch.clamp_min(l, 1e-30)
 
 
+def split_ranges(seq_lens: torch.Tensor, bs: int, max_blocks: int,
+                 window: int | None, num_splits: int):
+    """(begin, end) [B, num_splits]: the blocks each split of a lane walks,
+    as K1's grid divides them -- the lane's attended blocks [first, nblk),
+    first = max(len - window, 0) // bs, nblk = min(ceil(len / bs),
+    max_blocks), split s taking [first + n * s // S, first + n * (s + 1) //
+    S), n = nblk - first. Blocks below `first` are never read."""
+    nblk = torch.clamp((seq_lens + bs - 1) // bs, max=max_blocks)
+    lo = (torch.clamp(seq_lens - window, min=0) if window is not None
+          else torch.zeros_like(seq_lens))
+    first = lo // bs
+    n = torch.clamp(nblk - first, min=0)
+    s = torch.arange(num_splits + 1, device=seq_lens.device)
+    edges = first[:, None] + n[:, None] * s[None, :] // num_splits
+    return edges[:, :-1], edges[:, 1:]
+
+
+def merge_splits(state, sinks: torch.Tensor | None) -> torch.Tensor:
+    """The splits' states (m, l [B, S, ..., 1], acc [B, S, ..., D]) -> the
+    output, as K1's merge kernel computes it: M = max(max_s m_s, sink),
+    out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M) +
+    e^(sink - M), 1e-30), summed over s in order. An empty split (m =
+    -1e30, l = 0, acc = 0) adds 0."""
+    m, l, acc = state
+    M = m.amax(dim=1)
+    if sinks is not None:
+        M = torch.maximum(M, sinks)
+    w = torch.exp(m - M[:, None])
+    den = torch.zeros_like(M)
+    num = torch.zeros_like(acc[:, 0])
+    for s in range(m.shape[1]):
+        den = den + l[:, s] * w[:, s]
+        num = num + acc[:, s] * w[:, s]
+    if sinks is not None:
+        den = den + torch.exp(sinks - M)
+    return num / torch.clamp_min(den, 1e-30)
+
+
 def gather_block(pools, slots: torch.Tensor, kv_dtype: KVDtype,
                  scheme_id=None):
     """Block `slots` [B] of each lane -> float32 K, V [B, Hkv, bs, D] and
@@ -97,35 +139,50 @@ def paged_attention_ref(
     softcap: float | None = None,
     sinks: torch.Tensor | None = None,   # [Hq] learned sink logits
     scheme_id: int | None = None,        # MIXED8: 0 = INT8, 1 = FP8 bytes
+    num_splits: int | None = None,       # K1's context splits; None = 1
 ) -> torch.Tensor:
     """Decode-step attention, one query token per lane -> [B, Hq, D] in
     q's dtype. With `window`, the query at position len - 1 attends only to
-    positions >= len - window."""
+    positions >= len - window. Split s of a lane walks its blocks in order
+    (step j takes block begin + j of every split at once); one split
+    finalizes as the unsplit walk does, several merge (`merge_splits`)."""
     B, Hq, D = q.shape
     _, Hkv, bs, _ = v_pool.shape
     G = Hq // Hkv
+    S = num_splits or 1
     if sm_scale is None:
         sm_scale = D ** -0.5
     seq_lens = seq_lens.long()
-    qg = _round(q.reshape(B, Hkv, G, D), compute_dtype)
-    state = (torch.full((B, Hkv, G, 1), NEG_INF, device=q.device),
-             torch.zeros((B, Hkv, G, 1), device=q.device),
-             torch.zeros((B, Hkv, G, D), device=q.device))
+    dev = q.device
+    qg = _round(q.reshape(B, 1, Hkv, G, D), compute_dtype)
+    state = (torch.full((B, S, Hkv, G, 1), NEG_INF, device=dev),
+             torch.zeros((B, S, Hkv, G, 1), device=dev),
+             torch.zeros((B, S, Hkv, G, D), device=dev))
     pools = (k_pool, v_pool, k_scale, v_scale)
-    nblk = min(-(-int(seq_lens.max()) // bs) if B else 0, block_table.shape[1])
-    for i in range(nblk):
-        k, v, ks, vs = gather_block(pools, block_table[:, i].long(), kv_dtype,
-                                    scheme_id)
-        s = (qg @ k.transpose(-1, -2)) * ks[:, :, None, :] * sm_scale
+    table = block_table.long()
+    max_blocks = table.shape[1]
+    begin, end = split_ranges(seq_lens, bs, max_blocks, window, S)
+    lo = (seq_lens - window if window is not None
+          else torch.full_like(seq_lens, -1))
+    steps = int((end - begin).max()) if B else 0
+    for j in range(steps):
+        blk = begin + j                                         # [B, S]
+        slots = torch.gather(table, 1, torch.clamp(blk, max=max_blocks - 1))
+        k, v, ks, vs = (x.reshape(B, S, *x.shape[1:]) for x in gather_block(
+            pools, slots.flatten(), kv_dtype, scheme_id))
+        s = (qg @ k.transpose(-1, -2)) * ks[:, :, :, None, :] * sm_scale
         s = soft_cap(s, softcap)
-        pos = i * bs + torch.arange(bs, device=q.device)
-        ok = pos[None, :] < seq_lens[:, None]                   # [B, bs]
-        if window is not None:
-            ok = ok & (pos[None, :] >= seq_lens[:, None] - window)
-        state = online_update(state, s, ok[:, None, None, :], v,
-                              vs[:, :, None, :], compute_dtype)
+        pos = blk[..., None] * bs + torch.arange(bs, device=dev)  # [B, S, bs]
+        ok = ((blk < end)[..., None] & (pos < seq_lens[:, None, None])
+              & (pos >= lo[:, None, None]))
+        state = online_update(state, s, ok[:, :, None, None, :], v,
+                              vs[:, :, :, None, :], compute_dtype)
     sk = (sinks.reshape(1, Hkv, G, 1).float() if sinks is not None else None)
-    return finalize(state, sk).reshape(B, Hq, D).to(q.dtype)
+    if S == 1:
+        out = finalize(tuple(x[:, 0] for x in state), sk)
+    else:
+        out = merge_splits(state, sk)
+    return out.reshape(B, Hq, D).to(q.dtype)
 
 
 def prefill_attention_ref(

@@ -1,8 +1,9 @@
 """Datasheet peaks of the NVIDIA H100 variants (NVIDIA's data sheets, dense
 rates without sparsity, at the full power limit) and the least time a
 kernel's work could take on them: the bounds that `chip_smoke.py` and the
-decode-anatomy probe print; and the two timings both use, single-launch
-event windows and launches back to back."""
+decode-anatomy probe print; and the timings both use: single-launch
+event windows, launches back to back, and launches replayed from a CUDA
+graph (device time without the host's dispatch)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,34 @@ def back_to_back_us(fn, iters: int, device: str = "cuda") -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters * 1e3
+
+
+def graph_us(fn, iters: int, replays: int = 3) -> float:
+    """µs a call on the device alone: `iters` calls captured in one CUDA
+    graph (after two warm-up calls on the capturing side stream), replayed
+    `replays` times between two CUDA events. No host dispatch between the
+    launches, unlike `back_to_back_us` when a call's host work outlasts its
+    kernels. Side effects of `fn` on the host (launch counters) happen at
+    capture only."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / (iters * replays) * 1e3

@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (decode) and K2 (chunk) against their plain PyTorch
 versions, on the card, for every storage scheme (INT8, BF16, INT4, FP8;
 MIXED8 by scheme id), with and without the sliding window, softcap and
-GPT-OSS attention sinks.
+GPT-OSS attention sinks; K1 at the split count its rule chooses and at
+forced ones, against the plain version's split form at the same count.
 Every test here needs an NVIDIA card and `nvcc` and skips without them; on
 the card run
 
@@ -26,7 +27,10 @@ from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
 from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
     paged_chunk_attention_cuda,
 )
-from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
+from cxl_speckv_tpu_torch.ops.paged_attention import (
+    default_splits,
+    paged_attention,
+)
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
 from cxl_speckv_tpu_torch.ops.quant import encode_for_pool, quantize_kv
 
@@ -282,6 +286,108 @@ def test_chunk_kernel_window_softcap_matches_plain(dev, kv, cd, T):
     close(got, want, cd)
 
 
+def decode_case(dev, kv, cd, lens, seed, heads=(HQ, HKV, D), num_splits=None,
+                sinks=False, q_scale=1.0, **kw):
+    """K1 on random pools against its plain version: (got, the unsplit
+    plain result, the plain result in the split form of the count the
+    kernel ran, that count). One launch, counted under (scheme, window) and
+    under its split count."""
+    hq, hkv, d = heads
+    p, table = pools(lens, kv, dev, seed, hkv=hkv, d=d)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = (torch.randn(len(lens), hq, d, device=dev, generator=gen)
+         * q_scale).to(cd)
+    sk = (torch.randn(hq, device=dev, generator=gen) * 2) if sinks else None
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    args = (q, *p, table, sl, kv)
+    kw = dict(kw, compute_dtype=cd, sinks=sk)
+    S = num_splits or default_splits(q, p[0], table, kw.get("window"))
+    n0, s0 = launched(paged_attention), paged_attention.split_launches[S]
+    got = paged_attention(*args, num_splits=num_splits, **kw)
+    torch.cuda.synchronize()
+    assert launched(paged_attention) == n0 + 1
+    assert paged_attention.split_launches[S] == s0 + 1
+    return (got, paged_attention_ref(*args, **kw),
+            paged_attention_ref(*args, num_splits=S, **kw), S)
+
+
+@pytest.mark.parametrize("k", [2, 5])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_decode_kernel_forced_splits_match_plain(dev, kv, cd, k):
+    """K1 at a forced split count with window 40 (mid-block), cap 5 and
+    sinks: against the plain version's split form at the same count and
+    against the unsplit plain version; a seq_len 0 lane gives zeros."""
+    got, want, want_k, S = decode_case(dev, kv, cd, [0, 1, 15, 16, 17, 130],
+                                       seed=21, num_splits=k, sinks=True,
+                                       q_scale=8.0, window=40, softcap=5.0)
+    assert S == k
+    close(got, want_k, cd)
+    close(got, want, cd)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("sinks", [False, True])
+@pytest.mark.parametrize("window", [None, 700])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_decode_kernel_long_context_matches_plain(dev, kv, cd, window, sinks):
+    """Lanes of 1000-4100 tokens (most not a multiple of bs) beside lanes
+    of length 0, Mistral-like heads (G 4, D 128), at the split count the
+    rule chooses (12 CTAs: S > 1); window 700 starts each lane's walk in the
+    middle of a block and cuts the attended blocks the splits share."""
+    got, want, want_s, S = decode_case(
+        dev, kv, cd, [1000, 0, 2049, 4100, 0, 3333], seed=22,
+        heads=(8, 2, 128), sinks=sinks, window=window)
+    assert S > 1
+    close(got, want_s, cd)
+    close(got, want, cd)
+    assert not got[1].any() and not got[4].any()
+
+
+@pytest.mark.parametrize("sinks", [False, True])
+@pytest.mark.parametrize("window", [None, 20])
+def test_decode_kernel_empty_splits(dev, window, sinks):
+    """More splits than a lane has (attended) blocks: the empty splits add
+    nothing, at both compute dtypes; window 20 leaves a lane of 130 tokens
+    2-3 blocks for 12 splits."""
+    for cd in (torch.float32, torch.bfloat16):
+        got, want, want_s, S = decode_case(
+            dev, KVDtype.INT8, cd, [0, 1, 16, 17, 40, 130], seed=23,
+            num_splits=12, sinks=sinks, window=window)
+        close(got, want_s, cd)
+        close(got, want, cd)
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_decode_kernel_gemma_heads_auto_splits(dev, cd):
+    """Gemma-2's heads (G 2, D 256: 68 KB of shared memory a CTA) at the
+    split count the rule chooses, window 1000 and cap 50 (q x 16 so the cap
+    bites)."""
+    got, want, want_s, S = decode_case(
+        dev, KVDtype.INT8, cd, [0, 1, 33, 1500, 2500], seed=24,
+        heads=(4, 2, 256), q_scale=16.0, window=1000, softcap=50.0)
+    assert S > 1
+    close(got, want_s, cd)
+    close(got, want, cd)
+
+
+def test_decode_split_launches_count_the_split(dev):
+    """`split_launches` counts each call once under the split count it
+    launched (the merge kernel is not counted apart); `launches` counts
+    the call once whatever S."""
+    for k in (1, 3, None):
+        got, _, want_s, S = decode_case(dev, KVDtype.INT8, torch.float32,
+                                        [5, 300, 0], seed=25, num_splits=k)
+        assert S == k if k else S >= 1
+        close(got, want_s, torch.float32)
+    with pytest.raises(ValueError, match="num_splits"):
+        decode_case(dev, KVDtype.INT8, torch.float32, [5], seed=25,
+                    num_splits=65)
+
+
 def chunk_case(dev, kv, cd, T, starts, seed, heads=(HQ, HKV, D), bs=BS,
                q_dtype=None, **kw):
     """K2 on random pools and chunks against its plain version: (got,
@@ -473,8 +579,10 @@ def test_anatomy_kt_kernel_matches_plain(dev, scheme, name):
     close(got, da.kt_attention_plain(*args), torch.float32)
     assert not got[3].any()
     if name != "w8a8":
+        # K1 unsplit: the arithmetic v2 mirrors (rounding p * vs against
+        # the whole walk's running max)
         k1 = paged_attention(p.q, *p.token_major(), p.table, p.lens, p.kv,
-                             compute_dtype=torch.bfloat16)
+                             compute_dtype=torch.bfloat16, num_splits=1)
         close(got, k1, torch.float32)
 
 
