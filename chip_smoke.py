@@ -71,6 +71,28 @@ Phases, each printing its results; any failure exits non-zero:
               engine fixed to its scheme; INT4 refused while busy, then
               rebuilt when idle (pool rows halve), equal to a fresh INT4
               engine;
+9b. spec   -- speculative decoding on the serve's Llama-3-8B, gamma 4, the
+              first 16 of its prompts, tiered (52 HBM blocks) and ample, in
+              three arms: n-gram lookup (verify through K2, no K1 at all),
+              a Llama-3.2-1B draft at full width (W8A16, INT8 draft KV; K1
+              at D 64) and a self-draft (the target proposes for itself,
+              INT8 draft KV); first K1 at the draft's shape and K2 at the
+              verify's (T = 5 at unaligned starts) timed against their plain
+              versions. Every request must finish, tiered tokens equal ample
+              tokens in every arm, the tiered run migrate both ways, the
+              launches be exactly K2 = target prefill dispatches x 32 +
+              draft prefill dispatches x L_draft + rounds x 32 and K1 =
+              rounds x 5 x L_draft (L_draft 16, 32, 0 for ngram); then the
+              self-draft again at float32 activations (the served bf16
+              K1 / K2 variants), whose acceptance -- the cascade-free
+              agreement of decode through K1 and verify through K2 -- must
+              be at least 0.95 (at bf16 activations the model's own
+              matmul rounding flips 128k-vocabulary near-ties: recorded,
+              with each rejection's gap, not held). Printed: acceptance,
+              tokens a round, rounds, tok/s, TPOT, the `decode.spec_*`
+              phase medians, and agreement with a plain serve of the same
+              prompts (the top-2 gap of the dense logits at each first
+              divergence);
 10. gemma2 -- Gemma-2-9B at full width and depth (42 layers alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
@@ -121,6 +143,7 @@ and v2 of K1; their sums and products as `decode_anatomy.agreement` says.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -142,6 +165,9 @@ WINDOW, CAP = 4096, 50.0                 # Gemma-2's (and Mistral's) window
 HORIZON, QUANTUM = 32, 4
 SWITCH_COHORT = 8                        # requests a scheme, switch phase
 MIXED_LAYERS = ("int8", "fp8")           # the per-layer table's period
+SPEC_REQ, GAMMA = 16, 4                  # the spec phase's prompts, proposals
+DRAFT_HEADS = (32, 8, 64)                # Hq, Hkv, D of Llama-3.2-1B
+SELF_DRAFT_MIN_ACCEPT = 0.95
 
 
 @dataclass(frozen=True)
@@ -1036,9 +1062,10 @@ def phase_probe(peaks) -> list:
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
-                 kv="int8", layer_kv=None):
+                 kv="int8", layer_kv=None, **spec):
     """The serving engine of `cell`; KV scheme `kv`, or the per-layer
-    table `layer_kv` (INT8 / FP8 entries)."""
+    table `layer_kv` (INT8 / FP8 entries); `spec`: the speculative-decoding
+    arguments of `Engine`."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -1060,7 +1087,7 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                             max_seq_len=cell.max_seq,
                             prefill_chunk=cell.chunk, decode_horizon=HORIZON,
                             sched_quantum=QUANTUM, weight_dtype="int8"))
-    return Engine(cfg, sc, params=params, device=DEV)
+    return Engine(cfg, sc, params=params, device=DEV, **spec)
 
 
 def serve(eng, prompts, gen):
@@ -1295,6 +1322,259 @@ def phase_switch(cfg, params, prompts) -> None:
           f"cohort == its fixed-scheme engine; idle INT4 rebuild (pool rows "
           f"{dp} -> {dp // 2}) == a fresh INT4 engine for {len(p4)} "
           f"requests", flush=True)
+
+
+def phase_kernels_spec(peaks) -> dict:
+    """K1 at the draft's shape (Llama-3.2-1B's heads, 8 lanes of 65-136
+    tokens in the draft cache's geometry) and K2 at the verify's (T =
+    gamma + 1 at the served rounds' unaligned starts, 64-127, in the tiered
+    target pool's geometry), bf16 compute, INT8, timed against their plain
+    versions. Returns the two rows."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(99)
+    rng = np.random.RandomState(12)
+    draft_slots = SHORT.hbm_tiered + SHORT.host_tiered + 1  # every block
+    rows = {"K1": k1_case(gen, KVDtype.INT8, torch.bfloat16,
+                          rng.randint(65, 137, BATCH).tolist(), peaks,
+                          heads=DRAFT_HEADS, timed=True,
+                          geometry={"slots": draft_slots,
+                                    "max_blocks": SHORT.blocks_per_seq}),
+            "K2": k2_case(gen, KVDtype.INT8, torch.bfloat16, GAMMA + 1,
+                          rng.randint(SHORT.prompt, SHORT.prompt + SHORT.gen,
+                                      BATCH).tolist(), peaks, timed=True,
+                          geometry=served_geometry(SHORT))}
+    for row in rows.values():
+        report(row)
+    return rows
+
+
+def top2_gap(cfg, params, context: list[int]) -> float:
+    """The dense forward's (`forward_dense`) top-2 logit gap after
+    `context`."""
+    from cxl_speckv_tpu_torch.models.llama import forward_dense
+
+    logits = forward_dense(params, cfg, torch.tensor([context], device=DEV))
+    top = torch.topk(logits[0, -1], 2).values
+    return float(top[0] - top[1])
+
+
+class VerdictRecord:
+    """Records every spec round's verdict on the device's logits, by
+    wrapping `engine.spec._AcceptanceMixin._accept_on_device` while the
+    context is open: the verdicts (positions compared), each rejected
+    draft's gap to the verify logits' top-1 and its rank there, and for a
+    draft model the largest |draft - verify| logit over the vocabulary at
+    each compared position (both score the same tokens). One small device
+    reduction and host copy a round."""
+
+    def __enter__(self):
+        from cxl_speckv_tpu_torch.engine import spec
+
+        self.cls, self.orig = spec._AcceptanceMixin, \
+            spec._AcceptanceMixin._accept_on_device
+        self.verdicts, self.gaps, self.ranks, self.diffs = 0, [], [], []
+        rec = self
+
+        def recording(mixin, logits, drafts_d, drafts, active, *args):
+            emitted, n_acc = rec.orig(mixin, logits, drafts_d, drafts,
+                                      active, *args)
+            g = mixin.gamma
+            lanes = np.nonzero(active)[0]
+            if mixin._draft_logits is not None:
+                d = (mixin._draft_logits - logits[:, :g]).abs().amax(-1)
+                rec.diffs += d[torch.from_numpy(lanes).to(d.device)
+                               ].flatten().tolist()
+            for b in lanes:
+                j = int(n_acc[b])
+                rec.verdicts += j + (j < g)
+                if j < g:
+                    row = logits[b, j]
+                    at = row[int(drafts[b, j])]
+                    rec.gaps.append(float(row.max() - at))
+                    rec.ranks.append(int((row > at).sum()))
+            return emitted, n_acc
+
+        self.cls._accept_on_device = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._accept_on_device = self.orig
+
+    def summary(self) -> str:
+        q = lambda xs: ([round(float(x), 5) for x in np.quantile(
+            xs, [0, 0.5, 0.9, 1])] if xs else [])
+        return (f"per-position agreement "
+                f"{1 - len(self.gaps) / max(self.verdicts, 1):.4f} "
+                f"({len(self.gaps)} rejections of {self.verdicts} verdicts); "
+                f"rejected draft's gap to the verify top-1, quantiles "
+                f"0/50/90/100% {q(self.gaps)}, its rank there "
+                f"{np.bincount(self.ranks).tolist() if self.ranks else []}; "
+                f"max |draft - verify logit| a position, quantiles "
+                f"0/50/90/100% {q(self.diffs)}")
+
+
+def spec_arm(label, cfg, params, prompts, plain: dict, record=False,
+             **spec) -> dict:
+    """One arm of the spec phase: tiered (launches counted from 0) and
+    ample serves of `prompts` with the speculative arguments `spec`;
+    requires every request finished, tiered == ample tokens, migrations
+    both ways and the exact launch counts; prints the arm's numbers and
+    its agreement with the plain serve `plain`; with `record`, the ample
+    serve's verdicts (`VerdictRecord`). Returns the tiered run's launches
+    and statistics."""
+    L = cfg.num_layers
+    dcfg = spec.get("draft_config")
+    L_draft = dcfg.num_layers if dcfg is not None else 0
+    kw = dict(spec, spec_gamma=GAMMA)
+    # warm-up: the arm's first launches at its shapes
+    serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kw),
+          prompts[:2], 8)
+    reset_launches()
+    tiered = build_engine(cfg, params, SHORT, SHORT.hbm_tiered,
+                          SHORT.host_tiered, **kw)
+    outs_t, dt_t = serve(tiered, prompts, SHORT.gen)
+    launches = read_launches()
+    st = tiered.get_statistics()
+    draft_prefills = tiered.spec.prefill_dispatches
+    del tiered
+    ample = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kw)
+    rec = VerdictRecord() if record else contextlib.nullcontext()
+    with rec:
+        outs_a, dt_a = serve(ample, prompts, SHORT.gen)
+    sa = ample.get_statistics()
+    del ample
+
+    n = len(prompts)
+    for tag, outs in (("tiered", outs_t), ("ample", outs_a)):
+        if len(outs) != n or any(o.finish_reason not in ("length", "eos")
+                                 for o in outs.values()):
+            fail(f"{label} {tag}: not every request finished ({len(outs)}/"
+                 f"{n}: {sorted({o.finish_reason for o in outs.values()})})")
+    diff = [i for i in outs_t if outs_t[i].tokens != outs_a[i].tokens]
+    if diff:
+        fail(f"{label}: tiered tokens differ from ample tokens for requests "
+             f"{diff}")
+    tr = st["transfer"]
+    if not (tr["up_transfers"] > 0 and tr["down_transfers"] > 0):
+        fail(f"{label}: tiered run migrated nothing both ways: {tr}")
+    rounds = st["scheduler"]["decode_batches"]
+    if rounds != st["spec"]["rounds"]:
+        fail(f"{label}: {rounds} decode batches, {st['spec']['rounds']} "
+             f"spec rounds")
+    want = {"K1": rounds * (GAMMA + 1) * L_draft,
+            "K2": (st["engine"]["prefill_dispatches"] * L
+                   + draft_prefills * L_draft + rounds * L)}
+    got = {k: total(by_variant) for k, by_variant in launches.items()}
+    if got != want:
+        fail(f"{label}: kernel launches {got} != expected {want} ({rounds} "
+             f"rounds, {st['engine']['prefill_dispatches']} target and "
+             f"{draft_prefills} draft prefill dispatches, L_draft {L_draft})")
+    check_windows(label, launches,
+                  lambda k: {("int8", 0): k} if k else {})
+
+    for tag, outs, dt, s in (("tiered", outs_t, dt_t, st),
+                             ("ample", outs_a, dt_a, sa)):
+        toks = sum(len(o.tokens) for o in outs.values())
+        sp, ph = s["spec"], s["phases"]
+        med = ", ".join(f"{k[len('decode.spec_'):]} "
+                        f"{ph.get(k, {}).get('p50_ms', 0.0):.2f}"
+                        for k in ("decode.spec_resident",
+                                  "decode.spec_propose", "decode.spec_verify"))
+        print(f"[{label}] {tag}: {toks} tokens in {dt:.2f} s = "
+              f"{toks / dt:.1f} tok/s | acceptance {sp['acceptance_rate']:.4f}"
+              f", {sp['tokens_per_round']:.3f} tokens a round, "
+              f"{sp['rounds']} rounds | TPOT p50 "
+              f"{s['engine']['p50_tpot_ms']:.2f} ms, TTFT p50 "
+              f"{s['engine']['p50_ttft_ms']:.1f} ms | phase p50 (ms) {med} "
+              f"| up {s['transfer']['up_transfers']} down "
+              f"{s['transfer']['down_transfers']}", flush=True)
+    # agreement with plain greedy decoding: a record, not a check (random
+    # bf16 weights: one near-tie flip re-contexts every later token)
+    same = tot = 0
+    gaps = []
+    for i, o in sorted(outs_a.items()):
+        ref = plain[i].tokens
+        same += sum(int(a == b) for a, b in zip(o.tokens, ref))
+        tot += min(len(o.tokens), len(ref))
+        if o.tokens != ref:
+            j = next((k for k, (a, b) in enumerate(zip(o.tokens, ref))
+                      if a != b), min(len(o.tokens), len(ref)))
+            gaps.append((i, j, top2_gap(cfg, params,
+                                        prompts[i] + ref[:j])))
+    print(f"[{label}] agreement with the plain serve: tokens {same}/{tot} = "
+          f"{same / max(tot, 1):.4f}, requests {n - len(gaps)}/{n} identical"
+          + ("; first divergences (request, token, dense top-2 gap): "
+             + ", ".join(f"({i}, {j}, {g:.4f})" for i, j, g in gaps)
+             if gaps else ""), flush=True)
+    if record:
+        print(f"[{label}] ample serve's verdicts: {rec.summary()}",
+              flush=True)
+    print(f"[{label}] tiered == ample tokens for all {n} requests; launches "
+          f"on the tiered run {launches} = expected {want}", flush=True)
+    return {"launches": launches, "stats": st, "rounds": rounds}
+
+
+def self_draft_f32(cfg, params, prompts) -> float:
+    """The self-draft at float32 activations (the same W8A16 weights; bf16
+    attention compute, so the served K1 and K2 variants run): with bf16
+    activations every matmul rounds, and at Llama-3's 128256-token
+    vocabulary under random weights that rounding alone flips top-2 ties
+    often enough to hide what K1 and K2 do; at float32 only the two
+    kernels' own sums differ. Ample pool; returns the acceptance."""
+    import dataclasses
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    eng = build_engine(c32, params, SHORT, SHORT.hbm_ample, 0,
+                       draft_config=c32, draft_params=params,
+                       spec_draft_kv="int8", spec_gamma=GAMMA)
+    with VerdictRecord() as rec:
+        outs, dt = serve(eng, prompts, SHORT.gen)
+    st = eng.get_statistics()
+    sp = st["spec"]
+    toks = sum(len(o.tokens) for o in outs.values())
+    if len(outs) != len(prompts):
+        fail(f"spec-self-f32: {len(outs)}/{len(prompts)} requests finished")
+    print(f"[spec-self-f32] ample: {toks} tokens in {dt:.2f} s | acceptance "
+          f"{sp['acceptance_rate']:.4f}, {sp['tokens_per_round']:.3f} tokens "
+          f"a round, {sp['rounds']} rounds | {rec.summary()}", flush=True)
+    return sp["acceptance_rate"]
+
+
+def phase_spec(cfg, params, prompts, peaks) -> dict:
+    """Speculative decoding on Llama-3-8B: the kernels at the new shapes,
+    a plain ample serve of the first SPEC_REQ prompts, then the n-gram,
+    draft (Llama-3.2-1B) and self-draft arms (`spec_arm`). Returns the
+    kernel rows and each arm's result."""
+    from cxl_speckv_tpu_torch.models.configs import llama_3_2_1b
+
+    rows = phase_kernels_spec(peaks)
+    ps = prompts[:SPEC_REQ]
+    plain, _ = serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0),
+                     ps, SHORT.gen)
+    dcfg = llama_3_2_1b()
+    dparams = init_model(dcfg, "spec", 4)
+    arms = {"ngram": dict(spec_ngram=True),
+            "draft": dict(draft_config=dcfg, draft_params=dparams,
+                          spec_draft_kv="int8"),
+            "self": dict(draft_config=cfg, draft_params=params,
+                         spec_draft_kv="int8")}
+    res = {arm: spec_arm(f"spec-{arm}", cfg, params, ps, plain,
+                         record=arm == "self", **kw)
+           for arm, kw in arms.items()}
+    acc = self_draft_f32(cfg, params, ps)
+    if acc < SELF_DRAFT_MIN_ACCEPT:
+        fail(f"spec-self-f32: acceptance {acc:.4f} < "
+             f"{SELF_DRAFT_MIN_ACCEPT}: decode through K1 and verify "
+             f"through K2 disagree beyond near-ties")
+    print(f"[spec] self-draft acceptance at float32 activations {acc:.4f} "
+          f">= {SELF_DRAFT_MIN_ACCEPT} (decode through K1 against verify "
+          f"through K2, cascade-free); at bf16 activations "
+          f"{res['self']['stats']['spec']['acceptance_rate']:.4f} (recorded, "
+          f"not held: bf16 rounding of the model's matmuls)", flush=True)
+    del dparams
+    return {"rows": rows, **res}
 
 
 def phase_gemma(peaks) -> dict:
@@ -1532,6 +1812,7 @@ def main() -> int:
           params, prompts, peaks, matmuls=False,
           layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
     timed("switch", phase_switch, cfg, params, prompts)
+    spec = timed("spec", phase_spec, cfg, params, prompts, peaks)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
@@ -1564,6 +1845,15 @@ def main() -> int:
             entries.append(kernel_entry(
                 f"{kname} {kv}", key, scheme_rows[f"{key} {kv}"],
                 served[key].get((kv, 0), 0)))
+    # the spec phase's new shapes; launches from the tiered draft-arm serve
+    # (K2's verify share: rounds x 32 layers)
+    draft = spec["draft"]
+    entries.append(kernel_entry("paged_attention llama-3.2-1b draft", "K1",
+                                spec["rows"]["K1"],
+                                total(draft["launches"]["K1"])))
+    entries.append(kernel_entry("paged_chunk_attention llama-3-8b verify",
+                                "K2", spec["rows"]["K2"],
+                                draft["rounds"] * cfg.num_layers))
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         # time lost over the serves against the bound, back to back

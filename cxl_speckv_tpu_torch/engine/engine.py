@@ -10,7 +10,10 @@ fused multi-step decode), stop / finish / OOM / preemption, and
    them in one pass (`models.llama.prefill_batch_packed`);
 2. pick the decode group (round-robin over the oversubscribed running set),
    demand-fetch non-resident blocks, decode `decode_horizon` tokens
-   (`models.llama.decode_multi_packed`);
+   (`models.llama.decode_multi_packed`), or with speculative decoding one
+   round: propose gamma tokens (`draft_config`: a draft model through K1;
+   `spec_ngram`: prompt lookup on the host), then verify all gamma + 1
+   positions through K2 and accept on the device (`engine/spec.py`);
 3. retire finished requests, and the KV blocks that every running
    sequence's sliding window has left (Mistral-style uniform windows);
 4. prefetch plan for upcoming groups, eviction, migration.
@@ -24,8 +27,9 @@ request. Prefill and decode dispatches each hold one scheme.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Host-streamed requests, sessions, speculative decoding, sampling
-penalties, logprobs, fused rounds, mesh serving, the prefetch LSTM and the
+the CPU. Host-streamed requests, sessions, sampling penalties, logprobs
+(also under speculative decoding), fused rounds, mesh serving, the prefetch
+LSTM (and with it the n-gram proposer's LSTM miss fallback) and the
 automatic decode horizon are not ported yet: asking for one raises.
 """
 
@@ -43,6 +47,7 @@ from cxl_speckv_tpu_torch.core.stats import Statistics, ratio
 from cxl_speckv_tpu_torch.engine.request import Request, RequestState
 from cxl_speckv_tpu_torch.engine.sampling import encode_sampling
 from cxl_speckv_tpu_torch.engine.scheduler import Scheduler
+from cxl_speckv_tpu_torch.engine.spec import NgramProposer, SpecDecoder
 from cxl_speckv_tpu_torch.models.configs import LlamaConfig
 from cxl_speckv_tpu_torch.models.llama import (
     check_supported,
@@ -50,6 +55,7 @@ from cxl_speckv_tpu_torch.models.llama import (
     init_params,
     init_params_quantized,
     prefill_batch_packed,
+    seeded_generator,
 )
 from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
@@ -117,7 +123,14 @@ def _result_tokens(req: Request) -> list[int]:
 class Engine:
     def __init__(self, model_config: LlamaConfig, system_config: SystemConfig,
                  params=None, *, device=None, seed: int = 0,
-                 enable_lstm: bool = False):
+                 enable_lstm: bool = False,
+                 draft_config: LlamaConfig | None = None, draft_params=None,
+                 spec_gamma: int = 4, spec_ngram: bool = False,
+                 spec_ngram_max_match: int = 3, spec_draft_kv: str = "bf16"):
+        """`draft_config` (+ `draft_params`, the port's tree; None draws a
+        seeded draft) or `spec_ngram` turn on speculative decoding with
+        `spec_gamma` proposals a round; the draft's KV cache uses
+        `spec_draft_kv`."""
         system_config.validate()
         check_supported(model_config)
         ec = system_config.engine
@@ -169,6 +182,30 @@ class Engine:
         # retirement needs EVERY layer windowed (Gemma-2 global layers
         # keep full KV); Mistral-style uniform windows retire normally
         self.scheduler.window_tokens = model_config.retirement_window
+        self.spec = None
+        if spec_ngram:
+            if draft_config is not None:
+                raise ValueError("spec_ngram and draft_config are mutually "
+                                 "exclusive proposal sources")
+            self.spec = NgramProposer(self.kvc, model_config.vocab_size,
+                                      gamma=spec_gamma,
+                                      max_match=spec_ngram_max_match)
+        elif draft_config is not None:
+            check_supported(draft_config)
+            if draft_params is None:
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(seed + 2)
+                draft_params = (
+                    init_params_quantized(draft_config, gen, self.device)
+                    if ec.weight_dtype == "int8"
+                    else init_params(draft_config, gen, self.device))
+            elif ec.weight_dtype == "int8" and not is_quantized(draft_params):
+                draft_params = quantize_weights(draft_params)
+            self.spec = SpecDecoder(draft_config, draft_params, self.kvc,
+                                    gamma=spec_gamma,
+                                    draft_kv_dtype=KVDtype(spec_draft_kv))
+        if self.spec is not None:
+            self.scheduler.free_seq_hook = self.spec.on_free_seq
         self.stats = EngineStatistics()
         self.timers = PhaseTimer()
         self._next_req_id = 0
@@ -264,6 +301,10 @@ class Engine:
                 "the runtime scheme knob applies to uniform-scheme engines")
         kv_dtype = KVDtype(kv_dtype)
         base = self.config.cache.kv_dtype
+        if self.spec is not None and kv_dtype != base:
+            raise ValueError("speculative decoding engines use a single "
+                             "KV scheme (draft and verify share the pool "
+                             "encoding)")
         if storage_width_class(kv_dtype) != storage_width_class(base):
             busy = self.scheduler.num_waiting + self.scheduler.num_running
             if busy:
@@ -403,6 +444,12 @@ class Engine:
         if not ready:
             return
         self.kvc.ensure_resident([r.seq_slot for r, _, _ in ready])
+        if self.spec is not None:
+            # mirror the wave into the draft cache in one pass
+            self.spec.prefill_batch(
+                [(req.seq_slot, start, n,
+                  req.prompt[req.prefill_pos:req.prefill_pos + n])
+                 for req, n, start in ready], chunk=chunk, batch=B)
         # one dispatch per KV scheme (normally one)
         groups: dict = {}
         for item in ready:
@@ -462,6 +509,8 @@ class Engine:
         batch = self.scheduler.decode_batch()
         if not batch:
             return batch
+        if self.spec is not None:
+            return self._spec_decode_tick(batch, finished)
         return self._multi_decode_tick(batch, finished)
 
     def _multi_decode_tick(self, batch: list[Request],
@@ -547,6 +596,102 @@ class Engine:
             min(h, len(r.output)) for r in batch)
         return batch
 
+    def _spec_decode_tick(self, batch: list[Request],
+                          finished: list[EngineOutput]) -> list[Request]:
+        """One speculative round for the group: propose, then verify +
+        accept in one call (`SpecDecoder` / `NgramProposer.verify_accept`).
+        The n-gram proposer gets no miss fallback: the JAX engine seeds
+        misses from the prefetch LSTM, which the port refuses."""
+        gamma = self.spec.gamma
+        B = self.config.engine.max_batch_size
+        bs = self.config.cache.block_size
+        slots = [r.seq_slot for r in batch]
+        for s in slots:
+            self.kvc.pin_seq(s, True)
+        # record the accesses BEFORE the demand fetch, so that misses count
+        # as misses (touching after ensure_resident would count every
+        # demand fetch as a hit)
+        for s in slots:
+            self.kvc.touch_seq(s)
+        t0 = time.monotonic()
+        self.kvc.ensure_resident(slots)
+        self.timers.record("decode.spec_resident", time.monotonic() - t0)
+        max_tokens = self.kvc.pool.table.max_blocks_per_seq * bs
+        for r in batch:
+            # room for the verify appends at n-1 .. n-1+gamma, clamped to the
+            # table (a lane within gamma of it writes fewer speculative rows;
+            # positions past its final length are never read)
+            while r.seq_slot >= 0 and not self.kvc.extend_seq(
+                    r.seq_slot, min(r.num_tokens + gamma, max_tokens)):
+                if not self._make_capacity():
+                    raise RuntimeError(
+                        "KV capacity exhausted with nothing to preempt")
+            if r.seq_slot >= 0:
+                self.kvc.pin_seq(r.seq_slot, True)
+                self.spec.sync_seq(r.seq_slot)
+        batch = [r for r in batch if r.seq_slot >= 0]
+        if not batch:
+            return batch
+
+        guard = self.kvc.guard_slot
+        mb = self.kvc.pool.table.max_blocks_per_seq
+        last = np.zeros(B, np.int32)
+        positions = np.zeros(B, np.int32)
+        active = np.zeros(B, bool)
+        temps = np.zeros(B, np.float32)
+        top_ps = np.zeros(B, np.float32)
+        ttab = np.full((B, mb), guard, np.int32)
+        dtab = np.full((B, mb), self.spec.guard_slot, np.int32)
+        for i, r in enumerate(batch):
+            last[i] = r.output[-1]
+            positions[i] = r.num_tokens - 1
+            active[i] = True
+            temps[i] = r.temperature
+            top_ps[i] = r.top_p if 0.0 < r.top_p < 1.0 else 0.0
+            row = self.kvc.pool.table.row(r.seq_slot)
+            ttab[i] = np.where(row >= 0, row, guard)
+            dtab[i] = self.spec.table[r.seq_slot]
+
+        self._rng_counter += 1
+        kw = {}
+        if not self.spec.has_draft_model:
+            # prompt lookup reads each lane's own history
+            kw["histories"] = [list(r.prompt) + r.output for r in batch]
+        t0 = time.monotonic()
+        drafts = self.spec.propose(last, positions, dtab, active,
+                                   temps=temps, top_ps=top_ps,
+                                   rng_counter=self._rng_counter, **kw)
+        self.timers.record("decode.spec_propose", time.monotonic() - t0)
+        gen = (seeded_generator(self.device, self._rng_seed,
+                                self._rng_counter)
+               if (temps > 0).any() else None)
+        t0 = time.monotonic()
+        emitted, n_acc = self.spec.verify_accept(
+            self.params, self.model_config, self._req_scheme(batch[0]),
+            np.concatenate([last[:, None], drafts], axis=1), positions,
+            self.kvc.pools, ttab, active, drafts, temps, gen, top_ps=top_ps)
+        self.timers.record("decode.spec_verify", time.monotonic() - t0)
+        for i, r in enumerate(batch):
+            blocks = self.kvc.pool.seq(r.seq_slot).blocks
+            # the KV this round made valid: positions n-1 .. n-1+accepted
+            for bi in range(int(positions[i]) // bs,
+                            (int(positions[i]) + int(n_acc[i])) // bs + 1):
+                if bi < len(blocks) and blocks[bi] is not None:
+                    self.kvc.directory.mark_dirty(blocks[bi])
+            for tok in emitted[i]:
+                if r.state != RequestState.RUNNING:
+                    break
+                self._record_token(r, tok)
+                out = self._maybe_finish(r)
+                if out is not None:
+                    finished.append(out)
+        for r in batch:
+            if r.state == RequestState.RUNNING:
+                self.kvc.pin_seq(r.seq_slot, False)
+        self.scheduler.stats.decode_batches += 1
+        self.scheduler.stats.decode_tokens += sum(len(e) for e in emitted)
+        return batch
+
     def _retire_window_blocks(self) -> None:
         """Sliding-window KV retirement (Mistral family): free the blocks
         every running sequence's window has moved past. The attention
@@ -562,7 +707,9 @@ class Engine:
             if r.seq_slot in live and r.num_tokens > window:
                 first = (r.num_tokens - window) // bs
                 if first > 0:
-                    self.kvc.retire_out_of_window(r.seq_slot, first)
+                    freed = self.kvc.retire_out_of_window(r.seq_slot, first)
+                    if freed and self.spec is not None:
+                        self.spec.retire_blocks(r.seq_slot, freed)
 
     # -- bookkeeping ----------------------------------------------------------------
 
@@ -631,6 +778,8 @@ class Engine:
             "engine": eng,
             "kv_scheme_current": self._kv_scheme.value,
             "kv_scheme_live_tokens": scheme_tokens,
+            **({"spec": self.spec.get_statistics().as_dict()}
+               if self.spec is not None else {}),
             "phases": self.timers.summary(),
             "scheduler": self.scheduler.get_statistics().as_dict(),
             "prefetch": self.prefetcher.get_statistics().as_dict(),

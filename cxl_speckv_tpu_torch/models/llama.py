@@ -3,8 +3,10 @@
 Counterpart of `cxl_speckv_tpu/models/llama.py`, main-path subset: the
 parameter tree and its random init (plain and quantize-at-init), the
 building blocks, `decode_step` / `decode_multi` / `decode_multi_packed`
-(fused multi-step decode with sampling on the device), the batched chunked
-prefill `prefill_batch_packed`, and `forward_dense`. Families: Llama,
+(fused multi-step decode with sampling on the device, optionally returning
+each step's logits), the batched chunked prefill `prefill_batch_packed`,
+the single-sequence `prefill_chunk`, the speculative verify pass
+`verify_step`, and `forward_dense`. Families: Llama,
 Mistral (uniform sliding window), Gemma-2 (alternating sliding / global
 layers, tanh softcaps, GeGLU, sandwich norms, 1 + w RMSNorm, scaled
 embeddings, tied head) and GPT-OSS (learned attention sinks, q/k/v and o
@@ -24,8 +26,8 @@ counterpart here.
 
 Attention goes through the kernel wrappers `ops.paged_attention.
 paged_attention` (K1, decode) and `ops.chunk_attention_cuda.
-paged_chunk_attention_cuda` (K2, prefill): the CUDA kernels for tensors on
-the card, their plain versions for tensors on the CPU.
+paged_chunk_attention_cuda` (K2, prefill and verify): the CUDA kernels for
+tensors on the card, their plain versions for tensors on the CPU.
 
 `kv_dtype` is one scheme for every layer, or a tuple of per-layer schemes
 (INT8 / FP8, `CacheConfig.layer_kv_dtypes`): layer li then quantizes with
@@ -487,18 +489,21 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
                  generator: torch.Generator | None,
                  temperatures: torch.Tensor, top_ps: torch.Tensor | None,
                  *, horizon: int, sampled: bool = False,
-                 nucleus: bool = False) -> torch.Tensor:
+                 nucleus: bool = False, return_logits: bool = False):
     """`horizon` decode steps with sampling on the device: step j feeds the
     token sampled at step j - 1. Callers pre-extend sequences so the table
     covers start .. start + horizon - 1. `sampled` / `nucleus` say whether
     any lane samples (temperature > 0) or uses top-p; when neither, the
     steps are pure argmax and never synchronize with the host. Returns
-    tokens [B, horizon] int32 on the device; the pools update in place."""
+    tokens [B, horizon] int32 on the device; the pools update in place.
+    With `return_logits`, (tokens, logits [B, horizon, V] float32): each
+    step's logits, the proposal distributions that speculative sampling's
+    acceptance rule needs (`engine/spec.py`)."""
     from cxl_speckv_tpu_torch.engine.sampling import sample_tokens
 
     schemes = layer_kv_schemes(kv_dtype, config.num_layers)
     toks = first_tokens
-    out = []
+    out, step_logits = [], []
     for j in range(horizon):
         positions = start_positions + j
         logits = _decode_core(params, config, schemes, toks, positions,
@@ -507,10 +512,15 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
                              top_ps=top_ps if nucleus else None,
                              sampled=sampled).to(torch.int32)
         out.append(toks)
-    return torch.stack(out, dim=1)
+        if return_logits:
+            step_logits.append(logits)
+    toks = torch.stack(out, dim=1)
+    return (toks, torch.stack(step_logits, dim=1)) if return_logits else toks
 
 
-def _generator(device, rng_seed: int, counter: int) -> torch.Generator:
+def seeded_generator(device, rng_seed: int, counter: int) -> torch.Generator:
+    """The generator of one dispatch's draws, seeded from (rng_seed,
+    counter) as the JAX package derives its key."""
     g = torch.Generator(device=device)
     g.manual_seed((rng_seed << 32) + counter)
     return g
@@ -518,7 +528,8 @@ def _generator(device, rng_seed: int, counter: int) -> torch.Generator:
 
 def decode_multi_packed(params: Params, config: LlamaConfig,
                         kv_dtype, packed: np.ndarray, pools: Pools,
-                        *, horizon: int, rng_seed: int = 0) -> torch.Tensor:
+                        *, horizon: int, rng_seed: int = 0,
+                        return_logits: bool = False):
     """`decode_multi` with every per-round host input in ONE int32 array
     (one host->device copy per round):
 
@@ -526,7 +537,8 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
         2 = sampling word (`engine.sampling.encode_sampling`), 3 = rng
         counter, 4: = block-table row (guard-filled).
 
-    Returns tokens [B, horizon] int32 on the pools' device."""
+    Returns tokens [B, horizon] int32 on the pools' device, and with
+    `return_logits` the per-step logits beside them (`decode_multi`)."""
     from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
 
     packed = np.asarray(packed, np.int32)
@@ -536,59 +548,39 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
     nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
                                 & (temps_h > 0)).any())
     p = torch.from_numpy(packed).to(dev)
-    gen = (_generator(dev, rng_seed, int(packed[0, 3])) if sampled else None)
+    gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
+           else None)
     return decode_multi(params, config, kv_dtype, p[:, 0], p[:, 1], pools,
                         p[:, 4:], gen, temps_h.to(dev), top_ps_h.to(dev),
-                        horizon=horizon, sampled=sampled, nucleus=nucleus)
+                        horizon=horizon, sampled=sampled, nucleus=nucleus,
+                        return_logits=return_logits)
 
 
 # ---------------------------------------------------------------------------
-# batched chunked prefill
+# chunks of fresh tokens: batched prefill, single-sequence prefill, verify
 # ---------------------------------------------------------------------------
 
-def prefill_batch_packed(params: Params, config: LlamaConfig,
-                         kv_dtype, packed: np.ndarray, pools: Pools,
-                         *, max_blocks: int, rng_seed: int = 0) -> torch.Tensor:
-    """Batched chunked prefill: every prefilling lane's chunk in one pass
-    (causal within the chunk + that lane's quantized pool context), each
-    lane's next token sampled on the device.
-
-        packed [B, 4 + max_blocks + T]: col 0 = start position, 1 = valid
-        length (0 = inactive lane), 2 = sampling word, 3 = rng counter,
-        4:4+max_blocks = table row (guard-filled), the rest = tokens.
-
-    The chunk's K/V enter attention as quantize->dequantized values (what
-    decode will later read from the pool) and are appended to the pools in
-    place after attention; inactive positions write the guard slot.
-    Returns tokens [B] int32 on the pools' device."""
-    from cxl_speckv_tpu_torch.engine.sampling import (
-        decode_sampling,
-        sample_tokens,
-    )
-
+def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
+                   token_ids: torch.Tensor, start: torch.Tensor, pools: Pools,
+                   tables: torch.Tensor, write: torch.Tensor) -> torch.Tensor:
+    """T fresh tokens a lane [B, T] at start [B] .. start + T - 1, causal
+    within the chunk + that lane's quantized pool context (positions <
+    start) through K2; returns the final hidden states [B, T, H] (before
+    the final norm). The chunk's K/V enter attention as quantize ->
+    dequantized values, exactly what a later decode step reads from the
+    pool (fresh float32 K/V would disagree with the quantized view near
+    ties), and are appended to the pools in place after attention;
+    positions where `write` [B, T] is False write the guard slot."""
     c = config
     schemes = layer_kv_schemes(kv_dtype, c.num_layers)
-    packed = np.asarray(packed, np.int32)
-    dev = pools[0].device
-    B = packed.shape[0]
-    T = packed.shape[1] - 4 - max_blocks
+    dev = token_ids.device
+    B, T = token_ids.shape
     bs = pools[1].shape[3]
     guard_slot = pools[0].shape[1] - 1
-    temps_h, top_ps_h = decode_sampling(torch.from_numpy(packed[:, 2]))
-    sampled = bool((temps_h > 0).any())
-    nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
-                                & (temps_h > 0)).any())
-    p = torch.from_numpy(packed).to(dev)
-    start, valid = p[:, 0], p[:, 1]
-    tables = p[:, 4:4 + max_blocks]
-    token_ids = p[:, 4 + max_blocks:].long()
-
-    t_idx = torch.arange(T, device=dev)
-    positions = start[:, None] + t_idx[None, :]              # [B, T]
-    blk = torch.clamp(positions // bs, 0, max_blocks - 1)
+    positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
+    blk = torch.clamp(positions // bs, 0, tables.shape[1] - 1)
     slots = torch.gather(tables, 1, blk.long()).long()
-    slots = torch.where(t_idx[None, :] < valid[:, None], slots,
-                        torch.full_like(slots, guard_slot))
+    slots = torch.where(write, slots, torch.full_like(slots, guard_slot))
     offs = (positions % bs).long()
     inv_freq = rope_frequencies(c).to(dev)
     x = _embed(params, c, token_ids)                         # [B, T, H]
@@ -615,14 +607,93 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
         _append_kv(pools, li, encode_for_pool(kq, scheme),
                    encode_for_pool(vq, scheme), ks, vs, slots, offs)
+    return x
+
+
+def prefill_batch_packed(params: Params, config: LlamaConfig,
+                         kv_dtype, packed: np.ndarray, pools: Pools,
+                         *, max_blocks: int, rng_seed: int = 0) -> torch.Tensor:
+    """Batched chunked prefill: every prefilling lane's chunk in one pass
+    (`_chunk_forward`), each lane's next token sampled on the device.
+
+        packed [B, 4 + max_blocks + T]: col 0 = start position, 1 = valid
+        length (0 = inactive lane), 2 = sampling word, 3 = rng counter,
+        4:4+max_blocks = table row (guard-filled), the rest = tokens.
+
+    Positions past a lane's valid length write the guard slot. Returns
+    tokens [B] int32 on the pools' device."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        decode_sampling,
+        sample_tokens,
+    )
+
+    c = config
+    packed = np.asarray(packed, np.int32)
+    dev = pools[0].device
+    B = packed.shape[0]
+    T = packed.shape[1] - 4 - max_blocks
+    temps_h, top_ps_h = decode_sampling(torch.from_numpy(packed[:, 2]))
+    sampled = bool((temps_h > 0).any())
+    nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
+                                & (temps_h > 0)).any())
+    p = torch.from_numpy(packed).to(dev)
+    valid = p[:, 1]
+    write = torch.arange(T, device=dev)[None, :] < valid[:, None]
+    x = _chunk_forward(params, c, kv_dtype, p[:, 4 + max_blocks:].long(),
+                       p[:, 0], pools, p[:, 4:4 + max_blocks], write)
     # last valid hidden state per lane -> logits -> sampled token
     last = torch.clamp(valid - 1, 0, T - 1).long()
     x_last = x[torch.arange(B, device=dev), last]
     logits = _final_logits(_norm(x_last, params["final_norm"], c), params, c)
-    gen = (_generator(dev, rng_seed, int(packed[0, 3])) if sampled else None)
+    gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
+           else None)
     return sample_tokens(logits, temps_h.to(dev), gen,
                          top_ps=top_ps_h.to(dev) if nucleus else None,
                          sampled=sampled).to(torch.int32)
+
+
+def prefill_chunk(params: Params, config: LlamaConfig, kv_dtype,
+                  token_ids: torch.Tensor, start_pos: int, pools: Pools,
+                  table_row: torch.Tensor,
+                  valid_len: int | None = None) -> torch.Tensor:
+    """Prefill one sequence's chunk token_ids [T] at start_pos (the pools
+    update in place); the chunk may be right-padded past `valid_len`
+    (default T): pad positions write the guard slot and, coming after the
+    real tokens, are causally invisible to them. Returns the last valid
+    token's logits [V] float32."""
+    T = token_ids.shape[0]
+    dev = token_ids.device
+    valid = T if valid_len is None else int(valid_len)
+    start = torch.tensor([int(start_pos)], dtype=torch.int32, device=dev)
+    write = (torch.arange(T, device=dev) < valid)[None, :]
+    x = _chunk_forward(params, config, kv_dtype, token_ids[None].long(),
+                       start, pools, table_row[None], write)
+    x_last = _norm(x[0, valid - 1], params["final_norm"], config)
+    return _final_logits(x_last[None], params, config)[0]
+
+
+def verify_step(params: Params, config: LlamaConfig, kv_dtype,
+                token_ids: torch.Tensor, start_pos: torch.Tensor,
+                pools: Pools, block_tables: torch.Tensor,
+                active: torch.Tensor) -> torch.Tensor:
+    """Target-model scoring of T tokens a lane in one pass, the
+    speculative-decoding verification (the JAX package's `verify_impl`
+    body and its jitted `verify_step` in one). token_ids [B, T] = the last
+    accepted token, then the drafts; start_pos [B] the position of
+    token_ids[:, 0]; inactive lanes (`active` [B] False) write the guard
+    slot. Returns logits [B, T, V] float32: row t is the distribution for
+    position start_pos + t + 1, the verdict on draft t + 1 (row T - 1
+    gives the bonus token).
+
+    KV of every fed token is appended at its position (in place); rows
+    past the accepted prefix are never covered by the sequence length and
+    the next round overwrites them: speculative KV needs no rollback."""
+    B, T = token_ids.shape
+    write = active.bool()[:, None].expand(B, T)
+    x = _chunk_forward(params, config, kv_dtype, token_ids.long(),
+                       start_pos.int(), pools, block_tables, write)
+    return _final_logits(_norm(x, params["final_norm"], config), params,
+                         config)
 
 
 # ---------------------------------------------------------------------------

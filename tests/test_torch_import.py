@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
                  "ops.cuda_build", "models.llama", "models.moe",
                  "models.convert", "ops.decode_anatomy",
                  "scripts.kernel_anatomy", "utils.card",
-                 "engine.engine", "runtime.kv_cache", "runtime.hoststore",
+                 "engine.engine", "engine.spec", "runtime.kv_cache",
+                 "runtime.hoststore",
                  "prefetcher.controller"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
 

@@ -287,13 +287,13 @@ def test_chunk_kernel_window_softcap_matches_plain(dev, kv, cd, T):
 
 
 def decode_case(dev, kv, cd, lens, seed, heads=(HQ, HKV, D), num_splits=None,
-                sinks=False, q_scale=1.0, **kw):
+                sinks=False, q_scale=1.0, bs=BS, **kw):
     """K1 on random pools against its plain version: (got, the unsplit
     plain result, the plain result in the split form of the count the
     kernel ran, that count). One launch, counted under (scheme, window) and
     under its split count."""
     hq, hkv, d = heads
-    p, table = pools(lens, kv, dev, seed, hkv=hkv, d=d)
+    p, table = pools(lens, kv, dev, seed, bs=bs, hkv=hkv, d=d)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     q = (torch.randn(len(lens), hq, d, device=dev, generator=gen)
@@ -460,6 +460,88 @@ def test_chunk_kernel_groups_and_block_sizes(dev, kv, heads, bs):
 # 2.7e-4 at Gemma-2's heads (D 256, window 4096, cap 50); 1e-3 leaves a
 # margin of ~4x, 20x tighter than the bf16-output tolerance.
 TOL_F32_Q = 1e-3
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding's shapes: K2 scores gamma + 1 verify positions at any
+# start inside a block; K1 runs the draft (Llama-3.2-1B: 32 / 8 heads of 64)
+# over 8 lanes of 65-136 tokens in 32-token blocks
+# ---------------------------------------------------------------------------
+
+SPEC_HEADS = {64: (32, 8, 64), 128: (32, 8, 128), 256: (16, 8, 256)}
+
+
+@pytest.mark.parametrize("variant", ["plain", "window+sinks"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [2, 5, 9])
+def test_chunk_kernel_verify_shapes_match_plain(dev, T, cd, d, variant):
+    """K2 at the verify shape, B 8, 32-token blocks: four calls whose 32
+    lanes start at every offset inside a block (0 .. 31, at blocks 0 .. 4,
+    so a chunk starts at a boundary, inside, and crosses into the next
+    block); window 40 (mid-block) with sinks, or neither. INT8 pools, the
+    verify's scheme."""
+    bs = 32
+    starts = [off + bs * (off * 7 % 5) for off in range(bs)]
+    kw = {}
+    if variant != "plain":
+        kw = dict(window=40,
+                  sinks=torch.randn(SPEC_HEADS[d][0], device=dev) * 2)
+    for c in range(0, bs, 8):
+        got, want, plain = chunk_case(dev, KVDtype.INT8, cd, T,
+                                      starts[c:c + 8], seed=40 + c, bs=bs,
+                                      heads=SPEC_HEADS[d], **kw)
+        close(got, want, cd)
+        if kw:
+            assert not within(plain(sinks=None), want, cd)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", SCHEMES)
+def test_decode_kernel_draft_shape_matches_plain(dev, kv, cd):
+    """K1 at the draft's shape: Llama-3.2-1B's heads (G 4, D 64), 8 lanes
+    of 65-136 tokens (the served prompts of 64, grown by up to 64 tokens
+    and gamma + 1 proposals), 32-token blocks, at the split count the rule
+    chooses; against the unsplit plain version and its split form."""
+    lens = [65, 66, 96, 97, 100, 127, 128, 136]
+    got, want, want_s, S = decode_case(dev, kv, cd, lens, seed=31,
+                                       heads=SPEC_HEADS[64], bs=32)
+    close(got, want_s, cd)
+    close(got, want, cd)
+
+
+@pytest.mark.parametrize("onehot", [False, True])
+def test_accept_core_on_card_matches_cpu(dev, onehot):
+    """`engine/spec.accept_core` on the card against the same call on the
+    CPU: greedy lanes' n_acc and final bit for bit, at the served shape (8
+    lanes, gamma 4, Llama-3's 128256 tokens), beside sampled lanes and
+    through the greedy-only path."""
+    from cxl_speckv_tpu_torch.engine.spec import accept_core
+
+    B, gamma, V = 8, 4, 128256
+    rng = np.random.RandomState(5)
+    tgt = torch.from_numpy(rng.randn(B, gamma + 1, V).astype(np.float32))
+    dl = None if onehot else torch.from_numpy(
+        rng.randn(B, gamma, V).astype(np.float32))
+    drafts = torch.from_numpy(rng.randint(0, V, (B, gamma)).astype(np.int32))
+    preds = tgt.argmax(-1)
+    for b in range(B):
+        drafts[b, :b % (gamma + 1)] = preds[b, :b % (gamma + 1)]
+    temps = torch.tensor([0.0, 0.8] * (B // 2))
+    top_ps = torch.zeros(B)
+    greedy = (temps <= 0).numpy()
+    for sampled in (False, True):
+        t = temps if sampled else torch.zeros(B)
+        keep = greedy if sampled else np.ones(B, bool)
+        outs = []
+        for device in ("cpu", dev):
+            on = lambda x: None if x is None else x.to(device)
+            gen = torch.Generator(device=device).manual_seed(3)
+            outs.append(accept_core(on(tgt), on(dl), on(drafts), on(t),
+                                    on(top_ps), gen, gamma=gamma,
+                                    sampled=sampled, nucleus=False))
+        for cpu, card in zip(*outs):
+            assert torch.equal(cpu[keep], card.cpu()[keep])
 
 
 @pytest.mark.parametrize("kv", SCHEMES)
