@@ -93,6 +93,47 @@ Phases, each printing its results; any failure exits non-zero:
               phase medians, and agreement with a plain serve of the same
               prompts (the top-2 gap of the dense logits at each first
               divergence);
+9c. surface -- the serving surface on the serve's Llama-3-8B: first K2 at
+              a session turn's shape (T = 33 at unaligned starts 96-191)
+              and K1 at session contexts (up to 224 tokens) timed against
+              their plain versions. Sessions: 16 x 3 turns (64 + 32, then
+              32 new + 32 generated twice: 224 tokens, 7 blocks a session),
+              a group of 8 at a time, tiered (52 HBM blocks, a 136-block
+              host tier that holds every idle session) and ample (204):
+              every turn finished, tiered == ample turn by turn, 32
+              restores and no re-prefill in both, migrations both ways,
+              exact launches, free blocks back after `end_session`. Reclaim:
+              the same turns on a 48-block host tier, so idle sessions are
+              reclaimed and re-prefill, at float32 activations (the served
+              bf16 K1 / K2) held to a float32 ample run (equal, or a first
+              divergence at a dense top-2 gap <= 0.06) and at bf16
+              recorded. A mixed 32 x (64 + 64) serve (8 greedy lanes with
+              logprobs 5, 4 sampled with logprobs 5, 4 with prompt logprobs
+              on 160-token prompts, 4 frequency / presence 0.5, 4
+              repetition 1.3, 8 plain), tiered and ample: one record a
+              token, greedy top-1 == the token, tiered == ample on the
+              greedy lanes (tokens and logprobs), greedy and plain lanes ==
+              a serve without penalties, a penalized lane diverging. Four
+              cancels in a tiered serve (queued, after the first chunk of a
+              160-token prompt, a penalized request and a session turn
+              after their first decode round): all "cancelled", every
+              other request == the serve without them, blocks and penalty
+              rows free again, the session's next turn restored over the
+              partial output == the same script on an ample pool. Decode
+              logprobs against an echo's prompt logprobs (within 0.02 at
+              float32 activations); an echo in chunks of 64 against one
+              chunk of 256 at float32 activations and attention compute,
+              with K2 and with its plain version (recorded: the plain
+              version shows the same gap, the matmuls' shapes differ), K2
+              held to its plain version within 0.02 at both; at bf16
+              recorded; `decode_multi_packed` with the pen plane
+              (the count row == the bincount of the emitted tokens, the
+              prompt bit on exactly the prompt's tokens);
+              `penalize_and_count` on the card == the CPU bit for bit; the
+              per-step costs of logprobs and the pen plane. The spec
+              phase's n-gram arm serves its first 8 requests with logprobs
+              5 (one record an emitted token, top-1 == the token, tiered ==
+              ample);
 10. gemma2 -- Gemma-2-9B at full width and depth (42 layers alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
@@ -168,6 +209,11 @@ MIXED_LAYERS = ("int8", "fp8")           # the per-layer table's period
 SPEC_REQ, GAMMA = 16, 4                  # the spec phase's prompts, proposals
 DRAFT_HEADS = (32, 8, 64)                # Hq, Hkv, D of Llama-3.2-1B
 SELF_DRAFT_MIN_ACCEPT = 0.95
+SESSIONS, SESSION_TURNS, SESSION_NEW = 16, 3, 32   # the surface phase's
+SURFACE_GEN, SURFACE_LONG = 64, 160     # mixed serve: new tokens, long prompt
+SURFACE_AMPLE_HBM = 204                 # the serve cell's ample pool
+NEAR_TIE_GAP = 0.06                     # the reference's near-tie rule
+ECHO_TOL = 0.02                         # decode vs echo logprobs, float32
 
 
 @dataclass(frozen=True)
@@ -219,6 +265,16 @@ MISTRAL_HEADS = (32, 8, 128)             # Hq, Hkv, D of Mistral-7B
 GPT_OSS = Cell(64, 192, 64, BATCH, 128, hbm_tiered=BATCH * 9 + 16)
 GPT_OSS_HEADS = (64, 8, 64)              # Hq, Hkv, D of GPT-OSS-20B
 GPT_OSS_WINDOW = 128
+# the surface phase. Sessions: 16 x 3 turns, 64 + 32 tokens, then 32 new +
+# 32 generated twice: 224 tokens (7 blocks) a session, 112 blocks in all,
+# on 52 tiered HBM blocks with a host tier of 16 x 8 + 8 = 136 that holds
+# every idle session (max_seq_len 256 covers the last round's overshoot).
+SESSION_CELL = Cell(SESSIONS, 192, 32, BATCH, 64, hbm_tiered=52)
+SESSION_RECLAIM_HOST = 48               # too small for the idle sessions
+# the mixed logprobs / penalties serve and the cancels: 32 requests of 64
+# (four of 160) prompt tokens + 64 new, max_seq_len 256; host 264
+SURFACE_CELL = Cell(32, SURFACE_LONG, SURFACE_GEN, BATCH, 64, hbm_tiered=52)
+ECHO_CELL = Cell(4, SURFACE_LONG, SURFACE_GEN, BATCH, 256, hbm_tiered=52)
 
 
 def fail(msg: str) -> None:
@@ -1090,15 +1146,24 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
     return Engine(cfg, sc, params=params, device=DEV, **spec)
 
 
-def serve(eng, prompts, gen):
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=gen)
+def serve(eng, prompts, gen, kw_of=None):
+    """Serve `prompts` to the end (`kw_of(i)`: request i's extra
+    `add_request` arguments); returns ({req_id: output}, seconds)."""
+    outs, dt = serve_each(eng, [
+        (p, dict(max_new_tokens=gen, **(kw_of(i) if kw_of else {})))
+        for i, p in enumerate(prompts)])
+    return {o.req_id: o for o in outs if o is not None}, dt
+
+
+def serve_each(eng, reqs):
+    """Submit `reqs` [(prompt, add_request kwargs)] and serve to the end;
+    returns (outputs in submission order, seconds)."""
+    ids = [eng.add_request(p, **kw) for p, kw in reqs]
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    outs = eng.run()
+    outs = {o.req_id: o for o in eng.run()}
     torch.cuda.synchronize()
-    dt = time.monotonic() - t0
-    return {o.req_id: o for o in outs}, dt
+    return [outs.get(i) for i in ids], time.monotonic() - t0
 
 
 def init_model(cfg, label: str, seed: int):
@@ -1378,8 +1443,8 @@ class VerdictRecord:
         rec = self
 
         def recording(mixin, logits, drafts_d, drafts, active, *args):
-            emitted, n_acc = rec.orig(mixin, logits, drafts_d, drafts,
-                                      active, *args)
+            emitted, n_acc, tables = rec.orig(mixin, logits, drafts_d,
+                                              drafts, active, *args)
             g = mixin.gamma
             lanes = np.nonzero(active)[0]
             if mixin._draft_logits is not None:
@@ -1394,7 +1459,7 @@ class VerdictRecord:
                     at = row[int(drafts[b, j])]
                     rec.gaps.append(float(row.max() - at))
                     rec.ranks.append(int((row > at).sum()))
-            return emitted, n_acc
+            return emitted, n_acc, tables
 
         self.cls._accept_on_device = recording
         return self
@@ -1416,25 +1481,28 @@ class VerdictRecord:
 
 
 def spec_arm(label, cfg, params, prompts, plain: dict, record=False,
-             **spec) -> dict:
+             logprob_lanes=0, **spec) -> dict:
     """One arm of the spec phase: tiered (launches counted from 0) and
     ample serves of `prompts` with the speculative arguments `spec`;
     requires every request finished, tiered == ample tokens, migrations
     both ways and the exact launch counts; prints the arm's numbers and
     its agreement with the plain serve `plain`; with `record`, the ample
-    serve's verdicts (`VerdictRecord`). Returns the tiered run's launches
-    and statistics."""
+    serve's verdicts (`VerdictRecord`). The first `logprob_lanes` requests
+    ask for logprobs=5: one record an emitted token, the token top-1,
+    tiered == ample records. Returns the tiered run's launches and
+    statistics."""
     L = cfg.num_layers
     dcfg = spec.get("draft_config")
     L_draft = dcfg.num_layers if dcfg is not None else 0
     kw = dict(spec, spec_gamma=GAMMA)
+    lp = lambda i: {"logprobs": 5} if i < logprob_lanes else {}
     # warm-up: the arm's first launches at its shapes
     serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kw),
-          prompts[:2], 8)
+          prompts[:2], 8, lp)
     reset_launches()
     tiered = build_engine(cfg, params, SHORT, SHORT.hbm_tiered,
                           SHORT.host_tiered, **kw)
-    outs_t, dt_t = serve(tiered, prompts, SHORT.gen)
+    outs_t, dt_t = serve(tiered, prompts, SHORT.gen, lp)
     launches = read_launches()
     st = tiered.get_statistics()
     draft_prefills = tiered.spec.prefill_dispatches
@@ -1442,9 +1510,18 @@ def spec_arm(label, cfg, params, prompts, plain: dict, record=False,
     ample = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kw)
     rec = VerdictRecord() if record else contextlib.nullcontext()
     with rec:
-        outs_a, dt_a = serve(ample, prompts, SHORT.gen)
+        outs_a, dt_a = serve(ample, prompts, SHORT.gen, lp)
     sa = ample.get_statistics()
     del ample
+    for i in sorted(outs_t)[:logprob_lanes]:
+        for tag, o in (("tiered", outs_t[i]), ("ample", outs_a[i])):
+            if o.logprobs is None or len(o.logprobs) != len(o.tokens) or any(
+                    e["top_ids"][0] != t or e["top_logprobs"][0] != e["logprob"]
+                    for t, e in zip(o.tokens, o.logprobs)):
+                fail(f"{label} {tag}: request {i}'s logprob records do not "
+                     f"follow its emitted tokens")
+        if outs_t[i].logprobs != outs_a[i].logprobs:
+            fail(f"{label}: request {i}'s logprobs differ tiered / ample")
 
     n = len(prompts)
     for tag, outs in (("tiered", outs_t), ("ample", outs_a)):
@@ -1561,8 +1638,12 @@ def phase_spec(cfg, params, prompts, peaks) -> dict:
             "self": dict(draft_config=cfg, draft_params=params,
                          spec_draft_kv="int8")}
     res = {arm: spec_arm(f"spec-{arm}", cfg, params, ps, plain,
-                         record=arm == "self", **kw)
+                         record=arm == "self",
+                         logprob_lanes=BATCH if arm == "ngram" else 0, **kw)
            for arm, kw in arms.items()}
+    print(f"[spec] n-gram arm: the first {BATCH} requests with logprobs=5: "
+          f"one record an emitted token, the token top-1, tiered == ample",
+          flush=True)
     acc = self_draft_f32(cfg, params, ps)
     if acc < SELF_DRAFT_MIN_ACCEPT:
         fail(f"spec-self-f32: acceptance {acc:.4f} < "
@@ -1750,6 +1831,713 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
         del wb
 
 
+# ---------------------------------------------------------------------------
+# the serving surface: sessions, cancel, logprobs, penalties
+# ---------------------------------------------------------------------------
+
+def first_divergence(a: list, b: list) -> int | None:
+    """Index of the first token where a and b differ (a length difference
+    counts at the shorter's end), None when equal."""
+    if a == b:
+        return None
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def session_turns(eng, prompts, news, watch=None):
+    """SESSIONS conversations of SESSION_TURNS turns, served a group of
+    BATCH at a time (turn 1 of group A, then of group B, turn 2 of A, ...),
+    each group to its end before the next is submitted, so one group's
+    sessions sit idle while the other's turn runs. Turn 1 is the prompt +
+    SESSION_NEW generated tokens; each later turn feeds SESSION_NEW new
+    tokens and generates SESSION_NEW. Returns (session ids, outputs
+    [turn][session], the (turn, session) pairs that re-prefilled, the
+    transfer counts (up, down) after each group)."""
+    n = len(prompts)
+    sids, outs = [None] * n, [[None] * n for _ in range(SESSION_TURNS)]
+    reprefilled, moves = set(), []
+    for t in range(SESSION_TURNS):
+        for g0 in range(0, n, BATCH):
+            ids = {}
+            for s in range(g0, min(n, g0 + BATCH)):
+                if t == 0:
+                    rid = eng.add_request(prompts[s], session=True,
+                                          max_new_tokens=SESSION_NEW)
+                else:
+                    if not eng.get_session(sids[s]).live:
+                        reprefilled.add((t, s))
+                    rid = eng.continue_session(sids[s], news[t - 1][s],
+                                               max_new_tokens=SESSION_NEW)
+                ids[rid] = s
+            for o in eng.run():
+                s = ids[o.req_id]
+                outs[t][s] = o
+                sids[s] = o.session_id
+            tr = eng.get_statistics()["transfer"]
+            moves.append((tr["up_transfers"], tr["down_transfers"]))
+            if watch is not None:
+                watch(t, eng)
+    return sids, outs, reprefilled, moves
+
+
+def settle(eng) -> None:
+    """Run the writebacks still queued (blocks freed while their demote
+    waited for a full batch) and reap the frees they deferred."""
+    eng.kvc.dispatch_migrations()
+    eng.kvc.maintain()
+
+
+def session_engine(cfg, params, hbm, host, **kw):
+    return build_engine(cfg, params, SESSION_CELL, hbm, host, **kw)
+
+
+def hold_turns(label, cfg, params, prompts, news, got, want, reprefilled,
+               hold: bool) -> str:
+    """Each session's turns of `got` against `want` in order while their
+    histories agree: equal, or first diverging at a near-tie (the dense
+    top-2 gap at the divergence <= NEAR_TIE_GAP); a session is compared no
+    further after its first divergence. With `hold`, a larger gap fails.
+    Returns a summary (agreement, each divergence's gap)."""
+    same = tot = 0
+    gaps = []
+    for s in range(len(prompts)):
+        hist = list(prompts[s])
+        for t in range(SESSION_TURNS):
+            if t:
+                hist += news[t - 1][s]
+            g, w = got[t][s].tokens, want[t][s].tokens
+            tot += 1
+            j = first_divergence(g, w)
+            if j is None:
+                same += 1
+                hist += w
+                continue
+            gap = top2_gap(cfg, params, hist + w[:j])
+            gaps.append((s, t + 1, j, (t, s) in reprefilled, gap))
+            if hold and gap > NEAR_TIE_GAP:
+                fail(f"{label}: session {s} turn {t + 1} diverges at token "
+                     f"{j} with a dense top-2 gap of {gap:.4f} > "
+                     f"{NEAR_TIE_GAP}")
+            break
+    return (f"turns equal {same}/{tot} compared; first divergences "
+            f"(session, turn, token, re-prefilled, dense top-2 gap): "
+            + (", ".join(f"({s}, {t}, {j}, {'yes' if r else 'no'}, {g:.4f})"
+                         for s, t, j, r, g in gaps) or "none"))
+
+
+def p50(xs) -> float:
+    return float(np.median(xs)) if len(xs) else float("nan")
+
+
+def surface_sessions(cfg, params, prompts, rng) -> dict:
+    """Sessions on the tiered pool (its host tier holds every idle
+    session: demoted, never reclaimed) and on the ample pool: every turn
+    finished, tiered == ample turn by turn, 32 restores and no re-prefill
+    in both, migrations both ways, exact launches, and the blocks free
+    again after `end_session`. Returns both runs' outputs and statistics,
+    the tiered run's launches, K2's session-turn launches and the turns'
+    new tokens."""
+    news = [[rng.randint(1, cfg.vocab_size, SESSION_NEW).tolist()
+             for _ in prompts] for _ in range(SESSION_TURNS - 1)]
+    L = cfg.num_layers
+    res = {}
+    turn_dispatches = []
+    for tag, hbm, host in (("tiered", SESSION_CELL.hbm_tiered,
+                            SESSION_CELL.host_tiered),
+                           ("ample", SURFACE_AMPLE_HBM, 0)):
+        eng = session_engine(cfg, params, hbm, host)
+        free0 = (eng.kvc.directory.hbm_free, eng.kvc.directory.host_free)
+        if tag == "tiered":
+            reset_launches()
+            mark = lambda t, e: turn_dispatches.append(
+                (t, e.get_statistics()["engine"]["prefill_dispatches"]))
+        else:
+            mark = None
+        t0 = time.monotonic()
+        sids, outs, repre, moves = session_turns(eng, prompts, news, mark)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        st = eng.get_statistics()
+        if tag == "tiered":
+            launches = read_launches()
+            want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+                    "K2": st["engine"]["prefill_dispatches"] * L}
+            got = {k: total(v) for k, v in launches.items()}
+            if got != want:
+                fail(f"surface sessions: kernel launches {got} != {want}")
+        sess = [eng.get_session(s) for s in sids]
+        counts = (sum(s.restores for s in sess), sum(s.reprefills for s in sess))
+        if counts != (SESSIONS * (SESSION_TURNS - 1), 0) or repre:
+            fail(f"surface sessions {tag}: restores / re-prefills {counts}, "
+                 f"want {SESSIONS * (SESSION_TURNS - 1)} / 0")
+        bad = [(t, s) for t in range(SESSION_TURNS) for s in range(SESSIONS)
+               if outs[t][s] is None
+               or outs[t][s].finish_reason not in ("length", "eos")]
+        if bad:
+            fail(f"surface sessions {tag}: turns not finished: {bad}")
+        for sid in sids:
+            eng.end_session(sid)
+        settle(eng)
+        free1 = (eng.kvc.directory.hbm_free, eng.kvc.directory.host_free)
+        if free1 != free0:
+            fail(f"surface sessions {tag}: free HBM / host blocks {free1} "
+                 f"after end_session, {free0} at the start")
+        res[tag] = dict(outs=outs, stats=st, dt=dt, moves=moves)
+        del eng
+    for t in range(SESSION_TURNS):
+        diff = [s for s in range(SESSIONS) if res["tiered"]["outs"][t][s].tokens
+                != res["ample"]["outs"][t][s].tokens]
+        if diff:
+            fail(f"surface sessions: turn {t + 1} tiered tokens differ from "
+                 f"ample for sessions {diff}")
+    tr = res["tiered"]["stats"]["transfer"]
+    if not (tr["up_transfers"] > 0 and tr["down_transfers"] > 0):
+        fail(f"surface sessions: the tiered run migrated nothing both ways: "
+             f"{tr}")
+    mv = res["tiered"]["moves"]
+    per_turn = [(mv[i][0] - (mv[i - 1][0] if i else 0),
+                 mv[i][1] - (mv[i - 1][1] if i else 0)) for i in range(len(mv))]
+    for tag in ("tiered", "ample"):
+        r = res[tag]
+        o = r["outs"]
+        toks = sum(len(x.tokens) for turn in o for x in turn)
+        restored = [x for turn in o[1:] for x in turn]
+        print(f"[surface] sessions {tag}: {SESSIONS} x {SESSION_TURNS} turns, "
+              f"{toks} tokens in {r['dt']:.2f} s = {toks / r['dt']:.1f} tok/s "
+              f"| turn 1 TTFT p50 {p50([x.ttft_ms for x in o[0]]):.1f} ms, "
+              f"TPOT p50 {p50([x.tpot_ms for x in o[0]]):.2f} ms | restored "
+              f"turns TTFT p50 {p50([x.ttft_ms for x in restored]):.1f} ms, "
+              f"TPOT p50 {p50([x.tpot_ms for x in restored]):.2f} ms | up "
+              f"{r['stats']['transfer']['up_transfers']} down "
+              f"{r['stats']['transfer']['down_transfers']}", flush=True)
+    print(f"[surface] sessions: tiered == ample for every turn; 32 restores, "
+          f"0 re-prefills in both; migrations (up, down) a group of "
+          f"{BATCH} sessions' turn, in order {per_turn}; launches {launches};"
+          f" free blocks back to their start after end_session", flush=True)
+    # K2's session-turn share: the prefill dispatches of turns 2 and 3
+    first = [d for t, d in turn_dispatches if t == 0][-1]
+    res["turn_k2"] = (turn_dispatches[-1][1] - first) * L
+    res["launches"] = launches
+    res["news"] = news
+    return res
+
+
+def surface_reclaim(cfg, params, prompts, news, ample_bf16) -> None:
+    """The same turns on a host tier too small for the idle sessions
+    (SESSION_RECLAIM_HOST blocks against 112 of session KV), so that
+    sessions are reclaimed and their next turn re-prefills the history: at
+    float32 activations (the served bf16 K1 / K2), held to a float32 ample
+    run by the near-tie rule (`hold_turns`); at bf16, recorded against the
+    bf16 ample run."""
+    import dataclasses
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    runs = {}
+    for tag, c in (("f32", c32), ("bf16", cfg)):
+        eng = session_engine(c, params, SESSION_CELL.hbm_tiered,
+                             SESSION_RECLAIM_HOST)
+        t0 = time.monotonic()
+        sids, outs, repre, _ = session_turns(eng, prompts, news)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        sess = [eng.get_session(s) for s in sids]
+        n_re = sum(s.reprefills for s in sess)
+        reclaimed = sum(s.reprefills > 0 for s in sess)
+        if reclaimed < 4:
+            fail(f"surface reclaim {tag}: {reclaimed} sessions re-prefilled "
+                 f"(want >= 4) on {SESSION_RECLAIM_HOST} host blocks")
+        if any(x is None for turn in outs for x in turn):
+            fail(f"surface reclaim {tag}: a turn did not finish")
+        re_turns = [outs[t][s] for t, s in repre]
+        print(f"[surface] reclaim {tag}: host {SESSION_RECLAIM_HOST} blocks "
+              f"(session KV 112), HBM {SESSION_CELL.hbm_tiered}: {reclaimed} "
+              f"sessions reclaimed, {n_re} re-prefilled turns, "
+              f"{sum(s.restores for s in sess)} restores; re-prefilled turns "
+              f"TTFT p50 {p50([x.ttft_ms for x in re_turns]):.1f} ms, TPOT "
+              f"p50 {p50([x.tpot_ms for x in re_turns]):.2f} ms; {dt:.2f} s",
+              flush=True)
+        runs[tag] = (outs, repre)
+        for sid in sids:
+            eng.end_session(sid)
+        del eng
+    eng = session_engine(c32, params, SURFACE_AMPLE_HBM, 0)
+    _, ample32, _, _ = session_turns(eng, prompts, news)
+    del eng
+    print(f"[surface] reclaim f32 against the f32 ample run: "
+          + hold_turns("surface reclaim f32", c32, params, prompts, news,
+                       runs["f32"][0], ample32, runs["f32"][1], hold=True),
+          flush=True)
+    print(f"[surface] reclaim bf16 against the bf16 ample run (recorded, not "
+          f"held): " + hold_turns("surface reclaim bf16", cfg, params,
+                                  prompts, news, runs["bf16"][0],
+                                  ample_bf16, runs["bf16"][1], hold=False),
+          flush=True)
+
+
+def surface_requests(prompts, long_prompts) -> dict:
+    """The mixed serve's 32 requests by kind (prompt, kwargs): greedy with
+    logprobs 5, sampled (T 0.8, top-p 0.9) with logprobs 5, greedy with
+    prompt logprobs on 160-token prompts (chunks of 64: two boundary
+    re-feeds), frequency / presence 0.5, repetition 1.3, and plain."""
+    g = dict(max_new_tokens=SURFACE_GEN)
+    return {
+        "greedy-lp": [(p, dict(g, logprobs=5)) for p in prompts[0:8]],
+        "sampled-lp": [(p, dict(g, logprobs=5, temperature=0.8, top_p=0.9))
+                       for p in prompts[8:12]],
+        "prompt-lp": [(p, dict(g, prompt_logprobs=True))
+                      for p in long_prompts],
+        "freq-pres": [(p, dict(g, frequency_penalty=0.5,
+                               presence_penalty=0.5)) for p in prompts[16:20]],
+        "repetition": [(p, dict(g, repetition_penalty=1.3))
+                       for p in prompts[20:24]],
+        "plain": [(p, dict(g)) for p in prompts[24:32]]}
+
+
+def check_logprob_records(label, out, k):
+    """One record a token; top-k sorted descending and <= 0."""
+    if out.logprobs is None or len(out.logprobs) != len(out.tokens):
+        fail(f"{label}: {0 if out.logprobs is None else len(out.logprobs)} "
+             f"logprob records for {len(out.tokens)} tokens")
+    for e in out.logprobs:
+        v = e["top_logprobs"]
+        if len(v) != k or v != sorted(v, reverse=True) or max(v) > 0:
+            fail(f"{label}: top-{k} logprobs {v} not sorted or above 0")
+
+
+def surface_logprobs(cfg, params, kinds) -> dict:
+    """The mixed serve tiered and ample, and an ample serve with the
+    penalized lanes plain (the reference: the guard row passes unpenalized
+    lanes through bit for bit). Returns the reference's outputs by kind."""
+    flat = [(kind, i, r) for kind, reqs in kinds.items()
+            for i, r in enumerate(reqs)]
+    reqs = [r for _, _, r in flat]
+    outs = {}
+    for tag, hbm, host in (("tiered", SURFACE_CELL.hbm_tiered,
+                            SURFACE_CELL.host_tiered),
+                           ("ample", SURFACE_AMPLE_HBM, 0)):
+        eng = build_engine(cfg, params, SURFACE_CELL, hbm, host)
+        got, dt = serve_each(eng, reqs)
+        st = eng.get_statistics()
+        if len(eng._pen_free) != eng.config.engine.penalty_rows:
+            fail(f"surface logprobs {tag}: penalty rows not all free again")
+        outs[tag] = got
+        toks = sum(len(o.tokens) for o in got if o is not None)
+        print(f"[surface] mixed serve {tag}: {toks} tokens in {dt:.2f} s = "
+              f"{toks / dt:.1f} tok/s, TTFT p50 "
+              f"{st['engine']['p50_ttft_ms']:.1f} ms, TPOT p50 "
+              f"{st['engine']['p50_tpot_ms']:.2f} ms, up "
+              f"{st['transfer']['up_transfers']} down "
+              f"{st['transfer']['down_transfers']}", flush=True)
+        del eng
+    plain_reqs = [(p, {k: v for k, v in kw.items() if "penalty" not in k})
+                  for p, kw in reqs]
+    ref, _ = serve_each(build_engine(cfg, params, SURFACE_CELL,
+                                     SURFACE_AMPLE_HBM, 0), plain_reqs)
+    by = lambda o: {kind: [o[j] for j, (kd, _, _) in enumerate(flat)
+                           if kd == kind] for kind in kinds}
+    t, a, r = by(outs["tiered"]), by(outs["ample"]), by(ref)
+    for kind in kinds:
+        for i, o in enumerate(a[kind]):
+            if o is None or o.finish_reason not in ("length", "eos"):
+                fail(f"surface logprobs: {kind} lane {i} did not finish")
+    for kind in ("greedy-lp", "sampled-lp"):
+        for i, o in enumerate(t[kind] + a[kind]):
+            check_logprob_records(f"surface {kind} lane {i}", o, 5)
+    for i, o in enumerate(t["greedy-lp"] + a["greedy-lp"]):
+        for tok, e in zip(o.tokens, o.logprobs):
+            if e["top_ids"][0] != tok or e["top_logprobs"][0] != e["logprob"]:
+                fail(f"surface greedy-lp lane {i}: top-1 {e['top_ids'][0]} / "
+                     f"{e['top_logprobs'][0]} against the token {tok} / "
+                     f"{e['logprob']}")
+    for kind in ("greedy-lp", "prompt-lp", "freq-pres", "repetition",
+                 "plain"):
+        for i, (x, y) in enumerate(zip(t[kind], a[kind])):
+            if (x.tokens != y.tokens or x.logprobs != y.logprobs
+                    or x.prompt_logprobs != y.prompt_logprobs):
+                fail(f"surface {kind} lane {i}: tiered != ample (tokens or "
+                     f"logprobs)")
+    for kind in ("greedy-lp", "prompt-lp", "plain"):
+        for i, (x, y) in enumerate(zip(a[kind], r[kind])):
+            if x.tokens != y.tokens:
+                fail(f"surface {kind} lane {i}: tokens differ from the serve "
+                     f"without penalized lanes")
+    for i, o in enumerate(a["prompt-lp"]):
+        pl = o.prompt_logprobs
+        if pl is None or len(pl) != SURFACE_LONG or pl[0] is not None or any(
+                x is None or x > 0 for x in pl[1:]):
+            fail(f"surface prompt-lp lane {i}: prompt logprobs malformed")
+    pen = a["freq-pres"] + a["repetition"]
+    diverged = sum(x.tokens != y.tokens for x, y in zip(
+        pen, r["freq-pres"] + r["repetition"]))
+    if not diverged:
+        fail("surface: no penalized lane diverged from its unpenalized run")
+    print(f"[surface] logprobs: one record a token on every logprob lane, "
+          f"greedy top-1 == the token; tiered == ample on the greedy lanes "
+          f"(tokens, logprobs, prompt logprobs); greedy and plain lanes == "
+          f"the serve without penalties; {diverged}/{len(pen)} penalized "
+          f"lanes diverged from their unpenalized runs", flush=True)
+    return r
+
+
+@contextlib.contextmanager
+def plain_k2():
+    """The model passes call K2's plain PyTorch version (on the card's
+    tensors) in place of the kernel while the context is open."""
+    llama = sys.modules["cxl_speckv_tpu_torch.models.llama"]
+    from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
+
+    kernel = llama.paged_chunk_attention_cuda
+    llama.paged_chunk_attention_cuda = paged_chunk_attention
+    try:
+        yield
+    finally:
+        llama.paged_chunk_attention_cuda = kernel
+
+
+def echo_scores(cfg, params, seqs, cell) -> np.ndarray:
+    """Prompt logprobs [n, len - 1] of an echo over `seqs` (ample pool,
+    the cell's prefill chunk)."""
+    out, _ = serve_each(build_engine(cfg, params, cell, SURFACE_AMPLE_HBM, 0),
+                        [(x, dict(max_new_tokens=1, prompt_logprobs=True))
+                         for x in seqs])
+    return np.array([o.prompt_logprobs[1:] for o in out])
+
+
+def decode_vs_echo(cfg, params, long_prompts) -> float:
+    """Greedy decode logprobs (chunks of 64) against the prompt logprobs of
+    an echo over prompt + output: the largest absolute difference."""
+    dec, _ = serve_each(build_engine(cfg, params, SURFACE_CELL,
+                                     SURFACE_AMPLE_HBM, 0),
+                        [(p, dict(max_new_tokens=SURFACE_GEN, logprobs=5))
+                         for p in long_prompts])
+    echo = echo_scores(cfg, params, [p + o.tokens for p, o in
+                                     zip(long_prompts, dec)], SURFACE_CELL)
+    return max(abs(e["logprob"] - echo[i, len(p) + j - 1])
+               for i, (p, o) in enumerate(zip(long_prompts, dec))
+               for j, e in enumerate(o.logprobs))
+
+
+def surface_echo(cfg, params, long_prompts) -> dict:
+    """Decode logprobs against an echo's prompt logprobs, held within
+    ECHO_TOL at float32 activations (the served bf16 K1 / K2). One prompt
+    scored in chunks of 64 (three boundary re-feeds) and in one chunk of
+    256: recorded, with K2 and with its plain version at float32 attention
+    compute, and K2 held to its plain version within ECHO_TOL at both
+    chunkings (a difference between the chunkings that the plain version
+    shows too is the model's, not K2's: the two passes' matmuls have other
+    shapes, which cuBLAS sums in other orders). At bf16 activations all
+    recorded."""
+    import dataclasses
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    c32a = dataclasses.replace(c32, attn_compute_dtype="float32")
+    seqs = [p + p[::-1][:SURFACE_GEN] for p in long_prompts]
+    res = {"decode_echo_f32": decode_vs_echo(c32, params, long_prompts),
+           "decode_echo_bf16": decode_vs_echo(cfg, params, long_prompts)}
+    sc = {}
+    for tag, cell in (("64", SURFACE_CELL), ("256", ECHO_CELL)):
+        sc[tag] = echo_scores(c32a, params, seqs, cell)
+        with plain_k2():
+            sc[tag + " plain"] = echo_scores(c32a, params, seqs, cell)
+    gap = lambda a, b: float(np.abs(sc[a] - sc[b]).max())
+    res.update(chunk_f32=gap("64", "256"),
+               chunk_f32_plain=gap("64 plain", "256 plain"),
+               k2_vs_plain_64=gap("64", "64 plain"),
+               k2_vs_plain_256=gap("256", "256 plain"))
+    d = np.abs(sc["64"] - sc["256"])
+    where = np.unravel_index(d.argmax(), d.shape)
+    bf = {tag: echo_scores(cfg, params, seqs, cell)
+          for tag, cell in (("64", SURFACE_CELL), ("256", ECHO_CELL))}
+    res["chunk_bf16"] = float(np.abs(bf["64"] - bf["256"]).max())
+    print(f"[surface] echo, max |difference| of logprobs: decode vs echo "
+          f"{res['decode_echo_f32']:.5f} at float32 activations (held <= "
+          f"{ECHO_TOL}), {res['decode_echo_bf16']:.5f} at bf16 (recorded); "
+          f"at float32 activations and attention compute, K2 vs its plain "
+          f"version {res['k2_vs_plain_64']:.5f} in chunks of 64, "
+          f"{res['k2_vs_plain_256']:.5f} in one of 256 (held <= "
+          f"{ECHO_TOL}); chunks of 64 vs one of 256 {res['chunk_f32']:.5f} "
+          f"with K2 (largest at lane {where[0]}, position {where[1] + 1}), "
+          f"{res['chunk_f32_plain']:.5f} with the plain version, "
+          f"{res['chunk_bf16']:.5f} at bf16 (recorded)", flush=True)
+    if max(res["decode_echo_f32"], res["k2_vs_plain_64"],
+           res["k2_vs_plain_256"]) > ECHO_TOL:
+        fail(f"surface echo: {res}, above {ECHO_TOL}")
+    return res
+
+
+def surface_pen_direct(cfg, params, prompt) -> None:
+    """`decode_multi_packed` called once with the pen plane: one penalized
+    lane (frequency / presence 0.5) prefilled through
+    `prefill_batch_packed` (row reset, prompt marked, first token counted),
+    then HORIZON steps. The count row must equal the host bincount of the
+    emitted tokens, and bit 24 mark exactly the prompt's tokens."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        PEN_COUNT_MASK,
+        PEN_PROMPT_BIT,
+        encode_pen_info,
+        encode_sampling,
+    )
+    from cxl_speckv_tpu_torch.models.llama import (
+        decode_multi_packed,
+        prefill_batch_packed,
+    )
+
+    eng = build_engine(cfg, params, SURFACE_CELL, SURFACE_AMPLE_HBM, 0)
+    kvc, n = eng.kvc, len(prompt)
+    slot = kvc.add_seq()
+    if not kvc.extend_seq(slot, n + HORIZON):
+        fail("surface pen: no room for the lane")
+    kvc.ensure_resident([slot])
+    mb = kvc.pool.table.max_blocks_per_seq
+    row = np.where(kvc.pool.table.row(slot) >= 0, kvc.pool.table.row(slot),
+                   kvc.guard_slot)
+    plane = torch.zeros((eng.config.engine.penalty_rows + 1, cfg.vocab_size),
+                        dtype=torch.int32, device=DEV)
+    packed = np.zeros((BATCH, 4 + mb + n), np.int32)
+    packed[:, 4:4 + mb] = kvc.guard_slot
+    packed[0, :3] = (0, n, encode_sampling(0.0))
+    packed[0, 4:4 + mb] = row
+    packed[0, 4 + mb:] = prompt
+    info = np.zeros((BATCH, 5), np.int32)
+    info[:, 0] = plane.shape[0] - 1
+    info[0] = encode_pen_info(0, 0.5, 0.5, reset=True, count_sampled=True)
+    first = prefill_batch_packed(params, cfg, kvc.kv_dtype, packed, kvc.pools,
+                                 info, plane, max_blocks=mb)
+    dp = np.full((BATCH, mb + 4), kvc.guard_slot, np.int32)
+    dp[:, :4] = 0
+    dp[0, :2] = (int(first[0]), n)
+    dp[0, 4:] = row
+    info[0] = encode_pen_info(0, 0.5, 0.5)
+    toks = decode_multi_packed(params, cfg, kvc.kv_dtype, dp, kvc.pools,
+                               info, plane, horizon=HORIZON)
+    emitted = [int(first[0])] + toks[0].tolist()
+    cells = plane[0].cpu().numpy()
+    want = np.bincount(emitted, minlength=cfg.vocab_size)
+    if not (cells & PEN_COUNT_MASK == want).all():
+        fail("surface pen: the count row is not the bincount of the emitted "
+             "tokens")
+    marked = set(np.nonzero(cells & PEN_PROMPT_BIT)[0].tolist())
+    if marked != set(prompt):
+        fail(f"surface pen: prompt bit on {len(marked)} tokens, the prompt "
+             f"holds {len(set(prompt))}")
+    print(f"[surface] decode_multi_packed with the pen plane: count row == "
+          f"bincount of {len(emitted)} emitted tokens "
+          f"({len(set(emitted))} distinct); prompt bit on exactly the "
+          f"prompt's {len(marked)} tokens", flush=True)
+    del eng
+
+
+def surface_pen_bitwise(cfg) -> None:
+    """`penalize_and_count` (after a reset and a prompt mark) on the card
+    at [BATCH, vocab] with random counts, bit for bit the port's CPU run of
+    the same inputs."""
+    from cxl_speckv_tpu_torch.engine import sampling as ts
+
+    rng = np.random.RandomState(21)
+    V, R = cfg.vocab_size, 16
+    logits = (rng.randn(BATCH, V) * 3).astype(np.float32)
+    plane = rng.randint(0, 9, (R + 1, V)).astype(np.int32)
+    plane[rng.rand(R + 1, V) < 0.05] |= ts.PEN_PROMPT_BIT
+    kinds = [(0.5, 0.5, 0.0), (0.0, 0.0, 1.3), (0.0, 0.0, 0.0),
+             (-1.2, 0.7, 1.9)]
+    info = np.array([ts.encode_pen_info(
+        (0, 3, R, 5, 7, 9, 11, 15)[b], *kinds[b % 4], reset=b == 5,
+        count_sampled=b != 4) for b in range(BATCH)], np.int32)
+    ids = rng.randint(0, V, (BATCH, 64)).astype(np.int32)
+    valid = rng.randint(0, 65, BATCH).astype(np.int32)
+    out = []
+    for device in ("cpu", DEV):
+        t = lambda a: torch.from_numpy(a.copy()).to(device)
+        pc, pi = t(plane), t(info)
+        ts.pen_reset_rows(pi, pc)
+        ts.pen_mark_prompt(pi, pc, t(ids), t(valid))
+        toks, _ = ts.penalize_and_count(t(logits), pi, pc,
+                                        lambda lg: lg.argmax(-1))
+        out.append((toks.cpu(), pc.cpu()))
+    if not (torch.equal(out[0][0], out[1][0])
+            and torch.equal(out[0][1], out[1][1])):
+        fail("surface pen: penalize_and_count on the card differs from the "
+             "CPU run")
+    print(f"[surface] penalize_and_count at [{BATCH}, {V}] ({R} rows + "
+          f"guard): card == CPU bit for bit (tokens and plane)", flush=True)
+
+
+def surface_costs(cfg) -> dict:
+    """The per-step cost of the surface's device work at the served
+    shape: the log-softmax and top-20 of `_token_logprobs` over [BATCH,
+    vocab] float32 logits, and `penalize_and_count` with a 17-row plane."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        encode_pen_info,
+        penalize_and_count,
+    )
+    from cxl_speckv_tpu_torch.models.llama import _token_logprobs
+
+    V = cfg.vocab_size
+    logits = torch.randn(BATCH, V, device=DEV) * 3
+    toks = logits.argmax(-1)
+    plane = torch.zeros(17, V, dtype=torch.int32, device=DEV)
+    info = torch.tensor([encode_pen_info(b % 16, 0.5, 0.5, 1.3)
+                         for b in range(BATCH)], dtype=torch.int32,
+                        device=DEV)
+    lp_ms = time_ms(lambda: _token_logprobs(logits, toks, 20))
+    pen_ms = time_ms(lambda: penalize_and_count(logits, info, plane,
+                                                lambda lg: lg.argmax(-1)))
+    am_ms = time_ms(lambda: logits.argmax(-1))
+    print(f"[surface] per decode step at [{BATCH}, {V}]: logprobs "
+          f"(log-softmax + top-20) {lp_ms:.4f} ms, penalize_and_count "
+          f"{pen_ms:.4f} ms, the plain argmax {am_ms:.4f} ms (single-launch "
+          f"windows); x {HORIZON} a round: {lp_ms * HORIZON:.2f} / "
+          f"{pen_ms * HORIZON:.2f} ms", flush=True)
+    return {"logprobs_ms": lp_ms, "pen_ms": pen_ms}
+
+
+def surface_cancel(cfg, params, kinds, ref, rng) -> None:
+    """Four cancels in a tiered serve of the mixed serve's greedy requests
+    (penalties stripped; `ref` served them on the ample pool): one while
+    queued, one after the first 64-token chunk of a 160-token prompt, one
+    penalized request after its first decode round (its penalty row
+    frees), one session turn after its first decode round. Each returns
+    "cancelled"; every other request's tokens == `ref`'s; free blocks and
+    penalty rows return to their start; the session's next turn restores
+    from the KV that holds the partial output, equal to the same script on
+    an ample pool without the serve around it."""
+    from cxl_speckv_tpu_torch.engine.request import RequestState
+
+    greedy = [k for k in kinds if k != "sampled-lp"]
+    strip = lambda kw: {x: v for x, v in kw.items() if "penalty" not in x}
+    others = [(p, strip(kw)) for k in greedy for p, kw in kinds[k]]
+    want = [o.tokens for k in greedy for o in ref[k]]
+    long_p = kinds["prompt-lp"][0][0][::-1]
+    short_p = rng.randint(1, cfg.vocab_size, 64).tolist()
+    first_turn = rng.randint(1, cfg.vocab_size, 64).tolist()
+    new = rng.randint(1, cfg.vocab_size, SESSION_NEW).tolist()
+    new2 = rng.randint(1, cfg.vocab_size, SESSION_NEW).tolist()
+    due = {"queued": lambda r: r.state == RequestState.QUEUED,
+           "prefill": lambda r: (r.state == RequestState.PREFILLING
+                                 and r.prefill_pos == SURFACE_CELL.chunk),
+           "decode": lambda r: (r.state == RequestState.RUNNING
+                                and len(r.output) >= 1 + HORIZON),
+           "session": lambda r: (r.state == RequestState.RUNNING
+                                 and len(r.output) >= 1 + HORIZON)}
+
+    def script(eng, with_serve: bool):
+        """Returns (cancelled outputs by name, the other requests' outputs,
+        the session id, the session's next turn)."""
+        sid = serve_each(eng, [(first_turn, dict(
+            max_new_tokens=SESSION_NEW, session=True))])[0][0].session_id
+        ids = {}
+        if with_serve:
+            ids["prefill"] = eng.add_request(long_p, max_new_tokens=32)
+            ids["decode"] = eng.add_request(short_p, frequency_penalty=0.5,
+                                            max_new_tokens=SURFACE_GEN)
+        ids["session"] = eng.continue_session(sid, new,
+                                              max_new_tokens=SURFACE_GEN)
+        rest = ([eng.add_request(p, **kw) for p, kw in others]
+                if with_serve else [])
+        if with_serve:
+            ids["queued"] = eng.add_request(short_p[::-1], max_new_tokens=8)
+        cancelled, outs = {}, {}
+        while eng.has_work:
+            outs.update((o.req_id, o) for o in eng.step())
+            for name, rid in ids.items():
+                if name not in cancelled and due[name](eng._requests[rid]):
+                    cancelled[name] = eng.cancel(rid)
+        rid = eng.continue_session(sid, new2, max_new_tokens=SESSION_NEW)
+        nxt = {o.req_id: o for o in eng.run()}[rid]
+        return cancelled, [outs.get(r) for r in rest], sid, nxt
+
+    eng = build_engine(cfg, params, SURFACE_CELL, SURFACE_CELL.hbm_tiered,
+                       SURFACE_CELL.host_tiered)
+    free0 = (eng.kvc.directory.hbm_free, eng.kvc.directory.host_free)
+    t0 = time.monotonic()
+    cancelled, got, sid, nxt = script(eng, True)
+    dt = time.monotonic() - t0
+    names = ("queued", "prefill", "decode", "session")
+    reasons = {n: getattr(cancelled.get(n), "finish_reason", None)
+               for n in names}
+    if set(reasons.values()) != {"cancelled"}:
+        fail(f"surface cancel: {reasons}")
+    partial = cancelled["session"].tokens
+    sess = eng.get_session(sid)
+    tail = len(new2) + len(nxt.tokens)
+    if not (sess.live and sess.restores == 2
+            and sess.tokens[-tail - len(partial):-tail] == partial):
+        fail("surface cancel: the cancelled session turn's partial output is "
+             "not in the session the next turn restored")
+    diff = [i for i, (o, w) in enumerate(zip(got, want))
+            if o is None or o.tokens != w]
+    if diff:
+        fail(f"surface cancel: requests {diff} differ from the serve without "
+             f"the four cancelled ones")
+    eng.end_session(sid)
+    settle(eng)
+    free1 = (eng.kvc.directory.hbm_free, eng.kvc.directory.host_free)
+    if free1 != free0 or len(eng._pen_free) != eng.config.engine.penalty_rows:
+        fail(f"surface cancel: free blocks {free1} (start {free0}), penalty "
+             f"rows free {len(eng._pen_free)}")
+    del eng
+    solo = build_engine(cfg, params, SURFACE_CELL, SURFACE_AMPLE_HBM, 0)
+    s_cancelled, _, _, s_nxt = script(solo, False)
+    if (s_cancelled["session"].tokens != partial
+            or s_nxt.tokens != nxt.tokens):
+        fail("surface cancel: the session's partial output or next turn "
+             "differs from the same script on an ample pool")
+    print(f"[surface] cancel: queued, after the first chunk of a "
+          f"{SURFACE_LONG}-token prompt, a penalized request after its first "
+          f"decode round ({len(cancelled['decode'].tokens)} tokens), a "
+          f"session turn after its first round ({len(partial)} tokens): all "
+          f"'cancelled'; the other {len(got)} requests == the serve without "
+          f"them; blocks and penalty rows free again; the session's next "
+          f"turn, restored over the partial output, == the ample script; "
+          f"{dt:.2f} s", flush=True)
+
+
+def phase_kernels_surface(peaks) -> dict:
+    """K2 at a session turn's shape (T = 33 at unaligned starts 96-191,
+    restored contexts) and K1 at session contexts (8 lanes up to 224
+    tokens), bf16 compute, INT8, in the tiered session engine's pool and
+    table geometry, timed against their plain versions."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(100)
+    rng = np.random.RandomState(13)
+    geo = served_geometry(SESSION_CELL)
+    rows = {"K2": k2_case(gen, KVDtype.INT8, torch.bfloat16, 1 + SESSION_NEW,
+                          sorted(rng.randint(96, 192, BATCH).tolist()), peaks,
+                          timed=True, geometry=geo),
+            "K1": k1_case(gen, KVDtype.INT8, torch.bfloat16,
+                          rng.randint(97, 225, BATCH).tolist(), peaks,
+                          timed=True, geometry=geo)}
+    for row in rows.values():
+        report(row)
+    return rows
+
+
+def phase_surface(cfg, params, prompts, peaks) -> dict:
+    """The serving surface on Llama-3-8B: sessions (tiered, ample,
+    reclaim), the mixed logprobs / penalties serve, cancel, the echo
+    checks, the pen plane direct and bitwise, and the per-step costs.
+    Returns the kernel rows and the launches of the session run."""
+    rows = phase_kernels_surface(peaks)
+    rng = np.random.RandomState(10)
+    sp = prompts[:SESSIONS]
+    ses = surface_sessions(cfg, params, sp, rng)
+    surface_reclaim(cfg, params, sp, ses["news"], ses["ample"]["outs"])
+    long_prompts = [p + rng.randint(1, cfg.vocab_size,
+                                    SURFACE_LONG - len(p)).tolist()
+                    for p in prompts[12:16]]
+    kinds = surface_requests(prompts, long_prompts)
+    ref = surface_logprobs(cfg, params, kinds)
+    surface_cancel(cfg, params, kinds, ref, rng)
+    echo = surface_echo(cfg, params, long_prompts)
+    surface_pen_direct(cfg, params, prompts[0])
+    surface_pen_bitwise(cfg)
+    costs = surface_costs(cfg)
+    return {"rows": rows, "launches": ses["launches"],
+            "turn_k2": ses["turn_k2"], "costs": costs, "echo": echo}
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -1813,6 +2601,7 @@ def main() -> int:
           layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
     timed("switch", phase_switch, cfg, params, prompts)
     spec = timed("spec", phase_spec, cfg, params, prompts, peaks)
+    surface = timed("surface", phase_surface, cfg, params, prompts, peaks)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
@@ -1854,6 +2643,14 @@ def main() -> int:
     entries.append(kernel_entry("paged_chunk_attention llama-3-8b verify",
                                 "K2", spec["rows"]["K2"],
                                 draft["rounds"] * cfg.num_layers))
+    # the surface phase's new shapes, launches from its tiered session run
+    # (K2: the prefill dispatches of turns 2 and 3 x 32 layers)
+    entries.append(kernel_entry("paged_attention llama-3-8b sessions", "K1",
+                                surface["rows"]["K1"],
+                                total(surface["launches"]["K1"])))
+    entries.append(kernel_entry(
+        "paged_chunk_attention llama-3-8b session turn", "K2",
+        surface["rows"]["K2"], surface["turn_k2"]))
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         # time lost over the serves against the bound, back to back

@@ -18,6 +18,17 @@ fused multi-step decode), stop / finish / OOM / preemption, and
    sequence's sliding window has left (Mistral-style uniform windows);
 4. prefetch plan for upcoming groups, eviction, migration.
 
+Multi-turn sessions (`add_request(session=True)`, `continue_session`,
+`end_session`) keep a conversation's KV in the pool between turns, where
+eviction may demote it to the host tier while it is idle; the next turn
+restores it (the tiering machinery promotes it) and prefills only the new
+tokens. Under capacity pressure an idle session's KV is reclaimed, and its
+next turn re-prefills the stored history. `cancel` withdraws or ends a
+request at any point. Requests may ask for per-token logprobs (`logprobs=k`,
+also under speculative decoding), prompt logprobs (`prompt_logprobs=True`)
+and sampling penalties (frequency / presence / repetition, through the
+device plane of `engine/sampling.py`).
+
 Every request keeps the KV scheme it was submitted under: `set_kv_dtype`
 (the `speckv_set_compression_scheme` analog) changes it for new requests,
 live between INT8 and FP8, which share the pool's bytes, and on an idle
@@ -27,16 +38,16 @@ request. Prefill and decode dispatches each hold one scheme.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Host-streamed requests, sessions, sampling penalties, logprobs
-(also under speculative decoding), fused rounds, mesh serving, the prefetch
-LSTM (and with it the n-gram proposer's LSTM miss fallback) and the
-automatic decode horizon are not ported yet: asking for one raises.
+the CPU. Host-streamed requests (and with them host-streamed sessions),
+fused rounds, mesh serving, the prefetch LSTM (and with it the n-gram
+proposer's LSTM miss fallback), `score_prompts` and the automatic decode
+horizon are not ported yet: asking for one raises.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -45,7 +56,7 @@ from cxl_speckv_tpu_torch.config import KVDtype, SystemConfig
 from cxl_speckv_tpu_torch.core.directory import BlockState
 from cxl_speckv_tpu_torch.core.stats import Statistics, ratio
 from cxl_speckv_tpu_torch.engine.request import Request, RequestState
-from cxl_speckv_tpu_torch.engine.sampling import encode_sampling
+from cxl_speckv_tpu_torch.engine.sampling import encode_pen_info, encode_sampling
 from cxl_speckv_tpu_torch.engine.scheduler import Scheduler
 from cxl_speckv_tpu_torch.engine.spec import NgramProposer, SpecDecoder
 from cxl_speckv_tpu_torch.models.configs import LlamaConfig
@@ -61,6 +72,7 @@ from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
 from cxl_speckv_tpu_torch.prefetcher.controller import PrefetchController
 from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
+from cxl_speckv_tpu_torch.utils.host import fetch
 from cxl_speckv_tpu_torch.utils.tracing import PhaseTimer
 
 
@@ -72,6 +84,32 @@ class EngineOutput:
     ttft_ms: float
     tpot_ms: float
     session_id: int = -1
+    # per-token logprob records (aligned with `tokens`) when the request
+    # asked for them (`logprobs=k`); None otherwise
+    logprobs: list[dict] | None = None
+    # echo scoring (`prompt_logprobs=True`): log p(prompt[i] | prompt[:i])
+    # per prompt token, entry 0 is None (OpenAI echo); None when off
+    prompt_logprobs: list | None = None
+
+
+@dataclass
+class Session:
+    """A multi-turn conversation whose KV persists between requests: it
+    stays in the pool between turns (demotable to the host tier) and is
+    restored, not recomputed, when the conversation returns. `live=False`
+    means the KV was reclaimed under capacity pressure, and the next turn
+    re-prefills the stored history. Counterpart of the JAX engine's
+    `Session` (the port has no host-streamed sessions)."""
+
+    session_id: int
+    seq_slot: int
+    tokens: list[int] = field(default_factory=list)  # the whole conversation
+    live: bool = True
+    busy: bool = False
+    last_use: float = field(default_factory=time.monotonic)
+    restores: int = 0
+    reprefills: int = 0
+    kv_dtype: object = None   # the scheme the live KV is encoded with
 
 
 @dataclass
@@ -120,7 +158,32 @@ def _result_tokens(req: Request) -> list[int]:
     return list(req.output)
 
 
+def _result_logprobs(req: Request) -> list[dict] | None:
+    """Per-token logprob records aligned with `_result_tokens`."""
+    if not req.logprobs:
+        return None
+    return list(req.logprobs_data[:len(req.output) - req.stop_trim])
+
+
+def _result_prompt_logprobs(req: Request) -> list | None:
+    """Echo scores: [None] + log p(prompt[i] | prefix) for i >= 1."""
+    if not req.prompt_logprobs:
+        return None
+    return [None] + list(req.prompt_logprobs_data)
+
+
+def _logprob_record(ch, ids, vals, k: int) -> dict:
+    """One token's logprob record: its raw logprob and the top k."""
+    return {"logprob": float(ch), "top_ids": ids[:k].tolist(),
+            "top_logprobs": vals[:k].tolist()}
+
+
 class Engine:
+    # one top-k width for every dispatch that carries logprobs (the API
+    # maximum, as the JAX engine compiles one program for it); each request
+    # slices its own k on the host
+    LOGPROBS_COMPILE_K = 20
+
     def __init__(self, model_config: LlamaConfig, system_config: SystemConfig,
                  params=None, *, device=None, seed: int = 0,
                  enable_lstm: bool = False,
@@ -213,6 +276,23 @@ class Engine:
         self._rng_counter = 0
         self._tpots: list[float] = []
         self._ttfts: list[float] = []
+        self._requests: dict[int, Request] = {}
+        self._sessions: dict[int, Session] = {}
+        self.scheduler.reclaim_hook = self._reclaim_idle_session
+        # blocks committed outside the running set: idle session KV
+        self.scheduler.extra_committed = self._idle_session_blocks
+        # a demand fetch that cannot make HBM room reclaims idle sessions
+        # too (the JAX engine raises there when the host tier is full of
+        # idle session KV; `tests/test_torch_sessions.py`)
+        self.kvc.reclaim_hook = self._reclaim_idle_session
+        # sampling penalties: one row per penalized request of a device
+        # plane int32 [penalty_rows + 1, vocab] (`engine/sampling.py`),
+        # allocated at the first penalized request; from then on every
+        # decode and prefill dispatch carries it (unpenalized lanes ride the
+        # guard row bit-identically)
+        self._pen_counts: torch.Tensor | None = None
+        self._pen_free = list(range(ec.penalty_rows))
+        self._pen_guard = ec.penalty_rows
         # the JAX engine sends requests that overflow the HBM pool (or
         # max_seq_len) to its host-streamed path when it can; the port
         # refuses exactly those requests
@@ -235,19 +315,26 @@ class Engine:
                     frequency_penalty: float = 0.0,
                     presence_penalty: float = 0.0,
                     repetition_penalty: float = 0.0) -> int:
-        """Submit a request; returns its id. stop_token_ids end generation
-        like EOS (reason "stop", token kept); stop_sequences use OpenAI
-        stop-string semantics (the matched suffix is excluded from the
-        returned tokens)."""
+        """Submit a request; returns its id. With session=True the
+        conversation's KV persists after the reply (demotable to the host
+        tier): follow it with `continue_session(req_id, ...)`.
+        stop_token_ids end generation like EOS (reason "stop", token kept);
+        stop_sequences use OpenAI stop-string semantics (the matched suffix
+        is excluded from the returned tokens). `logprobs=k` (k <= 20)
+        returns each token's raw logprob and the top k; `prompt_logprobs`
+        scores every prompt token. frequency / presence penalties use OpenAI
+        semantics (output tokens only), repetition_penalty HF / vLLM
+        semantics (prompt + output; 1.0 = off)."""
         if not prompt:
             raise ValueError("empty prompt")
-        if (session or logprobs or prompt_logprobs or frequency_penalty
-                or presence_penalty
-                or (repetition_penalty and repetition_penalty != 1.0)):
-            raise NotImplementedError(
-                "sessions, logprobs and sampling penalties are not ported")
         stop_token_ids, stop_sequences = _validate_stops(
             stop_token_ids, stop_sequences)
+        self._validate_logprobs(logprobs)
+        fp, pp, rp = self._validate_penalties(
+            frequency_penalty, presence_penalty, repetition_penalty)
+        if prompt_logprobs and self.config.engine.prefill_chunk < 2:
+            raise ValueError("prompt_logprobs needs prefill_chunk >= 2 "
+                             "(chunks re-feed one boundary token)")
         total = len(prompt) + max_new_tokens
         bs = self.config.cache.block_size
         hbm_budget = (self.config.cache.num_hbm_blocks - 2) * bs
@@ -265,12 +352,259 @@ class Engine:
         req = Request(req_id=self._next_req_id, prompt=list(prompt),
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       top_p=top_p, eos_token_id=eos_token_id,
-                      stop_token_ids=stop_token_ids,
+                      session=session, stop_token_ids=stop_token_ids,
                       stop_sequences=stop_sequences, ignore_eos=ignore_eos,
+                      logprobs=logprobs, prompt_logprobs=prompt_logprobs,
                       kv_dtype=self._kv_scheme)
+        if session:
+            req.session_id = req.req_id
+        return self._submit(req, fp, pp, rp)
+
+    def _submit(self, req: Request, fp: float, pp: float, rp: float) -> int:
+        self._attach_pen_row(req, fp, pp, rp)
         self._next_req_id += 1
+        self._requests[req.req_id] = req
         self.scheduler.submit(req)
         return req.req_id
+
+    def continue_session(self, session_id: int, new_tokens: list[int],
+                         max_new_tokens: int = 64,
+                         temperature: float = 0.0, top_p: float = 1.0,
+                         stop_token_ids: list[int] | None = None,
+                         stop_sequences: list[list[int]] | None = None,
+                         logprobs: int = 0,
+                         frequency_penalty: float = 0.0,
+                         presence_penalty: float = 0.0,
+                         repetition_penalty: float = 0.0) -> int:
+        """The next turn of a session. If its KV is still allocated (in HBM
+        or the host tier), only the last reply token and the new tokens
+        prefill, over the restored context; if it was reclaimed, the stored
+        history re-prefills.
+
+        Penalty state is per TURN (OpenAI semantics): counts reset at the
+        turn's first prefill chunk, and the repetition penalty's prompt span
+        is what this turn feeds (the new tokens, or the whole history when
+        it re-prefills): a restored turn does not re-scan its context."""
+        stop_token_ids, stop_sequences = _validate_stops(
+            stop_token_ids, stop_sequences)
+        self._validate_logprobs(logprobs)
+        fp, pp, rp = self._validate_penalties(
+            frequency_penalty, presence_penalty, repetition_penalty)
+        sess = self._sessions.get(session_id)
+        if sess is None:
+            raise ValueError(f"unknown session {session_id}")
+        if sess.busy:
+            raise ValueError(f"session {session_id} already has a turn in flight")
+        if not new_tokens:
+            raise ValueError("empty continuation")
+        if sess.live:
+            # the KV covers tokens[:-1]: feed the last reply token + new ones
+            prompt = [sess.tokens[-1]] + list(new_tokens)
+            context_len = len(sess.tokens) - 1
+        else:
+            prompt = sess.tokens + list(new_tokens)
+            context_len = 0
+        total = context_len + len(prompt) + max_new_tokens
+        bs = self.config.cache.block_size
+        hbm_budget = (self.config.cache.num_hbm_blocks - 2) * bs
+        if not sess.live and (total > self.config.engine.max_seq_len
+                              or total > hbm_budget):
+            if (self._stream_max_blocks > 0
+                    and -(-total // bs) <= self._stream_max_blocks):
+                raise NotImplementedError(
+                    "the reclaimed history needs the host-streamed path to "
+                    "re-prefill, which is not ported")
+            raise ValueError("session history exceeds the pooled capacity"
+                             " and the host-streamed capacity")
+        if total > self.config.engine.max_seq_len:
+            raise ValueError("session exceeds max_seq_len")
+        if sess.live:
+            sess.restores += 1
+        else:
+            sess.reprefills += 1
+        sess.busy = True
+        sess.last_use = time.monotonic()
+        req = Request(req_id=self._next_req_id, prompt=prompt,
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      top_p=top_p, session=True, session_id=session_id,
+                      context_len=context_len,
+                      stop_token_ids=stop_token_ids,
+                      stop_sequences=stop_sequences, logprobs=logprobs,
+                      kv_dtype=(sess.kv_dtype if sess.live and
+                                sess.kv_dtype is not None
+                                else self._kv_scheme))
+        req.seq_slot = sess.seq_slot if sess.live else -1
+        return self._submit(req, fp, pp, rp)
+
+    def get_session(self, session_id: int) -> Session:
+        return self._sessions[session_id]
+
+    def end_session(self, session_id: int) -> None:
+        """Free a session's KV for good."""
+        sess = self._sessions.pop(session_id)
+        if sess.live:
+            self._free_session_seq(sess)
+
+    # -- session capacity -----------------------------------------------------
+
+    def _free_session_seq(self, sess: Session) -> None:
+        bids = self.kvc.pool.seq(sess.seq_slot).live_blocks
+        self.kvc.free_seq(sess.seq_slot)
+        if self.scheduler.free_seq_hook:
+            # after the pool free, as the scheduler calls it (a spec
+            # engine's draft pool frees the same blocks)
+            self.scheduler.free_seq_hook(sess.seq_slot, bids)
+        sess.live = False
+        sess.seq_slot = -1
+
+    def _idle_session_blocks(self) -> int:
+        return sum(len(self.kvc.pool.seq(s.seq_slot).live_blocks)
+                   for s in self._sessions.values() if s.live and not s.busy)
+
+    def _make_capacity(self) -> bool:
+        """Free capacity under pressure: idle session KV first (a later
+        re-prefill), then preempt the youngest non-session request (its
+        in-flight work is lost)."""
+        if self._reclaim_idle_session():
+            return True
+        return self.scheduler.preempt_youngest() is not None
+
+    def _reclaim_idle_session(self) -> bool:
+        """Free the least recently used idle session's KV; its next turn
+        re-prefills. True if one was reclaimed."""
+        idle = [s for s in self._sessions.values() if s.live and not s.busy]
+        if not idle:
+            return False
+        self._free_session_seq(min(idle, key=lambda s: s.last_use))
+        return True
+
+    # -- logprobs and sampling penalties ------------------------------------
+
+    def _validate_logprobs(self, logprobs: int) -> None:
+        if logprobs and not 0 < logprobs <= self.LOGPROBS_COMPILE_K:
+            raise ValueError("logprobs must be in [0, 20]")
+
+    def _validate_penalties(self, fp: float, pp: float, rp: float):
+        """Normalize and check the penalty knobs (OpenAI ranges for
+        frequency / presence; repetition 1.0 means off). Returns
+        (fp, pp, rp)."""
+        fp, pp, rp = float(fp), float(pp), float(rp)
+        if abs(rp - 1.0) < 1e-9:
+            rp = 0.0
+        if not (fp or pp or rp):
+            return 0.0, 0.0, 0.0
+        if not -2.0 <= fp <= 2.0:
+            raise ValueError("frequency_penalty must be in [-2, 2]")
+        if not -2.0 <= pp <= 2.0:
+            raise ValueError("presence_penalty must be in [-2, 2]")
+        if rp and not 0.0 < rp <= 10.0:
+            raise ValueError("repetition_penalty must be in (0, 10]")
+        if self.spec is not None:
+            raise ValueError(
+                "sampling penalties are not supported on speculative-"
+                "decoding engines (proposals come from the unpenalized "
+                "draft law; penalizing verify but not the proposals would "
+                "break the acceptance rule)")
+        if not self._pen_free:
+            raise ValueError(
+                "too many concurrent penalized requests (EngineConfig."
+                f"penalty_rows={self.config.engine.penalty_rows})")
+        return fp, pp, rp
+
+    def _attach_pen_row(self, req: Request, fp: float, pp: float,
+                        rp: float) -> None:
+        """Give a penalized request its row of the plane; the first one
+        allocates the plane on the device."""
+        if not (fp or pp or rp):
+            return
+        req.frequency_penalty = fp
+        req.presence_penalty = pp
+        req.repetition_penalty = rp
+        req.pen_row = self._pen_free.pop()
+        if self._pen_counts is None:
+            self._pen_counts = torch.zeros(
+                (self.config.engine.penalty_rows + 1,
+                 self.model_config.vocab_size),
+                dtype=torch.int32, device=self.device)
+
+    def _free_pen_row(self, req: Request) -> None:
+        if req.pen_row >= 0:
+            self._pen_free.append(req.pen_row)
+            req.pen_row = -1
+
+    def _pen_dispatch(self, group, B: int, prefill: bool = False) -> dict:
+        """The dispatch's penalty arguments ({} while the plane was never
+        allocated): pen_info [B, 5] for the lanes of `group` in lane order
+        and the plane. Prefill groups hold (req, n, start); their reset and
+        count flags follow the chunk's place in the prompt."""
+        if self._pen_counts is None:
+            return {}
+        pi = np.zeros((B, 5), np.int32)
+        pi[:, 0] = self._pen_guard
+        resets = []
+        for i, item in enumerate(group):
+            req = item[0] if prefill else item
+            if req.pen_row < 0:
+                continue
+            if prefill:
+                _, n, start = item
+                reset = req.pen_reset_gen != req.restarts
+                count = start - req.context_len + n >= len(req.prompt)
+                if reset:
+                    resets.append(req)
+            else:
+                reset, count = False, True
+            pi[i] = encode_pen_info(
+                req.pen_row, req.frequency_penalty, req.presence_penalty,
+                req.repetition_penalty, reset=reset, count_sampled=count)
+        for req in resets:
+            req.pen_reset_gen = req.restarts
+        return {"pen_info": pi, "pen_counts": self._pen_counts}
+
+    def _group_logprobs_k(self, reqs) -> int:
+        """The top-k width of a dispatch: 0 when no lane asked."""
+        return self.LOGPROBS_COMPILE_K if any(r.logprobs for r in reqs) else 0
+
+    def cancel(self, req_id: int) -> EngineOutput | None:
+        """Abort a request that has not finished. Returns the partial result
+        (reason "cancelled"), or None for unknown or finished ids. Live KV
+        frees as on a normal finish, except that a session turn that is
+        decoding keeps its KV (the tokens generated so far are real
+        context); a queued request is withdrawn."""
+        req = self._requests.get(req_id)
+        if req is None or req.state in (RequestState.FINISHED,
+                                        RequestState.FAILED):
+            return None
+        if req.state == RequestState.QUEUED:
+            # no KV of its own yet (a queued session turn holds only the
+            # session's KV, which stays)
+            self.scheduler.queue.remove(req)
+            req.state = RequestState.FINISHED
+            req.finish_reason = "cancelled"
+            req.finish_time = time.monotonic()
+            self._free_pen_row(req)
+            self.stats.requests_finished += 1
+            if req.session and req.session_id in self._sessions:
+                self._sessions[req.session_id].busy = False
+            return EngineOutput(req.req_id, _result_tokens(req), "cancelled",
+                                req.ttft_ms, req.tpot_ms, req.session_id,
+                                logprobs=_result_logprobs(req),
+                                prompt_logprobs=_result_prompt_logprobs(req))
+        if req.seq_slot >= 0:
+            self.kvc.pin_seq(req.seq_slot, False)
+        if req.session and req.state == RequestState.PREFILLING:
+            # KV written mid-prefill covers part of the prompt only: kept
+            # as a live session it would disagree with the session's tokens.
+            # Free it; the next turn re-prefills the stored history (a
+            # cancelled first turn leaves no session at all)
+            sess = self._sessions.get(req.session_id)
+            req.session = False
+            out = self._finish_request(req, "cancelled")
+            if sess is not None:
+                sess.busy = False
+                sess.live = False
+            return out
+        return self._finish_request(req, "cancelled")
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 64,
                  temperature: float = 0.0, **kw) -> list[list[int]]:
@@ -307,11 +641,11 @@ class Engine:
                              "encoding)")
         if storage_width_class(kv_dtype) != storage_width_class(base):
             busy = self.scheduler.num_waiting + self.scheduler.num_running
-            if busy:
+            if busy or self._sessions:
                 raise ValueError(
                     f"cross-width scheme switch {base.value} -> "
                     f"{kv_dtype.value} requires an idle engine (live: "
-                    f"{busy} requests)")
+                    f"{busy} requests, {len(self._sessions)} sessions)")
             self.kvc.rebuild_storage(kv_dtype)
         self._kv_scheme = kv_dtype
 
@@ -333,10 +667,6 @@ class Engine:
                 break
             outs.extend(self.step())
         return outs
-
-    def _make_capacity(self) -> bool:
-        """Free capacity under pressure: preempt the youngest request."""
-        return self.scheduler.preempt_youngest() is not None
 
     # -- one engine iteration -----------------------------------------------------
 
@@ -377,6 +707,12 @@ class Engine:
             with self.timers.phase("maintain.plan"):
                 self.prefetcher.plan(upcoming)
                 self.prefetcher.update_depth()
+            # preload queued session restores: their sequence is known
+            # before admission (the idle-KV warm-up a prefetcher is for)
+            for r in list(self.scheduler.queue)[:4]:
+                if r.session and r.seq_slot >= 0:
+                    self.kvc.prefetch_blocks(
+                        self.kvc.seq_nonresident_blocks(r.seq_slot))
             with self.timers.phase("maintain.kvc"):
                 self.kvc.maintain()
         t3 = time.monotonic()
@@ -414,14 +750,23 @@ class Engine:
             if req.seq_slot < 0 or req.state != RequestState.PREFILLING:
                 continue
             # prefix-cache claim on first touch: reuse cached full prompt
-            # blocks and start prefill past them
-            if req.prefill_pos == 0 and req.context_len == 0:
+            # blocks and start prefill past them. Not for prompt-logprob
+            # requests (skipped positions would lose their scores) nor for
+            # repetition-penalty ones (every prompt token must pass the
+            # prefill pass to set its presence bit)
+            if (req.prefill_pos == 0 and req.context_len == 0
+                    and not req.prompt_logprobs
+                    and not (req.pen_row >= 0 and req.repetition_penalty)):
                 matched, bids = self.kvc.match_prefix(
                     req.prompt, self._req_scheme(req))
                 if matched:
                     self.kvc.claim_prefix(req.seq_slot, bids)
                     req.prefill_pos = matched
             pos0 = req.prefill_pos
+            if req.prompt_logprobs and pos0 > 0:
+                # re-feed the chunk-boundary token so that its successor is
+                # scored inside the chunk (it rewrites the same KV bytes)
+                pos0 -= 1
             n = min(chunk, len(req.prompt) - pos0)
             start = req.context_len + pos0
             if -(-(start + n) // bs) > self.config.cache.num_hbm_blocks - 2:
@@ -448,7 +793,8 @@ class Engine:
             # mirror the wave into the draft cache in one pass
             self.spec.prefill_batch(
                 [(req.seq_slot, start, n,
-                  req.prompt[req.prefill_pos:req.prefill_pos + n])
+                  req.prompt[start - req.context_len:
+                             start - req.context_len + n])
                  for req, n, start in ready], chunk=chunk, batch=B)
         # one dispatch per KV scheme (normally one)
         groups: dict = {}
@@ -478,9 +824,17 @@ class Engine:
             row = self.kvc.pool.table.row(req.seq_slot)
             packed[i, 4:4 + mb] = np.where(row >= 0, row, self.kvc.guard_slot)
             packed[i, 4 + mb:4 + mb + n] = req.prompt[pos0:pos0 + n]
-        toks = prefill_batch_packed(
+        lk = self._group_logprobs_k(r for r, _, _ in ready)
+        scored = np.zeros(B, bool)
+        scored[:len(ready)] = [r.prompt_logprobs for r, _, _ in ready]
+        out = prefill_batch_packed(
             self.params, self.model_config, scheme, packed, self.kvc.pools,
-            max_blocks=mb, rng_seed=self._rng_seed).cpu().numpy()
+            **self._pen_dispatch(ready, B, prefill=True), max_blocks=mb,
+            rng_seed=self._rng_seed, logprobs_k=lk,
+            prompt_scores=scored if scored.any() else None)
+        toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
+        lp = rest[:3] if lk else None
+        scores = rest[-1] if scored.any() else None
 
         for i, (req, n, start) in enumerate(ready):
             blocks = self.kvc.pool.seq(req.seq_slot).blocks
@@ -489,12 +843,21 @@ class Engine:
                     self.kvc.directory.mark_dirty(blocks[bi])
             self.kvc.pin_seq(req.seq_slot, False)
             req.prefill_pos = start - req.context_len + n
+            if req.prompt_logprobs:
+                # chunk position j scores prompt token pos0 + j + 1: the
+                # first target is the one after the re-fed boundary token
+                # (token 1 on the first chunk), so every one is new, in order
+                req.prompt_logprobs_data.extend(
+                    float(x) for x in scores[i, :n - 1])
             if req.context_len == 0:
                 self.kvc.register_prefix(req.seq_slot, req.prompt,
                                          req.prefill_pos, scheme)
             self.scheduler.stats.prefill_chunks += 1
             if req.done_prefill:
                 self._record_token(req, int(toks[i]), first=True)
+                if req.logprobs:
+                    req.logprobs_data.append(_logprob_record(
+                        lp[0][i], lp[1][i], lp[2][i], req.logprobs))
                 req.state = RequestState.RUNNING
                 out = self._maybe_finish(req)
                 if out is not None:
@@ -565,10 +928,13 @@ class Engine:
                 packed[i, 4:4 + mb] = np.where(row >= 0, row, guard)
             t_host += time.monotonic() - t0
             t0 = time.monotonic()
-            toks = decode_multi_packed(
+            lk = self._group_logprobs_k(group)
+            out = decode_multi_packed(
                 self.params, self.model_config, scheme, packed,
-                self.kvc.pools, horizon=h,
-                rng_seed=self._rng_seed).cpu().numpy()
+                self.kvc.pools, **self._pen_dispatch(group, B), horizon=h,
+                rng_seed=self._rng_seed, logprobs_k=lk)
+            # the round's tokens and logprob tables in one host copy
+            toks, *lp = fetch(*out) if lk else fetch(out)
             t_prog += time.monotonic() - t0
             t0 = time.monotonic()
             for i, r in enumerate(group):
@@ -582,6 +948,10 @@ class Engine:
                     if r.state != RequestState.RUNNING:
                         break
                     self._record_token(r, int(toks[i, j]))
+                    if r.logprobs:
+                        r.logprobs_data.append(_logprob_record(
+                            lp[0][i, j], lp[1][i, j], lp[2][i, j],
+                            r.logprobs))
                     out = self._maybe_finish(r)
                     if out is not None:
                         finished.append(out)
@@ -666,10 +1036,11 @@ class Engine:
                                 self._rng_counter)
                if (temps > 0).any() else None)
         t0 = time.monotonic()
-        emitted, n_acc = self.spec.verify_accept(
+        emitted, n_acc, lp = self.spec.verify_accept(
             self.params, self.model_config, self._req_scheme(batch[0]),
             np.concatenate([last[:, None], drafts], axis=1), positions,
-            self.kvc.pools, ttab, active, drafts, temps, gen, top_ps=top_ps)
+            self.kvc.pools, ttab, active, drafts, temps, gen, top_ps=top_ps,
+            logprobs_k=self._group_logprobs_k(batch))
         self.timers.record("decode.spec_verify", time.monotonic() - t0)
         for i, r in enumerate(batch):
             blocks = self.kvc.pool.seq(r.seq_slot).blocks
@@ -678,10 +1049,14 @@ class Engine:
                             (int(positions[i]) + int(n_acc[i])) // bs + 1):
                 if bi < len(blocks) and blocks[bi] is not None:
                     self.kvc.directory.mark_dirty(blocks[bi])
-            for tok in emitted[i]:
+            for j, tok in enumerate(emitted[i]):
                 if r.state != RequestState.RUNNING:
                     break
                 self._record_token(r, tok)
+                if r.logprobs:
+                    # verify row j scores the token emitted at index j
+                    r.logprobs_data.append(_logprob_record(
+                        lp[0][i, j], lp[1][i, j], lp[2][i, j], r.logprobs))
                 out = self._maybe_finish(r)
                 if out is not None:
                     finished.append(out)
@@ -748,14 +1123,43 @@ class Engine:
 
     def _finish_request(self, req: Request, reason: str) -> EngineOutput:
         req.finish_time = time.monotonic()
-        self.scheduler.finish(req, reason)
+        self._free_pen_row(req)
+        keep = req.session and reason != "oom" and req.seq_slot >= 0
+        if keep:
+            # the turn's KV stays allocated (and demotable) for the next one
+            sid = req.session_id
+            sess = self._sessions.get(sid)
+            if sess is None:
+                sess = Session(session_id=sid, seq_slot=req.seq_slot)
+                self._sessions[sid] = sess
+            if req.context_len > 0:
+                # prompt[0] was the previous reply's last token, stored
+                sess.tokens.extend(req.prompt[1:] + req.output)
+            else:
+                sess.tokens = list(req.prompt) + req.output
+            sess.seq_slot = req.seq_slot
+            sess.live = True
+            sess.busy = False
+            sess.kv_dtype = self._req_scheme(req)
+            sess.last_use = time.monotonic()
+        elif req.session and req.session_id in self._sessions:
+            sess = self._sessions[req.session_id]
+            sess.busy = False
+            if req.seq_slot >= 0 and sess.live and sess.seq_slot == req.seq_slot:
+                # a turn that failed over the session's KV frees it below:
+                # the next turn re-prefills the stored history
+                sess.live = False
+                sess.seq_slot = -1
+        self.scheduler.finish(req, reason, free=not keep)
         self.stats.requests_finished += 1
         if req.tpot_ms > 0:
             self._tpots.append(req.tpot_ms)
         if req.ttft_ms > 0:
             self._ttfts.append(req.ttft_ms)
         return EngineOutput(req.req_id, _result_tokens(req), reason,
-                            req.ttft_ms, req.tpot_ms, req.session_id)
+                            req.ttft_ms, req.tpot_ms, req.session_id,
+                            logprobs=_result_logprobs(req),
+                            prompt_logprobs=_result_prompt_logprobs(req))
 
     # -- statistics -------------------------------------------------------------------
 

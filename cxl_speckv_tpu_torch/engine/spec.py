@@ -19,12 +19,18 @@ Speculative KV needs no rollback: both models append KV for every proposed
 position; rows past the accepted prefix are never covered by the sequence
 length and the next round overwrites them.
 
+With `logprobs_k`, `verify_accept` also returns the emitted tokens' raw
+logprobs and top-k tables: verify row j is the target's distribution for
+the token emitted at round index j, so the emitted-token matrix (accepted
+drafts, then the correction or bonus at row n_acc) is built on the device
+from the verdict and scored there, and the tables cross with the verdict
+in one host copy.
+
 The draft's KV lives in its own pool sized for the whole logical block
 space (`cache.total_blocks`, + a guard slot), in the port's token-major
 layout; it never tiers, only target KV migrates. Draft slots follow the
 target's logical blocks: prefix sharing, frees and window retirement.
-The JAX package's mesh arguments and its logprobs branch have no
-counterpart here (the port refuses logprobs).
+The JAX package's mesh arguments have no counterpart here.
 """
 
 from __future__ import annotations
@@ -39,12 +45,14 @@ from cxl_speckv_tpu_torch.core.stats import Statistics, ratio
 from cxl_speckv_tpu_torch.engine.sampling import encode_sampling, nucleus_filter
 from cxl_speckv_tpu_torch.models.configs import LlamaConfig
 from cxl_speckv_tpu_torch.models.llama import (
+    _token_logprobs,
     decode_multi_packed,
     prefill_batch_packed,
     prefill_chunk,
     verify_step,
 )
 from cxl_speckv_tpu_torch.ops.quant import kv_pack, kv_storage_dtype
+from cxl_speckv_tpu_torch.utils.host import fetch
 
 
 def _gumbel_argmax(logp: torch.Tensor, generator) -> torch.Tensor:
@@ -125,6 +133,25 @@ def accept_core(target_logits: torch.Tensor, draft_logits: torch.Tensor | None,
     return n_acc.int(), final.int()
 
 
+def emitted_logprobs(logits: torch.Tensor, drafts: torch.Tensor,
+                     n_acc: torch.Tensor, final: torch.Tensor, k: int):
+    """The raw logprob tables of a round's emitted tokens, on the device:
+    row j of the token matrix holds draft j while j < n_acc, the
+    correction or bonus `final` at j == n_acc, then 0 (JAX
+    `_verify_accept_program`); `_token_logprobs` scores it against the
+    verify logits [B, gamma + 1, V]. Returns (chosen [B, gamma + 1], ids,
+    logprobs [B, gamma + 1, k])."""
+    B, g = drafts.shape
+    j = torch.arange(g + 1, device=logits.device)[None, :]
+    drafts_p = torch.cat([drafts.to(torch.int32),
+                          torch.zeros(B, 1, dtype=torch.int32,
+                                      device=logits.device)], dim=1)
+    n = n_acc[:, None].to(torch.int32)
+    tok = torch.where(j == n, final[:, None].to(torch.int32), drafts_p)
+    tok = torch.where(j > n, torch.zeros_like(tok), tok)
+    return _token_logprobs(logits, tok, k)
+
+
 @dataclass
 class SpecStatistics(Statistics):
     rounds: int = 0
@@ -165,9 +192,11 @@ class _AcceptanceMixin:
         return emitted
 
     def _accept_on_device(self, logits: torch.Tensor, drafts_d, drafts,
-                          active, temps, top_ps, generator):
+                          active, temps, top_ps, generator, logprobs_k=0):
         """`accept_core` where the logits are, then ONE host copy of the
-        [2, B] verdict; the statistics count the round."""
+        [2, B] verdict (with `logprobs_k`, of the emitted tokens' logprob
+        tables beside it: `emitted_logprobs`); the statistics count the
+        round. Returns (emitted, n_acc, tables or None)."""
         temps = np.asarray(temps, np.float32)
         top_ps = (np.zeros_like(temps) if top_ps is None
                   else np.asarray(top_ps, np.float32))
@@ -179,8 +208,13 @@ class _AcceptanceMixin:
                                    floats[0], floats[1], generator,
                                    gamma=self.gamma, sampled=sampled,
                                    nucleus=nucleus)
-        n_acc, final = torch.stack([n_acc, final]).cpu().numpy()
-        return self._emit(drafts, n_acc, final, active), n_acc
+        verdict = torch.stack([n_acc, final])
+        if logprobs_k:
+            (n_acc, final), *tables = fetch(verdict, *emitted_logprobs(
+                logits, drafts_d, n_acc, final, logprobs_k))
+        else:
+            (n_acc, final), tables = verdict.cpu().numpy(), None
+        return self._emit(drafts, n_acc, final, active), n_acc, tables
 
     def accept(self, drafts: np.ndarray, target_logits: torch.Tensor,
                active: np.ndarray, temps: np.ndarray,
@@ -194,19 +228,20 @@ class _AcceptanceMixin:
         drafts_d = torch.from_numpy(np.asarray(drafts, np.int32)).to(
             target_logits.device)
         return self._accept_on_device(target_logits, drafts_d, drafts,
-                                      active, temps, top_ps, generator)
+                                      active, temps, top_ps, generator)[:2]
 
     def verify_accept(self, params, config, kv_dtype,
                       verify_tokens: np.ndarray, positions: np.ndarray,
                       pools, block_tables: np.ndarray, active: np.ndarray,
                       drafts: np.ndarray, temps: np.ndarray,
                       generator: torch.Generator | None = None, *,
-                      top_ps: np.ndarray | None = None
-                      ) -> tuple[list[list[int]], np.ndarray]:
+                      top_ps: np.ndarray | None = None, logprobs_k: int = 0):
         """One spec round's tail: the target's `verify_step` (pools update
         in place; the round's int inputs cross in one int32 array), then
-        the acceptance on its logits where they are (`accept`). Returns
-        (emitted tokens per lane, n_acc [B])."""
+        the acceptance on its logits where they are. Returns (emitted
+        tokens per lane, n_acc [B], and with `logprobs_k` the emitted
+        tokens' (chosen [B, gamma + 1], top_ids / top_logprobs
+        [B, gamma + 1, k]) tables, else None)."""
         T = verify_tokens.shape[1]
         ints = torch.from_numpy(np.concatenate(
             [verify_tokens, np.asarray(positions)[:, None],
@@ -216,7 +251,7 @@ class _AcceptanceMixin:
                              ints[:, T], pools, ints[:, T + 2:],
                              ints[:, T + 1] != 0)
         return self._accept_on_device(logits, ints[:, 1:T], drafts, active,
-                                      temps, top_ps, generator)
+                                      temps, top_ps, generator, logprobs_k)
 
     def accept_greedy(self, drafts: np.ndarray, target_logits: np.ndarray,
                       active: np.ndarray) -> tuple[list[list[int]], np.ndarray]:

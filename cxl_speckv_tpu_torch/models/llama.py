@@ -4,7 +4,9 @@ Counterpart of `cxl_speckv_tpu/models/llama.py`, main-path subset: the
 parameter tree and its random init (plain and quantize-at-init), the
 building blocks, `decode_step` / `decode_multi` / `decode_multi_packed`
 (fused multi-step decode with sampling on the device, optionally returning
-each step's logits), the batched chunked prefill `prefill_batch_packed`,
+each step's logits and raw logprobs, with the sampling-penalty plane), the
+batched chunked prefill `prefill_batch_packed` (also the first token's
+logprobs, per-position prompt scores and the penalty hooks),
 the single-sequence `prefill_chunk`, the speculative verify pass
 `verify_step`, and `forward_dense`. Families: Llama,
 Mistral (uniform sliding window), Gemma-2 (alternating sliding / global
@@ -476,11 +478,16 @@ def decode_step(params: Params, config: LlamaConfig, kv_dtype,
 
 def _token_logprobs(logits: torch.Tensor, toks: torch.Tensor, k: int):
     """Raw-distribution logprobs: the chosen token's plus the top-k
-    alternatives (ids, logprobs)."""
+    alternatives (ids, logprobs), ordered as `lax.top_k` orders them:
+    equal values keep the lower id first, so a greedy token (the first
+    maximum, as `argmax` takes it) is the top-1 id even at an exact tie."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     chosen = torch.gather(lp, -1, toks[..., None].long())[..., 0]
     tv, ti = torch.topk(lp, k, dim=-1)
-    return chosen, ti.to(torch.int32), tv
+    ti, order = torch.sort(ti, dim=-1, stable=True)
+    tv, order2 = torch.sort(torch.gather(tv, -1, order), dim=-1,
+                            descending=True, stable=True)
+    return chosen, torch.gather(ti, -1, order2).to(torch.int32), tv
 
 
 def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
@@ -488,34 +495,59 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
                  pools: Pools, block_table: torch.Tensor,
                  generator: torch.Generator | None,
                  temperatures: torch.Tensor, top_ps: torch.Tensor | None,
+                 pen_info: torch.Tensor | None = None,
+                 pen_counts: torch.Tensor | None = None,
                  *, horizon: int, sampled: bool = False,
-                 nucleus: bool = False, return_logits: bool = False):
+                 nucleus: bool = False, return_logits: bool = False,
+                 logprobs_k: int = 0):
     """`horizon` decode steps with sampling on the device: step j feeds the
     token sampled at step j - 1. Callers pre-extend sequences so the table
     covers start .. start + horizon - 1. `sampled` / `nucleus` say whether
     any lane samples (temperature > 0) or uses top-p; when neither, the
-    steps are pure argmax and never synchronize with the host. Returns
-    tokens [B, horizon] int32 on the device; the pools update in place.
-    With `return_logits`, (tokens, logits [B, horizon, V] float32): each
-    step's logits, the proposal distributions that speculative sampling's
-    acceptance rule needs (`engine/spec.py`)."""
-    from cxl_speckv_tpu_torch.engine.sampling import sample_tokens
+    steps are pure argmax and never synchronize with the host. The pools
+    update in place.
+
+    Returns tokens [B, horizon] int32 on the device, or a tuple of it and,
+    in this order: with `logprobs_k`, the chosen tokens' logprobs
+    [B, horizon] and the top-k ids / logprobs [B, horizon, k] of the raw
+    distribution (`_token_logprobs`: before temperature, top-p and
+    penalties); with `return_logits`, each step's logits [B, horizon, V]
+    float32, the proposal distributions that speculative sampling's
+    acceptance rule needs (`engine/spec.py`).
+
+    With `pen_info` [B, 5] / `pen_counts` (`engine/sampling.py`), every step
+    penalizes before sampling and counts each sampled token into its
+    lane's row of the plane, in place."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        penalize_and_count,
+        sample_tokens,
+    )
 
     schemes = layer_kv_schemes(kv_dtype, config.num_layers)
     toks = first_tokens
-    out, step_logits = [], []
+    out, lps, step_logits = [], [], []
+    sample = lambda lg: sample_tokens(lg, temperatures, generator,
+                                      top_ps=top_ps if nucleus else None,
+                                      sampled=sampled)
     for j in range(horizon):
         positions = start_positions + j
         logits = _decode_core(params, config, schemes, toks, positions,
                               pools, block_table, positions + 1)
-        toks = sample_tokens(logits, temperatures, generator,
-                             top_ps=top_ps if nucleus else None,
-                             sampled=sampled).to(torch.int32)
+        if pen_counts is not None:
+            toks, _ = penalize_and_count(logits, pen_info, pen_counts, sample)
+        else:
+            toks = sample(logits)
+        toks = toks.to(torch.int32)
         out.append(toks)
+        if logprobs_k:
+            lps.append(_token_logprobs(logits, toks, logprobs_k))
         if return_logits:
             step_logits.append(logits)
+    extra = [torch.stack(y, dim=1) for y in zip(*lps)]
+    if return_logits:
+        extra.append(torch.stack(step_logits, dim=1))
     toks = torch.stack(out, dim=1)
-    return (toks, torch.stack(step_logits, dim=1)) if return_logits else toks
+    return (toks, *extra) if extra else toks
 
 
 def seeded_generator(device, rng_seed: int, counter: int) -> torch.Generator:
@@ -526,19 +558,29 @@ def seeded_generator(device, rng_seed: int, counter: int) -> torch.Generator:
     return g
 
 
+def _upload(packed: np.ndarray, pen_info, dev) -> torch.Tensor:
+    """The dispatch's int32 inputs in ONE host -> device copy: `packed`,
+    then the pen_info columns when given."""
+    packed = np.asarray(packed, np.int32)
+    if pen_info is not None:
+        packed = np.concatenate([packed, np.asarray(pen_info, np.int32)], 1)
+    return torch.from_numpy(packed).to(dev)
+
+
 def decode_multi_packed(params: Params, config: LlamaConfig,
                         kv_dtype, packed: np.ndarray, pools: Pools,
+                        pen_info: np.ndarray | None = None,
+                        pen_counts: torch.Tensor | None = None,
                         *, horizon: int, rng_seed: int = 0,
-                        return_logits: bool = False):
+                        return_logits: bool = False, logprobs_k: int = 0):
     """`decode_multi` with every per-round host input in ONE int32 array
-    (one host->device copy per round):
+    (one host->device copy per round; pen_info [B, 5] rides the same copy):
 
         packed [B, max_blocks + 4]: col 0 = first token, 1 = its position,
         2 = sampling word (`engine.sampling.encode_sampling`), 3 = rng
         counter, 4: = block-table row (guard-filled).
 
-    Returns tokens [B, horizon] int32 on the pools' device, and with
-    `return_logits` the per-step logits beside them (`decode_multi`)."""
+    Returns what `decode_multi` returns."""
     from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
 
     packed = np.asarray(packed, np.int32)
@@ -547,13 +589,16 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
     sampled = bool((temps_h > 0).any())
     nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
                                 & (temps_h > 0)).any())
-    p = torch.from_numpy(packed).to(dev)
+    w = packed.shape[1]
+    p = _upload(packed, pen_info if pen_counts is not None else None, dev)
     gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
            else None)
     return decode_multi(params, config, kv_dtype, p[:, 0], p[:, 1], pools,
-                        p[:, 4:], gen, temps_h.to(dev), top_ps_h.to(dev),
-                        horizon=horizon, sampled=sampled, nucleus=nucleus,
-                        return_logits=return_logits)
+                        p[:, 4:w], gen, temps_h.to(dev), top_ps_h.to(dev),
+                        p[:, w:] if pen_counts is not None else None,
+                        pen_counts, horizon=horizon, sampled=sampled,
+                        nucleus=nucleus, return_logits=return_logits,
+                        logprobs_k=logprobs_k)
 
 
 # ---------------------------------------------------------------------------
@@ -610,9 +655,32 @@ def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
     return x
 
 
+def _prompt_scores(x: torch.Tensor, token_ids: torch.Tensor,
+                   valid: torch.Tensor, lanes, params: Params,
+                   config: LlamaConfig) -> torch.Tensor:
+    """scores [B, T] float32: scores[b, t] = log p(token[b, t + 1] | ..t)
+    for t < valid[b] - 1, 0 elsewhere and on lanes not in `lanes`. One
+    lane's [T, V] logits at a time: all of them at once at B 8, T 64 and a
+    128256-token vocabulary would take 263 MB."""
+    B, T = token_ids.shape
+    out = torch.zeros(B, T, dtype=torch.float32, device=x.device)
+    targets = torch.roll(token_ids, -1, dims=1)            # target[t] = tok[t+1]
+    for b in lanes:
+        xs = _norm(x[b], params["final_norm"], config)     # [T, H]
+        lp = torch.log_softmax(_final_logits(xs, params, config), dim=-1)
+        out[b] = torch.gather(lp, -1, targets[b, :, None].long())[:, 0]
+    t_idx = torch.arange(T, device=x.device)[None, :]
+    return torch.where(t_idx < (valid - 1)[:, None], out,
+                       torch.zeros_like(out))
+
+
 def prefill_batch_packed(params: Params, config: LlamaConfig,
                          kv_dtype, packed: np.ndarray, pools: Pools,
-                         *, max_blocks: int, rng_seed: int = 0) -> torch.Tensor:
+                         pen_info: np.ndarray | None = None,
+                         pen_counts: torch.Tensor | None = None,
+                         *, max_blocks: int, rng_seed: int = 0,
+                         logprobs_k: int = 0,
+                         prompt_scores: np.ndarray | None = None):
     """Batched chunked prefill: every prefilling lane's chunk in one pass
     (`_chunk_forward`), each lane's next token sampled on the device.
 
@@ -621,35 +689,62 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         4:4+max_blocks = table row (guard-filled), the rest = tokens.
 
     Positions past a lane's valid length write the guard slot. Returns
-    tokens [B] int32 on the pools' device."""
+    tokens [B] int32 on the pools' device, or a tuple of it and, in this
+    order: with `logprobs_k`, the sampled token's logprob [B] and the top-k
+    ids / logprobs [B, k] (raw distribution, `_token_logprobs`); with
+    `prompt_scores` ([B] bool: the lanes that asked), per-position scores
+    [B, T] (`_prompt_scores`): the echo surface, whose chunk boundaries the
+    engine covers by re-feeding one token a chunk.
+
+    With `pen_info` [B, 5] / `pen_counts`, the penalty hooks run on the
+    device, in place: rows flagged for reset zero, this chunk's prompt
+    tokens set their presence bit, then the sampled token is penalized and
+    (on the prompt-completing chunk only, flag bit 1) counted."""
     from cxl_speckv_tpu_torch.engine.sampling import (
         decode_sampling,
+        pen_mark_prompt,
+        pen_reset_rows,
+        penalize_and_count,
         sample_tokens,
     )
 
     c = config
     packed = np.asarray(packed, np.int32)
     dev = pools[0].device
-    B = packed.shape[0]
-    T = packed.shape[1] - 4 - max_blocks
+    B, w = packed.shape
+    T = w - 4 - max_blocks
     temps_h, top_ps_h = decode_sampling(torch.from_numpy(packed[:, 2]))
     sampled = bool((temps_h > 0).any())
     nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
                                 & (temps_h > 0)).any())
-    p = torch.from_numpy(packed).to(dev)
+    p = _upload(packed, pen_info if pen_counts is not None else None, dev)
     valid = p[:, 1]
+    token_ids = p[:, 4 + max_blocks:w]
     write = torch.arange(T, device=dev)[None, :] < valid[:, None]
-    x = _chunk_forward(params, c, kv_dtype, p[:, 4 + max_blocks:].long(),
-                       p[:, 0], pools, p[:, 4:4 + max_blocks], write)
+    x = _chunk_forward(params, c, kv_dtype, token_ids.long(), p[:, 0], pools,
+                       p[:, 4:4 + max_blocks], write)
     # last valid hidden state per lane -> logits -> sampled token
     last = torch.clamp(valid - 1, 0, T - 1).long()
     x_last = x[torch.arange(B, device=dev), last]
     logits = _final_logits(_norm(x_last, params["final_norm"], c), params, c)
     gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
            else None)
-    return sample_tokens(logits, temps_h.to(dev), gen,
-                         top_ps=top_ps_h.to(dev) if nucleus else None,
-                         sampled=sampled).to(torch.int32)
+    sample = lambda lg: sample_tokens(lg, temps_h.to(dev), gen,
+                                      top_ps=top_ps_h.to(dev) if nucleus
+                                      else None, sampled=sampled)
+    if pen_counts is not None:
+        pen_info_d = p[:, w:]
+        pen_reset_rows(pen_info_d, pen_counts)
+        pen_mark_prompt(pen_info_d, pen_counts, token_ids, valid)
+        toks, _ = penalize_and_count(logits, pen_info_d, pen_counts, sample)
+    else:
+        toks = sample(logits)
+    toks = toks.to(torch.int32)
+    extra = list(_token_logprobs(logits, toks, logprobs_k)) if logprobs_k else []
+    if prompt_scores is not None:
+        lanes = [b for b in range(B) if prompt_scores[b] and packed[b, 1] > 1]
+        extra.append(_prompt_scores(x, token_ids, valid, lanes, params, c))
+    return (toks, *extra) if extra else toks
 
 
 def prefill_chunk(params: Params, config: LlamaConfig, kv_dtype,

@@ -89,6 +89,11 @@ class TieredKVCache:
         # blocks of the held decode group: evicted strictly after every
         # other candidate, including `protected`
         self.decode_hot: set[int] = set()
+        # called when a demand fetch finds no HBM slot to free (every
+        # resident block pinned, or the host tier too full to take a
+        # demote): the engine frees an idle session's KV and returns True,
+        # or returns False when it has none
+        self.reclaim_hook = None
         self.stats = CacheRuntimeStatistics()
 
     def _alloc_storage(self, kv_dtype: KVDtype) -> None:
@@ -286,7 +291,9 @@ class TieredKVCache:
                     self.transfer.cancel_queued_demote(b, self.directory)
             for bid in self.seq_nonresident_blocks(s):
                 while self.directory.hbm_free == 0:
-                    if not self._make_room():
+                    if not self._make_room() and not (
+                            self.reclaim_hook is not None
+                            and self.reclaim_hook()):
                         raise RuntimeError(
                             "cannot make HBM room for demand fetch: all "
                             "resident blocks pinned — batch exceeds HBM capacity")

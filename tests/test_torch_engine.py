@@ -9,7 +9,8 @@
   reference's rule, ROADMAP.md "Token level"). The JAX engine runs its
   Pallas kernels in interpret mode, as the port runs bfloat16 attention
   compute;
-- the paths this slice does not port raise.
+- the paths the port does not have yet raise: the LSTM, fused rounds, a
+  host-streamed request, a session turn that needs the host-streamed path.
 """
 
 import jax
@@ -180,12 +181,19 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         Engine(CFG, system(32, 32, 2, 1), params=PARAMS, device="cpu",
                enable_lstm=True)
+    sc = system(32, 32, 2, 1)
+    sc.engine.fused_rounds = True
+    with pytest.raises(NotImplementedError, match="fused_rounds"):
+        Engine(CFG, sc, params=PARAMS, device="cpu")
     eng = engine(hbm=6, host=64)
     with pytest.raises(ValueError, match="host-streamed"):
         eng.add_request(list(range(1, 60)), max_new_tokens=4)
     with pytest.raises(ValueError, match="empty prompt"):
         eng.add_request([], max_new_tokens=4)
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2, 3], logprobs=2)
-    with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2, 3], repetition_penalty=1.2)
+    # a session turn that only the host-streamed path could serve: the
+    # reclaimed history re-prefills past the 4-block pooled capacity
+    sid = eng.add_request(list(range(1, 13)), max_new_tokens=4, session=True)
+    eng.run()
+    assert eng._reclaim_idle_session()
+    with pytest.raises(NotImplementedError, match="host-streamed"):
+        eng.continue_session(sid, list(range(1, 17)), max_new_tokens=4)

@@ -688,3 +688,49 @@ def test_anatomy_ring_kernel_matches_plain(dev, scheme, nbuf):
     err, ok = da.within_sum(got, want, da.variant_plain(
         "fetchrow", p.q, *args, absolute=True))
     assert ok, err
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.FP8])
+def test_chunk_kernel_session_turn_matches_plain(dev, kv, cd):
+    """K2 at a session turn's shape: T 33 (the last reply token + 32 new
+    ones) at unaligned starts 96-191 over a restored context (blocks at
+    shuffled slots, as promotes from the host tier place them), Llama-3
+    heads (G 4, D 128), bs 32: 132 query rows, not a multiple of the
+    tensor-core kernel's 64."""
+    got, want, _ = chunk_case(dev, kv, cd, 33,
+                              [96, 127, 150, 191, 100, 161, 130, 175],
+                              seed=41, heads=(16, 4, 128), bs=32)
+    close(got, want, cd)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pen_plane_on_card_matches_cpu_bitwise(dev, seed):
+    """The sampling-penalty plane of `engine/sampling.py` on the card at the
+    served shape ([8, 128256], 16 rows + guard) equals the same functions
+    on the CPU bit for bit: reset, prompt mark, penalized greedy draw and
+    count."""
+    from cxl_speckv_tpu_torch.engine import sampling as ts
+
+    B, V, R = 8, 128256, 16
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(B, V) * 3).astype(np.float32)
+    plane = rng.randint(0, 9, (R + 1, V)).astype(np.int32)
+    plane[rng.rand(R + 1, V) < 0.05] |= ts.PEN_PROMPT_BIT
+    info = np.array([ts.encode_pen_info(
+        [0, 3, R, 5, 7, 9, 11, 15][b], *[(0.5, 0.5, 0.0), (0.0, 0.0, 1.3),
+                                         (0.0, 0.0, 0.0), (-1.2, 0.7, 1.9)][b % 4],
+        reset=b == 5, count_sampled=b != 4) for b in range(B)], np.int32)
+    ids = rng.randint(0, V, (B, 64)).astype(np.int32)
+    valid = rng.randint(0, 65, B).astype(np.int32)
+    out = []
+    for device in ("cpu", dev):
+        t = lambda a: torch.from_numpy(a.copy()).to(device)
+        pc, pi = t(plane), t(info)
+        ts.pen_reset_rows(pi, pc)
+        ts.pen_mark_prompt(pi, pc, t(ids), t(valid))
+        toks, _ = ts.penalize_and_count(t(logits), pi, pc,
+                                        lambda lg: lg.argmax(-1))
+        out.append((toks.cpu(), pc.cpu()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])

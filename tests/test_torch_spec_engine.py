@@ -17,8 +17,8 @@ JAX weights carried over:
   residency statistics; the draft cache's slot table equal to the JAX
   engine's after every step, through prefix sharing, frees and
   Mistral-style window retirement;
-- the refusals: both proposal sources at once, a scheme switch, logprobs
-  and penalties.
+- the refusals: both proposal sources at once, a scheme switch and
+  penalties (logprobs are served: `tests/test_torch_logprobs.py`).
 """
 
 import dataclasses
@@ -260,10 +260,13 @@ def test_spec_refusals():
         with pytest.raises(ValueError, match="single KV scheme"):
             eng.set_kv_dtype("fp8")
         eng.set_kv_dtype("int8")                  # the same scheme is fine
-        with pytest.raises(NotImplementedError):
-            eng.add_request([1, 2, 3], logprobs=2)
-        with pytest.raises(NotImplementedError):
+        # penalties are refused on spec engines, as the JAX engine refuses
+        # them (`tests/test_penalties.py:409`); logprobs are served
+        with pytest.raises(ValueError, match="speculative"):
             eng.add_request([1, 2, 3], frequency_penalty=0.5)
+        rid = eng.add_request([1, 2, 3], max_new_tokens=3, logprobs=2)
+        out = eng.run()[0]
+        assert out.req_id == rid and len(out.logprobs) == len(out.tokens)
 
 
 def test_seeded_draft_when_no_params():
