@@ -71,7 +71,8 @@ Phases, each printing its results; any failure exits non-zero:
               engine fixed to its scheme; INT4 refused while busy, then
               rebuilt when idle (pool rows halve), equal to a fresh INT4
               engine;
-9b. spec   -- speculative decoding on the serve's Llama-3-8B, gamma 4, the
+9b. spec   -- speculative decoding on the serve's Llama-3-8B cut to its
+              first 16 layers (the depth cut keeps the script in time), gamma 4, the
               first 16 of its prompts, tiered (52 HBM blocks) and ample, in
               three arms: n-gram lookup (verify through K2, no K1 at all),
               a Llama-3.2-1B draft at full width (W8A16, INT8 draft KV; K1
@@ -80,9 +81,9 @@ Phases, each printing its results; any failure exits non-zero:
               verify's (T = 5 at unaligned starts) timed against their plain
               versions. Every request must finish, tiered tokens equal ample
               tokens in every arm, the tiered run migrate both ways, the
-              launches be exactly K2 = target prefill dispatches x 32 +
-              draft prefill dispatches x L_draft + rounds x 32 and K1 =
-              rounds x 5 x L_draft (L_draft 16, 32, 0 for ngram); then the
+              launches be exactly K2 = target prefill dispatches x 16 +
+              draft prefill dispatches x L_draft + rounds x 16 and K1 =
+              rounds x 5 x L_draft (L_draft 16, 16, 0 for ngram); then the
               self-draft again at float32 activations (the served bf16
               K1 / K2 variants), whose acceptance -- the cascade-free
               agreement of decode through K1 and verify through K2 -- must
@@ -93,7 +94,8 @@ Phases, each printing its results; any failure exits non-zero:
               phase medians, and agreement with a plain serve of the same
               prompts (the top-2 gap of the dense logits at each first
               divergence);
-9c. surface -- the serving surface on the serve's Llama-3-8B: first K2 at
+9c. surface -- the serving surface on the serve's Llama-3-8B cut to its
+              first 16 layers (the depth cut keeps the script in time): first K2 at
               a session turn's shape (T = 33 at unaligned starts 96-191)
               and K1 at session contexts (up to 224 tokens) timed against
               their plain versions. Sessions: 16 x 3 turns (64 + 32, then
@@ -134,7 +136,36 @@ Phases, each printing its results; any failure exits non-zero:
               phase's n-gram arm serves its first 8 requests with logprobs
               5 (one record an emitted token, top-1 == the token, tiered ==
               ample);
-10. gemma2 -- Gemma-2-9B at full width and depth (42 layers alternating
+9d. stream -- the host-streamed path on the serve's Llama-3-8B (INT8 KV,
+              32-token blocks, horizon 32, quantum 4, prefetch off): first
+              K2 at its pooled prefill (T = 256 at start 0) and K1 at its
+              decode contexts, timed against their plain versions.
+              stream-mixed: HBM 52 blocks (every request past 1600 tokens
+              streams), host 260 blocks, chunk 256, max_seq_len 160; 2
+              streamed x (3072 + 64) beside 8 pooled x (64 + 64), batch 8.
+              Every request finishes, the streamed decode takes the fused
+              path every round; the same run at stream_stage_mb 0
+              (per-wave prefill, per-token decode) gives identical streamed
+              tokens; the pooled tokens equal the same engine serving them
+              alone; K1 = pooled decode batches x 32 x 32 and K2 = pooled
+              prefill dispatches x 32 exactly (the streamed lanes launch
+              neither); host_free back at its start. At float32
+              activations the streamed lanes equal an ample pooled
+              engine's tokens or first diverge at a token of its top two
+              whose top-2 gap is <= 0.06 (at bf16 recorded); one lane
+              cancelled after its first decode round frees its blocks and
+              leaves the other's tokens bit for bit; a session of 2048 +
+              32, then 64 new + 32, restores once from its stream blocks
+              (which grow only by the growth) and holds to a fresh
+              streamed request over the whole history by the same rule.
+              stream-long: 1 x (16384 + 32), chunk 1024, host 600 blocks:
+              finishes, decodes token by token (its slab is over the fused
+              budget), launches no kernel; prefill seconds, decode ms a
+              token, staged GB a decode step and the H2D GB/s of the
+              staging copies (CUDA events), the stream timer's share;
+              against an ample pooled engine (600 HBM blocks), recorded;
+10. gemma2 -- Gemma-2-9B at full width, 20 of its 42 layers (the depth
+              cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
               (64 + 64) tiered (52 HBM blocks) and ample, then 2 requests x
@@ -150,7 +181,8 @@ Phases, each printing its results; any failure exits non-zero:
               blocks must retire (`window_retired_blocks` > 0), tokens must
               be identical, every launch must carry window 4096, every K1
               launch S > 1; the ample serve again at S = 1, as for Gemma-2;
-12. gpt-oss -- GPT-OSS-20B at full width and depth (24 layers alternating
+12. gpt-oss -- GPT-OSS-20B at full width, 12 of its 24 layers (the depth
+              cut keeps the script inside its time limit; alternating
               window 128 and global attention, 32 experts top-4 in the dense
               MoE mode, q/k/v/o biases, sinks, YaRN rope, vocabulary 201088),
               W8A16 experts included: 64 requests x (192 + 64), so the second
@@ -265,6 +297,9 @@ MISTRAL_HEADS = (32, 8, 128)             # Hq, Hkv, D of Mistral-7B
 GPT_OSS = Cell(64, 192, 64, BATCH, 128, hbm_tiered=BATCH * 9 + 16)
 GPT_OSS_HEADS = (64, 8, 64)              # Hq, Hkv, D of GPT-OSS-20B
 GPT_OSS_WINDOW = 128
+# depth cuts of earlier paths that keep the script inside its time limit
+# since the stream phase came (their layers, of 24, 42 and 32)
+GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 12, 20, 16, 16
 # the surface phase. Sessions: 16 x 3 turns, 64 + 32 tokens, then 32 new +
 # 32 generated twice: 224 tokens (7 blocks) a session, 112 blocks in all,
 # on 52 tiered HBM blocks with a host tier of 16 x 8 + 8 = 136 that holds
@@ -275,6 +310,26 @@ SESSION_RECLAIM_HOST = 48               # too small for the idle sessions
 # (four of 160) prompt tokens + 64 new, max_seq_len 256; host 264
 SURFACE_CELL = Cell(32, SURFACE_LONG, SURFACE_GEN, BATCH, 64, hbm_tiered=52)
 ECHO_CELL = Cell(4, SURFACE_LONG, SURFACE_GEN, BATCH, 256, hbm_tiered=52)
+# the stream phase. stream-mixed: HBM 52 blocks, so every request past
+# (52 - 2) x 32 = 1600 tokens streams; 8 pooled requests x (64 + 64) (32
+# blocks, in HBM) beside 2 streamed x (3072 + 64) (98 blocks each) on a
+# host tier of 2 x 98 + 64 = 260 blocks (562 MB pinned); chunk 256, the
+# JAX default. A streamed lane decodes over 4 waves x 32 blocks x 32
+# layers x 67584 B = 277 MB of staged slab, 554 MB for two: under 4 x 256
+# MB, so the fused streamed decode runs.
+STREAM_MIXED = Cell(8, 64, 64, BATCH, 256, hbm_tiered=52)
+STREAM_HOST = 260
+STREAM_PROMPT, STREAM_GEN, STREAM_LANES = 3072, 64, 2
+STREAM_AMPLE = Cell(STREAM_LANES, STREAM_PROMPT, STREAM_GEN, BATCH, 256,
+                    hbm_tiered=0)
+# stream-long: 1 x (16384 + 32), chunk 1024 (the reference's advice for
+# long prompts), host 600 blocks (1.3 GB pinned): its slab would be >= 17
+# waves x 32 blocks x 2.16 MB = 1.2 GB (19 by the JAX rule), over 1 GB,
+# so it decodes token by token; ample: 600 HBM blocks
+STREAM_LONG = Cell(1, 16384, 32, 1, 1024, hbm_tiered=52)
+STREAM_LONG_HOST = STREAM_LONG_AMPLE = 600
+# streamed sessions: turn 1 = 2048 + 32, turn 2 = 64 new + 32
+STREAM_TURN1, STREAM_TURN_NEW, STREAM_TURN_GEN = 2048, 64, 32
 
 
 def fail(msg: str) -> None:
@@ -1118,10 +1173,10 @@ def phase_probe(peaks) -> list:
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
-                 kv="int8", layer_kv=None, **spec):
+                 kv="int8", layer_kv=None, engine_kw=None, **spec):
     """The serving engine of `cell`; KV scheme `kv`, or the per-layer
-    table `layer_kv` (INT8 / FP8 entries); `spec`: the speculative-decoding
-    arguments of `Engine`."""
+    table `layer_kv` (INT8 / FP8 entries); `engine_kw`: more EngineConfig
+    fields; `spec`: the speculative-decoding arguments of `Engine`."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -1142,7 +1197,8 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
         engine=EngineConfig(max_batch_size=cell.batch,
                             max_seq_len=cell.max_seq,
                             prefill_chunk=cell.chunk, decode_horizon=HORIZON,
-                            sched_quantum=QUANTUM, weight_dtype="int8"))
+                            sched_quantum=QUANTUM, weight_dtype="int8",
+                            **(engine_kw or {})))
     return Engine(cfg, sc, params=params, device=DEV, **spec)
 
 
@@ -1164,6 +1220,16 @@ def serve_each(eng, reqs):
     outs = {o.req_id: o for o in eng.run()}
     torch.cuda.synchronize()
     return [outs.get(i) for i in ids], time.monotonic() - t0
+
+
+def first_layers(cfg, params, n: int):
+    """(config, weights) of the model cut to its first n layers: views of
+    the same weights, nothing copied."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, num_layers=n),
+            {**params, "layers": {k: v[:n] for k, v in
+                                  params["layers"].items()}})
 
 
 def init_model(cfg, label: str, seed: int):
@@ -1659,11 +1725,14 @@ def phase_spec(cfg, params, prompts, peaks) -> dict:
 
 
 def phase_gemma(peaks) -> dict:
-    """Gemma-2-9B: the 32-request serve and the long-context pair; returns
-    the launches of both."""
+    """Gemma-2-9B at full width and GEMMA_LAYERS of its layers: the
+    32-request serve and the long-context pair; returns the launches of
+    both."""
+    import dataclasses
+
     from cxl_speckv_tpu_torch.models.configs import gemma2_9b
 
-    cfg = gemma2_9b()
+    cfg = dataclasses.replace(gemma2_9b(), num_layers=GEMMA_LAYERS)
     if cfg.retirement_window is not None:     # global layers keep full KV
         fail("gemma2: a model with global layers must not retire KV")
     params = init_model(cfg, "gemma2", 1)
@@ -1710,11 +1779,14 @@ def phase_mistral() -> dict:
 
 
 def phase_gpt_oss(peaks) -> dict:
-    """GPT-OSS-20B: sinks, the MoE MLP, biases and YaRN rope on alternating
-    window-128 / global layers, so nothing retires."""
+    """GPT-OSS-20B at full width and GPT_OSS_LAYERS of its layers: sinks,
+    the MoE MLP, biases and YaRN rope on alternating window-128 / global
+    layers, so nothing retires."""
+    import dataclasses
+
     from cxl_speckv_tpu_torch.models.configs import gpt_oss_20b
 
-    cfg = gpt_oss_20b()
+    cfg = dataclasses.replace(gpt_oss_20b(), num_layers=GPT_OSS_LAYERS)
     if cfg.retirement_window is not None:     # global layers keep full KV
         fail("gpt-oss: a model with global layers must not retire KV")
     params = init_model(cfg, "gpt-oss", 3)
@@ -2538,6 +2610,398 @@ def phase_surface(cfg, params, prompts, peaks) -> dict:
             "turn_k2": ses["turn_k2"], "costs": costs, "echo": echo}
 
 
+# ---------------------------------------------------------------------------
+# the host-streamed path
+# ---------------------------------------------------------------------------
+
+def phase_kernels_stream(peaks) -> dict:
+    """K2 at the stream-mixed cell's pooled prefill (T = 256 at start 0, 64
+    tokens of prompt each) and K1 at its decode contexts, bf16 compute,
+    INT8, in its tiered pool and table geometry, timed against their plain
+    versions (the streamed lanes run neither)."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(110)
+    geo = served_geometry(STREAM_MIXED)
+    rows = {"K2": k2_case(gen, KVDtype.INT8, torch.bfloat16,
+                          STREAM_MIXED.chunk, [0] * BATCH, peaks, timed=True,
+                          geometry=geo),
+            "K1": k1_case(gen, KVDtype.INT8, torch.bfloat16,
+                          served_lens(STREAM_MIXED, 11), peaks, timed=True,
+                          geometry=geo)}
+    for row in rows.values():
+        report(row)
+    return rows
+
+
+def fused_calls(eng) -> list:
+    """Record each streamed decode dispatch's choice (True = the fused
+    decode ran, False = the budget sent it down the per-token path)."""
+    calls, fused = [], eng._stream_decode_fused
+
+    def recording(*args):
+        calls.append(fused(*args))
+        return calls[-1]
+
+    eng._stream_decode_fused = recording
+    return calls
+
+
+def against(label, got, ref, hold: bool) -> str:
+    """Token lists `got` against `ref`'s outputs (logprobs 2): equal, or
+    first diverging at a token that is one of `ref`'s top two there, at a
+    top-2 logprob gap (= logit gap) <= NEAR_TIE_GAP, the reference's
+    near-tie rule; with `hold` a larger gap fails. Returns a summary."""
+    notes = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        j = first_divergence(g, r.tokens)
+        if j is None:
+            notes.append(f"lane {i} equal ({len(g)} tokens)")
+            continue
+        rec = r.logprobs[j]
+        gap = rec["top_logprobs"][0] - rec["top_logprobs"][1]
+        top2 = j < len(g) and g[j] in rec["top_ids"][:2]
+        notes.append(f"lane {i} first diverges at token {j} of {len(g)}, "
+                     f"top-2 gap {gap:.4f}, in the top 2: {top2}")
+        if hold and (gap > NEAR_TIE_GAP or not top2):
+            fail(f"{label}: lane {i} diverges at token {j} at a top-2 gap "
+                 f"of {gap:.4f} (limit {NEAR_TIE_GAP}; in the top 2: {top2})")
+    return "; ".join(notes)
+
+
+def stream_record(st: dict) -> str:
+    e = st["engine"]
+    ph = st["phases"].get("stream", {}).get("total_s", 0.0)
+    return (f"stream phase {ph:.2f} s, stream_chunks {e['stream_chunks']}, "
+            f"stream_tokens {e['stream_tokens']}")
+
+
+def stream_mixed(cfg, params, pooled, streamed) -> dict:
+    """stream-mixed at bf16 activations: the served run (launches counted)
+    and the same with stream_stage_mb 0 (per-wave prefill, per-token
+    decode): identical streamed tokens; the pooled requests == the same
+    engine serving them alone; exact K1 / K2 launches from the pooled
+    dispatches alone; the bf16 streamed tokens against an ample pooled
+    engine recorded. Returns the served run's launches and numbers."""
+    L = cfg.num_layers
+    reqs = ([(p, dict(max_new_tokens=STREAM_GEN)) for p in streamed]
+            + [(p, dict(max_new_tokens=STREAM_MIXED.gen)) for p in pooled])
+    runs = {}
+    for tag, ekw in (("served", None), ("per-wave", {"stream_stage_mb": 0})):
+        reset_launches()
+        eng = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                           STREAM_HOST, engine_kw=ekw)
+        calls = fused_calls(eng)
+        if eng.kvc.directory.host_free != STREAM_HOST:
+            fail("stream-mixed: host tier not empty at the start")
+        outs, dt = serve_each(eng, reqs)
+        st = eng.get_statistics()
+        runs[tag] = (outs, dt, st, read_launches(), calls)
+        if any(o is None or o.finish_reason not in ("length", "eos")
+               for o in outs):
+            fail(f"stream-mixed {tag}: not every request finished")
+        if eng.kvc.directory.host_free != STREAM_HOST:
+            fail(f"stream-mixed {tag}: host_free "
+                 f"{eng.kvc.directory.host_free} != {STREAM_HOST} at the end")
+        del eng
+    outs, dt, st, launches, calls = runs["served"]
+    if not calls or not all(calls):
+        fail(f"stream-mixed: the fused streamed decode did not run every "
+             f"round ({calls})")
+    if runs["per-wave"][4]:
+        fail("stream-mixed per-wave: stage_mb 0 tried the fused decode")
+    ns = len(streamed)
+    s_toks = [o.tokens for o in outs[:ns]]
+    p_toks = [o.tokens for o in outs[ns:]]
+    if [o.tokens for o in runs["per-wave"][0][:ns]] != s_toks:
+        fail("stream-mixed: staged + fused tokens differ from per-wave + "
+             "per-token tokens")
+    if [o.tokens for o in runs["per-wave"][0][ns:]] != p_toks:
+        fail("stream-mixed: the pooled tokens changed with stream_stage_mb")
+    want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+            "K2": st["engine"]["prefill_dispatches"] * L}
+    got = {k: total(v) for k, v in launches.items()}
+    if got != want:
+        fail(f"stream-mixed: kernel launches {got} != {want} (the pooled "
+             f"dispatches' count; streamed lanes launch neither)")
+    check_windows("stream-mixed", launches, lambda n: {("int8", 0): n})
+    e = st["engine"]
+    if e["stream_tokens"] != sum(len(t) - 1 for t in s_toks):
+        fail(f"stream-mixed: stream_tokens {e['stream_tokens']}")
+    alone = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                         STREAM_HOST)
+    a_outs, a_dt = serve_each(alone, reqs[ns:])
+    del alone
+    if [o.tokens for o in a_outs] != p_toks:
+        fail("stream-mixed: the pooled requests' tokens differ from the "
+             "same engine serving them without the streamed requests")
+    amp = build_engine(cfg, params, STREAM_AMPLE, STREAM_AMPLE.hbm_ample, 0)
+    ref, _ = serve_each(amp, [(p, dict(max_new_tokens=STREAM_GEN,
+                                       logprobs=2)) for p in streamed])
+    del amp
+    pw_dt, pw_st = runs["per-wave"][1], runs["per-wave"][2]
+    s_n, p_n = sum(map(len, s_toks)), sum(map(len, p_toks))
+    print(f"[stream-mixed] {ns} streamed x ({STREAM_PROMPT} + {STREAM_GEN}) "
+          f"beside {len(pooled)} pooled x (64 + 64), HBM "
+          f"{STREAM_MIXED.hbm_tiered}, host {STREAM_HOST} blocks: served in "
+          f"{dt:.2f} s, streamed {s_n} tokens = {s_n / dt:.1f} tok/s, pooled "
+          f"{p_n} = {p_n / dt:.1f} tok/s (alone {p_n / a_dt:.1f} tok/s in "
+          f"{a_dt:.2f} s) | {stream_record(st)} | fused decode rounds "
+          f"{len(calls)} | streamed TTFT p50 "
+          f"{p50([o.ttft_ms for o in outs[:ns]]):.1f} ms, TPOT p50 "
+          f"{p50([o.tpot_ms for o in outs[:ns]]):.2f} ms | launches {launches}"
+          f" == decode_batches x {HORIZON} x {L}, prefill_dispatches x {L}",
+          flush=True)
+    print(f"[stream-mixed] per-wave (stream_stage_mb 0): {pw_dt:.2f} s, "
+          f"{stream_record(pw_st)}; streamed tokens == the served run's, "
+          f"pooled tokens == the served run's == served alone", flush=True)
+    print(f"[stream-mixed] bf16 streamed against an ample pooled engine "
+          f"(recorded): " + against("stream-mixed bf16", s_toks, ref, False),
+          flush=True)
+    return {"launches": launches, "dt": dt, "streamed_tok_s": s_n / dt,
+            "pooled_tok_s": p_n / dt, "stream_s": st["phases"]["stream"]}
+
+
+def stream_f32(cfg, params, streamed) -> list:
+    """The streamed lanes alone at float32 activations against an ample
+    pooled engine's, held by the near-tie rule. Returns their tokens."""
+    eng = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                       STREAM_HOST)
+    outs, dt = serve_each(eng, [(p, dict(max_new_tokens=STREAM_GEN))
+                                for p in streamed])
+    st = eng.get_statistics()
+    del eng
+    amp = build_engine(cfg, params, STREAM_AMPLE, STREAM_AMPLE.hbm_ample, 0)
+    ref, rdt = serve_each(amp, [(p, dict(max_new_tokens=STREAM_GEN,
+                                         logprobs=2)) for p in streamed])
+    del amp
+    toks = [o.tokens for o in outs]
+    print(f"[stream-mixed] f32 activations, streamed alone: {dt:.2f} s "
+          f"({stream_record(st)}), ample pooled {rdt:.2f} s; against the "
+          f"ample run: " + against("stream-mixed f32", toks, ref, True),
+          flush=True)
+    return toks
+
+
+def stream_cancel(cfg, params, streamed, want: list) -> None:
+    """Cancel one streamed lane (float32 activations) after its first
+    decode round: its blocks free (host_free back where it started) and the
+    other lane's tokens equal the run without the cancel bit for bit."""
+    eng = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                       STREAM_HOST)
+    free0 = eng.kvc.directory.host_free
+    victim, keep = (eng.add_request(p, max_new_tokens=STREAM_GEN)
+                    for p in streamed)
+    req = eng._requests[victim]
+    while len(req.output) < 2:
+        eng.step()
+    out = eng.cancel(victim)
+    if out.finish_reason != "cancelled" or victim in eng._streams:
+        fail(f"stream cancel: {out.finish_reason}")
+    outs = {o.req_id: o for o in eng.run()}
+    if outs[keep].tokens != want[1]:
+        fail("stream cancel: the other lane's tokens changed")
+    if eng.kvc.directory.host_free != free0:
+        fail(f"stream cancel: host_free {eng.kvc.directory.host_free} != "
+             f"{free0}")
+    print(f"[stream-cancel] lane cancelled after {len(out.tokens)} tokens "
+          f"(its first decode round); the other lane == the run without the "
+          f"cancel; host_free back to {free0}", flush=True)
+
+
+def stream_session(cfg, params, rng) -> None:
+    """A streamed session at float32 activations: turn 1 = 2048 + 32
+    (stream-resident after it), turn 2 = 64 new + 32, restored from the
+    session's stream blocks, which grow only by the growth; turn 2 against
+    a fresh streamed request over the whole history by the near-tie rule."""
+    t1 = rng.randint(1, cfg.vocab_size, STREAM_TURN1).tolist()
+    new = rng.randint(1, cfg.vocab_size, STREAM_TURN_NEW).tolist()
+    eng = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                       STREAM_HOST)
+    sid = eng.add_request(t1, max_new_tokens=STREAM_TURN_GEN, session=True)
+    out1 = {o.req_id: o for o in eng.run()}[sid]
+    sess = eng.get_session(sid)
+    bids1 = list(sess.stream_bids or [])
+    if not bids1 or not sess.live:
+        fail("stream session: turn 1 left no stream-resident session")
+    t0 = time.monotonic()
+    rid = eng.continue_session(sid, new, max_new_tokens=STREAM_TURN_GEN)
+    out2 = {o.req_id: o for o in eng.run()}[rid]
+    dt2 = time.monotonic() - t0
+    bids2 = list(sess.stream_bids)
+    need = -(-(len(sess.tokens) - 1) // BS)
+    if (sess.restores != 1 or sess.reprefills or bids2[:len(bids1)] != bids1
+            or len(bids2) != need):
+        fail(f"stream session: restores {sess.restores}, re-prefills "
+             f"{sess.reprefills}, blocks {len(bids1)} -> {len(bids2)} "
+             f"(want {need}, the first {len(bids1)} kept)")
+    eng.end_session(sid)
+    if eng.kvc.directory.host_free != STREAM_HOST:
+        fail("stream session: end_session left host blocks held")
+    del eng
+    fresh = build_engine(cfg, params, STREAM_MIXED, STREAM_MIXED.hbm_tiered,
+                         STREAM_HOST)
+    ref, rdt = serve_each(fresh, [(t1 + out1.tokens + new,
+                                   dict(max_new_tokens=STREAM_TURN_GEN,
+                                        logprobs=2))])
+    del fresh
+    print(f"[stream-session] turn 1 {STREAM_TURN1} + {STREAM_TURN_GEN}: "
+          f"{len(bids1)} stream blocks; turn 2 {STREAM_TURN_NEW} new + "
+          f"{STREAM_TURN_GEN} restored in {dt2:.2f} s (TTFT "
+          f"{out2.ttft_ms:.1f} ms), blocks {len(bids1)} -> {len(bids2)}, "
+          f"restores 1; a fresh streamed request over the whole history "
+          f"{rdt:.2f} s (TTFT {ref[0].ttft_ms:.1f} ms); turn 2 against it: "
+          + against("stream session", [out2.tokens], ref, True), flush=True)
+
+
+def staged_copy_rate(store, slots, groups) -> tuple[float, float]:
+    """(GB, GB/s) of one decode step's staging copies (`stage_layers` of
+    `slots` for each (first layer, count) of `groups`) on the device alone:
+    the stream first sleeps ~1 s, so that every copy is queued before the
+    first event records and the window holds no host dispatch."""
+    from cxl_speckv_tpu_torch.runtime.hoststore import stage_layers
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    b0 = store.staged_bytes
+    torch.cuda._sleep(2_000_000_000)
+    ev[0].record()
+    slabs = [stage_layers(store, slots, l0, g, DEV) for l0, g in groups]
+    ev[1].record()
+    torch.cuda.synchronize()
+    del slabs
+    gb = (store.staged_bytes - b0) / 1e9
+    return gb, gb / (ev[0].elapsed_time(ev[1]) / 1e3)
+
+
+def link_rate_gb_s(store) -> tuple[float, float]:
+    """(GB, GB/s) of one pinned -> device copy of the store's k array,
+    timed by CUDA events: the host link's rate for one large copy."""
+    dst = torch.empty_like(store.k, device=DEV)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    dst.copy_(store.k, non_blocking=True)
+    ev[0].record()
+    dst.copy_(store.k, non_blocking=True)
+    ev[1].record()
+    torch.cuda.synchronize()
+    gb = dst.numel() * dst.element_size() / 1e9
+    return gb, gb / (ev[0].elapsed_time(ev[1]) / 1e3)
+
+
+def stream_long(cfg, params, rng) -> dict:
+    """stream-long at bf16: 1 x (16384 + 32), per-token decode (over the
+    fused budget), no K1 / K2 launch; prefill seconds, decode ms a token,
+    staged bytes a decode step and the H2D GB/s they imply (bytes over the
+    CUDA-event time of the staging copies), the stream timer's share of
+    the step, one step's device anatomy and the link's rate for one large
+    copy; against an ample pooled engine, recorded."""
+    prompt = rng.randint(1, cfg.vocab_size, STREAM_LONG.prompt).tolist()
+    reset_launches()
+    eng = build_engine(cfg, params, STREAM_LONG, STREAM_LONG.hbm_tiered,
+                       STREAM_LONG_HOST)
+    calls = fused_calls(eng)
+    store = eng.kvc.store
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    rid = eng.add_request(prompt, max_new_tokens=STREAM_LONG.gen)
+    req = eng._requests[rid]
+    outs = []
+    while not req.output:
+        outs += eng.step()
+    torch.cuda.synchronize()
+    prefill_s = time.monotonic() - t0
+    slots = eng._streams[rid].host_slots.copy()
+    store.staged_bytes, store.copy_events = 0, []
+    t1 = time.monotonic()
+    step_ms = []
+    while eng.has_work:
+        t = time.monotonic()
+        outs += eng.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+    decode_s = time.monotonic() - t1
+    launches = read_launches()
+    copy_s = sum(a.elapsed_time(b) for a, b in store.copy_events) / 1e3
+    steps = len(req.output) - 1
+    staged = store.staged_bytes
+    # the last step's group gathers again (`_stream_lane`'s staging rule),
+    # on the device alone
+    L, ec = cfg.num_layers, eng.config.engine
+    wave, wt = ec.stream_wave, ec.stream_wave * BS
+    n_waves = -(-eng._stream_max_blocks // wave)
+    used = -(-(req.num_tokens - 2) // wt)
+    ctx_waves = min(n_waves, 1 << (used - 1).bit_length())
+    G = max(1, min(L, (ec.stream_stage_mb << 20)
+                   // (ctx_waves * wave * store.bytes_per_row)))
+    row = np.full(min(used, n_waves) * wave, store.guard_slot)
+    row[:min(len(slots), len(row))] = slots[:len(row)]
+    dev_gb, dev_rate = staged_copy_rate(
+        store, row, [(l0, min(G, L - l0)) for l0 in range(0, L, G)])
+    link_gb, link_rate = link_rate_gb_s(store)
+    st = eng.get_statistics()
+    n_blocks = -(-(len(prompt) + STREAM_LONG.gen) // BS)
+    del eng, store
+    if len(outs) != 1 or outs[0].finish_reason not in ("length", "eos"):
+        fail(f"stream-long: {[o.finish_reason for o in outs]}")
+    if any(launches.values()):
+        fail(f"stream-long: a streamed request launched {launches}")
+    if not calls or any(calls):
+        fail(f"stream-long: the decode took the fused path ({calls}); its "
+             f"slab is over the budget")
+    e = st["engine"]
+    step_s = (e["prefill_time_s"] + e["decode_time_s"] + e["stream_time_s"]
+              + e["overhead_time_s"])
+    amp = build_engine(cfg, params, STREAM_LONG, STREAM_LONG_AMPLE, 0)
+    ref, rdt = serve_each(amp, [(prompt, dict(max_new_tokens=STREAM_LONG.gen,
+                                              logprobs=2))])
+    splits = dict(kernels()["K1"].split_launches)
+    del amp
+    print(f"[stream-long] 1 x ({STREAM_LONG.prompt} + {STREAM_LONG.gen}), "
+          f"{n_blocks} host blocks, chunk {STREAM_LONG.chunk}: prefill "
+          f"{prefill_s:.2f} s, decode {decode_s:.2f} s = "
+          f"{decode_s / max(steps, 1) * 1e3:.1f} ms a token (step p50 "
+          f"{p50([x for x in step_ms if x is not None]):.1f} ms; per-token "
+          f"path every round: {len(calls)}); staged "
+          f"{staged / max(steps, 1) / 1e9:.3f} GB a decode step, the staging "
+          f"copies {copy_s:.3f} s by CUDA events = "
+          f"{staged / max(copy_s, 1e-9) / 1e9:.2f} GB/s (the same group "
+          f"gathers queued behind a sleep, on the device alone: {dev_gb:.3f} "
+          f"GB at {dev_rate:.2f} GB/s; one {link_gb:.2f} GB pinned -> device "
+          f"copy: {link_rate:.2f} GB/s); the stream timer "
+          f"{e['stream_time_s']:.2f} s of {step_s:.2f} s of steps "
+          f"({e['stream_time_s'] / step_s:.3f}) | {stream_record(st)} | no "
+          f"K1 / K2 launch", flush=True)
+    print(f"[stream-long] against an ample pooled engine ({STREAM_LONG_AMPLE}"
+          f" HBM blocks, {rdt:.2f} s, K1 by split count {splits}), "
+          f"recorded: " + against("stream-long", [outs[0].tokens], ref,
+                                  False), flush=True)
+    return {"prefill_s": prefill_s, "decode_ms": decode_s / max(steps, 1) * 1e3,
+            "staged_gb": staged / max(steps, 1) / 1e9,
+            "h2d_gb_s": staged / max(copy_s, 1e-9) / 1e9,
+            "device_gb_s": dev_rate, "link_gb_s": link_rate}
+
+
+def phase_stream(cfg, params, prompts, peaks) -> dict:
+    """The host-streamed path on Llama-3-8B: stream-mixed (bf16 served,
+    per-wave, pooled alone, ample; float32 against ample), the streamed
+    cancel and session at float32 activations, stream-long. Returns the
+    kernel rows and the served stream-mixed run's launches."""
+    import dataclasses
+
+    rows = phase_kernels_stream(peaks)
+    rng = np.random.RandomState(20)
+    streamed = [rng.randint(1, cfg.vocab_size, STREAM_PROMPT).tolist()
+                for _ in range(STREAM_LANES)]
+    mixed = stream_mixed(cfg, params, prompts[:STREAM_MIXED.n_req], streamed)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    want32 = stream_f32(c32, params, streamed)
+    stream_cancel(c32, params, streamed, want32)
+    stream_session(c32, params, rng)
+    long = stream_long(cfg, params, rng)
+    return {"rows": rows, "launches": mixed["launches"], "mixed": mixed,
+            "long": long}
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -2600,8 +3064,11 @@ def main() -> int:
           params, prompts, peaks, matmuls=False,
           layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
     timed("switch", phase_switch, cfg, params, prompts)
-    spec = timed("spec", phase_spec, cfg, params, prompts, peaks)
-    surface = timed("surface", phase_surface, cfg, params, prompts, peaks)
+    spec = timed("spec", phase_spec, *first_layers(cfg, params, SPEC_LAYERS),
+                 prompts, peaks)
+    surface = timed("surface", phase_surface,
+                    *first_layers(cfg, params, SURFACE_LAYERS), prompts, peaks)
+    stream = timed("stream", phase_stream, cfg, params, prompts, peaks)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
@@ -2642,7 +3109,7 @@ def main() -> int:
                                 total(draft["launches"]["K1"])))
     entries.append(kernel_entry("paged_chunk_attention llama-3-8b verify",
                                 "K2", spec["rows"]["K2"],
-                                draft["rounds"] * cfg.num_layers))
+                                draft["rounds"] * SPEC_LAYERS))
     # the surface phase's new shapes, launches from its tiered session run
     # (K2: the prefill dispatches of turns 2 and 3 x 32 layers)
     entries.append(kernel_entry("paged_attention llama-3-8b sessions", "K1",
@@ -2651,6 +3118,13 @@ def main() -> int:
     entries.append(kernel_entry(
         "paged_chunk_attention llama-3-8b session turn", "K2",
         surface["rows"]["K2"], surface["turn_k2"]))
+    # the stream phase's pooled shapes, launches from its served
+    # stream-mixed run (the streamed lanes launch neither kernel)
+    for key, kname in (("K1", "paged_attention"),
+                       ("K2", "paged_chunk_attention")):
+        entries.append(kernel_entry(f"{kname} llama-3-8b stream-mixed", key,
+                                    stream["rows"][key],
+                                    total(stream["launches"][key])))
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         # time lost over the serves against the bound, back to back

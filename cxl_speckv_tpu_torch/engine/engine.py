@@ -29,6 +29,17 @@ also under speculative decoding), prompt logprobs (`prompt_logprobs=True`)
 and sampling penalties (frequency / presence / repetition, through the
 device plane of `engine/sampling.py`).
 
+A request longer than `max_seq_len` or the HBM pool takes the host-streamed
+path (`EngineConfig.stream_enabled`, on by default): its KV lives entirely
+in the host tier, allocated at admission, and each step's `stream` phase
+advances every streamed lane by a prefill chunk or decode tokens
+(`models.llama.stream_step_batched`, or `stream_decode_multi_batched`:
+`decode_horizon` steps over a context staged once, when the live lanes'
+slabs fit four times `stream_stage_mb`), attending over the host tier wave
+by wave (`ops/stream_attention.py`); K1 and K2 never run for such a lane.
+A session whose KV is streamed stays stream-resident between turns
+(`Session.stream_bids`).
+
 Every request keeps the KV scheme it was submitted under: `set_kv_dtype`
 (the `speckv_set_compression_scheme` analog) changes it for new requests,
 live between INT8 and FP8, which share the pool's bytes, and on an idle
@@ -38,15 +49,15 @@ request. Prefill and decode dispatches each hold one scheme.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Host-streamed requests (and with them host-streamed sessions),
-fused rounds, mesh serving, the prefetch LSTM (and with it the n-gram
-proposer's LSTM miss fallback), `score_prompts` and the automatic decode
-horizon are not ported yet: asking for one raises.
+the CPU. Fused rounds, mesh serving, the prefetch LSTM (and with it the
+n-gram proposer's LSTM miss fallback), `score_prompts` and the automatic
+decode horizon are not ported yet: asking for one raises.
 """
 
 from __future__ import annotations
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -67,6 +78,9 @@ from cxl_speckv_tpu_torch.models.llama import (
     init_params_quantized,
     prefill_batch_packed,
     seeded_generator,
+    stream_decode_multi_batched,
+    stream_decode_nblk,
+    stream_step_batched,
 )
 from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
@@ -99,7 +113,7 @@ class Session:
     restored, not recomputed, when the conversation returns. `live=False`
     means the KV was reclaimed under capacity pressure, and the next turn
     re-prefills the stored history. Counterpart of the JAX engine's
-    `Session` (the port has no host-streamed sessions)."""
+    `Session`."""
 
     session_id: int
     seq_slot: int
@@ -110,6 +124,20 @@ class Session:
     restores: int = 0
     reprefills: int = 0
     kv_dtype: object = None   # the scheme the live KV is encoded with
+    # a host-STREAMED session: its KV is these host-tier stream blocks, in
+    # sequence order (seq_slot stays -1); the next turn re-enters the
+    # streamed path appending to them
+    stream_bids: list | None = None
+
+
+@dataclass
+class StreamState:
+    """A host-streamed request: its KV lives entirely in the host tier and
+    every step streams the context through the device."""
+
+    req: Request
+    bids: list[int]          # host-tier blocks, in sequence order
+    host_slots: np.ndarray   # their store slots
 
 
 @dataclass
@@ -121,6 +149,9 @@ class EngineStatistics(Statistics):
     prefill_time_s: float = 0.0
     prefill_dispatches: int = 0  # prefill passes launched
     overhead_time_s: float = 0.0
+    stream_time_s: float = 0.0
+    stream_chunks: int = 0       # streamed prefill chunks dispatched
+    stream_tokens: int = 0       # tokens generated by streamed sequences
 
     def as_dict(self) -> dict:
         d = super().as_dict()
@@ -279,8 +310,9 @@ class Engine:
         self._requests: dict[int, Request] = {}
         self._sessions: dict[int, Session] = {}
         self.scheduler.reclaim_hook = self._reclaim_idle_session
-        # blocks committed outside the running set: idle session KV
-        self.scheduler.extra_committed = self._idle_session_blocks
+        # blocks committed outside the running set: idle session KV and the
+        # host-streamed sequences
+        self.scheduler.extra_committed = self._extra_committed_blocks
         # a demand fetch that cannot make HBM room reclaims idle sessions
         # too (the JAX engine raises there when the host tier is full of
         # idle session KV; `tests/test_torch_sessions.py`)
@@ -293,15 +325,16 @@ class Engine:
         self._pen_counts: torch.Tensor | None = None
         self._pen_free = list(range(ec.penalty_rows))
         self._pen_guard = ec.penalty_rows
-        # the JAX engine sends requests that overflow the HBM pool (or
-        # max_seq_len) to its host-streamed path when it can; the port
-        # refuses exactly those requests
+        # host-streamed requests (KV larger than the HBM pool): queued until
+        # their host blocks are allocated, then advanced every step
         if ec.stream_enabled and cc.num_host_blocks > 2:
             msl = ec.max_stream_seq_len or (cc.num_host_blocks - 2) * cc.block_size
             self._stream_max_blocks = min(-(-msl // cc.block_size),
                                           cc.num_host_blocks - 2)
         else:
             self._stream_max_blocks = 0
+        self._stream_queue: deque[Request] = deque()
+        self._streams: dict[int, StreamState] = {}
 
     # -- public API -------------------------------------------------------------
 
@@ -317,7 +350,9 @@ class Engine:
                     repetition_penalty: float = 0.0) -> int:
         """Submit a request; returns its id. With session=True the
         conversation's KV persists after the reply (demotable to the host
-        tier): follow it with `continue_session(req_id, ...)`.
+        tier): follow it with `continue_session(req_id, ...)`. A request
+        past max_seq_len or the HBM pool is host-streamed when the host
+        tier can hold it.
         stop_token_ids end generation like EOS (reason "stop", token kept);
         stop_sequences use OpenAI stop-string semantics (the matched suffix
         is excluded from the returned tokens). `logprobs=k` (k <= 20)
@@ -342,13 +377,13 @@ class Engine:
                         or total > hbm_budget)
         can_stream = (self._stream_max_blocks > 0
                       and -(-total // bs) <= self._stream_max_blocks)
-        if needs_stream and can_stream:
+        if total > self.config.engine.max_seq_len and not (
+                needs_stream and can_stream):
             raise ValueError(
-                "request needs the host-streamed path (prompt + "
-                "max_new_tokens exceeds max_seq_len or the HBM pool), which "
-                "is not ported")
-        if total > self.config.engine.max_seq_len:
-            raise ValueError("prompt + max_new_tokens exceeds max_seq_len")
+                "prompt + max_new_tokens exceeds max_seq_len"
+                + (" and the host-streamed capacity" if self._stream_max_blocks
+                   else " (host streaming is off: stream_enabled, or "
+                   "num_host_blocks <= 2)"))
         req = Request(req_id=self._next_req_id, prompt=list(prompt),
                       max_new_tokens=max_new_tokens, temperature=temperature,
                       top_p=top_p, eos_token_id=eos_token_id,
@@ -358,13 +393,19 @@ class Engine:
                       kv_dtype=self._kv_scheme)
         if session:
             req.session_id = req.req_id
-        return self._submit(req, fp, pp, rp)
+        # penalties ride the streamed programs as they ride the pooled ones
+        return self._submit(req, fp, pp, rp,
+                            stream=needs_stream and can_stream)
 
-    def _submit(self, req: Request, fp: float, pp: float, rp: float) -> int:
+    def _submit(self, req: Request, fp: float, pp: float, rp: float,
+                stream: bool = False) -> int:
         self._attach_pen_row(req, fp, pp, rp)
         self._next_req_id += 1
         self._requests[req.req_id] = req
-        self.scheduler.submit(req)
+        if stream:
+            self._stream_queue.append(req)
+        else:
+            self.scheduler.submit(req)
         return req.req_id
 
     def continue_session(self, session_id: int, new_tokens: list[int],
@@ -377,9 +418,10 @@ class Engine:
                          presence_penalty: float = 0.0,
                          repetition_penalty: float = 0.0) -> int:
         """The next turn of a session. If its KV is still allocated (in HBM
-        or the host tier), only the last reply token and the new tokens
-        prefill, over the restored context; if it was reclaimed, the stored
-        history re-prefills.
+        or the host tier, or as host-streamed blocks), only the last reply
+        token and the new tokens prefill, over the restored context; if it
+        was reclaimed, the stored history re-prefills (host-streamed when
+        it is too long for the pooled path).
 
         Penalty state is per TURN (OpenAI semantics): counts reset at the
         turn's first prefill chunk, and the repetition penalty's prompt span
@@ -397,6 +439,16 @@ class Engine:
             raise ValueError(f"session {session_id} already has a turn in flight")
         if not new_tokens:
             raise ValueError("empty continuation")
+        stream_kw = dict(max_new_tokens=max_new_tokens,
+                         temperature=temperature, top_p=top_p,
+                         stop_token_ids=stop_token_ids,
+                         stop_sequences=stop_sequences, logprobs=logprobs,
+                         pens=(fp, pp, rp))
+        if sess.live and sess.stream_bids is not None:
+            # its KV is host-tier stream blocks: the turn re-enters the
+            # streamed path, appending to them
+            return self._continue_stream_session(sess, new_tokens,
+                                                 **stream_kw)
         if sess.live:
             # the KV covers tokens[:-1]: feed the last reply token + new ones
             prompt = [sess.tokens[-1]] + list(new_tokens)
@@ -411,9 +463,11 @@ class Engine:
                               or total > hbm_budget):
             if (self._stream_max_blocks > 0
                     and -(-total // bs) <= self._stream_max_blocks):
-                raise NotImplementedError(
-                    "the reclaimed history needs the host-streamed path to "
-                    "re-prefill, which is not ported")
+                # the reclaimed history re-prefills host-streamed, and the
+                # session becomes stream-resident
+                sess.reprefills += 1
+                return self._continue_stream_session(
+                    sess, new_tokens, reprefill=True, **stream_kw)
             raise ValueError("session history exceeds the pooled capacity"
                              " and the host-streamed capacity")
         if total > self.config.engine.max_seq_len:
@@ -436,6 +490,38 @@ class Engine:
         req.seq_slot = sess.seq_slot if sess.live else -1
         return self._submit(req, fp, pp, rp)
 
+    def _continue_stream_session(self, sess: Session, new_tokens,
+                                 max_new_tokens, temperature, top_p,
+                                 stop_token_ids, stop_sequences, logprobs,
+                                 pens, reprefill: bool = False) -> int:
+        """The next turn of a host-streamed session (or the streamed
+        re-prefill of a reclaimed one). It joins the stream queue; admission
+        reuses the session's stream blocks and allocates only the growth.
+        Penalty state is per turn, as for a pooled turn."""
+        if reprefill:
+            prompt = sess.tokens + list(new_tokens)
+            context_len = 0
+        else:
+            prompt = [sess.tokens[-1]] + list(new_tokens)
+            context_len = len(sess.tokens) - 1
+        total = context_len + len(prompt) + max_new_tokens
+        if -(-total // self.config.cache.block_size) > self._stream_max_blocks:
+            raise ValueError("session exceeds the host-streamed capacity")
+        if not reprefill:
+            sess.restores += 1
+        sess.busy = True
+        sess.last_use = time.monotonic()
+        req = Request(req_id=self._next_req_id, prompt=prompt,
+                      max_new_tokens=max_new_tokens, temperature=temperature,
+                      top_p=top_p, session=True,
+                      session_id=sess.session_id, context_len=context_len,
+                      stop_token_ids=stop_token_ids,
+                      stop_sequences=stop_sequences, logprobs=logprobs,
+                      kv_dtype=(sess.kv_dtype if not reprefill and
+                                sess.kv_dtype is not None
+                                else self._kv_scheme))
+        return self._submit(req, *pens, stream=True)
+
     def get_session(self, session_id: int) -> Session:
         return self._sessions[session_id]
 
@@ -448,6 +534,13 @@ class Engine:
     # -- session capacity -----------------------------------------------------
 
     def _free_session_seq(self, sess: Session) -> None:
+        if sess.stream_bids is not None:
+            for bid in sess.stream_bids:
+                self.kvc.directory.free(bid)
+            sess.stream_bids = None
+            sess.live = False
+            sess.seq_slot = -1
+            return
         bids = self.kvc.pool.seq(sess.seq_slot).live_blocks
         self.kvc.free_seq(sess.seq_slot)
         if self.scheduler.free_seq_hook:
@@ -458,8 +551,18 @@ class Engine:
         sess.seq_slot = -1
 
     def _idle_session_blocks(self) -> int:
-        return sum(len(self.kvc.pool.seq(s.seq_slot).live_blocks)
-                   for s in self._sessions.values() if s.live and not s.busy)
+        return sum(
+            (len(s.stream_bids) if s.stream_bids is not None
+             else len(self.kvc.pool.seq(s.seq_slot).live_blocks))
+            for s in self._sessions.values() if s.live and not s.busy)
+
+    def _extra_committed_blocks(self) -> int:
+        """Blocks committed outside the scheduler's running set: idle
+        session KV and the live host-streamed sequences (they hold host
+        slots that the pooled requests' worst case would otherwise count
+        on)."""
+        return self._idle_session_blocks() + sum(
+            len(st.bids) for st in self._streams.values())
 
     def _make_capacity(self) -> bool:
         """Free capacity under pressure: idle session KV first (a later
@@ -578,7 +681,10 @@ class Engine:
         if req.state == RequestState.QUEUED:
             # no KV of its own yet (a queued session turn holds only the
             # session's KV, which stays)
-            self.scheduler.queue.remove(req)
+            if req in self._stream_queue:
+                self._stream_queue.remove(req)
+            else:
+                self.scheduler.queue.remove(req)
             req.state = RequestState.FINISHED
             req.finish_reason = "cancelled"
             req.finish_time = time.monotonic()
@@ -590,6 +696,9 @@ class Engine:
                                 req.ttft_ms, req.tpot_ms, req.session_id,
                                 logprobs=_result_logprobs(req),
                                 prompt_logprobs=_result_prompt_logprobs(req))
+        st = self._streams.pop(req_id, None)
+        if st is not None:
+            return self._cancel_stream(req, st)
         if req.seq_slot >= 0:
             self.kvc.pin_seq(req.seq_slot, False)
         if req.session and req.state == RequestState.PREFILLING:
@@ -605,6 +714,32 @@ class Engine:
                 sess.live = False
             return out
         return self._finish_request(req, "cancelled")
+
+    def _cancel_stream(self, req: Request, st: StreamState) -> EngineOutput:
+        """Cancel a live host-streamed request: its host blocks free, except
+        that a decoding session turn keeps them (the tokens so far are real
+        context); a session turn cancelled mid-prefill drops the session's
+        liveness, as the pooled path does."""
+        was_running = req.state == RequestState.RUNNING
+        req.state = RequestState.FINISHED
+        req.finish_reason = "cancelled"
+        req.finish_time = time.monotonic()
+        self._free_pen_row(req)
+        if req.session and was_running:
+            self._keep_stream_session(req, st)
+        else:
+            for bid in st.bids:
+                self.kvc.directory.free(bid)
+            sess = self._sessions.get(req.session_id) if req.session else None
+            if sess is not None:
+                sess.busy = False
+                sess.live = False
+                sess.stream_bids = None
+        self.stats.requests_finished += 1
+        return EngineOutput(req.req_id, _result_tokens(req), "cancelled",
+                            req.ttft_ms, req.tpot_ms, req.session_id,
+                            logprobs=_result_logprobs(req),
+                            prompt_logprobs=_result_prompt_logprobs(req))
 
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 64,
                  temperature: float = 0.0, **kw) -> list[list[int]]:
@@ -641,11 +776,13 @@ class Engine:
                              "encoding)")
         if storage_width_class(kv_dtype) != storage_width_class(base):
             busy = self.scheduler.num_waiting + self.scheduler.num_running
-            if busy or self._sessions:
+            streams = len(self._streams) + len(self._stream_queue)
+            if busy or streams or self._sessions:
                 raise ValueError(
                     f"cross-width scheme switch {base.value} -> "
                     f"{kv_dtype.value} requires an idle engine (live: "
-                    f"{busy} requests, {len(self._sessions)} sessions)")
+                    f"{busy} requests, {streams} streams, "
+                    f"{len(self._sessions)} sessions)")
             self.kvc.rebuild_storage(kv_dtype)
         self._kv_scheme = kv_dtype
 
@@ -658,7 +795,8 @@ class Engine:
 
     @property
     def has_work(self) -> bool:
-        return self.scheduler.num_waiting > 0 or self.scheduler.num_running > 0
+        return (self.scheduler.num_waiting > 0 or self.scheduler.num_running > 0
+                or bool(self._streams) or bool(self._stream_queue))
 
     def run(self, max_steps: int = 100000) -> list[EngineOutput]:
         outs = []
@@ -687,6 +825,11 @@ class Engine:
         with self.timers.phase("decode"):
             batch = self._decode_tick(finished)
         t2 = time.monotonic()
+        if self._streams or self._stream_queue:
+            with self.timers.phase("stream"):
+                self._stream_tick(finished)
+        t2b = time.monotonic()
+        self.stats.stream_time_s += t2b - t2
         self._retire_window_blocks()
         with self.timers.phase("maintain"):
             # protect the current batch's and upcoming groups' blocks from
@@ -718,7 +861,7 @@ class Engine:
         t3 = time.monotonic()
         self.stats.prefill_time_s += t1 - t0
         self.stats.decode_time_s += t2 - t1
-        self.stats.overhead_time_s += t3 - t2
+        self.stats.overhead_time_s += t3 - t2b
         return finished
 
     # -- prefill ------------------------------------------------------------------
@@ -1067,6 +1210,263 @@ class Engine:
         self.scheduler.stats.decode_tokens += sum(len(e) for e in emitted)
         return batch
 
+    # -- host-streamed serving (KV larger than the HBM pool) -----------------
+
+    def _stream_tick(self, finished: list[EngineOutput]) -> None:
+        """Admit queued streamed requests (all their host blocks at once,
+        capacity-gated; a session turn reuses the session's stream blocks
+        and allocates the growth), then advance every streamed lane: one
+        dispatch per (phase, scheme) group. Streamed sequences never touch
+        the HBM pool."""
+        bs = self.config.cache.block_size
+        while self._stream_queue:
+            req = self._stream_queue[0]
+            total = req.context_len + len(req.prompt) + req.max_new_tokens
+            sess = (self._sessions.get(req.session_id)
+                    if req.session and req.context_len > 0 else None)
+            have = (list(sess.stream_bids) if sess is not None
+                    and sess.stream_bids is not None else [])
+            blocks = -(-total // bs) - len(have)
+            if self.kvc.directory.host_free < blocks:
+                # host-tier pressure: idle session KV (pooled or streamed)
+                # is reclaimable; a later turn re-prefills
+                if not self._reclaim_idle_session():
+                    break
+                continue
+            self._stream_queue.popleft()
+            if sess is not None:
+                # the turn owns the blocks until it finishes (never two
+                # owners); `_keep_stream_session` hands them back grown
+                sess.stream_bids = None
+            bids = have + [self.kvc.directory.allocate_host()
+                           for _ in range(blocks)]
+            slots = np.array([self.kvc.directory.entry(b).host_slot
+                              for b in bids], np.int32)
+            req.state = RequestState.PREFILLING
+            self._streams[req.req_id] = StreamState(req, bids, slots)
+        groups: dict = {}
+        for rid, st in self._streams.items():
+            # streamed KV never shares pool blocks with layered KV: a
+            # per-layer table leaves streamed requests the uniform base scheme
+            scheme = (self.config.cache.kv_dtype
+                      if self._layer_schemes is not None
+                      else self._req_scheme(st.req))
+            groups.setdefault((st.req.state, scheme), []).append((rid, st))
+        for (phase, scheme), members in groups.items():
+            self._stream_group_dispatch(members, phase, scheme, finished)
+
+    def _stream_waves(self) -> tuple[int, int]:
+        """(wave, waves of the streamed context table)."""
+        wave = self.config.engine.stream_wave
+        return wave, -(-self._stream_max_blocks // wave)
+
+    def _stream_group_dispatch(self, members, phase, scheme,
+                               finished: list[EngineOutput]) -> None:
+        """Advance every member lane by a prefill chunk (PREFILLING) or one
+        decode token (RUNNING), or, decoding with a horizon above 1, by the
+        fused decode when its slabs fit the budget. Unlike the JAX engine,
+        the lane count is not padded to a power of two: nothing compiles."""
+        ec = self.config.engine
+        if (phase == RequestState.RUNNING and ec.decode_horizon > 1
+                and ec.stream_stage_mb > 0
+                and len(set(self.model_config.layer_windows())) <= 1
+                and self._stream_decode_fused(members, scheme, finished)):
+            return
+        bs = self.config.cache.block_size
+        wave, n_waves = self._stream_waves()
+        prefill = phase == RequestState.PREFILLING
+        chunk_t = ec.prefill_chunk if prefill else 1
+        tw = n_waves * wave + stream_decode_nblk(chunk_t, bs)
+        B = len(members)
+        packed = np.zeros((B, 4 + tw + chunk_t), np.int32)
+        packed[:, 4:4 + tw] = self.kvc.store.guard_slot
+        skip = np.zeros(B, np.int64)
+        lanes, pen_group = [], []
+        for i, (rid, st) in enumerate(members):
+            req = st.req
+            if prefill:
+                pos0 = req.prefill_pos
+                if req.prompt_logprobs and pos0 > 0:
+                    # re-feed the chunk-boundary token so that its successor
+                    # is scored inside the chunk; its KV is already stored
+                    # and is not written again (byte-identical by
+                    # construction)
+                    pos0 -= 1
+                    skip[i] = 1
+                n = min(chunk_t, len(req.prompt) - pos0)
+                toks = req.prompt[pos0:pos0 + n]
+                start = req.context_len + pos0
+                pen_group.append((req, n, start))
+            else:
+                n, toks, start = 1, [req.output[-1]], req.num_tokens - 1
+                pos0 = req.prefill_pos
+                pen_group.append(req)
+            self._rng_counter += 1
+            packed[i, 0] = start
+            packed[i, 1] = n
+            packed[i, 2] = encode_sampling(req.temperature, req.top_p)
+            packed[i, 3] = self._rng_counter
+            packed[i, 4:4 + len(st.host_slots)] = st.host_slots
+            packed[i, 4 + tw:4 + tw + n] = toks
+            lanes.append((rid, st, n, pos0))
+        lk = self._group_logprobs_k(st.req for _, st in members)
+        ps = prefill and any(st.req.prompt_logprobs for _, st in members)
+        # the staged path's context-wave bound: the widest lane's context
+        # in waves, rounded up to a power of two (the JAX engine's compile
+        # bucket; here it sizes the staging groups as there)
+        wave_toks = wave * bs
+        used = max((int(p[0]) + wave_toks - 1) // wave_toks
+                   for p in packed)
+        ctx_waves = min(n_waves, 1 << max(used - 1, 0).bit_length())
+        out = stream_step_batched(
+            self.params, self.model_config, scheme, packed, self.kvc.store,
+            **self._pen_dispatch(pen_group, B, prefill=prefill),
+            max_blocks=self._stream_max_blocks, wave=wave,
+            rng_seed=self._rng_seed, logprobs_k=lk, prompt_scores=ps,
+            stage_mb=ec.stream_stage_mb, ctx_waves=ctx_waves,
+            mark_prompt=prefill, skip=skip)
+        # after the stash: this host copy waits for the stream, stash too
+        toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
+        lp = rest[:3] if lk else None
+        scores = rest[-1] if ps else None
+        for i, (rid, st, n, pos0) in enumerate(lanes):
+            req = st.req
+            emitted = False
+            if prefill:
+                req.prefill_pos = pos0 + n
+                if req.prompt_logprobs:
+                    # chunk position j scores prompt token pos0 + j + 1
+                    req.prompt_logprobs_data.extend(
+                        float(x) for x in scores[i, :n - 1])
+                self.stats.stream_chunks += 1
+                if req.done_prefill:
+                    self._record_token(req, int(toks[i]), first=True)
+                    req.state = RequestState.RUNNING
+                    emitted = True
+            else:
+                self._record_token(req, int(toks[i]))
+                self.stats.stream_tokens += 1
+                emitted = True
+            if emitted and req.logprobs:
+                req.logprobs_data.append(_logprob_record(
+                    lp[0][i], lp[1][i], lp[2][i], req.logprobs))
+            out = self._maybe_finish_stream(st)
+            if out is not None:
+                finished.append(out)
+                self._streams.pop(rid, None)
+
+    def _stream_decode_fused(self, members, scheme,
+                             finished: list[EngineOutput]) -> bool:
+        """decode_horizon streamed decode steps a lane in one call
+        (`stream_decode_multi_batched`): each lane's context is staged once
+        and re-read by every step. Greedy lanes match the per-token path
+        token for token. Returns False, and the caller takes the per-token
+        path, when the live lanes' all-layer slabs would exceed four times
+        stream_stage_mb, computed as the JAX engine computes it (the
+        context waves rounded up to a power of two), so that a request
+        takes the same decode path in both packages."""
+        ec = self.config.engine
+        bs = self.config.cache.block_size
+        wave, n_waves = self._stream_waves()
+        h = ec.decode_horizon
+        tw = n_waves * wave + stream_decode_nblk(h, bs)
+        B = len(members)
+        packed = np.zeros((B, 4 + tw + 1), np.int32)
+        packed[:, 4:4 + tw] = self.kvc.store.guard_slot
+        for i, (rid, st) in enumerate(members):
+            req = st.req
+            self._rng_counter += 1
+            packed[i, 0] = req.num_tokens - 1        # the seed token's position
+            packed[i, 1] = min(h, max(req.max_new_tokens - len(req.output), 1))
+            packed[i, 2] = encode_sampling(req.temperature, req.top_p)
+            packed[i, 3] = self._rng_counter
+            packed[i, 4:4 + len(st.host_slots)] = st.host_slots
+            packed[i, -1] = req.output[-1]
+        wave_toks = wave * bs
+        used = max((int(p[0]) + h + wave_toks - 1) // wave_toks
+                   for p in packed)
+        ctx_waves = min(n_waves, 1 << max(used - 1, 0).bit_length())
+        slab_mb = (ctx_waves * wave * self.model_config.num_layers
+                   * self.kvc.store.bytes_per_row * B) >> 20
+        if slab_mb > 4 * ec.stream_stage_mb:
+            return False
+        lk = self._group_logprobs_k(st.req for _, st in members)
+        out = stream_decode_multi_batched(
+            self.params, self.model_config, scheme, packed, self.kvc.store,
+            **self._pen_dispatch([st.req for _, st in members], B),
+            max_blocks=self._stream_max_blocks, wave=wave, horizon=h,
+            rng_seed=self._rng_seed, logprobs_k=lk)
+        toks, *lp = fetch(*out) if lk else fetch(out)
+        for i, (rid, st) in enumerate(members):
+            req = st.req
+            for j in range(int(packed[i, 1])):
+                self._record_token(req, int(toks[i, j]))
+                self.stats.stream_tokens += 1
+                if req.logprobs:
+                    req.logprobs_data.append(_logprob_record(
+                        lp[0][i, j], lp[1][i, j], lp[2][i, j], req.logprobs))
+                if self._check_stop(req):
+                    break
+            out = self._maybe_finish_stream(st)
+            if out is not None:
+                finished.append(out)
+                self._streams.pop(rid, None)
+        return True
+
+    def _keep_stream_session(self, req: Request, st: StreamState) -> None:
+        """Persist a finished (or decoding-cancelled) streamed session turn:
+        the conversation's KV stays as host-tier stream blocks, which the
+        next turn appends to (the pooled analog is `_finish_request`'s
+        keep branch)."""
+        sid = req.session_id
+        sess = self._sessions.get(sid)
+        if sess is None:
+            sess = Session(session_id=sid, seq_slot=-1)
+            self._sessions[sid] = sess
+        if req.context_len > 0:
+            # prompt[0] was the previous reply's last token
+            sess.tokens.extend(req.prompt[1:] + req.output)
+        else:
+            sess.tokens = list(req.prompt) + req.output
+        # keep the blocks covering the written KV (positions 0 ..
+        # len(tokens) - 2; the last sampled token's KV is not written yet);
+        # unused max_new_tokens headroom frees here
+        needed = -(-(len(sess.tokens) - 1) // self.config.cache.block_size)
+        for bid in st.bids[needed:]:
+            self.kvc.directory.free(bid)
+        sess.stream_bids = list(st.bids[:needed])
+        sess.seq_slot = -1
+        sess.live = True
+        sess.busy = False
+        sess.kv_dtype = self._req_scheme(req)
+        sess.last_use = time.monotonic()
+
+    def _maybe_finish_stream(self, st: StreamState) -> EngineOutput | None:
+        req = st.req
+        if req.state != RequestState.RUNNING:
+            return None
+        reason = self._check_stop(req)
+        if not reason:
+            return None
+        req.state = RequestState.FINISHED
+        req.finish_reason = reason
+        req.finish_time = time.monotonic()
+        self._free_pen_row(req)
+        if req.session:
+            self._keep_stream_session(req, st)
+        else:
+            for bid in st.bids:
+                self.kvc.directory.free(bid)
+        self.stats.requests_finished += 1
+        if req.tpot_ms > 0:
+            self._tpots.append(req.tpot_ms)
+        if req.ttft_ms > 0:
+            self._ttfts.append(req.ttft_ms)
+        return EngineOutput(req.req_id, _result_tokens(req), reason,
+                            req.ttft_ms, req.tpot_ms, req.session_id,
+                            logprobs=_result_logprobs(req),
+                            prompt_logprobs=_result_prompt_logprobs(req))
+
     def _retire_window_blocks(self) -> None:
         """Sliding-window KV retirement (Mistral family): free the blocks
         every running sequence's window has moved past. The attention
@@ -1174,7 +1574,9 @@ class Engine:
         # tokens live per scheme; a per-layer table counts as "mixed8" (the
         # JAX engine raises on it there)
         scheme_tokens: dict[str, int] = {}
-        for r in self.scheduler.running.values():
+        live = [*self.scheduler.running.values(),
+                *(st.req for st in self._streams.values())]
+        for r in live:
             scheme = self._req_scheme(r)
             k = (KVDtype.MIXED8 if isinstance(scheme, tuple) else scheme).value
             scheme_tokens[k] = scheme_tokens.get(k, 0) + r.num_tokens

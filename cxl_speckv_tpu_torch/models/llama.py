@@ -8,7 +8,10 @@ each step's logits and raw logprobs, with the sampling-penalty plane), the
 batched chunked prefill `prefill_batch_packed` (also the first token's
 logprobs, per-position prompt scores and the penalty hooks),
 the single-sequence `prefill_chunk`, the speculative verify pass
-`verify_step`, and `forward_dense`. Families: Llama,
+`verify_step`, the host-streamed lanes (`stream_step`,
+`stream_step_batched`, `stream_decode_multi_batched`: context read from the
+host tier through `ops/stream_attention.py`, no kernel), and
+`forward_dense`. Families: Llama,
 Mistral (uniform sliding window), Gemma-2 (alternating sliding / global
 layers, tanh softcaps, GeGLU, sandwich norms, 1 + w RMSNorm, scaled
 embeddings, tied head) and GPT-OSS (learned attention sinks, q/k/v and o
@@ -63,11 +66,21 @@ from cxl_speckv_tpu_torch.ops.quant import (
     quantize_kv,
     scheme_id_table,
 )
+from cxl_speckv_tpu_torch.ops.stream_attention import (
+    merge_chunk_causal,
+    stream_context_attention,
+    stream_context_attention_slab,
+)
 from cxl_speckv_tpu_torch.ops.wquant import (
     QuantizedTensor,
     mm,
     quantize_tensor,
     take_rows,
+)
+from cxl_speckv_tpu_torch.runtime.hoststore import (
+    fetch_blocks,
+    stage_layers,
+    stash_blocks,
 )
 
 Params = dict[str, Any]
@@ -789,6 +802,422 @@ def verify_step(params: Params, config: LlamaConfig, kv_dtype,
                        start_pos.int(), pools, block_tables, write)
     return _final_logits(_norm(x, params["final_norm"], config), params,
                          config)
+
+
+# ---------------------------------------------------------------------------
+# host-streamed lanes: sequences whose KV lives in the host tier
+# ---------------------------------------------------------------------------
+
+def stream_decode_nblk(horizon: int, bs: int) -> int:
+    """Touched-block count of `horizon` tokens starting at any in-block
+    offset (worst case offset bs - 1): a fused streamed-decode span, and a
+    streamed chunk's append run. For a chunk that is a multiple of bs, or
+    of one token, it is the JAX packing's T // bs + 1; for another chunk
+    that one can fall short of the chunk's last positions (their KV would
+    be dropped), so the port packs this count instead."""
+    return (horizon + bs - 2) // bs + 1
+
+
+def _solve_chunk_len(rest: int, bs: int) -> int:
+    """Invert rest = T + stream_decode_nblk(T, bs) for T."""
+    for t in range(rest - 1, 0, -1):
+        if t + stream_decode_nblk(t, bs) == rest:
+            return t
+    raise ValueError(f"no chunk length solves rest={rest} bs={bs}")
+
+
+def _stream_append_rmw(fetched, chunks, offs_in: int, valid: int, *,
+                       kv_dtype, nblk: int, bs: int, skip: int = 0):
+    """Insert a lane's fresh chunk KV into its fetched touched-block slabs,
+    in place (the read-modify-write half of the streamed append).
+    `fetched` is (fk, fv, fks, fvs) [nblk, L, Hkv, bs, *]; `chunks` is the
+    per-layer quantized chunk KV (kq, vq, ks, vs) [L, T, Hkv, *], chunk row
+    t at position offs_in + t of the touched run. Rows skip <= t < valid
+    that fall inside the run are written: an explicit mask where the JAX
+    scatter drops out-of-range rows (`index_put_` raises on them). Returns
+    `fetched` for `stash_blocks`."""
+    t = np.arange(skip, valid)
+    pos = offs_in + t
+    keep = pos < nblk * bs
+    t, pos = t[keep], pos[keep]
+    if not len(t):
+        return fetched
+    dev = fetched[0].device
+    rows_t = torch.from_numpy(t).to(dev)
+    blk = torch.from_numpy(pos // bs).to(dev)
+    off = torch.from_numpy(pos % bs).to(dev)
+    for f, ch in zip(fetched, chunks):
+        rows = ch[:, rows_t]                                  # [L, n, Hkv, *]
+        if ch.dtype != torch.float32:         # KV values, not the scales
+            rows = encode_for_pool(rows, kv_dtype)
+        f[blk, :, :, off] = rows.transpose(0, 1).to(f.dtype)  # [n, L, Hkv, *]
+    return fetched
+
+
+def _consolidated_append(payloads, store, kv_dtype) -> None:
+    """One fetch and one stash inserting EVERY lane's fresh KV:
+    payloads[b] = (touched slots [nblk], chunks (kq, vq, ks, vs) [L, T,
+    ...], offs_in, valid, skip). Lanes own disjoint slots; only the guard
+    slot may repeat, and no insert lands in it, so its rows go back as they
+    came."""
+    if not payloads:
+        return
+    touched = np.concatenate([p[0] for p in payloads])
+    fetched = fetch_blocks(store, touched, payloads[0][1][0].device)
+    bs, at = store.k.shape[2], 0
+    for slots, chunks, offs_in, valid, skip in payloads:
+        n = len(slots)
+        _stream_append_rmw(tuple(a[at:at + n] for a in fetched), chunks,
+                           offs_in, valid, kv_dtype=kv_dtype, nblk=n, bs=bs,
+                           skip=skip)
+        at += n
+    stash_blocks(store, fetched, touched)
+
+
+def _stream_layer(x, lp, config: LlamaConfig, kv_dtype, positions,
+                  inv_freq, window, attend_context):
+    """One layer of a streamed lane over T fresh tokens x [T, H]:
+    `attend_context(q)` gives the context accumulators (a staged slab or
+    the host store, wave by wave), the chunk's own quantize -> dequantized
+    K / V merge in causally. Returns (x, (kq, vq, ks, vs)), the chunk's
+    quantized KV for the append."""
+    c = config
+    T = x.shape[0]
+    h = _norm(x, lp["attn_norm"], c)
+    q, k, v = _qkv(h, lp, c)
+    q = apply_rope(q.reshape(T, c.num_q_heads, c.head_dim), positions,
+                   inv_freq)
+    k = apply_rope(k.reshape(T, c.num_kv_heads, c.head_dim), positions,
+                   inv_freq)
+    v = v.reshape(T, c.num_kv_heads, c.head_dim)
+    # store-consistent views of the fresh chunk KV
+    kq, ksc = quantize_kv(k, kv_dtype)
+    vq, vsc = quantize_kv(v, kv_dtype)
+    o = merge_chunk_causal(q, dequantize_kv(kq, ksc, kv_dtype),
+                           dequantize_kv(vq, vsc, kv_dtype),
+                           attend_context(q), sm_scale=c.sm_scale,
+                           window=window, softcap=c.attn_softcap,
+                           sinks=lp.get("sinks"))
+    x = _block_residuals(x, o.reshape(T, -1), lp, c)
+    return x, (kq, vq, ksc[..., 0], vsc[..., 0])
+
+
+def _lane_sampler(word: int, dev, rng_seed: int, counter: int):
+    """sample(logits [1, V]) for one lane's sampling word, drawing (when
+    it samples) from seeded_generator(rng_seed, counter)."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        decode_sampling,
+        sample_tokens,
+    )
+
+    temps, top_ps = decode_sampling(torch.tensor([word], dtype=torch.int32))
+    sampled = bool(temps[0] > 0)
+    nucleus = sampled and 0.0 < float(top_ps[0]) < 1.0
+    gen = seeded_generator(dev, rng_seed, counter) if sampled else None
+    temps, top_ps = temps.to(dev), top_ps.to(dev)
+    return lambda lg: sample_tokens(lg, temps, gen,
+                                    top_ps=top_ps if nucleus else None,
+                                    sampled=sampled)
+
+
+def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
+                 packed: np.ndarray, store, *, max_blocks: int, wave: int,
+                 rng_seed: int, logprobs_k: int = 0,
+                 prompt_scores: bool = False, stage_mb: int = 0,
+                 ctx_waves: int | None = None, pen_info=None,
+                 pen_counts=None, mark_prompt: bool = False, skip: int = 0):
+    """One host-streamed lane: a prefill chunk or one decode token over the
+    context in the host store. The body of `stream_step_batched`.
+
+    packed int32 [4 + table_width + T] (the JAX layout): 0 = start
+    position, 1 = valid tokens, 2 = sampling word, 3 = rng counter, then
+    the host-slot row (guard-padded; table_width = the context table's
+    waves x wave + stream_decode_nblk(T, bs) append blocks), then T token
+    ids. Only the
+    valid tokens run. The first `skip` of them (a re-fed boundary token,
+    whose KV the store already holds) are not written back.
+
+    Staged mode (stage_mb > 0, uniform windows, `ctx_waves` given): each
+    group of G layers' context is staged in one gather, G sized to the
+    budget from the JAX rule's rows a layer (min(ctx_waves, n_waves) x
+    wave); the port stages only the waves this lane attends, the rows
+    beyond are never read. Otherwise each (layer, wave) is fetched as the
+    wave loop reaches it (`stream_context_attention`), which also serves
+    mixed windows (Gemma-2, GPT-OSS). Both run the same wave loop, so they
+    agree bit for bit.
+
+    Returns (token [1] int32, the logprob triple or None, prompt scores [T]
+    or None, the append payload for `_consolidated_append`). With
+    pen_info [1, 5] / pen_counts the penalty hooks run in place, as in
+    `prefill_batch_packed`."""
+    from cxl_speckv_tpu_torch.engine.sampling import (
+        pen_mark_prompt,
+        pen_reset_rows,
+        penalize_and_count,
+    )
+
+    c = config
+    dev = params["final_norm"].device
+    L, bs = c.num_layers, store.k.shape[2]
+    n_waves = -(-max_blocks // wave)
+    tw_ctx = n_waves * wave
+    nblk = stream_decode_nblk(_solve_chunk_len(len(packed) - 4 - tw_ctx, bs),
+                              bs)
+    tw = tw_ctx + nblk
+    start, valid = int(packed[0]), int(packed[1])
+    host_row = packed[4:4 + tw]
+    token_ids = torch.from_numpy(
+        packed[4 + tw:4 + tw + valid].astype(np.int64)).to(dev)
+    positions = start + torch.arange(valid, device=dev)
+    inv_freq = rope_frequencies(c).to(dev)
+    x = _embed(params, c, token_ids)                          # [T, H]
+    wins = c.layer_windows()
+    kv_rows = []                               # per layer (kq, vq, ks, vs)
+    if stage_mb > 0 and len(set(wins)) <= 1 and ctx_waves is not None:
+        window = wins[0]
+        rows_a_layer = min(ctx_waves, n_waves) * wave
+        G = max(1, min(L, int(stage_mb * (1 << 20))
+                       // max(rows_a_layer * store.bytes_per_row, 1)))
+        wt = wave * bs
+        slots_ctx = host_row[:min((start + wt - 1) // wt, n_waves) * wave]
+        for l0 in range(0, L, G):
+            g = min(G, L - l0)
+            group = stage_layers(store, slots_ctx, l0, g, dev)
+            for j in range(g):
+                slab = tuple(a[:, j] for a in group)
+                x, kv = _stream_layer(
+                    x, layer_params(params, l0 + j), c, kv_dtype, positions,
+                    inv_freq, window,
+                    lambda q: stream_context_attention_slab(
+                        q, slab, start, kv_dtype, bs, wave,
+                        sm_scale=c.sm_scale, window=window,
+                        softcap=c.attn_softcap))
+                kv_rows.append(kv)
+    else:
+        for li, window in enumerate(wins):
+            x, kv = _stream_layer(
+                x, layer_params(params, li), c, kv_dtype, positions,
+                inv_freq, window,
+                lambda q: stream_context_attention(
+                    q, store, host_row, start, li, kv_dtype, bs, tw_ctx,
+                    wave, sm_scale=c.sm_scale, window=window,
+                    softcap=c.attn_softcap))
+            kv_rows.append(kv)
+    chunks = tuple(torch.stack([kv[i] for kv in kv_rows]) for i in range(4))
+    b0 = start // bs
+    payload = (host_row[b0:b0 + nblk], chunks, start % bs, valid, skip)
+
+    logits = _final_logits(_norm(x[valid - 1:valid], params["final_norm"], c),
+                           params, c)                         # [1, V]
+    sample = _lane_sampler(int(packed[2]), dev, rng_seed, int(packed[3]))
+    if pen_counts is not None:
+        pen_reset_rows(pen_info, pen_counts)
+        if mark_prompt:
+            pen_mark_prompt(pen_info, pen_counts, token_ids[None],
+                            torch.tensor([valid], device=dev))
+        tok, _ = penalize_and_count(logits, pen_info, pen_counts, sample)
+    else:
+        tok = sample(logits)
+    tok = tok.to(torch.int32)
+    lp = _token_logprobs(logits, tok, logprobs_k) if logprobs_k else None
+    ps = (_prompt_scores(x[None], token_ids[None],
+                         torch.tensor([valid], device=dev), [0], params, c)[0]
+          if prompt_scores else None)
+    return tok, lp, ps, payload
+
+
+def stream_step_batched(params: Params, config: LlamaConfig, kv_dtype,
+                        packed: np.ndarray, store, pen_info=None,
+                        pen_counts: torch.Tensor | None = None, *,
+                        max_blocks: int, wave: int = 4, rng_seed: int = 0,
+                        logprobs_k: int = 0, prompt_scores: bool = False,
+                        stage_mb: int = 0, ctx_waves: int | None = None,
+                        mark_prompt: bool = False,
+                        skip: np.ndarray | None = None):
+    """B host-streamed lanes of one phase (a prefill chunk each, or one
+    decode token each) in one call: packed int32 [B, 4 + table_width + T]
+    (`_stream_lane`'s layout; lanes with valid 0 are padding: they compute
+    and write nothing). The lanes run one after another, each over the
+    store as it was before the call (lanes own disjoint slots), so a lane's
+    arithmetic never depends on its neighbours; then ONE fetch and ONE
+    stash append every lane's fresh KV (`_consolidated_append`). skip [B]:
+    leading tokens of each lane not written back (a re-fed boundary token).
+
+    Returns tokens [B] int32 on the device, or a tuple of it and, in this
+    order: with `logprobs_k`, the chosen logprobs [B] and top-k ids /
+    logprobs [B, k]; with `prompt_scores`, scores [B, T] (`_prompt_scores`'s
+    surface; 0 past a lane's valid - 1). The store updates in place;
+    pen_info [B, 5] / pen_counts as in `prefill_batch_packed`."""
+    packed = np.asarray(packed, np.int32)
+    dev = params["final_norm"].device
+    B = packed.shape[0]
+    bs = store.k.shape[2]
+    tw_ctx = -(-max_blocks // wave) * wave
+    T = _solve_chunk_len(packed.shape[1] - 4 - tw_ctx, bs)
+    pi = (torch.from_numpy(np.asarray(pen_info, np.int32)).to(dev)
+          if pen_counts is not None else None)
+    toks = torch.zeros(B, dtype=torch.int32, device=dev)
+    lps = ((torch.zeros(B, device=dev),
+            torch.zeros((B, logprobs_k), dtype=torch.int32, device=dev),
+            torch.zeros((B, logprobs_k), device=dev)) if logprobs_k else ())
+    scores = torch.zeros((B, T), device=dev) if prompt_scores else None
+    payloads = []
+    for b in range(B):
+        if packed[b, 1] <= 0:
+            continue
+        tok, lp, ps, payload = _stream_lane(
+            params, config, kv_dtype, packed[b], store,
+            max_blocks=max_blocks, wave=wave, rng_seed=rng_seed,
+            logprobs_k=logprobs_k, prompt_scores=prompt_scores,
+            stage_mb=stage_mb, ctx_waves=ctx_waves,
+            pen_info=pi[b:b + 1] if pi is not None else None,
+            pen_counts=pen_counts, mark_prompt=mark_prompt,
+            skip=int(skip[b]) if skip is not None else 0)
+        toks[b] = tok[0]
+        for dst, src in zip(lps, lp or ()):
+            dst[b] = src[0]
+        if ps is not None:
+            scores[b, :len(ps)] = ps
+        payloads.append(payload)
+    _consolidated_append(payloads, store, kv_dtype)
+    extra = [*lps] + ([scores] if prompt_scores else [])
+    return (toks, *extra) if extra else toks
+
+
+def stream_step(params: Params, config: LlamaConfig, kv_dtype,
+                packed: np.ndarray, store, *, max_blocks: int, wave: int = 4,
+                rng_seed: int = 0, logprobs_k: int = 0,
+                prompt_scores: bool = False):
+    """T tokens of ONE host-resident sequence (a prefill chunk, or T = 1 for
+    a decode token), context read wave by wave from the store, the chunk's
+    KV appended back to it. packed [4 + table_width + T] as in
+    `_stream_lane`. Returns what `stream_step_batched` returns for a batch
+    of one, each tensor without its batch axis."""
+    out = stream_step_batched(params, config, kv_dtype,
+                              np.asarray(packed)[None], store,
+                              max_blocks=max_blocks, wave=wave,
+                              rng_seed=rng_seed, logprobs_k=logprobs_k,
+                              prompt_scores=prompt_scores)
+    return tuple(a[0] for a in out) if isinstance(out, tuple) else out[0]
+
+
+def stream_decode_multi_batched(params: Params, config: LlamaConfig,
+                                kv_dtype, packed: np.ndarray, store,
+                                pen_info=None,
+                                pen_counts: torch.Tensor | None = None, *,
+                                max_blocks: int, wave: int, horizon: int,
+                                rng_seed: int = 0, logprobs_k: int = 0):
+    """Up to `horizon` streamed decode steps for B host-resident lanes in
+    one call, the streamed counterpart of `decode_multi`.
+
+        packed int32 [B, 4 + table_width + nblk + 1]: 0 = start (the seed
+        token's position), 1 = valid steps, 2 = sampling word, 3 = rng
+        counter, then the host-slot row (guard-padded) with
+        nblk = stream_decode_nblk(horizon, bs) append blocks, last = the
+        seed token.
+
+    Each lane's context, all layers of the waves its steps attend, is
+    staged ONCE (one copy per run of consecutive slots); each step writes
+    its freshly quantized KV into the slab at its position, so step j + 1
+    reads exactly the bytes a fresh fetch would (same wave order, same
+    values, same merges: bit-equal to `valid` calls of
+    `stream_step_batched` at T = 1), and every lane's appends consolidate
+    into one fetch and one stash at the end. A lane runs its `valid` steps
+    only (the JAX program runs `horizon` and the engine drops the rest).
+
+    Greedy lanes are token-identical to the per-token path. A sampled lane
+    draws step j from seeded_generator(rng_seed + j, its counter), the JAX
+    key layout: the same distribution along another draw sequence than
+    the per-token path's. Needs uniform windows. Returns tokens
+    [B, horizon] int32 and, with `logprobs_k`, the chosen logprobs
+    [B, horizon] and top-k ids / logprobs [B, horizon, k]."""
+    from cxl_speckv_tpu_torch.engine.sampling import penalize_and_count
+
+    c = config
+    wins = c.layer_windows()
+    if len(set(wins)) > 1:
+        raise ValueError("fused streamed decode needs uniform attention "
+                         "windows (same precondition as staged gathers)")
+    window = wins[0]
+    packed = np.asarray(packed, np.int32)
+    dev = params["final_norm"].device
+    L, bs = c.num_layers, store.k.shape[2]
+    n_waves = -(-max_blocks // wave)
+    tw_ctx = n_waves * wave
+    nblk = stream_decode_nblk(horizon, bs)
+    B = packed.shape[0]
+    expect = 4 + tw_ctx + nblk + 1
+    if packed.shape[1] != expect:
+        raise ValueError(
+            f"stream_decode_multi_batched packed width {packed.shape[1]} != "
+            f"4 + {tw_ctx} (table) + {nblk} (touched) + 1 (seed) = {expect}")
+    pi = (torch.from_numpy(np.asarray(pen_info, np.int32)).to(dev)
+          if pen_counts is not None else None)
+    inv_freq = rope_frequencies(c).to(dev)
+    toks = torch.zeros((B, horizon), dtype=torch.int32, device=dev)
+    lps = ((torch.zeros((B, horizon), device=dev),
+            torch.zeros((B, horizon, logprobs_k), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((B, horizon, logprobs_k), device=dev))
+           if logprobs_k else ())
+    wt = wave * bs
+    payloads = []
+    for b in range(B):
+        lane = packed[b]
+        start, valid, ctr = int(lane[0]), int(lane[1]), int(lane[3])
+        if valid <= 0:
+            continue
+        host_row = lane[4:4 + tw_ctx + nblk]
+        # the waves the last step attends: every step's context is in here
+        n_ctx = min((start + valid - 1 + wt - 1) // wt, n_waves) * wave
+        slab = stage_layers(store, host_row[:n_ctx], 0, L, dev)
+        tok = torch.from_numpy(lane[-1:].astype(np.int64)).to(dev)
+        steps = []                   # per step: per layer (kq, vq, ks, vs)
+        for j in range(valid):
+            pos = start + j
+            brow, offs = pos // bs, pos % bs
+            x = _embed(params, c, tok)                        # [1, H]
+            kv_rows = []
+            for li in range(L):
+                ctx = tuple(a[:, li] for a in slab)
+                x, kv = _stream_layer(
+                    x, layer_params(params, li), c, kv_dtype,
+                    pos + torch.arange(1, device=dev), inv_freq, window,
+                    lambda q: stream_context_attention_slab(
+                        q, ctx, pos, kv_dtype, bs, wave, sm_scale=c.sm_scale,
+                        window=window, softcap=c.attn_softcap))
+                kv_rows.append(kv)
+                if brow < n_ctx:
+                    # the bytes the append will store (the last step's
+                    # position may lie past the staged waves: no later
+                    # step reads it)
+                    kq, vq, ks, vs = kv
+                    for dst, val in ((ctx[0], encode_for_pool(kq, kv_dtype)),
+                                     (ctx[1], encode_for_pool(vq, kv_dtype)),
+                                     (ctx[2], ks), (ctx[3], vs)):
+                        dst[brow, :, offs] = val[0].to(dst.dtype)
+            steps.append(kv_rows)
+            logits = _final_logits(_norm(x, params["final_norm"], c), params,
+                                   c)
+            sample = _lane_sampler(int(lane[2]), dev, rng_seed + j, ctr)
+            if pen_counts is not None:
+                tok, _ = penalize_and_count(logits, pi[b:b + 1], pen_counts,
+                                            sample)
+            else:
+                tok = sample(logits)
+            toks[b, j] = tok[0].to(torch.int32)
+            if logprobs_k:
+                for dst, src in zip(lps, _token_logprobs(logits, tok,
+                                                         logprobs_k)):
+                    dst[b, j] = src[0]
+        # [L, valid, Hkv, *]: step j's one token at chunk row j
+        chunks = tuple(torch.stack([torch.cat([s[li][i] for s in steps])
+                                    for li in range(L)]) for i in range(4))
+        b0 = start // bs
+        payloads.append((host_row[b0:b0 + nblk], chunks, start % bs, valid,
+                         0))
+    _consolidated_append(payloads, store, kv_dtype)
+    return (toks, *lps) if logprobs_k else toks
 
 
 # ---------------------------------------------------------------------------

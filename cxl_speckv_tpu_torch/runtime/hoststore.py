@@ -15,6 +15,27 @@ gathers the promoted blocks' rows from the store and scatters them into
 the pools, in place. Copies between the card and the host are synchronous
 with the host here (the JAX program chained them by dataflow); overlapping
 them with compute is later work.
+
+The host-streamed path reads and writes the store in place of the pools
+(the JAX `StoreOps` reads and writes): `fetch_layer` stages one layer's rows
+of a wave of blocks, `stage_layers` a group of layers, `fetch_blocks` whole
+blocks (all L rows), and `stash_blocks` writes device slabs back. Row =
+slot * L + layer, so a block's rows of consecutive layers are one
+contiguous run of pinned memory: each slot's run is ONE `copy_` between
+the pinned store and the device slab, `non_blocking=True`, all of a call's
+runs issued by one `torch._foreach_copy_`, through views of every slot's
+run that the store builds once per (first layer, layer count)
+(`DeviceHostStore.units`), so a call costs a list lookup a slot on the
+host. Nothing indexes the store with a row list (`store[rows]` on a pinned
+tensor returns PAGEABLE memory, whose upload is synchronous through a
+bounce buffer) and no CPU thread gathers rows first.
+
+Ordering: every copy runs on the caller's current CUDA stream, so a stash
+(device -> host) lands before any later read of those rows (host -> device)
+by stream order, and the engine copies each streamed dispatch's tokens to
+the host after its stash, which waits for the stream, so the host never
+touches store rows (`migrate_program`'s host-side indexing) with a stash
+still in flight.
 """
 
 from __future__ import annotations
@@ -41,6 +62,12 @@ class DeviceHostStore:
         self.v = torch.zeros(shape, dtype=kv_elem_dtype, pin_memory=pin)
         self.ks = torch.ones(shape[:-1], dtype=torch.float32, pin_memory=pin)
         self.vs = torch.ones(shape[:-1], dtype=torch.float32, pin_memory=pin)
+        # host -> device bytes staged by the streamed path (`gather_units`)
+        self.staged_bytes = 0
+        # a list to time the staging copies: each `gather_units` then
+        # appends a (start, end) CUDA event pair recorded around its copies
+        self.copy_events: list | None = None
+        self._units: dict = {}
 
     @property
     def guard_slot(self) -> int:
@@ -50,10 +77,24 @@ class DeviceHostStore:
     def arrays(self):
         return (self.k, self.v, self.ks, self.vs)
 
+    def units(self, l0: int, n: int) -> list[tuple]:
+        """Per array, a view of every slot's rows l0 .. l0 + n - 1 (one
+        contiguous run each), indexed by slot; built at first use."""
+        if (l0, n) not in self._units:
+            S = self.host_slots + 1
+            self._units[l0, n] = [
+                a.view(S, self.num_layers, *a.shape[1:])[:, l0:l0 + n]
+                .unbind(0) for a in self.arrays]
+        return self._units[l0, n]
+
+    @property
+    def bytes_per_row(self) -> int:
+        """Bytes of one (slot, layer) row over k, v and their scales."""
+        return sum(a[0].numel() * a.element_size() for a in self.arrays)
+
     @property
     def bytes_per_block(self) -> int:
-        per_row = sum(a[0].numel() * a.element_size() for a in self.arrays)
-        return per_row * self.num_layers
+        return self.bytes_per_row * self.num_layers
 
 
 def block_rows(slots: np.ndarray, num_layers: int) -> torch.Tensor:
@@ -61,6 +102,60 @@ def block_rows(slots: np.ndarray, num_layers: int) -> torch.Tensor:
     rows = (np.asarray(slots, np.int64)[:, None] * num_layers
             + np.arange(num_layers, dtype=np.int64)[None, :])
     return torch.from_numpy(rows.reshape(-1))
+
+
+def gather_units(store: DeviceHostStore, slots, l0: int, n: int, device):
+    """Rows l0 .. l0 + n - 1 of each slot -> device slabs (k, v
+    [M, n, Hkv, bs, Dp], ks, vs [M, n, Hkv, bs]) in `slots`' order: one
+    non-blocking copy a slot and array."""
+    device = torch.device(device)
+    slots = np.asarray(slots).reshape(-1).tolist()
+    timed = store.copy_events is not None and device.type == "cuda"
+    if timed:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+    out = []
+    for views, src in zip(store.units(l0, n), store.arrays):
+        dst = torch.empty((len(slots), n, *src.shape[1:]), dtype=src.dtype,
+                          device=device)
+        if slots:
+            torch._foreach_copy_(list(dst.unbind(0)),
+                                 [views[s] for s in slots], non_blocking=True)
+        out.append(dst)
+    if timed:
+        ev[1].record()
+        store.copy_events.append(ev)
+    store.staged_bytes += len(slots) * n * store.bytes_per_row
+    return tuple(out)
+
+
+def fetch_blocks(store: DeviceHostStore, slots, device):
+    """Whole blocks (all L rows of each slot) -> device slabs
+    [M, L, Hkv, bs, *]."""
+    return gather_units(store, slots, 0, store.num_layers, device)
+
+
+def stash_blocks(store: DeviceHostStore, slabs, slots) -> None:
+    """Device slabs [M, L, Hkv, bs, *] -> the slots' rows (a slot listed
+    twice takes its last slab)."""
+    slots = np.asarray(slots).reshape(-1).tolist()
+    for views, src in zip(store.units(0, store.num_layers), slabs):
+        if slots:
+            torch._foreach_copy_([views[s] for s in slots],
+                                 list(src.unbind(0)), non_blocking=True)
+
+
+def fetch_layer(store: DeviceHostStore, slots, layer: int, device):
+    """Layer `layer` of the given slots -> device slabs [W, Hkv, bs, *]."""
+    return tuple(a[:, 0] for a in gather_units(store, slots, layer, 1,
+                                                device))
+
+
+def stage_layers(store: DeviceHostStore, slots, l0: int, g: int, device):
+    """Layers l0 .. l0 + g - 1 of the given slots -> device slabs
+    [W, g, Hkv, bs, *], slot-major: each slot's g rows are one run."""
+    return gather_units(store, slots, l0, g, device)
 
 
 def migrate_program(pools, store: DeviceHostStore, mig: np.ndarray) -> None:

@@ -9,8 +9,9 @@
   reference's rule, ROADMAP.md "Token level"). The JAX engine runs its
   Pallas kernels in interpret mode, as the port runs bfloat16 attention
   compute;
-- the paths the port does not have yet raise: the LSTM, fused rounds, a
-  host-streamed request, a session turn that needs the host-streamed path.
+- the paths the port does not have yet raise (the LSTM, fused rounds),
+  and a host-streamed request and a session turn that only the
+  host-streamed path can serve are served.
 """
 
 import jax
@@ -186,14 +187,20 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="fused_rounds"):
         Engine(CFG, sc, params=PARAMS, device="cpu")
     eng = engine(hbm=6, host=64)
-    with pytest.raises(ValueError, match="host-streamed"):
-        eng.add_request(list(range(1, 60)), max_new_tokens=4)
+    # past the 4-block pooled capacity: served host-streamed
+    rid = eng.add_request(list(range(1, 60)), max_new_tokens=4)
+    out = {o.req_id: o for o in eng.run()}[rid]
+    assert out.finish_reason in ("length", "eos") and out.tokens
+    assert eng.get_statistics()["engine"]["stream_chunks"] == 2
     with pytest.raises(ValueError, match="empty prompt"):
         eng.add_request([], max_new_tokens=4)
-    # a session turn that only the host-streamed path could serve: the
+    # a session turn that only the host-streamed path can serve: the
     # reclaimed history re-prefills past the 4-block pooled capacity
     sid = eng.add_request(list(range(1, 13)), max_new_tokens=4, session=True)
     eng.run()
     assert eng._reclaim_idle_session()
-    with pytest.raises(NotImplementedError, match="host-streamed"):
-        eng.continue_session(sid, list(range(1, 17)), max_new_tokens=4)
+    rid = eng.continue_session(sid, list(range(1, 17)), max_new_tokens=4)
+    out = {o.req_id: o for o in eng.run()}[rid]
+    assert out.finish_reason in ("length", "eos") and out.tokens
+    sess = eng.get_session(sid)
+    assert sess.reprefills == 1 and sess.live and sess.stream_bids

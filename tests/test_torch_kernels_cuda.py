@@ -734,3 +734,135 @@ def test_pen_plane_on_card_matches_cpu_bitwise(dev, seed):
         out.append((toks.cpu(), pc.cpu()))
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# the host-streamed path: the pinned store's reads and writes, and streamed
+# attention on the card against its CPU run
+# ---------------------------------------------------------------------------
+
+def stream_store(kv, pin, seed=21, slots=24, layers=3, bs=16, hkv=2, d=64):
+    from cxl_speckv_tpu_torch.ops.quant import kv_pack, kv_storage_dtype
+    from cxl_speckv_tpu_torch.runtime.hoststore import DeviceHostStore
+
+    rng = np.random.RandomState(seed)
+    st = DeviceHostStore(slots, layers, bs, hkv, d // kv_pack(kv),
+                         kv_storage_dtype(kv), pin=pin)
+    for a in (st.k, st.v):
+        a.copy_(torch.from_numpy(rng.randint(-128, 128, a.shape)
+                                 .astype(np.int8)))
+    for a in (st.ks, st.vs):
+        a.copy_(torch.from_numpy(rng.uniform(0.002, 0.02, a.shape)
+                                 .astype(np.float32)))
+    return st
+
+
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.INT4])
+def test_pinned_store_round_trip_is_byte_exact(dev, kv):
+    """Pinned store -> device slab (whole blocks, a layer of a wave, a
+    layer group) -> stash back: every byte where it came from, and the
+    stash lands before the next read of those rows (stream order)."""
+    from cxl_speckv_tpu_torch.runtime import hoststore as hs
+
+    st = stream_store(kv, pin=True)
+    assert st.k.is_pinned() and st.ks.is_pinned()
+    ref = [a.clone() for a in st.arrays]
+    slots = np.array([3, 4, 5, 11, 24, 0])          # runs, a gap, the guard
+    L = st.num_layers
+    rows = (slots[:, None] * L + np.arange(L)).reshape(-1)
+    blocks = hs.fetch_blocks(st, slots, dev)
+    for g, r in zip(blocks, ref):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), r[rows].reshape(g.shape))
+    layer = hs.fetch_layer(st, slots, 1, dev)
+    group = hs.stage_layers(st, slots, 1, 2, dev)
+    for g, gr, r in zip(layer, group, ref):
+        assert torch.equal(g.cpu(), r[slots * L + 1])
+        assert torch.equal(gr[:, 0].cpu(), r[slots * L + 1])
+    # write changed slabs to other slots, then read them straight back
+    new = tuple(torch.randint_like(a, -100, 100) if a.dtype == torch.int8
+                else torch.rand_like(a) for a in blocks[:4])
+    dst = np.array([7, 8, 9, 15, 16, 20])
+    hs.stash_blocks(st, new, dst)
+    back = hs.fetch_blocks(st, dst, dev)
+    for b, n in zip(back, new):
+        assert torch.equal(b, n)
+    torch.cuda.synchronize()
+    drows = (dst[:, None] * L + np.arange(L)).reshape(-1)
+    for a, n, r in zip(st.arrays, new, ref):
+        assert torch.equal(a[drows], n.cpu().reshape(-1, *a.shape[1:]))
+        keep = np.setdiff1d(np.arange(a.shape[0]), drows)
+        assert torch.equal(a[keep], r[keep])
+
+
+@pytest.mark.parametrize("kv,T,start,window,softcap", [
+    (KVDtype.INT8, 1, 300, None, None), (KVDtype.INT8, 64, 200, None, None),
+    (KVDtype.INT4, 5, 333, 100, 50.0), (KVDtype.FP8, 1, 250, None, 30.0)])
+def test_stream_attention_on_card_matches_cpu(dev, kv, T, start, window,
+                                              softcap):
+    """stream_context_attention (waves fetched from the pinned store) and
+    its slab form on the card against the same functions on the CPU, with
+    the chunk merge and sinks: float32 throughout, so within 2e-4; the two
+    card forms bit for bit equal."""
+    from cxl_speckv_tpu_torch.ops import stream_attention as sa
+    from cxl_speckv_tpu_torch.runtime import hoststore as hs
+
+    bs, wave, L, layer = 16, 4, 3, 2
+    cpu_st, card_st = stream_store(kv, pin=False), stream_store(kv, pin=True)
+    n_blocks = -(-(start + T) // bs)
+    rng = np.random.RandomState(start)
+    row = np.full(24, 24, np.int32)
+    row[:n_blocks] = rng.permutation(24)[:n_blocks]
+    q = torch.from_numpy(rng.randn(T, 8, 64).astype(np.float32))
+    kn = torch.from_numpy(rng.randn(T, 2, 64).astype(np.float32))
+    vn = torch.from_numpy(rng.randn(T, 2, 64).astype(np.float32))
+    sinks = torch.from_numpy(rng.randn(8).astype(np.float32))
+    kw = dict(sm_scale=0.125, window=window, softcap=softcap)
+    outs = {}
+    for name, st, d in (("cpu", cpu_st, "cpu"), ("card", card_st, dev)):
+        carry = sa.stream_context_attention(q.to(d), st, row, start, layer,
+                                            kv, bs, 24, wave, **kw)
+        slab = tuple(a[:, 0] for a in hs.stage_layers(st, row, layer, 1, d))
+        staged = sa.stream_context_attention_slab(q.to(d), slab, start, kv,
+                                                  bs, wave, **kw)
+        for a, b in zip(carry, staged):
+            assert torch.equal(a, b)
+        outs[name] = sa.merge_chunk_causal(q.to(d), kn.to(d), vn.to(d), carry,
+                                           sinks=sinks.to(d), **kw)
+    torch.testing.assert_close(outs["card"].cpu(), outs["cpu"], rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_streamed_engine_on_card_matches_ample(dev):
+    """A streamed request on the card (pinned host tier, staged gathers
+    and the fused decode) gives the per-wave / per-token run's tokens bit
+    for bit and launches neither kernel."""
+    from cxl_speckv_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        PrefetchConfig,
+        SystemConfig,
+    )
+    from cxl_speckv_tpu_torch.engine import Engine
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+
+    def run(stage_mb):
+        sc = SystemConfig(
+            cache=CacheConfig(block_size=8, num_hbm_blocks=6,
+                              num_host_blocks=64, kv_dtype=KVDtype.INT8),
+            prefetch=PrefetchConfig(enabled=False),
+            engine=EngineConfig(max_batch_size=2, max_seq_len=64,
+                                prefill_chunk=16, decode_horizon=4,
+                                stream_stage_mb=stage_mb))
+        eng = Engine(tiny_test_config(), sc, device=None, seed=3)
+        rng = np.random.RandomState(4)
+        ps = [rng.randint(1, 256, n).tolist() for n in (40, 47)]
+        return eng.generate(ps, max_new_tokens=12), eng.get_statistics()
+
+    k1, k2 = launched(paged_attention), launched(paged_chunk_attention_cuda)
+    fused, st = run(256)
+    per_token, _ = run(0)
+    assert fused == per_token and all(fused)
+    assert st["engine"]["stream_tokens"] > 0
+    assert launched(paged_attention) == k1
+    assert launched(paged_chunk_attention_cuda) == k2
