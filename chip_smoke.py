@@ -62,10 +62,11 @@ Phases, each printing its results; any failure exits non-zero:
 7. anatomy -- device time of one served Llama decode round by kernel
               (torch.profiler) and the W8A16 matmuls of one layer (again
               for Gemma-2 after its short serve);
-8. serve-int4, serve-mixed -- the same Llama serve with INT4 KV, and with
-              a per-layer table of INT8 (even layers) and FP8 (odd layers):
-              same checks, launch counts exact per (scheme, window); then
-              the decode-round anatomy of each;
+8. serve-int4, serve-mixed -- the same Llama serve, cut to its first 16
+              layers (the depth cut keeps the script in time), with INT4 KV,
+              and with a per-layer table of INT8 (even layers) and FP8 (odd
+              layers): same checks, launch counts exact per (scheme,
+              window); then the decode-round anatomy of each;
 9. switch  -- `Engine.set_kv_dtype` on the ample pool: 8 requests under
               INT8, two steps, FP8 for 8 more; each cohort equals a fresh
               engine fixed to its scheme; INT4 refused while busy, then
@@ -164,6 +165,34 @@ Phases, each printing its results; any failure exits non-zero:
               token, staged GB a decode step and the H2D GB/s of the
               staging copies (CUDA events), the stream timer's share;
               against an ample pooled engine (600 HBM blocks), recorded;
+9e. prefetch -- the speculative prefetcher and the automatic horizon on
+              the serve's Llama-3-8B at full width and depth. prefetch-lstm:
+              the serve cell tiered (52 HBM blocks) with prefetch off, then
+              on at depth 2 with the LSTM (online training on its worker
+              thread, the in-round continue-probability leg): every request
+              finished, tokens equal to the prefetch-off run, launches
+              exact, ingraph_pcont, prefetches_issued and train_steps > 0;
+              on the first round with a live lane, the probabilities the
+              round computed on the card within 1e-4 of the host
+              predictor's (on the CPU, on the weights the card's copy came
+              from); printed: skipped_eos_predicted, the maintain.plan /
+              maintain.train p50, tok/s against prefetch off, and the
+              leg's kernels and device ms a round (torch.profiler).
+              prefetch-default: `Engine(cfg, SystemConfig())` with every
+              default (decode_horizon 0: derived from the dispatch cost
+              measured on the card) on 8 x (64 + 32), tokens equal to the
+              same requests at horizon 32, launches exact; the dispatch
+              cost, the derived horizon, tok/s at both; then the step
+              constants of `utils/dispatch.py`: a fused step's ms at 32 and
+              16 layers (decode.program p50 / 32 over 4 rounds of 8 lanes),
+              fitted as weight bytes / rate + floor. The LSTM's third use
+              runs in the spec phase (spec-ngram-seeded): the n-gram arm
+              with the LSTM seeding lookup misses (`seed_ngram`) at float32
+              activations, ample, against a plain float32 serve:
+              fallback_seeded > 0, and each request equal, or first
+              diverging at a token of the plain run's top two at a gap <=
+              0.06 (verify through K2 and decode through K1 sum in
+              different orders);
 10. gemma2 -- Gemma-2-9B at full width, 20 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
@@ -298,8 +327,10 @@ GPT_OSS = Cell(64, 192, 64, BATCH, 128, hbm_tiered=BATCH * 9 + 16)
 GPT_OSS_HEADS = (64, 8, 64)              # Hq, Hkv, D of GPT-OSS-20B
 GPT_OSS_WINDOW = 128
 # depth cuts of earlier paths that keep the script inside its time limit
-# since the stream phase came (their layers, of 24, 42 and 32)
+# since the stream phase came (their layers, of 24, 42 and 32), and the
+# INT4 / per-layer serves and anatomies since the prefetch phase came
 GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 12, 20, 16, 16
+SCHEME_LAYERS = 16
 # the surface phase. Sessions: 16 x 3 turns, 64 + 32 tokens, then 32 new +
 # 32 generated twice: 224 tokens (7 blocks) a session, 112 blocks in all,
 # on 52 tiered HBM blocks with a host tier of 16 x 8 + 8 = 136 that holds
@@ -330,6 +361,12 @@ STREAM_LONG = Cell(1, 16384, 32, 1, 1024, hbm_tiered=52)
 STREAM_LONG_HOST = STREAM_LONG_AMPLE = 600
 # streamed sessions: turn 1 = 2048 + 32, turn 2 = 64 new + 32
 STREAM_TURN1, STREAM_TURN_NEW, STREAM_TURN_GEN = 2048, 64, 32
+# the prefetch phase: the LSTM arm on the serve cell (prefetch depth 2);
+# the default-config arm's requests, 8 x (64 + 32); the step fit's rounds
+PREFETCH_DEPTH = 2
+PCONT_TOL = 1e-4              # in-round continue probability vs the host
+DEFAULT_REQ, DEFAULT_GEN = 8, 32
+FIT_ROUNDS = 4
 
 
 def fail(msg: str) -> None:
@@ -1173,10 +1210,13 @@ def phase_probe(peaks) -> list:
 # ---------------------------------------------------------------------------
 
 def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
-                 kv="int8", layer_kv=None, engine_kw=None, **spec):
+                 kv="int8", layer_kv=None, engine_kw=None, prefetch=None,
+                 **spec):
     """The serving engine of `cell`; KV scheme `kv`, or the per-layer
     table `layer_kv` (INT8 / FP8 entries); `engine_kw`: more EngineConfig
-    fields; `spec`: the speculative-decoding arguments of `Engine`."""
+    fields; `prefetch`: a PrefetchConfig in place of prefetch off (as
+    `bench.py`); `spec`: the other arguments of `Engine` (speculative
+    decoding, `enable_lstm`)."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -1192,8 +1232,8 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                           layer_kv_dtypes=(tuple(map(KVDtype, layer_kv))
                                            if layer_kv else None),
                           prefetch_reserve_frac=0.25),
-        prefetch=PrefetchConfig(depth=4, min_depth=3, enabled=False,
-                                train_online=False),
+        prefetch=prefetch or PrefetchConfig(depth=4, min_depth=3,
+                                            enabled=False, train_online=False),
         engine=EngineConfig(max_batch_size=cell.batch,
                             max_seq_len=cell.max_seq,
                             prefill_chunk=cell.chunk, decode_horizon=HORIZON,
@@ -1685,6 +1725,45 @@ def self_draft_f32(cfg, params, prompts) -> float:
     return sp["acceptance_rate"]
 
 
+def ngram_seeded_f32(cfg, params, prompts) -> dict:
+    """The n-gram arm with the prefetch LSTM seeding its lookup misses
+    (`enable_lstm`, `seed_ngram`) at float32 activations on the ample
+    pool, against a plain serve at float32 activations (logprobs 2):
+    fallback_seeded > 0, and each request's tokens equal the plain
+    serve's, or first diverge at a token of its top two at a top-2 gap <=
+    NEAR_TIE_GAP (the reference's near-tie rule: the verify pass through
+    K2 and decode through K1 sum in different orders)."""
+    import dataclasses
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    eng = build_engine(c32, params, SHORT, SHORT.hbm_ample, 0)
+    ref, rdt = serve_each(eng, [(p, dict(max_new_tokens=SHORT.gen,
+                                         logprobs=2)) for p in prompts])
+    del eng
+    eng = build_engine(c32, params, SHORT, SHORT.hbm_ample, 0,
+                       spec_ngram=True, spec_gamma=GAMMA, enable_lstm=True)
+    if eng.prefetcher.predictor is None:
+        fail("spec-ngram-seeded: enable_lstm=True built no predictor")
+    outs, dt = serve_each(eng, [(p, dict(max_new_tokens=SHORT.gen))
+                                for p in prompts])
+    sp = eng.get_statistics()["spec"]
+    del eng
+    if len(outs) != len(prompts) or any(o is None for o in outs):
+        fail("spec-ngram-seeded: not every request finished")
+    if not sp["fallback_seeded"] > 0:
+        fail(f"spec-ngram-seeded: fallback_seeded {sp['fallback_seeded']}: "
+             f"the LSTM seeded no lookup miss")
+    toks = [o.tokens for o in outs]
+    same = sum(t == r.tokens for t, r in zip(toks, ref))
+    note = against("spec-ngram-seeded f32", toks, ref, True)
+    print(f"[spec-ngram-seeded] f32 activations, ample: fallback_seeded "
+          f"{sp['fallback_seeded']}, acceptance {sp['acceptance_rate']:.4f}, "
+          f"{sp['rounds']} rounds, {dt:.2f} s (plain {rdt:.2f} s); requests "
+          f"equal to the plain serve {same}/{len(prompts)}; {note}",
+          flush=True)
+    return {"fallback_seeded": sp["fallback_seeded"], "same": same}
+
+
 def phase_spec(cfg, params, prompts, peaks) -> dict:
     """Speculative decoding on Llama-3-8B: the kernels at the new shapes,
     a plain ample serve of the first SPEC_REQ prompts, then the n-gram,
@@ -1721,7 +1800,8 @@ def phase_spec(cfg, params, prompts, peaks) -> dict:
           f"{res['self']['stats']['spec']['acceptance_rate']:.4f} (recorded, "
           f"not held: bf16 rounding of the model's matmuls)", flush=True)
     del dparams
-    return {"rows": rows, **res}
+    seeded = ngram_seeded_f32(cfg, params, ps)
+    return {"rows": rows, **res, "ngram_seeded": seeded}
 
 
 def phase_gemma(peaks) -> dict:
@@ -3002,6 +3082,251 @@ def phase_stream(cfg, params, prompts, peaks) -> dict:
             "long": long}
 
 
+# ---------------------------------------------------------------------------
+# the prefetcher: the LSTM gate, the in-round leg, the automatic horizon
+# ---------------------------------------------------------------------------
+
+def lstm_prefetch():
+    """The LSTM arm's prefetch: on, depth 2, the LSTM trained online on
+    its worker thread, the in-round continue-probability leg."""
+    from cxl_speckv_tpu_torch.config import PrefetchConfig
+
+    return PrefetchConfig(enabled=True, depth=PREFETCH_DEPTH,
+                          train_online=True, train_async=True,
+                          ingraph_pcont=True)
+
+
+def hold_pcont(eng) -> dict:
+    """Wrap the engine's `install_pcont` so that the first round with a
+    live lane compares the probabilities the round computed on the card
+    with the host predictor's (the CPU) on the post-round histories and
+    the weights the card's copy was made from. Returns the record."""
+    import copy
+
+    pf = eng.prefetcher
+    install = pf.install_pcont
+    rec = {}
+
+    def checked(slots, probs):
+        live = [i for i, s in enumerate(slots) if s in pf._histories]
+        if live and not rec:
+            ref = copy.copy(pf.predictor)
+            ref.params = eng._lstm_src
+            want = ref.continue_probability(
+                pf.history_matrix([slots[i] for i in live]),
+                eng.eos_token_id)
+            got = np.asarray(probs)[live]
+            rec.update(lanes=len(live), err=float(np.abs(got - want).max()),
+                       p=(float(got.min()), float(got.max())))
+        install(slots, probs)
+
+    pf.install_pcont = checked
+    return rec
+
+
+def pcont_leg_cost(eng) -> dict:
+    """What the in-round leg adds to a round of BATCH lanes at HORIZON:
+    its kernels (torch.profiler, device activity) and device ms, and its
+    ms on CUDA events, alone at the served shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cxl_speckv_tpu_torch.prefetcher.lstm import lstm_pcont
+
+    pf = eng.prefetcher
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(5)
+    hist = torch.randint(0, pf.predictor.n_classes,
+                         (BATCH, pf.config.history_len), generator=gen,
+                         device=DEV, dtype=torch.int32)
+    fresh = torch.randint(0, eng.model_config.vocab_size, (BATCH, HORIZON),
+                          generator=gen, device=DEV, dtype=torch.int32)
+    eos = int(eng.eos_token_id) % pf.predictor.n_classes
+    leg = lambda: lstm_pcont(eng._lstm_dev, hist, fresh, eos)
+    ms = time_ms(leg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        leg()
+        torch.cuda.synchronize()
+    n = us = 0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+            us += e.self_device_time_total
+    return {"kernels": n, "device_ms": us / 1e3, "ms": ms}
+
+
+def prefetch_lstm_arm(cfg, params, prompts) -> dict:
+    """(a) The serve cell tiered, prefetch off and then on with the LSTM:
+    tokens equal, exact launches, the LSTM's counters, the in-round
+    probabilities held to the host predictor within PCONT_TOL."""
+    L = cfg.num_layers
+    runs = {}
+    for arm, pf in (("off", None), ("lstm", lstm_prefetch())):
+        reset_launches()
+        eng = build_engine(cfg, params, SHORT, SHORT.hbm_tiered,
+                           SHORT.host_tiered, prefetch=pf)
+        rec = hold_pcont(eng) if pf else {}
+        outs, dt = serve(eng, prompts, SHORT.gen)
+        launches = read_launches()
+        st = eng.get_statistics()
+        want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+                "K2": st["engine"]["prefill_dispatches"] * L}
+        got = {k: total(v) for k, v in launches.items()}
+        if got != want:
+            fail(f"prefetch-{arm}: kernel launches {got} != expected {want}")
+        if len(outs) != SHORT.n_req or any(
+                o.finish_reason not in ("length", "eos")
+                for o in outs.values()):
+            fail(f"prefetch-{arm}: not every request finished")
+        toks = sum(len(o.tokens) for o in outs.values())
+        runs[arm] = {"tokens": tokens_in_order(outs), "stats": st,
+                     "tok_s": toks / dt, "rec": rec, "launches": got,
+                     "leg": pcont_leg_cost(eng) if pf else None}
+        del eng
+    off, on = runs["off"], runs["lstm"]
+    if on["tokens"] != off["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(on["tokens"], off["tokens"]))
+                if a != b]
+        fail(f"prefetch-lstm: tokens differ from the prefetch-off run for "
+             f"requests {diff}")
+    ps, ph = on["stats"]["prefetch"], on["stats"]["phases"]
+    for key in ("ingraph_pcont", "prefetches_issued", "train_steps"):
+        if not ps[key] > 0:
+            fail(f"prefetch-lstm: {key} = {ps[key]}, expected > 0: {ps}")
+    rec = on["rec"]
+    if not rec:
+        fail("prefetch-lstm: no decode round installed a live lane's "
+             "continue probability")
+    if rec["err"] > PCONT_TOL:
+        fail(f"prefetch-lstm: in-round continue probability against the "
+             f"host predictor: max |diff| {rec['err']:.3g} > {PCONT_TOL}")
+    p50s = {k: ph.get(k, {}).get("p50_ms", 0.0)
+            for k in ("maintain.plan", "maintain.train", "decode.program")}
+    tr = on["stats"]["transfer"]
+    leg = on["leg"]
+    print(f"[prefetch-lstm] tiered, {SHORT.n_req} x ({SHORT.prompt} + "
+          f"{SHORT.gen}) on {SHORT.hbm_tiered} HBM blocks: tokens == the "
+          f"prefetch-off run for every request; launches {on['launches']} "
+          f"exact; ingraph_pcont {ps['ingraph_pcont']}, prefetches_issued "
+          f"{ps['prefetches_issued']}, skipped_eos_predicted "
+          f"{ps['skipped_eos_predicted']}, skipped_resident "
+          f"{ps['skipped_resident']}, train_steps {ps['train_steps']} (last "
+          f"loss {ps['last_train_loss']:.4f}), plans {ps['plans']}; up "
+          f"{tr['up_transfers']} down {tr['down_transfers']} (prefetch off: "
+          f"up {off['stats']['transfer']['up_transfers']} down "
+          f"{off['stats']['transfer']['down_transfers']}); hit rate "
+          f"{on['stats']['directory']['hit_rate']:.3f} (off "
+          f"{off['stats']['directory']['hit_rate']:.3f})", flush=True)
+    print(f"[prefetch-lstm] phase p50 (ms): maintain.plan "
+          f"{p50s['maintain.plan']:.3f}, maintain.train "
+          f"{p50s['maintain.train']:.3f}, decode.program "
+          f"{p50s['decode.program']:.2f} (off "
+          f"{off['stats']['phases']['decode.program']['p50_ms']:.2f}); "
+          f"tok/s {on['tok_s']:.1f} with the LSTM against {off['tok_s']:.1f} "
+          f"with prefetch off ({on['tok_s'] / off['tok_s']:.3f}x)",
+          flush=True)
+    print(f"[prefetch-lstm] in-round continue probability of {rec['lanes']} "
+          f"live lanes against the host predictor on the CPU: max |diff| "
+          f"{rec['err']:.3g} <= {PCONT_TOL} (values {rec['p'][0]:.6f}.."
+          f"{rec['p'][1]:.6f}); the leg adds {leg['kernels']} kernels and "
+          f"{leg['device_ms']:.3f} ms of device time to a round of "
+          f"{HORIZON} steps ({leg['kernels'] / HORIZON:.2f} kernels a "
+          f"step), {leg['ms']:.3f} ms alone on CUDA events", flush=True)
+    return {"off_tok_s": off["tok_s"], "lstm_tok_s": on["tok_s"],
+            "prefetch": ps, "leg": leg, "pcont_err": rec["err"],
+            "launches": on["launches"]}
+
+
+def default_serve(cfg, params, prompts, gen, **ekw) -> dict:
+    """Serve `prompts` on `Engine(cfg, SystemConfig(...))` with every
+    default but the EngineConfig fields `ekw`; launches held exact.
+    Returns tokens, tok/s, the horizon and the decode.program p50."""
+    from cxl_speckv_tpu_torch.config import EngineConfig, SystemConfig
+    from cxl_speckv_tpu_torch.engine import Engine
+
+    reset_launches()
+    sc = SystemConfig(engine=EngineConfig(**ekw))
+    eng = Engine(cfg, sc, params=params, device=DEV)
+    outs, dt = serve(eng, prompts, gen)
+    st = eng.get_statistics()
+    h = sc.engine.decode_horizon
+    L = cfg.num_layers
+    want = {"K1": st["scheduler"]["decode_batches"] * h * L,
+            "K2": st["engine"]["prefill_dispatches"] * L}
+    got = {k: total(v) for k, v in read_launches().items()}
+    if got != want:
+        fail(f"default arm (horizon {h}, {L} layers): kernel launches {got} "
+             f"!= expected {want}")
+    if len(outs) != len(prompts):
+        fail(f"default arm: {len(outs)}/{len(prompts)} requests finished")
+    toks = sum(len(o.tokens) for o in outs.values())
+    del eng
+    return {"tokens": tokens_in_order(outs), "tok_s": toks / dt,
+            "horizon": h,
+            "round_ms": st["phases"]["decode.program"]["p50_ms"],
+            "rounds": st["scheduler"]["decode_batches"]}
+
+
+def prefetch_default_arm(cfg, params, prompts) -> dict:
+    """(b) `EngineConfig()` with its defaults (horizon 0: derived from the
+    measured dispatch cost) against the same requests at horizon 32; then
+    the step constants of `utils/dispatch.py`: a fused step's ms at the
+    full depth and at the first half of the layers, fitted as weight bytes
+    / rate + floor."""
+    from cxl_speckv_tpu_torch.utils import dispatch
+
+    ps = [p[:SHORT.prompt] for p in prompts[:DEFAULT_REQ]]
+    auto = default_serve(cfg, params, ps, DEFAULT_GEN)
+    fixed = default_serve(cfg, params, ps, DEFAULT_GEN,
+                          decode_horizon=HORIZON)
+    if auto["tokens"] != fixed["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(auto["tokens"],
+                                                 fixed["tokens"])) if a != b]
+        fail(f"default arm: tokens at the derived horizon {auto['horizon']} "
+             f"differ from horizon {HORIZON} for requests {diff}")
+    dms = dispatch.measured_dispatch_ms(DEV)
+    # the fit: BATCH lanes, FIT_ROUNDS fused rounds of HORIZON steps each
+    step = {}
+    for n in (cfg.num_layers, cfg.num_layers // 2):
+        c, p = first_layers(cfg, params, n)
+        r = default_serve(c, p, ps, FIT_ROUNDS * HORIZON + 1,
+                          decode_horizon=HORIZON)
+        step[n] = (dispatch.params_byte_size(p), r["round_ms"] / HORIZON)
+    (b1, t1), (b0, t0) = step[cfg.num_layers], step[cfg.num_layers // 2]
+    bps = (b1 - b0) / ((t1 - t0) / 1e3)
+    floor = t1 - b1 / bps * 1e3
+    nbytes = dispatch.params_byte_size(params)
+    derived = dispatch.derive_decode_horizon(nbytes, device=DEV)
+    print(f"[prefetch-default] EngineConfig() defaults, {DEFAULT_REQ} x "
+          f"({SHORT.prompt} + {DEFAULT_GEN}): dispatch cost "
+          f"{dms:.4f} ms (measured on {DEV}, `utils/dispatch.py`), weights "
+          f"{nbytes / 1e9:.3f} GB -> derived decode_horizon "
+          f"{auto['horizon']}; tokens == horizon {HORIZON} for every request; "
+          f"tok/s {auto['tok_s']:.1f} at horizon {auto['horizon']}, "
+          f"{fixed['tok_s']:.1f} at {HORIZON}", flush=True)
+    print(f"[prefetch-default] step constants (decode.program p50 / "
+          f"{HORIZON}, {BATCH} lanes, {FIT_ROUNDS} rounds): {cfg.num_layers} "
+          f"layers {b1 / 1e9:.3f} GB {t1:.3f} ms a step, {cfg.num_layers // 2} "
+          f"layers {b0 / 1e9:.3f} GB {t0:.3f} ms a step -> stream rate "
+          f"{bps / 1e9:.1f} GB/s, floor {floor:.3f} ms (in the module: "
+          f"{dispatch._STREAM_BPS / 1e9:.1f} GB/s, "
+          f"{dispatch._STEP_FLOOR_MS:.3f} ms; the rule derives {derived} "
+          f"with them)", flush=True)
+    if derived != auto["horizon"]:
+        fail(f"default arm: the engine derived {auto['horizon']}, the rule "
+             f"{derived}")
+    return {"dispatch_ms": dms, "horizon": auto["horizon"],
+            "auto_tok_s": auto["tok_s"], "fixed_tok_s": fixed["tok_s"],
+            "stream_gb_s": bps / 1e9, "floor_ms": floor}
+
+
+def phase_prefetch(cfg, params, prompts) -> dict:
+    """The prefetcher on the serve's Llama-3-8B at full depth: the LSTM
+    arm and the default-config arm (the n-gram seed arm runs in the spec
+    phase)."""
+    return {"lstm": prefetch_lstm_arm(cfg, params, prompts),
+            "default": prefetch_default_arm(cfg, params, prompts)}
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -3056,19 +3381,22 @@ def main() -> int:
     probe_entries = timed("anatomy probes", phase_probe, peaks)
     launches, cfg, params, prompts = timed("serve", phase_serve)
     timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
+    cut = first_layers(cfg, params, SCHEME_LAYERS)
     int4_launches, mixed_launches = timed(
-        "serve-int4, serve-mixed", phase_serve_schemes, cfg, params, prompts)
-    timed("anatomy int4", phase_anatomy, "Llama-3-8B INT4", cfg, params,
+        "serve-int4, serve-mixed", phase_serve_schemes, *cut, prompts)
+    timed("anatomy int4", phase_anatomy, "Llama-3-8B INT4 (16 layers)", *cut,
           prompts, peaks, matmuls=False, kv="int4")
-    timed("anatomy mixed", phase_anatomy, "Llama-3-8B INT8/FP8 layers", cfg,
-          params, prompts, peaks, matmuls=False,
-          layer_kv=MIXED_LAYERS * (cfg.num_layers // 2))
+    timed("anatomy mixed", phase_anatomy,
+          "Llama-3-8B INT8/FP8 layers (16 layers)", *cut, prompts, peaks,
+          matmuls=False, layer_kv=MIXED_LAYERS * (SCHEME_LAYERS // 2))
+    del cut
     timed("switch", phase_switch, cfg, params, prompts)
     spec = timed("spec", phase_spec, *first_layers(cfg, params, SPEC_LAYERS),
                  prompts, peaks)
     surface = timed("surface", phase_surface,
                     *first_layers(cfg, params, SURFACE_LAYERS), prompts, peaks)
     stream = timed("stream", phase_stream, cfg, params, prompts, peaks)
+    timed("prefetch", phase_prefetch, cfg, params, prompts)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)

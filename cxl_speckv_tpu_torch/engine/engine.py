@@ -16,7 +16,9 @@ fused multi-step decode), stop / finish / OOM / preemption, and
    positions through K2 and accept on the device (`engine/spec.py`);
 3. retire finished requests, and the KV blocks that every running
    sequence's sliding window has left (Mistral-style uniform windows);
-4. prefetch plan for upcoming groups, eviction, migration.
+4. prefetch plan for upcoming groups (gated and ranked by the prefetch
+   LSTM when it is on: `prefetcher/`), its online training, eviction,
+   migration.
 
 Multi-turn sessions (`add_request(session=True)`, `continue_session`,
 `end_session`) keep a conversation's KV in the pool between turns, where
@@ -47,11 +49,20 @@ engine across storage widths (INT4, BF16; `TieredKVCache.rebuild_storage`).
 `CacheConfig.layer_kv_dtypes` instead fixes a scheme per layer for every
 request. Prefill and decode dispatches each hold one scheme.
 
+The prefetch LSTM (`enable_lstm`, by default `PrefetchConfig.enabled`)
+lives on the host CPU, as the reference's does. Each fused decode round
+also computes its lanes' continue probabilities on the engine's device
+(`PrefetchConfig.ingraph_pcont`), from a copy of the predictor's weights
+refreshed at most every 16 rounds, and they come home in the round's one
+copy. With `seed_ngram` the LSTM also seeds the n-gram proposer's misses.
+`decode_horizon` 0 (the default) derives the horizon from a measured
+dispatch cost and the weights' bytes (`utils/dispatch.py`) and writes it
+back into the config.
+
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Fused rounds, mesh serving, the prefetch LSTM (and with it the
-n-gram proposer's LSTM miss fallback), `score_prompts` and the automatic
-decode horizon are not ported yet: asking for one raises.
+the CPU. Fused rounds, mesh serving and `score_prompts` are not ported yet:
+asking for one raises.
 """
 
 from __future__ import annotations
@@ -85,7 +96,12 @@ from cxl_speckv_tpu_torch.models.llama import (
 from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
 from cxl_speckv_tpu_torch.prefetcher.controller import PrefetchController
+from cxl_speckv_tpu_torch.prefetcher.lstm import LSTMPredictor, tree_to
 from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
+from cxl_speckv_tpu_torch.utils.dispatch import (
+    derive_decode_horizon,
+    params_byte_size,
+)
 from cxl_speckv_tpu_torch.utils.host import fetch
 from cxl_speckv_tpu_torch.utils.tracing import PhaseTimer
 
@@ -217,14 +233,15 @@ class Engine:
 
     def __init__(self, model_config: LlamaConfig, system_config: SystemConfig,
                  params=None, *, device=None, seed: int = 0,
-                 enable_lstm: bool = False,
+                 enable_lstm: bool | None = None,
                  draft_config: LlamaConfig | None = None, draft_params=None,
                  spec_gamma: int = 4, spec_ngram: bool = False,
                  spec_ngram_max_match: int = 3, spec_draft_kv: str = "bf16"):
         """`draft_config` (+ `draft_params`, the port's tree; None draws a
         seeded draft) or `spec_ngram` turn on speculative decoding with
         `spec_gamma` proposals a round; the draft's KV cache uses
-        `spec_draft_kv`."""
+        `spec_draft_kv`. `enable_lstm` None follows
+        `PrefetchConfig.enabled`."""
         system_config.validate()
         check_supported(model_config)
         ec = system_config.engine
@@ -233,15 +250,10 @@ class Engine:
             "mesh serving (parallel)": system_config.parallel.num_devices > 1,
             "fused_rounds": ec.fused_rounds,
             "weight_dtype int4": ec.weight_dtype == "int4",
-            "the prefetch LSTM (enable_lstm)": enable_lstm,
         }
         bad = [k for k, v in unported.items() if v]
         if bad:
             raise NotImplementedError("not ported yet: " + ", ".join(bad))
-        if ec.decode_horizon <= 0:
-            raise ValueError(
-                "decode_horizon must be >= 1: the automatic horizon is not "
-                "ported (it needs a measured dispatch cost on this runtime)")
         lkd = cc.layer_kv_dtypes
         if lkd is not None and len(lkd) != model_config.num_layers:
             raise ValueError(
@@ -268,10 +280,34 @@ class Engine:
         elif ec.weight_dtype == "int8" and not is_quantized(params):
             params = quantize_weights(params)
         self.params = params
+        if ec.decode_horizon <= 0:
+            # written back, so that every reader of the config sees one
+            # number (utils/dispatch.py)
+            ec.decode_horizon = derive_decode_horizon(
+                params_byte_size(params), device=self.device)
         self.eos_token_id = (ec.eos_token_id if ec.eos_token_id is not None
                              else model_config.eos_token_id)
+        pf = system_config.prefetch
+        if enable_lstm is None:
+            enable_lstm = pf.enabled
+        predictor = None
+        if enable_lstm:
+            predictor = LSTMPredictor(
+                model_config.vocab_size, embed_dim=pf.embed_dim,
+                hidden=pf.lstm_hidden, num_layers=pf.lstm_layers,
+                history_len=pf.history_len, seed=seed,
+                vocab_buckets=pf.vocab_buckets)
+            if pf.predictor_path:
+                predictor.load(pf.predictor_path)
         self.prefetcher = PrefetchController(
-            system_config.prefetch, self.kvc)
+            pf, self.kvc, predictor=predictor,
+            eos_token_id=self.eos_token_id, seed=seed)
+        self.prefetcher.warmup()
+        # the in-round leg's copy of the predictor's weights on this device,
+        # the published tree it was made from, and the step it was made at
+        self._lstm_dev = None
+        self._lstm_src = None
+        self._lstm_refresh_step = 0
         self.scheduler = Scheduler(ec, self.kvc)
         # retirement needs EVERY layer windowed (Gemma-2 global layers
         # keep full KV); Mistral-style uniform windows retire normally
@@ -804,6 +840,8 @@ class Engine:
             if not self.has_work:
                 break
             outs.extend(self.step())
+        # land an in-flight training step, so that the statistics hold it
+        self.prefetcher.drain_training()
         return outs
 
     # -- one engine iteration -----------------------------------------------------
@@ -850,6 +888,8 @@ class Engine:
             with self.timers.phase("maintain.plan"):
                 self.prefetcher.plan(upcoming)
                 self.prefetcher.update_depth()
+            with self.timers.phase("maintain.train"):
+                self.prefetcher.maybe_train()
             # preload queued session restores: their sequence is known
             # before admission (the idle-KV warm-up a prefetcher is for)
             for r in list(self.scheduler.queue)[:4]:
@@ -985,6 +1025,7 @@ class Engine:
                 if blocks[bi] is not None:
                     self.kvc.directory.mark_dirty(blocks[bi])
             self.kvc.pin_seq(req.seq_slot, False)
+            old_pos = req.prefill_pos
             req.prefill_pos = start - req.context_len + n
             if req.prompt_logprobs:
                 # chunk position j scores prompt token pos0 + j + 1: the
@@ -995,6 +1036,8 @@ class Engine:
             if req.context_len == 0:
                 self.kvc.register_prefix(req.seq_slot, req.prompt,
                                          req.prefill_pos, scheme)
+            self.prefetcher.observe_tokens(
+                req.seq_slot, req.prompt[old_pos:req.prefill_pos])
             self.scheduler.stats.prefill_chunks += 1
             if req.done_prefill:
                 self._record_token(req, int(toks[i]), first=True)
@@ -1059,7 +1102,9 @@ class Engine:
             groups.setdefault(self._req_scheme(r), []).append(r)
         for scheme, group in groups.items():
             t0 = time.monotonic()
-            packed = np.full((B, mb + 4), guard, np.int32)
+            lstm_kw, lstm_hist = self._lstm_dispatch(group, B)
+            hcols = lstm_hist.shape[1] if lstm_hist is not None else 0
+            packed = np.full((B, mb + 4 + hcols), guard, np.int32)
             packed[:, :4] = 0
             self._rng_counter += 1
             packed[:, 3] = self._rng_counter
@@ -1069,15 +1114,20 @@ class Engine:
                 packed[i, 2] = encode_sampling(r.temperature, r.top_p)
                 row = self.kvc.pool.table.row(r.seq_slot)
                 packed[i, 4:4 + mb] = np.where(row >= 0, row, guard)
+            if hcols:
+                packed[:, 4 + mb:] = lstm_hist
             t_host += time.monotonic() - t0
             t0 = time.monotonic()
             lk = self._group_logprobs_k(group)
             out = decode_multi_packed(
                 self.params, self.model_config, scheme, packed,
                 self.kvc.pools, **self._pen_dispatch(group, B), horizon=h,
-                rng_seed=self._rng_seed, logprobs_k=lk)
-            # the round's tokens and logprob tables in one host copy
-            toks, *lp = fetch(*out) if lk else fetch(out)
+                rng_seed=self._rng_seed, logprobs_k=lk, **lstm_kw)
+            # the round's tokens, logprob tables and continue probabilities
+            # in one host copy
+            toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
+            lp = rest[:3]
+            pcont = rest[-1] if lstm_kw else None
             t_prog += time.monotonic() - t0
             t0 = time.monotonic()
             for i, r in enumerate(group):
@@ -1098,6 +1148,11 @@ class Engine:
                     out = self._maybe_finish(r)
                     if out is not None:
                         finished.append(out)
+            if pcont is not None:
+                # after the round's observe_tokens, so that they count as
+                # fresh; finished lanes are skipped
+                self.prefetcher.install_pcont(
+                    [r.seq_slot for r in group], pcont[:len(group)])
             self.scheduler.stats.decode_batches += 1
             t_host += time.monotonic() - t0
         for r in batch:
@@ -1109,12 +1164,65 @@ class Engine:
             min(h, len(r.output)) for r in batch)
         return batch
 
+    def _lstm_dispatch(self, group, B: int):
+        """({decode_multi_packed's LSTM arguments}, the bucketed histories
+        [B, T] for the packed array's last columns), or ({}, None) when
+        the in-round continue-probability leg is off. As in the JAX
+        engine, it rides fused rounds only: at horizon 1 (the JAX engine's
+        single-step path) `plan` refreshes the lanes on the host."""
+        pf = self.prefetcher
+        pc = self.config.prefetch
+        if (pf.predictor is None or not pc.enabled or not pc.ingraph_pcont
+                or self.eos_token_id is None
+                or self.config.engine.decode_horizon <= 1):
+            return {}, None
+        if pf.predictor.params is not self._lstm_src and (
+                self._lstm_dev is None
+                or self.stats.steps - self._lstm_refresh_step >= 16):
+            # online training publishes a new tree every step; values from
+            # weights a few steps old serve the prefetch gate as well, so
+            # the device copy is refreshed at most every 16 rounds
+            self._lstm_src = pf.predictor.params
+            self._lstm_refresh_step = self.stats.steps
+            self._lstm_dev = tree_to(self._lstm_src, self.device)
+        hist = pf.history_matrix_bucketed([r.seq_slot for r in group],
+                                          pad_rows=B)
+        return ({"lstm_params": self._lstm_dev, "lstm_cols": hist.shape[1],
+                 "lstm_eos": int(self.eos_token_id) % pf.predictor.n_classes},
+                hist)
+
+    def _lstm_draft_fallback(self, histories: list[list[int]]):
+        """The n-gram proposer's miss seeder: the LSTM predicts the next
+        token's class, and the lane's own history gives the latest
+        concrete token of the highest-ranked predicted class (-1: none)."""
+        pf = self.prefetcher
+
+        def fallback(miss: list[int]) -> np.ndarray:
+            T = pf.config.history_len
+            mat = np.zeros((len(miss), T), np.int32)
+            for j, i in enumerate(miss):
+                h = histories[i][-T:]
+                mat[j, T - len(h):] = h
+            ids, _ = pf.predictor.predict_top_k(mat, k=4)
+            nc = pf.predictor.n_classes
+            out = np.full(len(miss), -1, np.int32)
+            for j, i in enumerate(miss):
+                by_class = {int(t) % nc: int(t) for t in histories[i]}
+                for cls in ids[j]:
+                    tok = by_class.get(int(cls))
+                    if tok is not None:
+                        out[j] = tok
+                        break
+            return out
+
+        return fallback
+
     def _spec_decode_tick(self, batch: list[Request],
                           finished: list[EngineOutput]) -> list[Request]:
         """One speculative round for the group: propose, then verify +
         accept in one call (`SpecDecoder` / `NgramProposer.verify_accept`).
-        The n-gram proposer gets no miss fallback: the JAX engine seeds
-        misses from the prefetch LSTM, which the port refuses."""
+        With the prefetch LSTM and `seed_ngram`, the LSTM seeds the n-gram
+        proposer's misses (`_lstm_draft_fallback`)."""
         gamma = self.spec.gamma
         B = self.config.engine.max_batch_size
         bs = self.config.cache.block_size
@@ -1170,6 +1278,9 @@ class Engine:
         if not self.spec.has_draft_model:
             # prompt lookup reads each lane's own history
             kw["histories"] = [list(r.prompt) + r.output for r in batch]
+            if (self.prefetcher.predictor is not None
+                    and self.config.prefetch.seed_ngram):
+                kw["fallback"] = self._lstm_draft_fallback(kw["histories"])
         t0 = time.monotonic()
         drafts = self.spec.propose(last, positions, dtab, active,
                                    temps=temps, top_ps=top_ps,
@@ -1495,6 +1606,8 @@ class Engine:
         req.token_times.append(now)
         req.output.append(tok)
         self.stats.tokens_generated += 1
+        if req.seq_slot >= 0:  # a streamed request has no pooled history
+            self.prefetcher.observe_tokens(req.seq_slot, [tok])
 
     def _check_stop(self, req: Request) -> str:
         """Finish reason for the request's current output ('' = go on).
@@ -1524,6 +1637,7 @@ class Engine:
     def _finish_request(self, req: Request, reason: str) -> EngineOutput:
         req.finish_time = time.monotonic()
         self._free_pen_row(req)
+        self.prefetcher.forget_seq(req.seq_slot)
         keep = req.session and reason != "oom" and req.seq_slot >= 0
         if keep:
             # the turn's KV stays allocated (and demotable) for the next one

@@ -60,3 +60,13 @@ def pools_from_jax(k_pools, v_pools, k_scales, v_scales, num_kv_heads: int,
     return (tensor_from_numpy(k, device), tensor_from_numpy(v_pools, device),
             tensor_from_numpy(sc(k_scales), device),
             tensor_from_numpy(sc(v_scales), device))
+
+
+def lstm_params_from_jax(tree: dict, device="cpu") -> dict:
+    """The JAX prefetch predictor's tree (numpy leaves, e.g.
+    `jax.tree.map(np.asarray, predictor.params)`) -> the port's
+    `prefetcher.lstm` tree: embed, out and per layer wx, wh, b, float32."""
+    t = lambda a: tensor_from_numpy(np.asarray(a, np.float32), device)
+    return {"embed": t(tree["embed"]), "out": t(tree["out"]),
+            "cells": [{k: t(c[k]) for k in ("wx", "wh", "b")}
+                      for c in tree["cells"]]}

@@ -510,9 +510,11 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
                  temperatures: torch.Tensor, top_ps: torch.Tensor | None,
                  pen_info: torch.Tensor | None = None,
                  pen_counts: torch.Tensor | None = None,
+                 lstm_params: dict | None = None,
+                 lstm_hist: torch.Tensor | None = None,
                  *, horizon: int, sampled: bool = False,
                  nucleus: bool = False, return_logits: bool = False,
-                 logprobs_k: int = 0):
+                 logprobs_k: int = 0, lstm_eos: int = -1):
     """`horizon` decode steps with sampling on the device: step j feeds the
     token sampled at step j - 1. Callers pre-extend sequences so the table
     covers start .. start + horizon - 1. `sampled` / `nucleus` say whether
@@ -530,7 +532,15 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
 
     With `pen_info` [B, 5] / `pen_counts` (`engine/sampling.py`), every step
     penalizes before sampling and counts each sampled token into its
-    lane's row of the plane, in place."""
+    lane's row of the plane, in place.
+
+    With `lstm_params` (the prefetch predictor's tree on this device) and
+    `lstm_hist` [B, T] (each lane's bucketed history before the round), the
+    round ends with the predictor's continue probability [B] float32 of
+    each lane on its post-round history: the pre-round history shifted by
+    the round's h tokens, then 1 - p(class `lstm_eos`)
+    (`prefetcher.lstm.lstm_pcont`). It comes last in the returned tuple,
+    so that it rides home in the round's one copy."""
     from cxl_speckv_tpu_torch.engine.sampling import (
         penalize_and_count,
         sample_tokens,
@@ -560,6 +570,10 @@ def decode_multi(params: Params, config: LlamaConfig, kv_dtype,
     if return_logits:
         extra.append(torch.stack(step_logits, dim=1))
     toks = torch.stack(out, dim=1)
+    if lstm_params is not None:
+        from cxl_speckv_tpu_torch.prefetcher.lstm import lstm_pcont
+
+        extra.append(lstm_pcont(lstm_params, lstm_hist, toks, lstm_eos))
     return (toks, *extra) if extra else toks
 
 
@@ -584,14 +598,18 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
                         kv_dtype, packed: np.ndarray, pools: Pools,
                         pen_info: np.ndarray | None = None,
                         pen_counts: torch.Tensor | None = None,
+                        lstm_params: dict | None = None,
                         *, horizon: int, rng_seed: int = 0,
-                        return_logits: bool = False, logprobs_k: int = 0):
+                        return_logits: bool = False, logprobs_k: int = 0,
+                        lstm_eos: int = -1, lstm_cols: int = 0):
     """`decode_multi` with every per-round host input in ONE int32 array
     (one host->device copy per round; pen_info [B, 5] rides the same copy):
 
-        packed [B, max_blocks + 4]: col 0 = first token, 1 = its position,
-        2 = sampling word (`engine.sampling.encode_sampling`), 3 = rng
-        counter, 4: = block-table row (guard-filled).
+        packed [B, max_blocks + 4 + lstm_cols]: col 0 = first token, 1 = its
+        position, 2 = sampling word (`engine.sampling.encode_sampling`),
+        3 = rng counter, then the block-table row (guard-filled), then with
+        `lstm_params` the last `lstm_cols` columns: each lane's bucketed
+        history for the round's continue-probability leg.
 
     Returns what `decode_multi` returns."""
     from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
@@ -606,12 +624,15 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
     p = _upload(packed, pen_info if pen_counts is not None else None, dev)
     gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
            else None)
+    tw = w - lstm_cols               # end of the block table
     return decode_multi(params, config, kv_dtype, p[:, 0], p[:, 1], pools,
-                        p[:, 4:w], gen, temps_h.to(dev), top_ps_h.to(dev),
+                        p[:, 4:tw], gen, temps_h.to(dev), top_ps_h.to(dev),
                         p[:, w:] if pen_counts is not None else None,
-                        pen_counts, horizon=horizon, sampled=sampled,
+                        pen_counts, lstm_params,
+                        p[:, tw:w] if lstm_params is not None else None,
+                        horizon=horizon, sampled=sampled,
                         nucleus=nucleus, return_logits=return_logits,
-                        logprobs_k=logprobs_k)
+                        logprobs_k=logprobs_k, lstm_eos=lstm_eos)
 
 
 # ---------------------------------------------------------------------------

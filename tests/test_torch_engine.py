@@ -9,8 +9,9 @@
   reference's rule, ROADMAP.md "Token level"). The JAX engine runs its
   Pallas kernels in interpret mode, as the port runs bfloat16 attention
   compute;
-- the paths the port does not have yet raise (the LSTM, fused rounds),
-  and a host-streamed request and a session turn that only the
+- the automatic decode horizon is derived as the JAX engine derives it,
+  `enable_lstm=True` builds the prefetch predictor, fused rounds still
+  raise, and a host-streamed request and a session turn that only the
   host-streamed path can serve are served.
 """
 
@@ -59,7 +60,7 @@ def system(hbm, host, batch, horizon, kv="int8", chunk=32, quantum=1,
 
 def engine(hbm=256, host=256, batch=2, horizon=1, **kw):
     return Engine(CFG, system(hbm, host, batch, horizon, **kw), params=PARAMS,
-                  device="cpu")
+                  device="cpu", enable_lstm=False)
 
 
 def jax_engine(hbm=256, host=256, batch=2, horizon=1, **kw):
@@ -177,11 +178,16 @@ def test_runtime_prefetch_depth_knob():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(ValueError, match="decode_horizon"):
-        engine(horizon=0)
-    with pytest.raises(NotImplementedError):
-        Engine(CFG, system(32, 32, 2, 1), params=PARAMS, device="cpu",
-               enable_lstm=True)
+    # the automatic horizon and the prefetch LSTM are ported: horizon 0 is
+    # derived (and written back) as the JAX engine derives it, and
+    # enable_lstm=True builds the predictor
+    eng = engine(horizon=0)
+    assert eng.config.engine.decode_horizon >= 1
+    assert (eng.config.engine.decode_horizon
+            == jax_engine(horizon=0).config.engine.decode_horizon)
+    eng = Engine(CFG, system(32, 32, 2, 1), params=PARAMS, device="cpu",
+                 enable_lstm=True)
+    assert eng.prefetcher.predictor is not None
     sc = system(32, 32, 2, 1)
     sc.engine.fused_rounds = True
     with pytest.raises(NotImplementedError, match="fused_rounds"):

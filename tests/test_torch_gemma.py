@@ -237,7 +237,8 @@ def test_engine_matches_jax_engine(family):
     jeng = JEngine(jcfg, system(14, 256, mods=mods), params=jp,
                    use_pallas=True, enable_lstm=False)
     want = jeng.generate(ps, max_new_tokens=24)
-    eng = Engine(cfg, system(14, 256), params=params, device="cpu")
+    eng = Engine(cfg, system(14, 256), params=params, device="cpu",
+                 enable_lstm=False)
     got = eng.generate(ps, max_new_tokens=24)
     assert_same_or_near_tie(params, cfg, ps, got, want)
     st, jst = eng.get_statistics(), jeng.get_statistics()

@@ -540,7 +540,8 @@ def test_engine_matches_jax_engine(kv):
     jeng = JEngine(jc, system(14, 256, kv, mods=mods), params=jp,
                    use_pallas=True, enable_lstm=False)
     want = jeng.generate(ps, max_new_tokens=12)
-    eng = Engine(tc, system(14, 256, kv), params=params, device="cpu")
+    eng = Engine(tc, system(14, 256, kv), params=params, device="cpu",
+                 enable_lstm=False)
     got = eng.generate(ps, max_new_tokens=12)
     assert_same_or_tie(params, tc, ps, got, want)
     st, jst = eng.get_statistics(), jeng.get_statistics()

@@ -45,7 +45,8 @@ def test_port_imports_no_jax():
                  "scripts.kernel_anatomy", "utils.card",
                  "engine.engine", "engine.spec", "runtime.kv_cache",
                  "runtime.hoststore",
-                 "prefetcher.controller"):
+                 "prefetcher.controller", "prefetcher.lstm",
+                 "utils.dispatch", "scripts.train_predictor"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
 
 

@@ -601,6 +601,52 @@ def test_engine_on_card_tiers_invisibly(dev):
     assert launched(paged_chunk_attention_cuda) > k2
 
 
+def test_pcont_leg_on_card_matches_cpu(dev):
+    """The decode round's continue-probability leg (`lstm_pcont`) on the
+    card equals the CPU's within 1e-5 (float32) at the served shapes."""
+    from cxl_speckv_tpu_torch.prefetcher.lstm import (
+        LSTMPredictor,
+        lstm_pcont,
+        tree_to,
+    )
+
+    pred = LSTMPredictor(128256, seed=2)
+    gen = torch.Generator().manual_seed(4)
+    hist = torch.randint(0, pred.n_classes, (8, 16), generator=gen,
+                         dtype=torch.int32)
+    fresh = torch.randint(0, 128256, (8, 32), generator=gen,
+                          dtype=torch.int32)
+    want = lstm_pcont(pred.params, hist, fresh, 7)
+    got = lstm_pcont(tree_to(pred.params, dev), hist.to(dev), fresh.to(dev),
+                     7)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+def test_default_engine_config_on_card(dev):
+    """EngineConfig() with its defaults on the card: the horizon is derived
+    from the dispatch cost measured there and written back, and the
+    requests are served as at a fixed horizon of 4."""
+    from cxl_speckv_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        SystemConfig,
+    )
+    from cxl_speckv_tpu_torch.engine import Engine
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+
+    rng = np.random.RandomState(5)
+    ps = [rng.randint(1, 256, 12).tolist() for _ in range(4)]
+    outs = {}
+    for h in (0, 4):
+        sc = SystemConfig(cache=CacheConfig(block_size=8, num_hbm_blocks=64,
+                                            num_host_blocks=64),
+                          engine=EngineConfig(decode_horizon=h))
+        eng = Engine(tiny_test_config(), sc, device=None, seed=3)
+        assert sc.engine.decode_horizon >= 1
+        outs[h] = eng.generate(ps, max_new_tokens=9)
+    assert outs[0] == outs[4]
+
+
 # ---------------------------------------------------------------------------
 # the decode-anatomy probes P1-P3 (ops/decode_anatomy.py): every mode,
 # variant and ring depth against its plain version, at Llama-3-8B's heads

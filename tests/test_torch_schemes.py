@@ -65,7 +65,7 @@ def make_engine(kv_dtype=KVDtype.INT8, hbm=32, host=64, horizon=2,
     test_mixed_layers.py's with batch 2 and seq 128."""
     return Engine(CFG, system(kv_dtype, hbm, host, batch, seq, horizon,
                               layer_dtypes, TORCH), params=PARAMS,
-                  device="cpu")
+                  device="cpu", enable_lstm=False)
 
 
 def jax_engine(kv_dtype=JKV.INT8, hbm=32, host=64, horizon=2,

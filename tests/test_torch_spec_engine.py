@@ -79,7 +79,7 @@ def engine(proposer=None, hbm=256, batch=4, kv="int8", cfg=CFG, seed=0,
     spec = spec_kw(proposer) if proposer else {}
     spec.update(kw)
     return Engine(cfg, system(hbm, 256, batch, 1, kv=kv), params=params,
-                  device="cpu", seed=seed, **spec)
+                  device="cpu", seed=seed, enable_lstm=False, **spec)
 
 
 def jax_engine(proposer, hbm=256, batch=4, cfg=None, use_pallas=True,

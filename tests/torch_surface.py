@@ -52,7 +52,7 @@ def system(mods=PORT, hbm=256, host=256, batch=2, horizon=1, kv="int8",
 def engine(cfg=CFG, seed=0, spec=None, **kw):
     """The port's engine on the CPU; `spec`: its speculative arguments."""
     return Engine(cfg, system(**kw), params=PARAMS, device="cpu", seed=seed,
-                  **(spec or {}))
+                  enable_lstm=False, **(spec or {}))
 
 
 def jax_engine(cfg=JF32, seed=0, spec=None, **kw):
