@@ -193,6 +193,28 @@ Phases, each printing its results; any failure exits non-zero:
               diverging at a token of the plain run's top two at a gap <=
               0.06 (verify through K2 and decode through K1 sum in
               different orders);
+9f. migrate -- block migrations on the copy stream and fused rounds, on
+              the serve's Llama-3-8B at full width (W8A16, INT8 KV). First,
+              at full depth, the ordering rules on the card, each with the
+              stream it guards against held busy (`torch.cuda._sleep`):
+              (a) a demote behind a running round copies what the round
+              writes, (b) a demoted slot is held off the free list until
+              its copy completes, (c) a promote lands after a running
+              round that reads its slot, and a round waits for the promote
+              it reads, (d) a streamed stash lands after a demote's copy
+              into the same (reused) host slot, (e) a batch's record holds
+              its tensors while it is in flight. Then one 16-lane batch
+              each way (`hoststore.copy_batch`) against `migrate_program`
+              on copies of the same pools and pinned store, byte for byte,
+              with the copy stream's ms a direction (CUDA events) and both
+              versions' host-clock ms. Then the serve cell on the first 16
+              layers (the depth cut keeps the script in time) three ways: split
+              (the default: batches on the copy stream), fused
+              (`fused_rounds=True`: the batch rides the round) and ample:
+              split == fused == ample tokens, migrations both ways in both
+              tiered arms, launches exact; printed per arm: tok/s, TTFT /
+              TPOT p50, the copy stream's ms a batch and direction, the
+              host's blocked ms (`up_wait_ms` / `down_wait_ms`);
 10. gemma2 -- Gemma-2-9B at full width, 20 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
@@ -222,7 +244,8 @@ Phases, each printing its results; any failure exits non-zero:
               launches with sinks), no block retired; then its decode-round
               anatomy with the expert-weight copies' share.
 
-Each serve prints K1's launches by split count. Each model's weights are
+Each serve prints K1's launches by split count, and its tiered run's
+copy-stream time (CUDA events) and host-blocked ms for migrations. Each model's weights are
 freed before the next phase draws its own. Then a `[loss]` line per kernel
 (launches x (back to back - bound) summed over its served rows), one JSON
 line of per-kernel numbers (launches on the served path, error against the
@@ -367,6 +390,16 @@ PREFETCH_DEPTH = 2
 PCONT_TOL = 1e-4              # in-round continue probability vs the host
 DEFAULT_REQ, DEFAULT_GEN = 8, 32
 FIT_ROUNDS = 4
+# the migrate phase: the serve cell's split (copy stream) / fused / ample
+# arms; one 16-lane batch each way against `migrate_program` on pools of
+# 64 HBM slots and a 64-slot host tier; the ordering checks hold a stream
+# busy for MIGRATE_SLEEP cycles (`torch.cuda._sleep`, ~30 ms at 1.7 GHz).
+# The three serves run the first MIGRATE_LAYERS layers: with them at full
+# depth the script took 994.2 s on an H100 80GB HBM3 at 700 W, over its
+# ~950 s budget
+MIGRATE_SLOTS = 64
+MIGRATE_SLEEP = 50_000_000
+MIGRATE_LAYERS = 16
 
 
 def fail(msg: str) -> None:
@@ -1303,8 +1336,10 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts,
     reset_launches()
     tiered = build_engine(cfg, params, cell, cell.hbm_tiered,
                           cell.host_tiered, **kv)
+    tiered.kvc.copier.timings = []
     outs_t, dt_t = serve(tiered, prompts, cell.gen)
     launches = read_launches()
+    down_ms, up_ms = copy_stream_ms(tiered.kvc.copier.timings)
     splits = dict(sorted(kernels()["K1"].split_launches.items()))
     if not splits and min_splits > 1 or min(splits, default=1) < min_splits:
         fail(f"{label}: K1 launches by split count {splits}: every decode "
@@ -1368,6 +1403,12 @@ def tiered_vs_ample(label: str, cfg, params, cell: Cell, prompts,
               f"{s['runtime']['window_retired_blocks']} | TTFT p50 "
               f"{e['p50_ttft_ms']:.1f} ms, TPOT p50 {e['p50_tpot_ms']:.2f} ms "
               f"| phases (s) {phases}", flush=True)
+    print(f"[{label}] tiered migrations: {len(down_ms)} "
+          f"batches with demotes, {len(up_ms)} with promotes on the copy "
+          f"stream, {sum(down_ms):.1f} / {sum(up_ms):.1f} ms of copy-stream "
+          f"time (CUDA events); host blocked up_wait_ms "
+          f"{tr['up_wait_ms']:.1f}, down_wait_ms {tr['down_wait_ms']:.1f}",
+          flush=True)
     print(f"[{label}] tiered == ample tokens for all {cell.n_req} requests; "
           f"per-HBM ratio "
           f"{rate['tiered'] / rate['ample'] * demand / cell.hbm_tiered:.3f}x "
@@ -2034,9 +2075,11 @@ def session_turns(eng, prompts, news, watch=None):
 
 def settle(eng) -> None:
     """Run the writebacks still queued (blocks freed while their demote
-    waited for a full batch) and reap the frees they deferred."""
-    eng.kvc.dispatch_migrations()
+    waited for a full batch), wait for the copies in flight and reap the
+    frees they deferred."""
+    eng.kvc.drain()
     eng.kvc.maintain()
+    eng.kvc.drain()
 
 
 def session_engine(cfg, params, hbm, host, **kw):
@@ -3327,6 +3370,316 @@ def phase_prefetch(cfg, params, prompts) -> dict:
             "default": prefetch_default_arm(cfg, params, prompts)}
 
 
+# ---------------------------------------------------------------------------
+# migrations on the copy stream, and fused rounds
+# ---------------------------------------------------------------------------
+
+def card_cache(cfg, hbm: int, host: int):
+    """A tiered cache on the card at `cfg`'s KV geometry (INT8, BS)."""
+    from cxl_speckv_tpu_torch.config import CacheConfig, KVDtype
+    from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
+
+    return TieredKVCache(
+        CacheConfig(block_size=BS, num_hbm_blocks=hbm, num_host_blocks=host,
+                    kv_dtype=KVDtype.INT8), cfg, 8, 8, device=DEV)
+
+
+def random_bytes(arrays, gen) -> None:
+    """Random int8 codes and float32 scales in place, drawn on the card
+    (pools there, or the pinned store)."""
+    for a in arrays:
+        if a.dtype == torch.float32:
+            a.copy_(torch.rand(a.shape, generator=gen, device=DEV))
+        else:
+            a.copy_(torch.randint(-127, 128, a.shape, generator=gen,
+                                  device=DEV).to(a.dtype))
+
+
+def busy(stream=None) -> None:
+    """Hold `stream` (default: the current one) busy for MIGRATE_SLEEP
+    cycles, so that work queued behind it lags the host."""
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
+        torch.cuda._sleep(MIGRATE_SLEEP)
+
+
+def migrate_hazards(cfg) -> None:
+    """The ordering rules of migrations on the copy stream, on the card,
+    each with the stream it guards against held busy: (a) a demote queued
+    behind a still-running round that writes its block copies the written
+    bytes; (b) a demoted slot stays off the free list while its copy
+    waits, the next block lands elsewhere, and the copy reads the old
+    bytes; (c) a promote into a slot freed under a still-running round
+    that reads it lands after the read; a round reading a slot whose
+    promote waits sees the promoted bytes; (d) a streamed stash into a
+    host slot that a waiting demote writes lands after it; (e) the batch's
+    record holds its tensors while the copies wait."""
+    from cxl_speckv_tpu_torch.runtime.hoststore import stash_blocks
+
+    kvc = card_cache(cfg, 8, 16)
+    d = kvc.directory
+    runs = kvc.store.units(0, cfg.num_layers)
+    copy = kvc.copier.stream
+
+    def slot(bid):
+        return d.entry(bid).hbm_slot
+
+    def blk(s):
+        return [p[:, s].clone() for p in kvc.pools]
+
+    def const(v):
+        return [torch.full_like(p[:, 0], v) for p in kvc.pools]
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    def hblk(h):
+        torch.cuda.synchronize()
+        return [v[h].clone() for v in runs]
+
+    def demote(bid):
+        kvc._demote([bid])
+        h = d.entry(bid).host_slot
+        kvc.dispatch_migrations()
+        return h
+
+    seq = kvc.add_seq()
+    kvc.extend_seq(seq, 2 * BS)
+    random_bytes(kvc.pools, torch.Generator(device=DEV).manual_seed(5))
+    b0, b1 = kvc.pool.seq(seq).blocks
+    torch.cuda.synchronize()
+    # (a)
+    busy()
+    for p in kvc.pools:
+        p[:, slot(b0)].fill_(7)
+    h0 = demote(b0)
+    kvc.drain()
+    if not same(hblk(h0), const(7)):
+        fail("migrate (a): the demote did not copy the bytes the round "
+             "before it wrote")
+    # (b), (e)
+    s1, old1 = slot(b1), blk(slot(b1))
+    torch.cuda.synchronize()
+    free0 = d.hbm_free
+    busy(copy)
+    h1 = demote(b1)
+    rec = kvc.transfer.inflight[-1]
+    if (d.hbm_free != free0 or kvc.transfer.inflight_down != 1
+            or rec.done.query() or not rec.keep):
+        fail(f"migrate (b, e): demoted slot not held in flight (free "
+             f"{d.hbm_free} / {free0}, held {kvc.transfer.inflight_down}, "
+             f"done {rec.done.query()}, tensors kept {len(rec.keep)})")
+    seq2 = kvc.add_seq()
+    kvc.extend_seq(seq2, BS)
+    n1 = slot(kvc.pool.seq(seq2).blocks[0])
+    if n1 == s1:
+        fail("migrate (b): a block was allocated into a slot a demote is "
+             "still copying")
+    for p in kvc.pools:
+        p[:, n1].fill_(9)
+    kvc.drain()
+    if not same(hblk(h1), old1) or d.hbm_free != free0:
+        fail("migrate (b): the demote's bytes or its slot's release")
+    # (c): the round reading n1 runs after the promote of b0 is issued
+    torch.cuda.synchronize()
+    busy()
+    seen = blk(n1)
+    kvc.free_seq(seq2)
+    kvc.ensure_resident([seq])
+    if slot(b0) != n1:
+        fail(f"migrate (c): set-up: b0 promoted into {slot(b0)}, not {n1}")
+    kvc.drain()
+    torch.cuda.synchronize()
+    if not same(seen, const(9)) or not same(blk(n1), const(7)):
+        fail("migrate (c): the promote landed before the round that read "
+             "its slot")
+    # a round waits for the promote it reads
+    demote(b1)
+    kvc.drain()
+    torch.cuda.synchronize()
+    busy(copy)
+    kvc.ensure_resident([seq])
+    kvc.order_round([slot(b1)])
+    seen = blk(slot(b1))
+    torch.cuda.synchronize()
+    if not same(seen, old1):
+        fail("migrate: a round read a promoted slot before its copy landed")
+    # (d)
+    seq3 = kvc.add_seq()
+    kvc.extend_seq(seq3, BS)
+    for p in kvc.pools:
+        p[:, slot(kvc.pool.seq(seq3).blocks[0])].fill_(11)
+    torch.cuda.synchronize()
+    busy(copy)
+    h3 = demote(kvc.pool.seq(seq3).blocks[0])
+    kvc.free_seq(seq3)
+    if d.entry(d.allocate_host()).host_slot != h3:
+        fail("migrate (d): set-up: the freed host slot was not reused")
+    kvc.order_after_migrations()
+    slabs = [torch.full((1, *v[h3].shape), 13, dtype=v[h3].dtype, device=DEV)
+             for v in runs]
+    stash_blocks(kvc.store, slabs, [h3])
+    kvc.drain()
+    if not same(hblk(h3), [x[0] for x in slabs]):
+        fail("migrate (d): a demote's late copy overwrote a streamed stash")
+    print("[migrate] ordering on the card (streams held busy "
+          f"{MIGRATE_SLEEP} cycles): (a) demote after the round that wrote "
+          "it, (b) demoted slot held until its copy completes, (c) promote "
+          "after the round reading its slot, a round after the promote it "
+          "reads, (d) streamed stash after the migrations in flight, (e) "
+          "tensors held while in flight: all held", flush=True)
+
+
+def migrate_batch_check(cfg) -> dict:
+    """One 16-lane batch each way (four demoted slots promoted into in the
+    same batch) at `cfg`'s geometry: `copy_batch` on the copy stream
+    against `migrate_program` on copies of the same pools and store, byte
+    for byte; the copy stream's ms a direction (CUDA events) and both
+    versions' host-clock ms."""
+    from cxl_speckv_tpu_torch.runtime.hoststore import (
+        MIGRATE_BATCH,
+        DeviceHostStore,
+        copy_batch,
+        migrate_program,
+        pad_migration,
+    )
+
+    kvc = card_cache(cfg, MIGRATE_SLOTS, MIGRATE_SLOTS)
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    random_bytes(kvc.pools + kvc.store.arrays, gen)
+    st = kvc.store
+    plain_store = DeviceHostStore(st.host_slots, st.num_layers,
+                                  st.k.shape[2], st.k.shape[1],
+                                  st.k.shape[3], st.k.dtype, pin=True)
+    for a, b in zip(plain_store.arrays, st.arrays):
+        a.copy_(b)
+    plain_pools = [p.clone() for p in kvc.pools]
+    n = MIGRATE_BATCH
+    downs = [(i, i) for i in range(n)]
+    ups = [(n + 8 + i, i if i < 4 else n + i) for i in range(n)]
+    mig = pad_migration(ups, downs, kvc.guard_slot, st.guard_slot)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    migrate_program(plain_pools, plain_store, mig)
+    torch.cuda.synchronize()
+    plain_ms = (time.monotonic() - t0) * 1e3
+    cs = kvc.copier
+    cs.timings = []
+    t0 = time.monotonic()
+    cs.wait_for_compute()
+    done, keep = cs.run(lambda mark: copy_batch(kvc.pools, st, mig, mark))
+    done.synchronize()
+    card_ms = (time.monotonic() - t0) * 1e3
+    for tag, got, want in (("pools", kvc.pools, plain_pools),
+                           ("store", st.arrays, plain_store.arrays)):
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                fail(f"migrate: copy_batch {tag} differ from "
+                     f"migrate_program's")
+    down_ms, up_ms = copy_stream_ms(cs.timings)
+    gb = n * st.bytes_per_block / 1e9
+    print(f"[migrate] one {n}-lane batch each way at {cfg.num_layers} "
+          f"layers ({st.bytes_per_block / 1e6:.3f} MB a block, {gb:.4f} GB "
+          f"a direction): copy_batch == migrate_program byte for byte "
+          f"(pools and store); copy stream: down {down_ms[0]:.4f} ms "
+          f"({gb / down_ms[0] * 1e3:.1f} GB/s), up {up_ms[0]:.4f} ms "
+          f"({gb / up_ms[0] * 1e3:.1f} GB/s); host clock, issue to "
+          f"completion: copy_batch {card_ms:.3f} ms, migrate_program "
+          f"{plain_ms:.3f} ms", flush=True)
+    del keep
+    return {"down_ms": down_ms[0], "up_ms": up_ms[0], "card_ms": card_ms,
+            "plain_ms": plain_ms, "gb": gb}
+
+
+def copy_stream_ms(timings) -> tuple[list, list]:
+    """Per batch, the copy stream's ms for its demotes and for its
+    promotes (CUDA events at `copy_batch`'s marks), for the batches that
+    carried any."""
+    down, up = [], []
+    for (_, nd, e0), (_, nu, e1), (_, _, e2) in timings:
+        if nd:
+            down.append(e0.elapsed_time(e1))
+        if nu:
+            up.append(e1.elapsed_time(e2))
+    return down, up
+
+
+def migrate_arm(cfg, params, prompts, hbm, host, fused=False) -> dict:
+    """The serve cell on one engine, launches held exact; the copy
+    stream's batches timed."""
+    reset_launches()
+    eng = build_engine(cfg, params, SHORT, hbm, host,
+                       engine_kw={"fused_rounds": fused})
+    eng.kvc.copier.timings = []
+    outs, dt = serve(eng, prompts, SHORT.gen)
+    st = eng.get_statistics()
+    L = cfg.num_layers
+    want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+            "K2": st["engine"]["prefill_dispatches"] * L}
+    got = {k: total(v) for k, v in read_launches().items()}
+    tag = "fused" if fused else ("split" if host else "ample")
+    if got != want:
+        fail(f"migrate {tag}: kernel launches {got} != expected {want}")
+    if len(outs) != SHORT.n_req or any(
+            o.finish_reason not in ("length", "eos") for o in outs.values()):
+        fail(f"migrate {tag}: not every request finished")
+    if fused != eng._fused_rounds:
+        fail(f"migrate {tag}: _fused_rounds {eng._fused_rounds}")
+    down, up = copy_stream_ms(eng.kvc.copier.timings)
+    toks = sum(len(o.tokens) for o in outs.values())
+    del eng
+    return {"tokens": tokens_in_order(outs), "tok_s": toks / dt, "st": st,
+            "down_ms": down, "up_ms": up, "launches": got}
+
+
+def phase_migrate(cfg, params, prompts) -> dict:
+    """Migrations on the copy stream and fused rounds, on the serve's
+    Llama-3-8B at full width: the ordering checks and one batch against
+    `migrate_program` at full depth, then the serve cell on its first
+    MIGRATE_LAYERS layers split (the default: batches on the copy stream),
+    fused (`fused_rounds=True`: the batch rides the round on its stream)
+    and ample; tokens equal in all three, migrations both ways in both
+    tiered arms, launches exact."""
+    migrate_hazards(cfg)
+    batch = migrate_batch_check(cfg)
+    cut = first_layers(cfg, params, MIGRATE_LAYERS)
+    arms = {"split": migrate_arm(*cut, prompts, SHORT.hbm_tiered,
+                                 SHORT.host_tiered),
+            "fused": migrate_arm(*cut, prompts, SHORT.hbm_tiered,
+                                 SHORT.host_tiered, fused=True),
+            "ample": migrate_arm(*cut, prompts, SHORT.hbm_ample, 0)}
+    ref = arms["ample"]["tokens"]
+    for tag in ("split", "fused"):
+        a = arms[tag]
+        diff = [i for i, (x, y) in enumerate(zip(a["tokens"], ref)) if x != y]
+        if diff:
+            fail(f"migrate {tag}: tokens differ from ample for requests "
+                 f"{diff}")
+        tr = a["st"]["transfer"]
+        if not (tr["up_transfers"] > 0 and tr["down_transfers"] > 0):
+            fail(f"migrate {tag}: migrated nothing both ways: {tr}")
+    for tag, a in arms.items():
+        e, tr = a["st"]["engine"], a["st"]["transfer"]
+        rt = a["st"]["runtime"]
+        med = lambda xs: f"{np.median(xs):.4f}" if xs else "-"
+        print(f"[migrate] {tag}: {a['tok_s']:.1f} tok/s, TTFT p50 "
+              f"{e['p50_ttft_ms']:.1f} ms, TPOT p50 {e['p50_tpot_ms']:.2f} "
+              f"ms | up {tr['up_transfers']} down {tr['down_transfers']} in "
+              f"{tr['up_batches']} / {tr['down_batches']} batches, "
+              f"{rt['migrate_dispatches']} on the copy stream: ms a batch "
+              f"(median) down {med(a['down_ms'])} ({len(a['down_ms'])}), "
+              f"up {med(a['up_ms'])} ({len(a['up_ms'])}) | host blocked: "
+              f"up_wait_ms {tr['up_wait_ms']:.3f}, down_wait_ms "
+              f"{tr['down_wait_ms']:.3f}, polls {tr['polls']} | launches "
+              f"{a['launches']}", flush=True)
+    print(f"[migrate] split == fused == ample tokens for all {SHORT.n_req} "
+          f"requests ({MIGRATE_LAYERS} layers); tiered / ample tok/s: split "
+          f"{arms['split']['tok_s'] / arms['ample']['tok_s']:.3f}, fused "
+          f"{arms['fused']['tok_s'] / arms['ample']['tok_s']:.3f}",
+          flush=True)
+    return {"batch": batch, **{k: {"tok_s": v["tok_s"]}
+                               for k, v in arms.items()}}
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -3397,6 +3750,7 @@ def main() -> int:
                     *first_layers(cfg, params, SURFACE_LAYERS), prompts, peaks)
     stream = timed("stream", phase_stream, cfg, params, prompts, peaks)
     timed("prefetch", phase_prefetch, cfg, params, prompts)
+    timed("migrate", phase_migrate, cfg, params, prompts)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)

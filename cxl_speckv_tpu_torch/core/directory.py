@@ -33,9 +33,11 @@ backing copy can be demoted instantly by dropping the HBM copy — the analog of
 a writeback that is free because the line is in SHARED state.
 
 This module only mutates *metadata*; actual data movement is driven by
-`cxl_speckv_tpu_torch.runtime.transfer.TransferEngine` and
-`cxl_speckv_tpu_torch.runtime.kv_cache.TieredKVCache`, which call back into
-`complete_promote` / `complete_demote` when copies land.
+`cxl_speckv_tpu_torch.runtime.kv_cache.TieredKVCache` and its
+`runtime.transfer.MigrationPlanner`, which call back into
+`complete_promote` / `complete_demote` when a batch is issued. On the card
+a demoted block's HBM slot stays held until the batch's copies complete
+(`release_hbm_slot`).
 
 The statistics surface mirrors the reference coherence + memory-manager
 counters (`coherence_manager.h:72-85`, `cxl_memory_manager.h:73-83`) and the
@@ -396,11 +398,17 @@ class ResidencyDirectory:
             self._host.put(e.host_slot)
             e.host_slot = -1
 
-    def complete_demote(self, bid: int) -> None:
+    def complete_demote(self, bid: int, *, hold_slot: bool = False) -> int:
+        """IN_FLIGHT_DOWN -> HOST. Returns the block's former HBM slot,
+        which returns to the free list now, or with `hold_slot` stays out
+        of it until `release_hbm_slot` (a copy on the card may still be
+        reading it)."""
         e = self.entry(bid)
         if e.state != BlockState.IN_FLIGHT_DOWN:
             raise DirectoryError(f"complete_demote of block {bid} in state {e.state.name}")
-        self._hbm.put(e.hbm_slot)
+        slot = e.hbm_slot
+        if not hold_slot:
+            self._hbm.put(slot)
         e.hbm_slot = -1
         e.dirty = False
         e.state = BlockState.HOST
@@ -408,6 +416,11 @@ class ResidencyDirectory:
         if e.prefetched:
             e.prefetched = False
             self.stats.prefetch_wasted += 1
+        return slot
+
+    def release_hbm_slot(self, slot: int) -> None:
+        """Return an HBM slot held by `complete_demote(hold_slot=True)`."""
+        self._hbm.put(slot)
 
     # -- eviction policy ----------------------------------------------------
 

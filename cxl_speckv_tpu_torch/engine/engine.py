@@ -59,10 +59,19 @@ copy. With `seed_ngram` the LSTM also seeds the n-gram proposer's misses.
 dispatch cost and the weights' bytes (`utils/dispatch.py`) and writes it
 back into the config.
 
+Block migrations run on the card's copy stream (`runtime/kv_cache.py`):
+a round waits on the device for the promotes it reads, demotes overlap
+it, and the host blocks only when it needs an HBM slot that a demote is
+still reading. With `EngineConfig.fused_rounds` (the JAX engine's rule:
+no speculative decoding, a host tier) the queued batch instead rides the
+next prefill or multi-step decode round on the round's own stream
+(`models.llama.prefill_round_fused` / `decode_round_fused`), and a round
+without one runs the plain path.
+
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Fused rounds, mesh serving and `score_prompts` are not ported yet:
-asking for one raises.
+the CPU. Mesh serving and `score_prompts` are not ported yet: asking for
+one raises.
 """
 
 from __future__ import annotations
@@ -85,9 +94,11 @@ from cxl_speckv_tpu_torch.models.configs import LlamaConfig
 from cxl_speckv_tpu_torch.models.llama import (
     check_supported,
     decode_multi_packed,
+    decode_round_fused,
     init_params,
     init_params_quantized,
     prefill_batch_packed,
+    prefill_round_fused,
     seeded_generator,
     stream_decode_multi_batched,
     stream_decode_nblk,
@@ -248,7 +259,6 @@ class Engine:
         cc = system_config.cache
         unported = {
             "mesh serving (parallel)": system_config.parallel.num_devices > 1,
-            "fused_rounds": ec.fused_rounds,
             "weight_dtype int4": ec.weight_dtype == "int4",
         }
         bad = [k for k, v in unported.items() if v]
@@ -336,6 +346,13 @@ class Engine:
                                     draft_kv_dtype=KVDtype(spec_draft_kv))
         if self.spec is not None:
             self.scheduler.free_seq_hook = self.spec.on_free_seq
+        # fused rounds (EngineConfig.fused_rounds): the queued migration
+        # batch rides the next prefill / multi-step decode round; the spec
+        # path and single-step decode keep standalone batches, and an
+        # HBM-only engine has nothing to migrate (the JAX engine's rule)
+        self._fused_rounds = (ec.fused_rounds and self.spec is None
+                              and cc.num_host_blocks > 0)
+        self.kvc.defer_migrations = self._fused_rounds
         self.stats = EngineStatistics()
         self.timers = PhaseTimer()
         self._next_req_id = 0
@@ -971,7 +988,10 @@ class Engine:
             ready.append((req, n, start))
         if not ready:
             return
-        self.kvc.ensure_resident([r.seq_slot for r, _, _ in ready])
+        if self._fused_rounds:
+            self.kvc.prepare_resident([r.seq_slot for r, _, _ in ready])
+        else:
+            self.kvc.ensure_resident([r.seq_slot for r, _, _ in ready])
         if self.spec is not None:
             # mirror the wave into the draft cache in one pass
             self.spec.prefill_batch(
@@ -1010,11 +1030,22 @@ class Engine:
         lk = self._group_logprobs_k(r for r, _, _ in ready)
         scored = np.zeros(B, bool)
         scored[:len(ready)] = [r.prompt_logprobs for r, _, _ in ready]
-        out = prefill_batch_packed(
-            self.params, self.model_config, scheme, packed, self.kvc.pools,
-            **self._pen_dispatch(ready, B, prefill=True), max_blocks=mb,
-            rng_seed=self._rng_seed, logprobs_k=lk,
-            prompt_scores=scored if scored.any() else None)
+        kw = dict(**self._pen_dispatch(ready, B, prefill=True), max_blocks=mb,
+                  rng_seed=self._rng_seed, logprobs_k=lk,
+                  prompt_scores=scored if scored.any() else None)
+        mig, up_bids, down_bids = (self.kvc.take_migration_plan()
+                                   if self._fused_rounds else (None, [], []))
+        if up_bids or down_bids:
+            self.kvc.order_after_migrations()
+            out = prefill_round_fused(
+                self.params, self.model_config, scheme, packed, mig,
+                self.kvc.pools, self.kvc.store, **kw)
+            self.kvc.commit_migration(up_bids, down_bids)
+        else:
+            self.kvc.order_round(packed[:, 4:4 + mb])
+            out = prefill_batch_packed(
+                self.params, self.model_config, scheme, packed,
+                self.kvc.pools, **kw)
         toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
         lp = rest[:3] if lk else None
         scores = rest[-1] if scored.any() else None
@@ -1070,6 +1101,9 @@ class Engine:
         B = self.config.engine.max_batch_size
         bs = self.config.cache.block_size
         max_tokens = self.kvc.pool.table.max_blocks_per_seq * bs
+        # the JAX engine fuses multi-step rounds only (its single-step path
+        # keeps standalone migrate programs)
+        fused = self._fused_rounds and h > 1
         # decode.host = residency / extend / pack / bookkeeping on the host;
         # decode.program = the model pass through the token fetch
         t_host0 = time.monotonic()
@@ -1078,7 +1112,10 @@ class Engine:
             self.kvc.pin_seq(s, True)
         for s in slots:
             self.kvc.touch_seq(s)
-        self.kvc.ensure_resident(slots)
+        if fused:
+            self.kvc.prepare_resident(slots)
+        else:
+            self.kvc.ensure_resident(slots)
         for r in batch:
             want = min(r.num_tokens + h - 1, max_tokens)
             while r.seq_slot >= 0 and not self.kvc.extend_seq(r.seq_slot, want):
@@ -1102,7 +1139,10 @@ class Engine:
             groups.setdefault(self._req_scheme(r), []).append(r)
         for scheme, group in groups.items():
             t0 = time.monotonic()
-            lstm_kw, lstm_hist = self._lstm_dispatch(group, B)
+            # the in-round leg rides the plain rounds only (the JAX fused
+            # program leaves pcont to the controller's host refresh)
+            lstm_kw, lstm_hist = (self._lstm_dispatch(group, B)
+                                  if not self._fused_rounds else ({}, None))
             hcols = lstm_hist.shape[1] if lstm_hist is not None else 0
             packed = np.full((B, mb + 4 + hcols), guard, np.int32)
             packed[:, :4] = 0
@@ -1116,13 +1156,24 @@ class Engine:
                 packed[i, 4:4 + mb] = np.where(row >= 0, row, guard)
             if hcols:
                 packed[:, 4 + mb:] = lstm_hist
+            mig, up_bids, down_bids = (self.kvc.take_migration_plan()
+                                       if fused else (None, [], []))
             t_host += time.monotonic() - t0
             t0 = time.monotonic()
             lk = self._group_logprobs_k(group)
-            out = decode_multi_packed(
-                self.params, self.model_config, scheme, packed,
-                self.kvc.pools, **self._pen_dispatch(group, B), horizon=h,
-                rng_seed=self._rng_seed, logprobs_k=lk, **lstm_kw)
+            kw = dict(**self._pen_dispatch(group, B), horizon=h,
+                      rng_seed=self._rng_seed, logprobs_k=lk)
+            if up_bids or down_bids:
+                self.kvc.order_after_migrations()
+                out = decode_round_fused(
+                    self.params, self.model_config, scheme, packed, mig,
+                    self.kvc.pools, self.kvc.store, **kw)
+                self.kvc.commit_migration(up_bids, down_bids)
+            else:
+                self.kvc.order_round(packed[:, 4:4 + mb])
+                out = decode_multi_packed(
+                    self.params, self.model_config, scheme, packed,
+                    self.kvc.pools, **kw, **lstm_kw)
             # the round's tokens, logprob tables and continue probabilities
             # in one host copy
             toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
@@ -1290,6 +1341,7 @@ class Engine:
                                 self._rng_counter)
                if (temps > 0).any() else None)
         t0 = time.monotonic()
+        self.kvc.order_round(ttab)
         emitted, n_acc, lp = self.spec.verify_accept(
             self.params, self.model_config, self._req_scheme(batch[0]),
             np.concatenate([last[:, None], drafts], axis=1), positions,
@@ -1355,6 +1407,11 @@ class Engine:
                               for b in bids], np.int32)
             req.state = RequestState.PREFILLING
             self._streams[req.req_id] = StreamState(req, bids, slots)
+        if self._streams:
+            # the streamed copies run on this stream, migrations on the
+            # copy stream: a host slot may be reused while a demote's copy
+            # into it is in flight
+            self.kvc.order_after_migrations()
         groups: dict = {}
         for rid, st in self._streams.items():
             # streamed KV never shares pool blocks with layered KV: a

@@ -635,6 +635,25 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
                         logprobs_k=logprobs_k, lstm_eos=lstm_eos)
 
 
+def decode_round_fused(params: Params, config: LlamaConfig, kv_dtype,
+                       packed: np.ndarray, mig: np.ndarray, pools: Pools,
+                       store, pen_info: np.ndarray | None = None,
+                       pen_counts: torch.Tensor | None = None, *,
+                       horizon: int, rng_seed: int = 0, logprobs_k: int = 0):
+    """One engine decode round with its migration batch (`mig`, [4, M]
+    int32, `runtime.hoststore.pad_migration`): the batch's copies on the
+    round's own stream, then `decode_multi_packed` over the updated pools,
+    as the JAX `decode_round_fused` runs `migrate_in_graph` and the decode
+    in one program. Pools and the host store update in place; returns what
+    `decode_multi_packed` returns."""
+    from cxl_speckv_tpu_torch.runtime.hoststore import apply_batch
+
+    apply_batch(pools, store, mig)
+    return decode_multi_packed(params, config, kv_dtype, packed, pools,
+                               pen_info, pen_counts, horizon=horizon,
+                               rng_seed=rng_seed, logprobs_k=logprobs_k)
+
+
 # ---------------------------------------------------------------------------
 # chunks of fresh tokens: batched prefill, single-sequence prefill, verify
 # ---------------------------------------------------------------------------
@@ -779,6 +798,26 @@ def prefill_batch_packed(params: Params, config: LlamaConfig,
         lanes = [b for b in range(B) if prompt_scores[b] and packed[b, 1] > 1]
         extra.append(_prompt_scores(x, token_ids, valid, lanes, params, c))
     return (toks, *extra) if extra else toks
+
+
+def prefill_round_fused(params: Params, config: LlamaConfig, kv_dtype,
+                        packed: np.ndarray, mig: np.ndarray, pools: Pools,
+                        store, pen_info: np.ndarray | None = None,
+                        pen_counts: torch.Tensor | None = None, *,
+                        max_blocks: int, rng_seed: int = 0,
+                        logprobs_k: int = 0,
+                        prompt_scores: np.ndarray | None = None):
+    """Batched chunked prefill with the round's migration batch applied
+    first on the same stream (session restores and evictions ride the
+    round), as the JAX `prefill_round_fused`. Returns what
+    `prefill_batch_packed` returns."""
+    from cxl_speckv_tpu_torch.runtime.hoststore import apply_batch
+
+    apply_batch(pools, store, mig)
+    return prefill_batch_packed(params, config, kv_dtype, packed, pools,
+                                pen_info, pen_counts, max_blocks=max_blocks,
+                                rng_seed=rng_seed, logprobs_k=logprobs_k,
+                                prompt_scores=prompt_scores)
 
 
 def prefill_chunk(params: Params, config: LlamaConfig, kv_dtype,

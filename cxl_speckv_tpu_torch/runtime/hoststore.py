@@ -9,33 +9,59 @@ ROW layout over (slot, layer):
 
 One extra guard slot (its L rows) absorbs padded lanes. The port's device
 pools [L, S + 1, Hkv, bs, D/pack] hold K token-major like V, so a block
-moves between the tiers as a plain row copy: `migrate_program` gathers the
-demoted blocks' rows from the pools and scatters them into the store, then
-gathers the promoted blocks' rows from the store and scatters them into
-the pools, in place. Copies between the card and the host are synchronous
-with the host here (the JAX program chained them by dataflow); overlapping
-them with compute is later work.
+moves between the tiers as a plain row copy, and a block's L rows are one
+contiguous run of the store (`DeviceHostStore.units(0, L)`).
+
+A migration batch (`pad_migration`'s [4, M] array) moves in two ways:
+
+- `migrate_program`, the plain synchronous version (the CPU path and the
+  tests): gathers the demoted blocks' rows from the pools and scatters
+  them into the store, then gathers the promoted blocks' rows from the
+  store and scatters them into the pools, in place.
+- `copy_batch`, the card's: demotes gather the pool rows into a device slab
+  and copy each slot's L-row run straight into the pinned store, promotes
+  copy each slot's run into a device slab and scatter it into the pools;
+  every copy `non_blocking=True` on the caller's current stream. Nothing
+  indexes the store with a row list and nothing passes through pageable
+  memory. The served path issues it on the cache's copy stream
+  (`CopyStream`), so migrations overlap the rounds; a fused round issues
+  it on the round's own stream (`models.llama.decode_round_fused`).
+
+Both read the pools for the demotes before the promotes write them (a
+demoted slot may be a promote target of the same batch; the JAX
+`migrate_in_graph` rule), and give the same bytes.
 
 The host-streamed path reads and writes the store in place of the pools
 (the JAX `StoreOps` reads and writes): `fetch_layer` stages one layer's rows
 of a wave of blocks, `stage_layers` a group of layers, `fetch_blocks` whole
-blocks (all L rows), and `stash_blocks` writes device slabs back. Row =
-slot * L + layer, so a block's rows of consecutive layers are one
-contiguous run of pinned memory: each slot's run is ONE `copy_` between
-the pinned store and the device slab, `non_blocking=True`, all of a call's
-runs issued by one `torch._foreach_copy_`, through views of every slot's
-run that the store builds once per (first layer, layer count)
-(`DeviceHostStore.units`), so a call costs a list lookup a slot on the
-host. Nothing indexes the store with a row list (`store[rows]` on a pinned
-tensor returns PAGEABLE memory, whose upload is synchronous through a
-bounce buffer) and no CPU thread gathers rows first.
+blocks (all L rows), and `stash_blocks` writes device slabs back. Each
+slot's run is ONE `copy_` between the pinned store and the device slab,
+`non_blocking=True`, all of a call's runs issued by one
+`torch._foreach_copy_`, through views of every slot's run that the store
+builds once per (first layer, layer count) (`DeviceHostStore.units`), so a
+call costs a list lookup a slot on the host. Nothing indexes the store with
+a row list (`store[rows]` on a pinned tensor returns PAGEABLE memory, whose
+upload is synchronous through a bounce buffer) and no CPU thread gathers
+rows first.
 
-Ordering: every copy runs on the caller's current CUDA stream, so a stash
-(device -> host) lands before any later read of those rows (host -> device)
-by stream order, and the engine copies each streamed dispatch's tokens to
-the host after its stash, which waits for the stream, so the host never
-touches store rows (`migrate_program`'s host-side indexing) with a stash
-still in flight.
+Ordering crosses two streams on the card. The streamed path copies on the
+caller's current stream, migrations on the copy stream:
+- a batch's copy stream first waits for everything queued on the current
+  stream (`CopyStream.wait_for_compute`), so a demote reads a block after
+  the last round that wrote it, a promote writes a slot after every round
+  already dispatched that may read its old contents, and a migration
+  touches store rows after every streamed stash or read queued before it;
+- a round waits (on the device) for the batches that promote into a slot
+  it reads (`TieredKVCache.order_round`), and the streamed path for every
+  batch in flight (`TieredKVCache.order_after_migrations`), so a streamed
+  stash never races a demote's copy into a reused host slot;
+- a demoted HBM slot is held out of the free list until its batch's event
+  completes (`runtime/transfer.py`), and the batch's tensors live as long.
+The host never reads or writes store rows while a copy of them is in
+flight: on the card every access to the store is a device copy, and
+`migrate_program`'s host-side indexing runs only on the CPU path, where
+nothing is in flight; the engine copies each streamed dispatch's tokens to
+the host after its stash, which waits for the stream.
 """
 
 from __future__ import annotations
@@ -159,7 +185,8 @@ def stage_layers(store: DeviceHostStore, slots, l0: int, g: int, device):
 
 
 def migrate_program(pools, store: DeviceHostStore, mig: np.ndarray) -> None:
-    """Apply one migration batch in place, both directions.
+    """Apply one migration batch in place, both directions, synchronously
+    (the plain version of `copy_batch`; the CPU path).
 
     pools: (k, v, k_scale, v_scale) [L, S + 1, ...]; mig: [4, M] int32 rows
     (up_host, up_hbm, down_hbm, down_host) in SLOT units, pad lanes at the
@@ -187,6 +214,101 @@ def migrate_program(pools, store: DeviceHostStore, mig: np.ndarray) -> None:
         for pool, st in zip(pools, store.arrays):
             slab = st[rows].reshape(m, L, *pool.shape[2:]).transpose(0, 1)
             pool[:, dst] = slab.to(dev)
+
+
+def copy_batch(pools, store: DeviceHostStore, mig: np.ndarray,
+               mark=None) -> tuple:
+    """Issue one migration batch on the current stream (see the module
+    docstring): `migrate_program`'s result, copied straight between the
+    pools and the store's per-slot runs. Returns the tensors the copies
+    use, which must live until they complete. `mark(name, n)`, when given,
+    is called before the demotes ("down", their count), before the promotes
+    ("up") and after them ("end", 0): the copy stream's timing points."""
+    L = pools[0].shape[0]
+    dev = pools[0].device
+    pool_guard = pools[0].shape[1] - 1
+    up_host, up_hbm, down_hbm, down_host = (np.asarray(m) for m in mig)
+    runs = store.units(0, L)
+    down = down_hbm != pool_guard
+    up = up_hbm != pool_guard
+    keep = []
+    if mark is not None:
+        mark("down", int(down.sum()))
+    if down.any():
+        # slot by slot: no index tensor to upload, so nothing here
+        # allocates pinned memory (which can synchronize the device)
+        src = down_hbm[down].tolist()
+        hs = down_host[down].tolist()
+        for pool, views in zip(pools, runs):
+            slab = torch.stack([pool[:, s] for s in src])
+            torch._foreach_copy_([views[h] for h in hs], list(slab.unbind(0)),
+                                 non_blocking=True)
+            keep.append(slab)
+    if mark is not None:
+        mark("up", int(up.sum()))
+    if up.any():
+        dst = up_hbm[up].tolist()
+        hs = up_host[up].tolist()
+        for pool, views in zip(pools, runs):
+            slab = torch.empty((len(hs), *views[0].shape), dtype=pool.dtype,
+                               device=dev)
+            torch._foreach_copy_(list(slab.unbind(0)), [views[h] for h in hs],
+                                 non_blocking=True)
+            torch._foreach_copy_([pool[:, s] for s in dst],
+                                 list(slab.unbind(0)))
+            keep.append(slab)
+    if mark is not None:
+        mark("end", 0)
+    return tuple(keep)
+
+
+def apply_batch(pools, store: DeviceHostStore, mig: np.ndarray) -> None:
+    """One batch on the current stream, as a fused round applies it:
+    `copy_batch` for pools on the card, `migrate_program` on the CPU."""
+    if pools[0].is_cuda:
+        copy_batch(pools, store, mig)
+    else:
+        migrate_program(pools, store, mig)
+
+
+class CopyStream:
+    """The cache's migration stream on the card: one `torch.cuda.Stream`
+    and a CUDA event a batch (the completion `runtime/transfer.py` polls).
+    With `timings` a list, each batch appends [(name, n, event), ...] at
+    `copy_batch`'s marks, for the copy stream's own time a direction."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.timings: list | None = None
+
+    def wait_for_compute(self) -> None:
+        """The copy stream waits for everything queued on the current
+        stream so far (a device-side wait; the host goes on)."""
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def run(self, fn):
+        """`fn(mark)` on the copy stream; returns (the event recorded after
+        it, what fn returned)."""
+        marks = mark = None
+        if self.timings is not None:
+            marks = []
+
+            def mark(name, n):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(self.stream)
+                marks.append((name, n, ev))
+        with torch.cuda.stream(self.stream):
+            out = fn(mark)
+        done = torch.cuda.Event()
+        done.record(self.stream)
+        if marks is not None:
+            self.timings.append(marks)
+        return done, out
+
+    def compute_waits(self, done) -> None:
+        """The current stream waits (on the device) for `done`."""
+        torch.cuda.current_stream(self.device).wait_event(done)
 
 
 def pad_migration(ups, downs, pool_guard: int, store_guard: int,

@@ -9,7 +9,10 @@ the engine
 - `ensure_resident`: demand fetch for scheduled sequences;
 - `prefetch_blocks`: asynchronous promote (the prefetch path);
 - `maintain`: eviction to keep the prefetch landing zone free, plus
-  migration of what is queued;
+  migration of what is queued (left for the next fused round under
+  `defer_migrations`: `take_migration_plan` / `commit_migration`);
+- `order_round` / `order_after_migrations`: the device-side waits that
+  order a round, or the streamed path, after the migrations it depends on;
 - `retire_out_of_window`: the sliding-window rolling buffer (Mistral);
 - the prefix cache (`match_prefix` / `claim_prefix` / `register_prefix`);
 - `rebuild_storage`: new pools in another storage width, when idle.
@@ -23,6 +26,14 @@ matrix unit), which is the host store's row layout: migration is a row
 copy. INT8 and FP8 share the int8 bytes, so blocks of both schemes (and of
 a per-layer MIXED8 table) live in one pool. The numpy host-store backend
 and the native C++ directory wait for a later slice.
+
+On the card every migration batch runs on the cache's copy stream
+(`hoststore.CopyStream`, `hoststore.copy_batch`) and nothing here blocks
+the host on it, except where an HBM slot is needed now and the only one
+to be had is still being read by a demote (`_make_room`, `extend_seq`:
+`MigrationPlanner.settle`). On the CPU (`copier` None) a batch is
+`migrate_program`, complete when issued, so the CPU engine keeps the JAX
+engine's transfer counts and slot choices.
 """
 
 from __future__ import annotations
@@ -49,7 +60,9 @@ from cxl_speckv_tpu_torch.ops.quant import (
 )
 from cxl_speckv_tpu_torch.runtime.hoststore import (
     MIGRATE_BATCH,
+    CopyStream,
     DeviceHostStore,
+    copy_batch,
     migrate_program,
     pad_migration,
 )
@@ -70,7 +83,10 @@ class CacheRuntimeStatistics(Statistics):
 class TieredKVCache:
     def __init__(self, cache_config: CacheConfig, model_config: LlamaConfig,
                  max_seqs: int, max_blocks_per_seq: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cpu", copier=None):
+        """`copier`: what issues the migration batches (`hoststore.
+        CopyStream`'s interface); None means a `CopyStream` on the card and
+        the synchronous `migrate_program` on the CPU."""
         cache_config.validate()
         if cache_config.host_store_backend != "device":
             raise NotImplementedError(
@@ -78,6 +94,9 @@ class TieredKVCache:
         self.config = cache_config
         self.model_config = model_config
         self.device = torch.device(device)
+        if copier is None and self.device.type == "cuda":
+            copier = CopyStream(self.device)
+        self.copier = copier
         self.directory = ResidencyDirectory(cache_config)
         self.pool = BlockPool(cache_config, self.directory, max_seqs,
                               max_blocks_per_seq)
@@ -94,6 +113,9 @@ class TieredKVCache:
         # demote): the engine frees an idle session's KV and returns True,
         # or returns False when it has none
         self.reclaim_hook = None
+        # set by engines with fused rounds: maintain() leaves queued
+        # migrations for the next round's batch (`take_migration_plan`)
+        self.defer_migrations = False
         self.stats = CacheRuntimeStatistics()
 
     def _alloc_storage(self, kv_dtype: KVDtype) -> None:
@@ -126,6 +148,7 @@ class TieredKVCache:
         directory stays; the prefix map clears (its blocks died with the
         last live sequence)."""
         d = self.directory
+        self.transfer.poll(d, wait=True)
         if (d.hbm_free != self.config.num_hbm_blocks
                 or d.host_free != self.config.num_host_blocks):
             raise ValueError(
@@ -147,7 +170,7 @@ class TieredKVCache:
     # -- migration ------------------------------------------------------------
 
     def dispatch_migrations(self, limit_batches: int | None = None) -> int:
-        """Apply queued migrations, one batch per direction at a time.
+        """Issue queued migrations, one batch per direction at a time.
         Returns blocks moved."""
         moved = 0
         batches = 0
@@ -156,14 +179,90 @@ class TieredKVCache:
                 break
             ups, downs, up_bids, down_bids = self.transfer.take_plan(
                 MIGRATE_BATCH)
-            mig = pad_migration(ups, downs, self.guard_slot,
-                                self.store.guard_slot)
-            migrate_program(self.pools, self.store, mig)
-            self.transfer.commit(up_bids, down_bids, self.directory)
+            self._issue(ups, downs, up_bids, down_bids)
             moved += len(up_bids) + len(down_bids)
             batches += 1
             self.stats.migrate_dispatches += 1
         return moved
+
+    def _issue(self, ups, downs, up_bids, down_bids) -> None:
+        """One batch: `migrate_program` on the CPU; on the card
+        `copy_batch` on the copy stream, in flight until its event."""
+        mig = pad_migration(ups, downs, self.guard_slot,
+                            self.store.guard_slot)
+        if self.copier is None:
+            migrate_program(self.pools, self.store, mig)
+            self.transfer.commit(up_bids, down_bids, self.directory)
+            return
+        # a demote reads its block after the last round that wrote it, and
+        # a promote writes its slot after every round already dispatched
+        # that may read the slot's old contents
+        self.copier.wait_for_compute()
+        pools, store = self.pools, self.store
+        done, keep = self.copier.run(
+            lambda mark: copy_batch(pools, store, mig, mark))
+        self.transfer.commit(up_bids, down_bids, self.directory, done=done,
+                             up_slots=[d for _, d in ups], keep=keep)
+
+    def _free_soon(self) -> int:
+        """Free HBM slots, counting those held by demotes in flight."""
+        return self.directory.hbm_free + self.transfer.inflight_down
+
+    def _got_slot(self, before: int) -> bool:
+        """True once hbm_free exceeds `before`; waits for a held slot when
+        none came free otherwise."""
+        if self.directory.hbm_free <= before:
+            self.transfer.settle(self.directory, 1)
+        return self.directory.hbm_free > before
+
+    def order_round(self, slots) -> None:
+        """Make the current stream wait (on the device) for the batches in
+        flight that promote into any of `slots`, the HBM slots a round
+        reads or writes. Other batches go on overlapping it."""
+        if self.copier is None or not self.transfer.inflight:
+            return
+        self.transfer.poll(self.directory)
+        for done in self.transfer.waits_for(
+                np.unique(np.asarray(slots)).tolist()):
+            self.copier.compute_waits(done)
+
+    def order_after_migrations(self) -> None:
+        """Make the current stream wait (on the device) for every batch in
+        flight: the host-streamed path and fused rounds touch store rows
+        and pool slots that a migration on the copy stream may still be
+        copying (a reused host slot)."""
+        if self.copier is None or not self.transfer.inflight:
+            return
+        self.transfer.poll(self.directory)
+        if self.transfer.inflight:
+            # the copy stream completes in order: its last event is enough
+            self.copier.compute_waits(self.transfer.inflight[-1].done)
+
+    def drain(self) -> None:
+        """Issue every queued migration and wait until all have landed."""
+        self.dispatch_migrations()
+        self.transfer.poll(self.directory, wait=True)
+
+    def take_migration_plan(self):
+        """Pop one migration batch for a fused round. Excess beyond one
+        batch a direction is issued on its own first (rare). Returns
+        (mig [4, M] int32, up_bids, down_bids); pass the ids to
+        `commit_migration` right after dispatching the round."""
+        while (self.transfer.pending_up > MIGRATE_BATCH
+               or self.transfer.pending_down > MIGRATE_BATCH):
+            self.dispatch_migrations(1)
+        ups, downs, up_bids, down_bids = self.transfer.take_plan(
+            MIGRATE_BATCH)
+        mig = pad_migration(ups, downs, self.guard_slot,
+                            self.store.guard_slot)
+        return mig, up_bids, down_bids
+
+    def commit_migration(self, up_bids: list[int],
+                         down_bids: list[int]) -> None:
+        """Finalize a fused round's batch: it ran on the round's stream, so
+        it is complete for everything queued after the round."""
+        self.transfer.commit(up_bids, down_bids, self.directory)
+        self.pool.sync_moved()
 
     # -- sequence capacity ----------------------------------------------------
 
@@ -174,9 +273,16 @@ class TieredKVCache:
         """Grow; on HBM pressure, evict cold blocks first. False = true OOM."""
         need = self.pool.blocks_needed(seq_slot, new_total_tokens)
         if need > self.directory.hbm_free:
-            self._evict(need - self.directory.hbm_free)
-            # demotes complete when migrated: slots free immediately
-            self.dispatch_migrations()
+            self.transfer.poll(self.directory)
+            free = self._free_soon()
+            if need > free:
+                self._evict(need - free)
+                # a demote's slot frees when its batch is issued, on the
+                # card when its copies have completed
+                self.dispatch_migrations()
+            if need > self.directory.hbm_free:
+                self.transfer.settle(self.directory,
+                                     need - self.directory.hbm_free)
         return self.pool.extend(seq_slot, new_total_tokens)
 
     def free_seq(self, seq_slot: int) -> None:
@@ -307,19 +413,20 @@ class TieredKVCache:
         return fetched
 
     def _make_room(self) -> bool:
-        """Synchronously free at least one HBM slot. False if nothing can be
+        """Free at least one HBM slot now, waiting only when the one to be
+        had is held by a demote in flight. False if nothing can be
         reclaimed (everything pinned)."""
         before = self.directory.hbm_free
         if self.transfer.queued:
             self.dispatch_migrations()
-            if self.directory.hbm_free > before:
-                return True
+        if self._got_slot(before):
+            return True
         cands = self._evict_candidates(max(1, self.directory.hbm_pressure()))
         if not cands:
             return False
         self._demote(cands)
         self.dispatch_migrations()
-        return self.directory.hbm_free > before
+        return self._got_slot(before)
 
     def prefetch_blocks(self, bids: list[int]) -> int:
         """Asynchronous promote of specific blocks (prefetcher path). Stops
@@ -327,6 +434,7 @@ class TieredKVCache:
         the same blocks."""
         started = 0
         floor = self.directory.config.num_reserved_blocks
+        self.transfer.poll(self.directory)
         for bid in bids:
             e = self.directory.entry(bid)
             if e.state != BlockState.HOST:
@@ -345,20 +453,24 @@ class TieredKVCache:
     # -- background maintenance -----------------------------------------------
 
     def maintain(self) -> None:
-        """One tick: demote under pressure, migrate what is queued, re-sync
+        """One tick: demote under pressure, migrate what is queued (unless
+        `defer_migrations` leaves it to the next fused round), re-sync
         block-table rows."""
-        # queued demotes free their slots when migrated: count them as
-        # already reclaiming so deferred flushing doesn't over-demote
-        pressure = self.directory.hbm_pressure() - self.transfer.pending_down
+        self.transfer.poll(self.directory)
+        # queued and in-flight demotes free their slots when their copies
+        # land: count them as already reclaiming so deferred flushing
+        # doesn't over-demote
+        pressure = (self.directory.hbm_pressure() - self.transfer.pending_down
+                    - self.transfer.inflight_down)
         if pressure > 0:
             self._evict(pressure)
         self.pool.reap_deferred()
-        if self.transfer.queued:
+        if not self.defer_migrations and self.transfer.queued:
             # promotes migrate now and queued writebacks ride along; lone
             # writebacks wait for a full batch unless the reserve runs low
             if (self.transfer.pending_up
                     or self.transfer.pending_down >= MIGRATE_BATCH
-                    or self.directory.hbm_free
+                    or self._free_soon()
                     < self.directory.config.num_reserved_blocks // 2):
                 self.dispatch_migrations()
         self.pool.sync_moved()

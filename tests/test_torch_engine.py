@@ -10,9 +10,9 @@
   Pallas kernels in interpret mode, as the port runs bfloat16 attention
   compute;
 - the automatic decode horizon is derived as the JAX engine derives it,
-  `enable_lstm=True` builds the prefetch predictor, fused rounds still
-  raise, and a host-streamed request and a session turn that only the
-  host-streamed path can serve are served.
+  `enable_lstm=True` builds the prefetch predictor, an engine with fused
+  rounds builds, and a host-streamed request and a session turn that only
+  the host-streamed path can serve are served.
 """
 
 import jax
@@ -188,10 +188,12 @@ def test_unported_paths_raise():
     eng = Engine(CFG, system(32, 32, 2, 1), params=PARAMS, device="cpu",
                  enable_lstm=True)
     assert eng.prefetcher.predictor is not None
+    # fused rounds are ported: the engine builds and folds migrations
+    # into its rounds (tests/test_torch_migrate.py serves them)
     sc = system(32, 32, 2, 1)
     sc.engine.fused_rounds = True
-    with pytest.raises(NotImplementedError, match="fused_rounds"):
-        Engine(CFG, sc, params=PARAMS, device="cpu")
+    eng = Engine(CFG, sc, params=PARAMS, device="cpu")
+    assert eng._fused_rounds and eng.kvc.defer_migrations
     eng = engine(hbm=6, host=64)
     # past the 4-block pooled capacity: served host-streamed
     rid = eng.add_request(list(range(1, 60)), max_new_tokens=4)

@@ -14,8 +14,10 @@ tensor-core kernel, at float32 compute the float32 FMA kernel. Tolerances:
 2e-4 at float32 compute (the kernel sums in another order) and rtol = atol
 = 2e-2 at bfloat16 compute with bf16 q (q and p * v_scale round to
 bfloat16, and so does the output; a different float32 sum can round to the
-neighbouring value); float32 q at bf16 compute: `TOL_F32_Q`. This file
-imports no JAX.
+neighbouring value); float32 q at bf16 compute: `TOL_F32_Q`. Then the
+card's migration batch against `migrate_program` byte for byte, the copy
+stream's ordering with a stream held busy (`torch.cuda._sleep`), and
+fused rounds on the card. This file imports no JAX.
 """
 
 import numpy as np
@@ -912,3 +914,159 @@ def test_streamed_engine_on_card_matches_ample(dev):
     assert st["engine"]["stream_tokens"] > 0
     assert launched(paged_attention) == k1
     assert launched(paged_chunk_attention_cuda) == k2
+
+
+# -- migrations on the copy stream, fused rounds --------------------------------
+
+def card_cache(hbm=8, host=16):
+    from cxl_speckv_tpu_torch.config import CacheConfig
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+    from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
+
+    return TieredKVCache(
+        CacheConfig(block_size=8, num_hbm_blocks=hbm, num_host_blocks=host,
+                    kv_dtype=KVDtype.INT8), tiny_test_config(), 8, 8,
+        device="cuda")
+
+
+def card_demote(kvc, bid) -> int:
+    kvc._demote([bid])
+    host = kvc.directory.entry(bid).host_slot
+    kvc.dispatch_migrations()
+    return host
+
+
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.INT4])
+def test_copy_batch_on_card_matches_migrate_program(dev, kv):
+    """The card's batch (`copy_batch`, on the cache's copy stream) against
+    the plain `migrate_program` on copies of the same pools and pinned
+    store: byte for byte, a demoted slot promoted into in the same batch."""
+    from cxl_speckv_tpu_torch.runtime import hoststore as hs
+
+    st, ref_st = stream_store(kv, pin=True), stream_store(kv, pin=True)
+    L, S = st.num_layers, 30
+    gen = torch.Generator(device=dev).manual_seed(1)
+    pools = tuple(torch.randint(-127, 128, (L, S + 1, *a.shape[1:]),
+                                generator=gen, device=dev).to(a.dtype)
+                  for a in st.arrays[:2]) + tuple(
+        torch.rand((L, S + 1, *a.shape[1:]), generator=gen, device=dev)
+        for a in st.arrays[2:])
+    ref = tuple(p.clone() for p in pools)
+    mig = hs.pad_migration([(10 + i, i if i < 2 else 12 + i) for i in range(8)],
+                           [(i, i) for i in range(6)], S, st.guard_slot)
+    hs.migrate_program(ref, ref_st, mig)
+    copier = hs.CopyStream(dev)
+    copier.wait_for_compute()
+    done, keep = copier.run(lambda mark: hs.copy_batch(pools, st, mig, mark))
+    done.synchronize()
+    for a, b in zip(pools + st.arrays, ref + ref_st.arrays):
+        assert torch.equal(a, b)
+
+
+def test_copy_stream_demote_after_round(dev):
+    """(a) A demote issued behind a round still running on the compute
+    stream copies the bytes that round writes."""
+    kvc = card_cache()
+    s = kvc.add_seq()
+    kvc.extend_seq(s, 8)
+    bid = kvc.pool.seq(s).blocks[0]
+    slot = kvc.directory.entry(bid).hbm_slot
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    for p in kvc.pools:
+        p[:, slot].fill_(7)
+    host = card_demote(kvc, bid)
+    kvc.drain()
+    for v in kvc.store.units(0, kvc.store.num_layers):
+        assert bool((v[host] == 7).all())
+
+
+def test_copy_stream_holds_demoted_slot(dev):
+    """(b) While a demote's copy waits on a busy copy stream, its HBM slot
+    is off the free list, the next block lands elsewhere, and the copy
+    reads the old bytes; the slot returns when the copy has completed."""
+    kvc = card_cache()
+    s = kvc.add_seq()
+    kvc.extend_seq(s, 8)
+    for p in kvc.pools:
+        p.fill_(3)
+    bid = kvc.pool.seq(s).blocks[0]
+    slot = kvc.directory.entry(bid).hbm_slot
+    free0 = kvc.directory.hbm_free
+    torch.cuda.synchronize()
+    with torch.cuda.stream(kvc.copier.stream):
+        torch.cuda._sleep(50_000_000)
+    host = card_demote(kvc, bid)
+    assert kvc.transfer.inflight_down == 1
+    assert not kvc.transfer.inflight[0].done.query()
+    assert kvc.directory.hbm_free == free0
+    s2 = kvc.add_seq()
+    kvc.extend_seq(s2, 8)
+    slot2 = kvc.directory.entry(kvc.pool.seq(s2).blocks[0]).hbm_slot
+    assert slot2 != slot
+    for p in kvc.pools:
+        p[:, slot2].fill_(9)
+    kvc.drain()
+    assert kvc.directory.hbm_free == free0
+    for v in kvc.store.units(0, kvc.store.num_layers):
+        assert bool((v[host] == 3).all())
+
+
+def test_round_waits_for_its_promote(dev):
+    """A round reading a slot whose promote waits on a busy copy stream
+    sees the promoted bytes (`order_round`)."""
+    kvc = card_cache()
+    s = kvc.add_seq()
+    kvc.extend_seq(s, 8)
+    bid = kvc.pool.seq(s).blocks[0]
+    for p in kvc.pools:
+        p[:, kvc.directory.entry(bid).hbm_slot].fill_(5)
+    card_demote(kvc, bid)
+    kvc.drain()
+    for p in kvc.pools:
+        p.fill_(0)
+    torch.cuda.synchronize()
+    with torch.cuda.stream(kvc.copier.stream):
+        torch.cuda._sleep(50_000_000)
+    kvc.ensure_resident([s])
+    slot = kvc.directory.entry(bid).hbm_slot
+    kvc.order_round([slot])
+    seen = [p[:, slot].clone() for p in kvc.pools]
+    torch.cuda.synchronize()
+    assert all(bool((x == 5).all()) for x in seen)
+
+
+def test_fused_rounds_engine_on_card(dev):
+    """The tiny model on the card, oversubscribed: fused rounds, the split
+    pipeline (migrations on the copy stream) and an ample pool give the
+    same tokens, both tiered runs migrating both ways."""
+    from cxl_speckv_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        PrefetchConfig,
+        SystemConfig,
+    )
+    from cxl_speckv_tpu_torch.engine import Engine
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+
+    def run(hbm, fused=False):
+        sc = SystemConfig(
+            cache=CacheConfig(block_size=8, num_hbm_blocks=hbm,
+                              num_host_blocks=256, kv_dtype=KVDtype.INT8),
+            prefetch=PrefetchConfig(enabled=True, depth=2),
+            engine=EngineConfig(max_batch_size=2, max_seq_len=128,
+                                prefill_chunk=32, decode_horizon=4,
+                                fused_rounds=fused))
+        eng = Engine(tiny_test_config(), sc, device=None, seed=3)
+        assert eng._fused_rounds == fused
+        rng = np.random.RandomState(5)
+        ps = [rng.randint(1, 256, rng.randint(6, 24)).tolist()
+              for _ in range(8)]
+        return eng.generate(ps, max_new_tokens=12), eng.get_statistics()
+
+    ample, _ = run(256)
+    for fused in (False, True):
+        got, st = run(14, fused)
+        assert got == ample
+        assert st["transfer"]["up_transfers"] > 0
+        assert st["transfer"]["down_transfers"] > 0
