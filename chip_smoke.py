@@ -41,6 +41,13 @@ Phases, each printing its results; any failure exits non-zero:
               0 and at start 128); the plain result without sinks must fail
               the comparison the kernel passes; then the served shapes timed
               with and without sinks in turns;
+5d. family kernels -- K1 and K2 at the served shapes of the families below
+              (bf16 compute, INT8, each serve's pool and table geometry),
+              timed: Qwen3-8B (G 4), Qwen3-30B-A3B (G 8), Phi-3-mini (G 1,
+              D 96) at a decode step of 8 lanes and the first 64-token
+              chunk; Gemma-3-12B (G 2, D 256) at a decode step of 4 lanes
+              at 1281-1344 tokens and the 256-token chunk from 1024,
+              window 1024 and global in turns;
 5c. anatomy probes -- the decode-anatomy probes P1-P3
               (`ops/decode_anatomy.py`: K1's walk with parts stripped, K1's
               math on the TPU's kT pool, a cp.async ring) against their
@@ -62,7 +69,7 @@ Phases, each printing its results; any failure exits non-zero:
 7. anatomy -- device time of one served Llama decode round by kernel
               (torch.profiler) and the W8A16 matmuls of one layer (again
               for Gemma-2 after its short serve);
-8. serve-int4, serve-mixed -- the same Llama serve, cut to its first 16
+8. serve-int4, serve-mixed -- the same Llama serve, cut to its first 8
               layers (the depth cut keeps the script in time), with INT4 KV,
               and with a per-layer table of INT8 (even layers) and FP8 (odd
               layers): same checks, launch counts exact per (scheme,
@@ -73,7 +80,7 @@ Phases, each printing its results; any failure exits non-zero:
               rebuilt when idle (pool rows halve), equal to a fresh INT4
               engine;
 9b. spec   -- speculative decoding on the serve's Llama-3-8B cut to its
-              first 16 layers (the depth cut keeps the script in time), gamma 4, the
+              first 8 layers (the depth cut keeps the script in time), gamma 4, the
               first 16 of its prompts, tiered (52 HBM blocks) and ample, in
               three arms: n-gram lookup (verify through K2, no K1 at all),
               a Llama-3.2-1B draft at full width (W8A16, INT8 draft KV; K1
@@ -82,9 +89,9 @@ Phases, each printing its results; any failure exits non-zero:
               verify's (T = 5 at unaligned starts) timed against their plain
               versions. Every request must finish, tiered tokens equal ample
               tokens in every arm, the tiered run migrate both ways, the
-              launches be exactly K2 = target prefill dispatches x 16 +
-              draft prefill dispatches x L_draft + rounds x 16 and K1 =
-              rounds x 5 x L_draft (L_draft 16, 16, 0 for ngram); then the
+              launches be exactly K2 = target prefill dispatches x 8 +
+              draft prefill dispatches x L_draft + rounds x 8 and K1 =
+              rounds x 5 x L_draft (L_draft 16, 8, 0 for ngram); then the
               self-draft again at float32 activations (the served bf16
               K1 / K2 variants), whose acceptance -- the cascade-free
               agreement of decode through K1 and verify through K2 -- must
@@ -96,7 +103,7 @@ Phases, each printing its results; any failure exits non-zero:
               prompts (the top-2 gap of the dense logits at each first
               divergence);
 9c. surface -- the serving surface on the serve's Llama-3-8B cut to its
-              first 16 layers (the depth cut keeps the script in time): first K2 at
+              first 8 layers (the depth cut keeps the script in time): first K2 at
               a session turn's shape (T = 33 at unaligned starts 96-191)
               and K1 at session contexts (up to 224 tokens) timed against
               their plain versions. Sessions: 16 x 3 turns (64 + 32, then
@@ -207,7 +214,7 @@ Phases, each printing its results; any failure exits non-zero:
               each way (`hoststore.copy_batch`) against `migrate_program`
               on copies of the same pools and pinned store, byte for byte,
               with the copy stream's ms a direction (CUDA events) and both
-              versions' host-clock ms. Then the serve cell on the first 16
+              versions' host-clock ms. Then the serve cell on the first 8
               layers (the depth cut keeps the script in time) three ways: split
               (the default: batches on the copy stream), fused
               (`fused_rounds=True`: the batch rides the round) and ample:
@@ -215,7 +222,7 @@ Phases, each printing its results; any failure exits non-zero:
               tiered arms, launches exact; printed per arm: tok/s, TTFT /
               TPOT p50, the copy stream's ms a batch and direction, the
               host's blocked ms (`up_wait_ms` / `down_wait_ms`);
-10. gemma2 -- Gemma-2-9B at full width, 20 of its 42 layers (the depth
+10. gemma2 -- Gemma-2-9B at full width, 12 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
@@ -232,7 +239,7 @@ Phases, each printing its results; any failure exits non-zero:
               blocks must retire (`window_retired_blocks` > 0), tokens must
               be identical, every launch must carry window 4096, every K1
               launch S > 1; the ample serve again at S = 1, as for Gemma-2;
-12. gpt-oss -- GPT-OSS-20B at full width, 12 of its 24 layers (the depth
+12. gpt-oss -- GPT-OSS-20B at full width, 8 of its 24 layers (the depth
               cut keeps the script inside its time limit; alternating
               window 128 and global attention, 32 experts top-4 in the dense
               MoE mode, q/k/v/o biases, sinks, YaRN rope, vocabulary 201088),
@@ -242,7 +249,31 @@ Phases, each printing its results; any failure exits non-zero:
               of the launches with window 128, every launch of this serve
               with sinks (`sink_launches` == `launches`; no other serve
               launches with sinks), no block retired; then its decode-round
-              anatomy with the expert-weight copies' share.
+              anatomy with the expert-weight copies' share;
+13. qwen3  -- Qwen3-8B at full width and depth (per-head q/k RMSNorm):
+              16 requests x (64 + 64), batch 8, on 40 tiered HBM blocks
+              against a demand of 80, and ample; the serve's checks, every
+              launch global;
+14. gemma3 -- Gemma-3-12B at full width, 12 of its 48 layers (two whole
+              5:1 periods; the q/k norm in the 1 + w form, the sliding
+              layers' local RoPE base unscaled, the global layers' linear
+              scaling by 8, tied 262208 vocabulary): 4 x (1280 + 64), batch
+              4, chunk 256, on a tiered pool of two sequences' blocks + 4
+              (90 against a demand of 172) and ample; the serve's checks,
+              5/6 of the launches with window 1024 and 1/6 global, no
+              block retired;
+15. qwen3-moe -- Qwen3-30B-A3B at full width (128 experts top-8,
+              renormalised, dense MoE mode), 12 of its 48 layers: the
+              qwen3 cell's serve and checks; then its decode-round anatomy
+              with the expert stacks' copy share;
+16. phi3-hf -- Phi-3-mini through the HF converter: `config_from_hf` of its
+              HF fields in a plain namespace equals `phi3_mini()` but for
+              the depth (8 of 32 layers); a random bf16 state dict with
+              HF's names (fused qkv_proj / gate_up_proj) converts on the
+              card with weight_dtype "int8", the peak device memory above
+              the state dict printed and held to the int8 tree plus four of
+              its largest float32 matrix; then the qwen3 cell's serve and
+              checks on the converted weights (MHA: G 1, D 96).
 
 Each serve prints K1's launches by split count, and its tiered run's
 copy-stream time (CUDA events) and host-blocked ms for migrations. Each model's weights are
@@ -350,10 +381,34 @@ GPT_OSS = Cell(64, 192, 64, BATCH, 128, hbm_tiered=BATCH * 9 + 16)
 GPT_OSS_HEADS = (64, 8, 64)              # Hq, Hkv, D of GPT-OSS-20B
 GPT_OSS_WINDOW = 128
 # depth cuts of earlier paths that keep the script inside its time limit
-# since the stream phase came (their layers, of 24, 42 and 32), and the
-# INT4 / per-layer serves and anatomies since the prefetch phase came
-GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 12, 20, 16, 16
-SCHEME_LAYERS = 16
+# (their layers, of 24, 42 and 32): since the family serves came, the whole
+# script took 1139.5 s on a slow host (an H100 80GB HBM3 at 700 W) with
+# GPT-OSS on 12, Gemma-2 on 20 and the spec, surface, INT4 / per-layer and
+# migrate serves on 16 layers
+GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 8, 12, 8, 8
+SCHEME_LAYERS = 8
+# the model families served from their configs (and Phi-3 from an HF state
+# dict): their heads (Hq, Hkv, D), cells and depth cuts. Qwen3-8B at all 36
+# layers, Qwen3-30B-A3B (128 experts top-8, G 8 = K1's MAX_G) on 12 of its
+# 48 layers and Phi-3-mini (MHA, G 1, D 96) on 8 of its 32 serve 16 requests
+# of the serve cell's shape, a demand of 80 blocks, on 40 tiered HBM blocks
+# (at 44 or more a group's growth fits beside the next one's prefill and
+# fewer blocks migrate; at 48, none). Gemma-3-12B on 12 of its 48 layers (two whole
+# 5:1 periods): 4 x (1280 + 64), batch 4, chunk 256, so the window of 1024
+# binds in the last prefill chunk and in every decode step; 43 blocks a
+# sequence, a demand of 172 on a tiered pool of two sequences' blocks + 4
+# (about half, as GEMMA_LONG's).
+QWEN3_HEADS, QWEN3_MOE_HEADS = (32, 8, 128), (32, 4, 128)
+GEMMA3_HEADS, PHI3_HEADS = (16, 8, 256), (32, 32, 96)
+GEMMA3_WINDOW = 1024
+QWEN3_CELL = Cell(16, 64, 64, BATCH, 64, hbm_tiered=40)
+GEMMA3_CELL = Cell(4, 1280, 64, 4, 256, hbm_tiered=2 * 43 + 4)
+GEMMA3_LAYERS, QWEN3_MOE_LAYERS, PHI3_LAYERS = 12, 12, 8
+# the converted Phi-3's device memory across its conversion, above the
+# state dict: at most its int8 tree plus this many of its largest float32
+# matrix (the transients of one matrix's quantization; a full-precision
+# tree of 8 layers would need ~3.6 GB more)
+PHI3_PEAK_MATRICES = 4
 # the surface phase. Sessions: 16 x 3 turns, 64 + 32 tokens, then 32 new +
 # 32 generated twice: 224 tokens (7 blocks) a session, 112 blocks in all,
 # on 52 tiered HBM blocks with a host tier of 16 x 8 + 8 = 136 that holds
@@ -394,12 +449,11 @@ FIT_ROUNDS = 4
 # arms; one 16-lane batch each way against `migrate_program` on pools of
 # 64 HBM slots and a 64-slot host tier; the ordering checks hold a stream
 # busy for MIGRATE_SLEEP cycles (`torch.cuda._sleep`, ~30 ms at 1.7 GHz).
-# The three serves run the first MIGRATE_LAYERS layers: with them at full
-# depth the script took 994.2 s on an H100 80GB HBM3 at 700 W, over its
-# ~950 s budget
+# The three serves run the first MIGRATE_LAYERS layers (a depth cut, as
+# above)
 MIGRATE_SLOTS = 64
 MIGRATE_SLEEP = 50_000_000
-MIGRATE_LAYERS = 16
+MIGRATE_LAYERS = 8
 
 
 def fail(msg: str) -> None:
@@ -818,12 +872,12 @@ def merge_turns(a: dict, b: dict) -> dict:
     return out
 
 
-def timed_in_turns(case, *args, **kw) -> tuple[dict, dict]:
-    """Time one shape's sliding (window 4096) and global variants in turns
-    -- sliding, global, global, sliding, each on fresh inputs of that shape
-    -- so that clock drift falls on both alike."""
+def timed_in_turns(case, *args, sliding=WINDOW, **kw) -> tuple[dict, dict]:
+    """Time one shape's sliding (window `sliding`) and global variants in
+    turns -- sliding, global, global, sliding, each on fresh inputs of that
+    shape -- so that clock drift falls on both alike."""
     runs = [case(*args, window=w, timed=True, **kw)
-            for w in (WINDOW, None, None, WINDOW)]
+            for w in (sliding, None, None, sliding)]
     return merge_turns(runs[0], runs[3]), merge_turns(runs[1], runs[2])
 
 
@@ -1070,6 +1124,42 @@ def phase_kernels_gpt_oss(peaks) -> dict:
               f"ms without ({a['ms'] / b['ms'] - 1:+.1%}); back to back "
               f"{a['b2b_ms']:.4f} / {b['b2b_ms']:.4f} ms "
               f"({a['b2b_ms'] / b['b2b_ms'] - 1:+.1%})", flush=True)
+    return rows
+
+
+def phase_kernels_families(peaks) -> dict:
+    """Both kernels at the served shapes of the families served from their
+    configs (bf16 compute, INT8 KV, each serve's pool and table geometry),
+    timed, against their plain versions: a decode step of the batch and the
+    first prefill chunk for Qwen3-8B (G 4), Qwen3-30B-A3B (G 8) and
+    Phi-3-mini (G 1, D 96); for Gemma-3-12B (G 2, D 256) a decode step at
+    1281-1344 tokens and the last 256-token prompt chunk (start 1024),
+    sliding (window 1024) and global in turns. Returns the rows."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(3131)
+    kv, cd = KVDtype.INT8, torch.bfloat16
+    rows = {}
+    for key, heads, seed in (("qwen3", QWEN3_HEADS, 12),
+                             ("qwen3-moe", QWEN3_MOE_HEADS, 13),
+                             ("phi3", PHI3_HEADS, 14)):
+        v = dict(heads=heads, timed=True,
+                 geometry=served_geometry(QWEN3_CELL))
+        rows[f"K1 {key}"] = k1_case(gen, kv, cd, served_lens(QWEN3_CELL, seed),
+                                    peaks, **v)
+        rows[f"K2 {key}"] = k2_case(gen, kv, cd, QWEN3_CELL.chunk,
+                                    [0] * BATCH, peaks, **v)
+    c = GEMMA3_CELL
+    v = dict(heads=GEMMA3_HEADS, geometry=served_geometry(c),
+             sliding=GEMMA3_WINDOW)
+    for key, case, args in (
+            ("K1", k1_case, (served_lens(c, 15),)),
+            ("K2", k2_case, (c.chunk, [c.prompt - c.chunk] * c.batch))):
+        rows[f"{key} gemma3 win"], rows[f"{key} gemma3 glob"] = (
+            timed_in_turns(case, gen, kv, cd, *args, peaks, **v))
+    for row in rows.values():
+        report(row)
     return rows
 
 
@@ -1927,6 +2017,184 @@ def phase_gpt_oss(peaks) -> dict:
     print(f"[gpt-oss] every launch of the tiered run carried sinks; half "
           f"with window {GPT_OSS_WINDOW}; no block retired", flush=True)
     phase_anatomy("GPT-OSS-20B", cfg, params, prompts, peaks, matmuls=False)
+    del params
+    return launches
+
+
+def phase_qwen3() -> dict:
+    """Qwen3-8B at full width and depth (per-head q/k RMSNorm): the serve
+    cell's shape on QWEN3_CELL."""
+    from cxl_speckv_tpu_torch.models.configs import qwen3_8b
+
+    cfg = qwen3_8b()
+    params = init_model(cfg, "qwen3", 5)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(1, cfg.vocab_size, QWEN3_CELL.prompt).tolist()
+               for _ in range(QWEN3_CELL.n_req)]
+    serve(build_engine(cfg, params, QWEN3_CELL, QWEN3_CELL.hbm_ample, 0),
+          prompts[:2], HORIZON)
+    launches, _ = tiered_vs_ample("qwen3", cfg, params, QWEN3_CELL, prompts)
+    check_windows("qwen3", launches, lambda n: {("int8", 0): n})
+    del params
+    return launches
+
+
+def phase_gemma3() -> dict:
+    """Gemma-3-12B at full width and GEMMA3_LAYERS of its layers: the q/k
+    norm in the 1 + w form, five sliding layers (window 1024, the local
+    RoPE base unscaled) to one global (linear RoPE scaling 8) on
+    GEMMA3_CELL, where the window binds; nothing may retire."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.models.configs import gemma3_12b
+
+    cfg = dataclasses.replace(gemma3_12b(), num_layers=GEMMA3_LAYERS)
+    if cfg.retirement_window is not None:     # global layers keep full KV
+        fail("gemma3: a model with global layers must not retire KV")
+    params = init_model(cfg, "gemma3", 6)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, cfg.vocab_size, GEMMA3_CELL.prompt).tolist()
+               for _ in range(GEMMA3_CELL.n_req)]
+    launches, st = tiered_vs_ample("gemma3", cfg, params, GEMMA3_CELL,
+                                   prompts)
+    # five sliding layers to one global: 5/6 and 1/6 of every count
+    check_windows("gemma3", launches,
+                  lambda n: {("int8", GEMMA3_WINDOW): n * 5 // 6,
+                             ("int8", 0): n // 6})
+    retired = st["runtime"]["window_retired_blocks"]
+    if retired:
+        fail(f"gemma3: {retired} blocks retired in a model with global "
+             f"layers")
+    print(f"[gemma3] 5/6 of the launches with window {GEMMA3_WINDOW}, 1/6 "
+          f"global; no block retired", flush=True)
+    del params
+    return launches
+
+
+def phase_qwen3_moe(peaks) -> dict:
+    """Qwen3-30B-A3B at full width (128 experts top-8, renormalised, the
+    dense MoE mode, q/k norm) and QWEN3_MOE_LAYERS of its layers, W8A16
+    expert stacks drawn expert by expert, on QWEN3_CELL; then its
+    decode-round anatomy with the expert stacks' int8 -> bf16 copy share."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.models.configs import qwen3_moe_30b
+
+    cfg = dataclasses.replace(qwen3_moe_30b(), num_layers=QWEN3_MOE_LAYERS)
+    params = init_model(cfg, "qwen3-moe", 7)
+    rng = np.random.RandomState(7)
+    prompts = [rng.randint(1, cfg.vocab_size, QWEN3_CELL.prompt).tolist()
+               for _ in range(QWEN3_CELL.n_req)]
+    serve(build_engine(cfg, params, QWEN3_CELL, QWEN3_CELL.hbm_ample, 0),
+          prompts[:2], HORIZON)
+    launches, _ = tiered_vs_ample("qwen3-moe", cfg, params, QWEN3_CELL,
+                                  prompts)
+    check_windows("qwen3-moe", launches, lambda n: {("int8", 0): n})
+    phase_anatomy(f"Qwen3-30B-A3B ({QWEN3_MOE_LAYERS} layers)", cfg, params,
+                  prompts, peaks, matmuls=False)
+    del params
+    return launches
+
+
+def phi3_hf_config(num_layers: int):
+    """Phi-3-mini-4k's HF config fields (`microsoft/Phi-3-mini-4k-instruct`,
+    its window off as `phi3_mini()` has it) in a plain namespace, as a
+    machine without `transformers` would pass them."""
+    import types
+
+    return types.SimpleNamespace(
+        model_type="phi3", vocab_size=32064, hidden_size=3072,
+        intermediate_size=8192, num_hidden_layers=num_layers,
+        num_attention_heads=32, num_key_value_heads=32, rope_theta=10000.0,
+        rope_scaling=None, rms_norm_eps=1e-5, tie_word_embeddings=False,
+        max_position_embeddings=4096, eos_token_id=32000,
+        sliding_window=None, attention_bias=False)
+
+
+def phi3_state_dict(cfg, gen) -> dict:
+    """A random bf16 state dict on the card with HF's Phi-3 names: fused
+    qkv_proj [3 x 3072, 3072] and gate_up_proj [2 x 8192, 3072] (weights
+    N(0, 1 / fan_in)), unit norms."""
+    H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+
+    def w(out, fan_in):
+        return (torch.randn((out, fan_in), generator=gen, device=DEV)
+                * fan_in ** -0.5).to(torch.bfloat16)
+
+    ones = lambda: torch.ones(H, dtype=torch.bfloat16, device=DEV)
+    sd = {"model.embed_tokens.weight": w(V, H), "model.norm.weight": ones(),
+          "lm_head.weight": w(V, H)}
+    for i in range(cfg.num_layers):
+        lay = f"model.layers.{i}."
+        sd.update({lay + "input_layernorm.weight": ones(),
+                   lay + "post_attention_layernorm.weight": ones(),
+                   lay + "self_attn.qkv_proj.weight": w(qkv, H),
+                   lay + "self_attn.o_proj.weight": w(H, H),
+                   lay + "mlp.gate_up_proj.weight": w(2 * I, H),
+                   lay + "mlp.down_proj.weight": w(H, I)})
+    return sd
+
+
+def phase_phi3_hf() -> dict:
+    """Phi-3-mini through the HF converter on the card: `config_from_hf` of
+    its HF fields equals `phi3_mini()` but for the depth cut; a random bf16
+    state dict with HF's names (fused projections) converts with
+    weight_dtype "int8" on the card, its peak device memory printed and
+    held; then the converted model serves QWEN3_CELL tiered and ample --
+    the first served MHA (G 1), D 96 shape."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.models.configs import phi3_mini
+    from cxl_speckv_tpu_torch.models.hf_convert import (
+        config_from_hf,
+        params_from_hf_state_dict,
+    )
+    from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
+
+    cfg = config_from_hf(phi3_hf_config(PHI3_LAYERS))
+    want = dataclasses.replace(phi3_mini(), num_layers=PHI3_LAYERS)
+    diff = [f.name for f in dataclasses.fields(want)
+            if getattr(cfg, f.name) != getattr(want, f.name)]
+    if diff:
+        fail(f"phi3-hf: config_from_hf differs from phi3_mini() in {diff}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8)
+    sd = phi3_state_dict(cfg, gen)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = params_from_hf_state_dict(sd, cfg, weight_dtype="int8",
+                                       device=DEV)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = [params["embed"], params["lm_head"], params["final_norm"],
+              *params["layers"].values()]
+    tree = sum(nbytes(x.q, x.s) if isinstance(x, QuantizedTensor)
+               else nbytes(x) for x in leaves)
+    biggest = max(t.numel() for t in sd.values()) * 4
+    src = nbytes(*sd.values())
+    print(f"[phi3-hf] config_from_hf == phi3_mini() but for the depth "
+          f"({PHI3_LAYERS} of 32 layers); converted a {src / 2**30:.2f} GiB "
+          f"bf16 state dict to W8A16 on the card in {dt * 1e3:.1f} ms: "
+          f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB above "
+          f"the state dict, int8 tree {tree / 2**30:.3f} GiB, largest "
+          f"float32 matrix {biggest / 2**30:.3f} GiB", flush=True)
+    if peak > tree + PHI3_PEAK_MATRICES * biggest:
+        fail(f"phi3-hf: conversion peaked {peak} bytes above the state "
+             f"dict, over the int8 tree {tree} + {PHI3_PEAK_MATRICES} x "
+             f"{biggest}")
+    del sd
+    rng = np.random.RandomState(8)
+    prompts = [rng.randint(1, cfg.vocab_size, QWEN3_CELL.prompt).tolist()
+               for _ in range(QWEN3_CELL.n_req)]
+    launches, _ = tiered_vs_ample("phi3-hf", cfg, params, QWEN3_CELL,
+                                  prompts)
+    check_windows("phi3-hf", launches, lambda n: {("int8", 0): n})
     del params
     return launches
 
@@ -3731,17 +3999,20 @@ def main() -> int:
     mistral_rows = timed("kernels mistral", phase_kernels_mistral, peaks)
     scheme_rows = timed("kernels schemes", phase_kernels_schemes, peaks)
     gpt_rows = timed("kernels gpt-oss", phase_kernels_gpt_oss, peaks)
+    fam_rows = timed("kernels families", phase_kernels_families, peaks)
     probe_entries = timed("anatomy probes", phase_probe, peaks)
     launches, cfg, params, prompts = timed("serve", phase_serve)
     timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
     cut = first_layers(cfg, params, SCHEME_LAYERS)
     int4_launches, mixed_launches = timed(
         "serve-int4, serve-mixed", phase_serve_schemes, *cut, prompts)
-    timed("anatomy int4", phase_anatomy, "Llama-3-8B INT4 (16 layers)", *cut,
+    timed("anatomy int4", phase_anatomy,
+          f"Llama-3-8B INT4 ({SCHEME_LAYERS} layers)", *cut,
           prompts, peaks, matmuls=False, kv="int4")
     timed("anatomy mixed", phase_anatomy,
-          "Llama-3-8B INT8/FP8 layers (16 layers)", *cut, prompts, peaks,
-          matmuls=False, layer_kv=MIXED_LAYERS * (SCHEME_LAYERS // 2))
+          f"Llama-3-8B INT8/FP8 layers ({SCHEME_LAYERS} layers)", *cut,
+          prompts, peaks, matmuls=False,
+          layer_kv=MIXED_LAYERS * (SCHEME_LAYERS // 2))
     del cut
     timed("switch", phase_switch, cfg, params, prompts)
     spec = timed("spec", phase_spec, *first_layers(cfg, params, SPEC_LAYERS),
@@ -3755,6 +4026,10 @@ def main() -> int:
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
     gpt_launches = timed("gpt-oss", phase_gpt_oss, peaks)
+    fam_launches = {"qwen3": timed("qwen3", phase_qwen3),
+                    "gemma3": timed("gemma3", phase_gemma3),
+                    "qwen3-moe": timed("qwen3-moe", phase_qwen3_moe, peaks),
+                    "phi3": timed("phi3-hf", phase_phi3_hf)}
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
@@ -3807,6 +4082,22 @@ def main() -> int:
         entries.append(kernel_entry(f"{kname} llama-3-8b stream-mixed", key,
                                     stream["rows"][key],
                                     total(stream["launches"][key])))
+    # the families served from their configs, launches from each tiered
+    # serve
+    for key, kname in (("K1", "paged_attention"),
+                       ("K2", "paged_chunk_attention")):
+        for fam, label in (("qwen3", "qwen3-8b"),
+                           ("qwen3-moe", "qwen3-30b-a3b"),
+                           ("phi3", "phi3-mini hf")):
+            entries.append(kernel_entry(f"{kname} {label}", key,
+                                        fam_rows[f"{key} {fam}"],
+                                        total(fam_launches[fam][key])))
+        for tag, window, label in (("win", GEMMA3_WINDOW, "sliding"),
+                                   ("glob", 0, "global")):
+            entries.append(kernel_entry(
+                f"{kname} gemma3-12b {label}", key,
+                fam_rows[f"{key} gemma3 {tag}"],
+                fam_launches["gemma3"][key].get(("int8", window), 0)))
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         # time lost over the serves against the bound, back to back

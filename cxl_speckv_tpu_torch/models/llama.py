@@ -14,10 +14,15 @@ host tier through `ops/stream_attention.py`, no kernel), and
 `forward_dense`. Families: Llama,
 Mistral (uniform sliding window), Gemma-2 (alternating sliding / global
 layers, tanh softcaps, GeGLU, sandwich norms, 1 + w RMSNorm, scaled
-embeddings, tied head) and GPT-OSS (learned attention sinks, q/k/v and o
+embeddings, tied head), GPT-OSS (learned attention sinks, q/k/v and o
 biases, YaRN rope, the clamped-activation MoE MLP of `models/moe.py`, on
-alternating sliding / global layers); the MoE MLP and the q/k/v bias also
-serve Mixtral / Qwen-MoE and Qwen2 trees.
+alternating sliding / global layers), Qwen3 and Qwen3-MoE (per-head
+q/k RMSNorm before RoPE) and Gemma-3 (Gemma-2's conventions without the
+softcaps, the 1 + w q/k norm, a 5:1 sliding / global pattern whose
+sliding layers rotate with their own unscaled RoPE base while the global
+ones take linear position-interpolation scaling); the MoE MLP and the
+q/k/v bias also serve Mixtral / Qwen-MoE and Qwen2 trees. Phi-3 trees
+come split from `models/hf_convert.py` and run as Llama.
 
 Parameters are a plain dict with the JAX package's tree layout (layer
 weights stacked on a leading [L] axis). PyTorch runs eagerly, so the layer
@@ -25,8 +30,9 @@ scan and the horizon loop are Python loops, and the pools are updated IN
 PLACE (the JAX functions return new pools). Numerics follow the HF
 conventions as the JAX package does: rotate-half RoPE, Llama-3 banded or
 YaRN rope scaling, RMSNorm in float32. Each layer passes its own window
-(`config.layer_windows()[li]`) and the attention softcap to the kernels:
-the layer loop is Python, so the JAX package's period-grouped scan has no
+(`config.layer_windows()[li]`) and the attention softcap to the kernels,
+and rotates with its own inverse frequencies (`layer_ropes`): the layer
+loop is Python, so the JAX package's period-grouped scan has no
 counterpart here.
 
 Attention goes through the kernel wrappers `ops.paged_attention.
@@ -39,8 +45,7 @@ tensors on the card, their plain versions for tensors on the CPU.
 its own scheme and attends as MIXED8 with its scheme id
 (`layer_kv_schemes`).
 
-Model features outside this slice (qk-norm, linear / per-layer rope,
-activations other than SiLU and tanh-GELU) raise NotImplementedError.
+Activations other than SiLU and tanh-GELU raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -95,18 +100,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(config: LlamaConfig) -> None:
-    """Raise NotImplementedError for a config feature outside this slice."""
-    c = config
-    unported = {
-        "qk_norm": c.qk_norm,
-        "act_fn": c.act_fn not in ("silu", "gelu_tanh"),
-        "rope_linear_factor": c.rope_linear_factor is not None,
-        "rope_local_theta": c.rope_local_theta is not None,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    """Raise NotImplementedError for an activation other than SiLU and
+    tanh-GELU (the JAX package raises there too)."""
+    if config.act_fn not in ("silu", "gelu_tanh"):
         raise NotImplementedError(
-            f"model features not ported to PyTorch yet: {', '.join(bad)}")
+            f"model features not ported to PyTorch yet: act_fn "
+            f"{config.act_fn!r}")
 
 
 def layer_kv_schemes(kv_dtype, num_layers: int) -> list[tuple]:
@@ -197,7 +196,8 @@ def _extra_leaves(config: LlamaConfig, generator, device, dtype) -> dict:
     """The layer leaves beyond the Llama set, [L, ...] in the activation
     dtype, drawn with the JAX init's scales so every path is exercised:
     GPT-OSS router / expert biases N(0, 0.05^2); q/k/v biases and o_bias
-    N(0, 0.02^2); sinks N(0, 0.5^2); Gemma-2 sandwich norms N(0, 0.05^2)."""
+    N(0, 0.02^2); sinks N(0, 0.5^2); Gemma-2 sandwich norms N(0, 0.05^2);
+    Qwen3 / Gemma-3 per-head q/k norms [L, head_dim] 1 + N(0, 0.1^2)."""
     c = config
     L, H, I, E = c.num_layers, c.hidden_size, c.intermediate_size, c.num_experts
     qd, kvd = c.num_q_heads * c.head_dim, c.num_kv_heads * c.head_dim
@@ -215,9 +215,14 @@ def _extra_leaves(config: LlamaConfig, generator, device, dtype) -> dict:
     if c.post_norms:
         spec.update({"post_attn_norm": ((H,), 0.05),
                      "post_mlp_norm": ((H,), 0.05)})
-    return {name: (torch.randn((L, *shape), generator=generator, device=device)
-                   * scale).to(dtype)
-            for name, (shape, scale) in spec.items()}
+    out = {name: (torch.randn((L, *shape), generator=generator, device=device)
+                  * scale).to(dtype)
+           for name, (shape, scale) in spec.items()}
+    if c.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            out[name] = (1.0 + torch.randn((L, c.head_dim), generator=generator,
+                                           device=device) * 0.1).to(dtype)
+    return out
 
 
 def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
@@ -308,14 +313,19 @@ def _final_logits(x: torch.Tensor, params: Params,
     return soft_cap(mm(x, head).float(), config.final_softcap)
 
 
-def rope_frequencies(config: LlamaConfig) -> torch.Tensor:
-    """Inverse frequencies [D/2] float32, with Llama-3 banded or YaRN
-    scaling (HF-compatible). YaRN's cos/sin attention factor is folded into
-    `config.sm_scale`."""
+def rope_frequencies(config: LlamaConfig,
+                     theta: float | None = None) -> torch.Tensor:
+    """Inverse frequencies [D/2] float32, with Llama-3 banded, linear
+    (position-interpolation) or YaRN scaling (HF-compatible). YaRN's
+    cos/sin attention factor is folded into `config.sm_scale`. `theta`
+    overrides `rope_theta` WITHOUT any scaling: Gemma-3's sliding layers
+    rotate with `rope_local_theta` unscaled."""
     c = config
-    inv = 1.0 / (c.rope_theta ** (torch.arange(0, c.head_dim, 2,
-                                               dtype=torch.float32)
-                                  / c.head_dim))
+    base = c.rope_theta if theta is None else theta
+    inv = 1.0 / (base ** (torch.arange(0, c.head_dim, 2, dtype=torch.float32)
+                          / c.head_dim))
+    if theta is not None:
+        return inv
     if c.rope_yarn is not None:
         # HF _compute_yarn_parameters: a linear ramp between the beta_fast
         # and beta_slow correction dims blends the factor-scaled and the
@@ -337,6 +347,8 @@ def rope_frequencies(config: LlamaConfig) -> torch.Tensor:
                            / (high - low), 0, 1)
         extrap = 1.0 - ramp       # 1 at the low (high-frequency) dims
         return (inv / y.factor) * (1 - extrap) + inv * extrap
+    if c.rope_linear_factor is not None:
+        inv = inv / c.rope_linear_factor
     if c.rope_scaling is not None:
         s = c.rope_scaling
         wavelen = 2.0 * math.pi / inv
@@ -349,6 +361,29 @@ def rope_frequencies(config: LlamaConfig) -> torch.Tensor:
             torch.where(wavelen < high_wl, inv,
                         (1 - smooth) * inv / s.factor + smooth * inv))
     return inv
+
+
+def rope_frequency_pair(config: LlamaConfig):
+    """(global inverse frequencies, local ones or None): local only where
+    the model has per-layer-type RoPE bases (Gemma-3 `rope_local_theta`)."""
+    loc = (rope_frequencies(config, theta=config.rope_local_theta)
+           if config.rope_local_theta is not None else None)
+    return rope_frequencies(config), loc
+
+
+def pick_rope(freqs, window):
+    """freqs = (global, local or None): a sliding layer (window not None)
+    uses the local base when the model has one."""
+    glob, loc = freqs
+    return loc if (window is not None and loc is not None) else glob
+
+
+def layer_ropes(config: LlamaConfig, device) -> list[torch.Tensor]:
+    """Each layer's inverse frequencies on `device`, by its window
+    (`pick_rope`)."""
+    glob, loc = (f if f is None else f.to(device)
+                 for f in rope_frequency_pair(config))
+    return [pick_rope((glob, loc), w) for w in config.layer_windows()]
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -383,12 +418,19 @@ def _ffn(x, lp, config):
         x.shape)
 
 
-def _qkv(h, lp, config: LlamaConfig = None):
-    """q, k, v projections, plus the q/k/v biases (Qwen2, GPT-OSS) before
-    RoPE."""
+def _qkv(h, lp, config: LlamaConfig):
+    """q, k, v projections, plus the q/k/v biases (Qwen2, GPT-OSS), then
+    the per-head q/k RMSNorm (Qwen3 plain, Gemma-3 1 + w) -- all before
+    RoPE, as HF's Qwen3Attention orders them."""
     q, k, v = mm(h, lp["q"]), mm(h, lp["k"]), mm(h, lp["v"])
     if "q_bias" in lp:
         q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
+    if "q_norm" in lp:
+        def headwise(x, w):
+            xh = x.reshape(*x.shape[:-1], -1, w.shape[-1])
+            return _norm(xh, w, config).reshape(x.shape)
+
+        q, k = headwise(q, lp["q_norm"]), headwise(k, lp["k_norm"])
     return q, k, v
 
 
@@ -448,7 +490,7 @@ def _decode_core(params: Params, config: LlamaConfig, schemes: list,
     c = config
     B = token_ids.shape[0]
     bs = pools[1].shape[3]
-    inv_freq = rope_frequencies(c).to(token_ids.device)
+    ropes = layer_ropes(c, token_ids.device)
     x = _embed(params, c, token_ids)                      # [B, H]
     # clamped: overshoot steps past a finished lane stay inside the table
     blk = torch.clamp(positions // bs, 0, block_table.shape[1] - 1)
@@ -461,9 +503,9 @@ def _decode_core(params: Params, config: LlamaConfig, schemes: list,
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
         q = apply_rope(q.reshape(B, c.num_q_heads, c.head_dim), positions,
-                       inv_freq)
+                       ropes[li])
         k = apply_rope(k.reshape(B, c.num_kv_heads, c.head_dim), positions,
-                       inv_freq)
+                       ropes[li])
         v = v.reshape(B, c.num_kv_heads, c.head_dim)
         scheme, read_as, sid = schemes[li]
         kq, ks = quantize_kv(k, scheme)
@@ -680,7 +722,7 @@ def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
     slots = torch.gather(tables, 1, blk.long()).long()
     slots = torch.where(write, slots, torch.full_like(slots, guard_slot))
     offs = (positions % bs).long()
-    inv_freq = rope_frequencies(c).to(dev)
+    ropes = layer_ropes(c, dev)
     x = _embed(params, c, token_ids)                         # [B, T, H]
     _, attend_chunk = _attend_fns(c)
     windows = c.layer_windows()
@@ -689,9 +731,9 @@ def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
         q = apply_rope(q.reshape(B, T, c.num_q_heads, c.head_dim), positions,
-                       inv_freq)
+                       ropes[li])
         k = apply_rope(k.reshape(B, T, c.num_kv_heads, c.head_dim),
-                       positions, inv_freq)
+                       positions, ropes[li])
         v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
         scheme, read_as, sid = schemes[li]
         kq, ks = quantize_kv(k, scheme)
@@ -1029,7 +1071,7 @@ def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
     token_ids = torch.from_numpy(
         packed[4 + tw:4 + tw + valid].astype(np.int64)).to(dev)
     positions = start + torch.arange(valid, device=dev)
-    inv_freq = rope_frequencies(c).to(dev)
+    ropes = layer_ropes(c, dev)
     x = _embed(params, c, token_ids)                          # [T, H]
     wins = c.layer_windows()
     kv_rows = []                               # per layer (kq, vq, ks, vs)
@@ -1047,7 +1089,7 @@ def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
                 slab = tuple(a[:, j] for a in group)
                 x, kv = _stream_layer(
                     x, layer_params(params, l0 + j), c, kv_dtype, positions,
-                    inv_freq, window,
+                    ropes[l0 + j], window,
                     lambda q: stream_context_attention_slab(
                         q, slab, start, kv_dtype, bs, wave,
                         sm_scale=c.sm_scale, window=window,
@@ -1057,7 +1099,7 @@ def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
         for li, window in enumerate(wins):
             x, kv = _stream_layer(
                 x, layer_params(params, li), c, kv_dtype, positions,
-                inv_freq, window,
+                ropes[li], window,
                 lambda q: stream_context_attention(
                     q, store, host_row, start, li, kv_dtype, bs, tw_ctx,
                     wave, sm_scale=c.sm_scale, window=window,
@@ -1213,7 +1255,7 @@ def stream_decode_multi_batched(params: Params, config: LlamaConfig,
             f"4 + {tw_ctx} (table) + {nblk} (touched) + 1 (seed) = {expect}")
     pi = (torch.from_numpy(np.asarray(pen_info, np.int32)).to(dev)
           if pen_counts is not None else None)
-    inv_freq = rope_frequencies(c).to(dev)
+    ropes = layer_ropes(c, dev)
     toks = torch.zeros((B, horizon), dtype=torch.int32, device=dev)
     lps = ((torch.zeros((B, horizon), device=dev),
             torch.zeros((B, horizon, logprobs_k), dtype=torch.int32,
@@ -1242,7 +1284,7 @@ def stream_decode_multi_batched(params: Params, config: LlamaConfig,
                 ctx = tuple(a[:, li] for a in slab)
                 x, kv = _stream_layer(
                     x, layer_params(params, li), c, kv_dtype,
-                    pos + torch.arange(1, device=dev), inv_freq, window,
+                    pos + torch.arange(1, device=dev), ropes[li], window,
                     lambda q: stream_context_attention_slab(
                         q, ctx, pos, kv_dtype, bs, wave, sm_scale=c.sm_scale,
                         window=window, softcap=c.attn_softcap))
@@ -1293,7 +1335,7 @@ def forward_dense(params: Params, config: LlamaConfig,
     B, T = token_ids.shape
     dev = token_ids.device
     positions = torch.arange(T, device=dev)
-    inv_freq = rope_frequencies(c).to(dev)
+    ropes = layer_ropes(c, dev)
     causal = positions[:, None] >= positions[None, :]
     x = _embed(params, c, token_ids)
     G = c.q_group
@@ -1305,9 +1347,9 @@ def forward_dense(params: Params, config: LlamaConfig,
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
         q = apply_rope(q.reshape(B, T, c.num_q_heads, c.head_dim),
-                       positions[None], inv_freq)
+                       positions[None], ropes[li])
         k = apply_rope(k.reshape(B, T, c.num_kv_heads, c.head_dim),
-                       positions[None], inv_freq)
+                       positions[None], ropes[li])
         v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
         qg = q.reshape(B, T, c.num_kv_heads, G, c.head_dim).float()
         s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale

@@ -66,14 +66,19 @@ class QuantizedTensor:
 def quantize_tensor(w: torch.Tensor, axis: int = -2,
                     bits: int = 8) -> QuantizedTensor:
     """Symmetric per-channel int8: s = max(amax, 1e-8) / 127 over `axis`,
-    q = round-half-even(w / s) clipped to [-127, 127]."""
+    q = round-half-even(w / s) clipped to [-127, 127]. The same bits on the
+    card and on the CPU: 127 divides as a tensor, because CUDA turns a
+    division by a Python scalar into a multiplication by its reciprocal,
+    which can differ in the last bit."""
     if bits != 8:
         raise NotImplementedError("only bits=8 (W8A16) is ported")
     axis = axis if axis < 0 else axis - w.ndim
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    s = torch.clamp_min(amax, 1e-8) / 127
-    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    s = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127)
+    # rounded and clipped in place: one float32 temporary of w's size, not
+    # three (a converter quantizes matrices of ~0.4 GB on the card)
+    q = (wf / s).round_().clamp_(-127, 127).to(torch.int8)
     return QuantizedTensor(q, s, axis)
 
 

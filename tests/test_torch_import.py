@@ -22,7 +22,8 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "cxl_speckv_tpu" or m.startswith("cxl_speckv_tpu."))
+             or m == "cxl_speckv_tpu" or m.startswith("cxl_speckv_tpu.")
+             or m.split(".")[0] in ("transformers", "safetensors"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -41,13 +42,24 @@ def test_port_imports_no_jax():
     # every module of the slice was imported
     for name in ("ops.paged_attention", "ops.chunk_attention_cuda",
                  "ops.cuda_build", "models.llama", "models.moe",
-                 "models.convert", "ops.decode_anatomy",
+                 "models.convert", "models.hf_convert", "ops.decode_anatomy",
                  "scripts.kernel_anatomy", "utils.card",
                  "engine.engine", "engine.spec", "runtime.kv_cache",
                  "runtime.hoststore",
                  "prefetcher.controller", "prefetcher.lstm",
                  "utils.dispatch", "scripts.train_predictor"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
+
+
+def test_hf_convert_imports_no_transformers():
+    """The HF converter reads configs and state dicts without the
+    `transformers` package (the card's machine has none)."""
+    r = _run("import json, sys\n"
+             "import cxl_speckv_tpu_torch.models.hf_convert\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
+             " in ('transformers', 'safetensors', 'jax'))))")
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 
 
 def test_sources_name_no_jax_import():

@@ -1070,3 +1070,106 @@ def test_fused_rounds_engine_on_card(dev):
         assert got == ample
         assert st["transfer"]["up_transfers"] > 0
         assert st["transfer"]["down_transfers"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the attention shapes of Qwen3-8B (G 4), Qwen3-30B-A3B (G 8, K1's MAX_G),
+# Gemma-3-12B (D 256, G 2, window 1024 on five layers of six) and Phi-3-mini
+# (G 1, D 96), in 32-token blocks; and the HF converter on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_HEADS = {"qwen3": ((32, 8, 128), None),
+                "qwen3-moe": ((32, 4, 128), None),
+                "gemma3-sliding": ((16, 8, 256), 1024),
+                "gemma3-global": ((16, 8, 256), None),
+                "phi3": ((32, 32, 96), None)}
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", list(FAMILY_HEADS))
+def test_kernels_at_family_shapes_match_plain(dev, family, cd):
+    """K1 over lanes around the 1024 window (a 0 lane, 1023-1025, 1344, at
+    the split count the rule chooses) and K2 with 256-token chunks that
+    start before, at and past the window, INT8 and INT4 pools, against
+    their plain versions."""
+    heads, window = FAMILY_HEADS[family]
+    for kv in (KVDtype.INT8, KVDtype.INT4):
+        got, want, split_want, _ = decode_case(
+            dev, kv, cd, [0, 1, 1023, 1024, 1025, 1344], seed=60,
+            heads=heads, bs=32, window=window)
+        close(got, want, cd)
+        close(got, split_want, cd)
+        assert not got[0].any()
+        got, want, _ = chunk_case(dev, kv, cd, 256, [0, 768, 1024, 1088],
+                                  seed=61, heads=heads, bs=32, window=window)
+        close(got, want, cd)
+
+
+@pytest.mark.parametrize("family", ["qwen3_moe", "phi3"])
+def test_hf_convert_int8_on_card_equals_cpu(dev, family):
+    """`params_from_hf_state_dict(..., weight_dtype="int8")` on the card
+    gives the CPU conversion's tree bit for bit (q bytes and scales): a
+    random bf16 state dict with HF's names, Qwen3-MoE's expert stacks or
+    Phi-3's fused qkv / gate_up."""
+    import types
+
+    from cxl_speckv_tpu_torch.models.hf_convert import (
+        config_from_hf,
+        params_from_hf_state_dict,
+    )
+    from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
+
+    hf = types.SimpleNamespace(
+        model_type=family, vocab_size=512, hidden_size=128,
+        intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=4 if family == "phi3" else 2, head_dim=32,
+        rope_theta=1e6, rope_scaling=None, rms_norm_eps=1e-6,
+        tie_word_embeddings=False, max_position_embeddings=256,
+        eos_token_id=2, sliding_window=None)
+    if family == "qwen3_moe":
+        hf.__dict__.update(num_experts=8, num_experts_per_tok=2,
+                           moe_intermediate_size=64, norm_topk_prob=True)
+    cfg = config_from_hf(hf)
+    gen = torch.Generator().manual_seed(5)
+    H, V, D = cfg.hidden_size, cfg.vocab_size, cfg.head_dim
+    qd, kvd = cfg.num_q_heads * D, cfg.num_kv_heads * D
+    shapes = {"model.embed_tokens.weight": (V, H), "model.norm.weight": (H,),
+              "lm_head.weight": (V, H)}
+    for i in range(cfg.num_layers):
+        lay = f"model.layers.{i}."
+        shapes.update({lay + "input_layernorm.weight": (H,),
+                       lay + "post_attention_layernorm.weight": (H,),
+                       lay + "self_attn.o_proj.weight": (H, qd)})
+        if family == "phi3":
+            shapes.update({
+                lay + "self_attn.qkv_proj.weight": (qd + 2 * kvd, H),
+                lay + "mlp.gate_up_proj.weight": (2 * cfg.intermediate_size,
+                                                  H),
+                lay + "mlp.down_proj.weight": (H, cfg.intermediate_size)})
+            continue
+        shapes.update({lay + f"self_attn.{n}_proj.weight": (w, H) for n, w in
+                       (("q", qd), ("k", kvd), ("v", kvd))})
+        shapes.update({lay + "self_attn.q_norm.weight": (D,),
+                       lay + "self_attn.k_norm.weight": (D,),
+                       lay + "mlp.gate.weight": (cfg.num_experts, H)})
+        I = cfg.intermediate_size
+        for e in range(cfg.num_experts):
+            ex = lay + f"mlp.experts.{e}."
+            shapes.update({ex + "gate_proj.weight": (I, H),
+                           ex + "up_proj.weight": (I, H),
+                           ex + "down_proj.weight": (H, I)})
+    sd = {k: torch.randn(s, generator=gen).to(torch.bfloat16)
+          for k, s in shapes.items()}
+    cpu = params_from_hf_state_dict(sd, cfg, weight_dtype="int8",
+                                    device="cpu")
+    card = params_from_hf_state_dict({k: v.to(dev) for k, v in sd.items()},
+                                     cfg, weight_dtype="int8")
+    flat = lambda p: {**{k: v for k, v in p.items() if k != "layers"},
+                      **p["layers"]}
+    assert set(flat(card)) == set(flat(cpu))
+    for name, c in flat(cpu).items():
+        g = flat(card)[name]
+        pairs = ([(g.q, c.q), (g.s, c.s)] if isinstance(c, QuantizedTensor)
+                 else [(g, c)])
+        for a, b in pairs:
+            assert a.is_cuda and torch.equal(a.cpu(), b), name

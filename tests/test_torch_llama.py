@@ -69,12 +69,11 @@ def test_forward_dense_matches_jax(w8):
 def test_unported_features_raise():
     import dataclasses
 
-    # sinks, experts, biases and YaRN are ported (tests/test_torch_gpt_oss.py)
-    for kw in ({"qk_norm": True}, {"rope_linear_factor": 8.0},
-               {"rope_local_theta": 10000.0}, {"act_fn": "gelu"}):
-        with pytest.raises(NotImplementedError):
-            tl.init_params(dataclasses.replace(CFG, **kw),
-                           torch.Generator().manual_seed(0))
+    # sinks, experts, biases and YaRN are ported (tests/test_torch_gpt_oss.py),
+    # the q/k norm and per-layer / linear RoPE too (tests/test_torch_families.py)
+    with pytest.raises(NotImplementedError, match="act_fn"):
+        tl.init_params(dataclasses.replace(CFG, act_fn="gelu"),
+                       torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="MIXED8 is internal"):
         tl.layer_kv_schemes(KVDtype.MIXED8, CFG.num_layers)
     with pytest.raises(ValueError, match="INT8 or FP8"):
