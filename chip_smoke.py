@@ -44,8 +44,9 @@ Phases, each printing its results; any failure exits non-zero:
 5d. family kernels -- K1 and K2 at the served shapes of the families below
               (bf16 compute, INT8, each serve's pool and table geometry),
               timed: Qwen3-8B (G 4), Qwen3-30B-A3B (G 8), Phi-3-mini (G 1,
-              D 96) at a decode step of 8 lanes and the first 64-token
-              chunk; Gemma-3-12B (G 2, D 256) at a decode step of 4 lanes
+              D 96), Qwen2-57B-A14B (G 7) at a decode step of 8 lanes and
+              the first 64-token chunk (448 rows at G 7), and Qwen2's
+              37-token tail chunk at start 64 (259 rows); Gemma-3-12B (G 2, D 256) at a decode step of 4 lanes
               at 1281-1344 tokens and the 256-token chunk from 1024,
               window 1024 and global in turns;
 5c. anatomy probes -- the decode-anatomy probes P1-P3
@@ -222,6 +223,29 @@ Phases, each printing its results; any failure exits non-zero:
               tiered arms, launches exact; printed per arm: tok/s, TTFT /
               TPOT p50, the copy stream's ms a batch and direction, the
               host's blocked ms (`up_wait_ms` / `down_wait_ms`);
+9g. server -- the front ends on the serve's Llama-3-8B cut to its first 8
+              layers (the depth cut keeps the script in time). Checkpoint:
+              `models.save_params` into a temporary directory and
+              `load_params(like=...)` back onto the card: every leaf
+              bit-equal, the load's peak device memory at most the tree
+              plus its largest leaf; bytes and seconds printed. Server:
+              `SpeckvServer` on an engine of the loaded tree (W8A16, INT8
+              KV, tiered on 52 HBM blocks) with a toy tokenizer: 16
+              concurrent greedy clients x (64 + 32), each equal to the same
+              request through the engine API or first diverging at a dense
+              top-2 gap <= 0.06; one prompt streamed == non-streamed, also
+              with a matching string stop (the SSE holdback); a streaming
+              client of 512 tokens (ignore_eos) that closes its socket after
+              the first chunk is cancelled and its blocks come back; n = 3
+              sampled choices distinct; a chat completion, /health,
+              /metrics (every line "name value"), /v1/stats JSON; K1 / K2
+              launched, no plain-version call; client timeouts of 120 s,
+              any timeout, non-200 answer or dead loop thread fails; HTTP
+              TTFT / TPOT p50 beside the engine API's. Scoring:
+              `Engine.score_prompts` (dense) on 4 prompts of 96-512 tokens
+              against the echo prompt logprobs, within 0.02 at float32
+              activations over BF16 KV (the reference's pairing), over INT8
+              KV and at bf16 recorded; seconds and peak memory;
 10. gemma2 -- Gemma-2-9B at full width, 12 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
@@ -266,6 +290,12 @@ Phases, each printing its results; any failure exits non-zero:
               renormalised, dense MoE mode), 12 of its 48 layers: the
               qwen3 cell's serve and checks; then its decode-round anatomy
               with the expert stacks' copy share;
+15b. qwen2-moe -- Qwen2-57B-A14B at full width (G 7, q/k/v bias, 64
+              experts top-8 without renormalisation, the sigmoid-gated
+              shared expert of 20480, dense MoE mode), 8 of its 28 layers:
+              a warm-up of two 64 + 37-token prompts (the tail chunk's
+              launches), then the qwen3 cell's serve and checks; then its
+              decode-round anatomy (device ms a step);
 16. phi3-hf -- Phi-3-mini through the HF converter: `config_from_hf` of its
               HF fields in a plain namespace equals `phi3_mini()` but for
               the depth (8 of 32 layers); a random bf16 state dict with
@@ -454,6 +484,26 @@ FIT_ROUNDS = 4
 MIGRATE_SLOTS = 64
 MIGRATE_SLEEP = 50_000_000
 MIGRATE_LAYERS = 8
+# Qwen2-57B-A14B: 28 query heads on 4 KV heads (G 7, the first odd group on
+# the card: a 64-token chunk is 448 rows of K2's 16-row tensor-core tiles, a
+# 37-token tail 259), q/k/v bias, 64 experts top-8 without renormalisation
+# and a sigmoid-gated shared expert of 20480; on 8 of its 28 layers (its
+# W8A16 expert stacks are ~2 GB a layer), on QWEN3_CELL. Its warm-up serves
+# two prompts of 64 + QWEN2_TAIL tokens, so the tail chunk is served too.
+QWEN2_HEADS = (28, 4, 128)
+QWEN2_MOE_LAYERS, QWEN2_TAIL = 8, 37
+# the server phase, on the serve's Llama-3-8B cut to its first
+# SERVER_LAYERS layers: a checkpoint saved and loaded back, then the HTTP
+# server on the loaded tree, W8A16, INT8 KV, tiered on 52 HBM blocks: 16
+# clients x (64 + 32) greedy; a disconnecting client asks for 512 tokens
+# (max_seq_len 608 covers it); then dense scoring of SCORE_LENS prompts
+# against their echo (prompt logprobs) in chunks of 256, ample
+SERVER_LAYERS, SERVER_GEN, SERVER_LONG = 8, 32, 512
+SERVER_CELL = Cell(16, 64, SERVER_LONG, BATCH, 64, hbm_tiered=52)
+HTTP_TIMEOUT = 120                      # seconds a client waits, at most
+SCORE_LENS = (96, 200, 384, 512)
+SCORE_CELL = Cell(len(SCORE_LENS), max(SCORE_LENS), 1, BATCH, 256,
+                  hbm_tiered=52)
 
 
 def fail(msg: str) -> None:
@@ -1131,8 +1181,9 @@ def phase_kernels_families(peaks) -> dict:
     """Both kernels at the served shapes of the families served from their
     configs (bf16 compute, INT8 KV, each serve's pool and table geometry),
     timed, against their plain versions: a decode step of the batch and the
-    first prefill chunk for Qwen3-8B (G 4), Qwen3-30B-A3B (G 8) and
-    Phi-3-mini (G 1, D 96); for Gemma-3-12B (G 2, D 256) a decode step at
+    first prefill chunk for Qwen3-8B (G 4), Qwen3-30B-A3B (G 8), Phi-3-mini
+    (G 1, D 96) and Qwen2-57B-A14B (G 7: 448 rows), and Qwen2's 37-token
+    tail chunk at start 64 (259 rows); for Gemma-3-12B (G 2, D 256) a decode step at
     1281-1344 tokens and the last 256-token prompt chunk (start 1024),
     sliding (window 1024) and global in turns. Returns the rows."""
     from cxl_speckv_tpu_torch.config import KVDtype
@@ -1143,13 +1194,18 @@ def phase_kernels_families(peaks) -> dict:
     rows = {}
     for key, heads, seed in (("qwen3", QWEN3_HEADS, 12),
                              ("qwen3-moe", QWEN3_MOE_HEADS, 13),
-                             ("phi3", PHI3_HEADS, 14)):
+                             ("phi3", PHI3_HEADS, 14),
+                             ("qwen2", QWEN2_HEADS, 16)):
         v = dict(heads=heads, timed=True,
                  geometry=served_geometry(QWEN3_CELL))
         rows[f"K1 {key}"] = k1_case(gen, kv, cd, served_lens(QWEN3_CELL, seed),
                                     peaks, **v)
         rows[f"K2 {key}"] = k2_case(gen, kv, cd, QWEN3_CELL.chunk,
                                     [0] * BATCH, peaks, **v)
+    # [kernels qwen2]: G 7's tail chunk, 37 x 7 = 259 rows at start 64
+    rows["K2 qwen2 tail"] = k2_case(
+        gen, kv, cd, QWEN2_TAIL, [QWEN3_CELL.chunk] * BATCH, peaks,
+        heads=QWEN2_HEADS, timed=True, geometry=served_geometry(QWEN3_CELL))
     c = GEMMA3_CELL
     v = dict(heads=GEMMA3_HEADS, geometry=served_geometry(c),
              sliding=GEMMA3_WINDOW)
@@ -2094,6 +2150,46 @@ def phase_qwen3_moe(peaks) -> dict:
                   prompts, peaks, matmuls=False)
     del params
     return launches
+
+
+def phase_qwen2_moe(peaks) -> dict:
+    """Qwen2-57B-A14B at full width and QWEN2_MOE_LAYERS of its layers: G 7,
+    q/k/v bias, 64 experts top-8 without top-k renormalisation, the
+    sigmoid-gated shared expert, the dense MoE mode, W8A16 expert stacks
+    drawn expert by expert. A warm-up serves two prompts of 64 + QWEN2_TAIL
+    tokens on the ample pool (its second prefill dispatch is the 37-token
+    tail chunk at start 64: 259 rows); then QWEN3_CELL tiered and ample, and
+    the decode-round anatomy. Returns the serve's launches, with the tail
+    dispatch's K2 launches under "tail"."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.models.configs import qwen2_moe_57b
+
+    cfg = dataclasses.replace(qwen2_moe_57b(), num_layers=QWEN2_MOE_LAYERS)
+    if not (cfg.q_group == 7 and cfg.attn_bias and not cfg.moe_norm_topk
+            and cfg.moe_shared_expert and cfg.moe_impl == "dense"):
+        fail(f"qwen2-moe: the config lost a feature of Qwen2-57B-A14B: {cfg}")
+    params = init_model(cfg, "qwen2-moe", 9)
+    rng = np.random.RandomState(9)
+    prompts = [rng.randint(1, cfg.vocab_size, QWEN3_CELL.prompt).tolist()
+               for _ in range(QWEN3_CELL.n_req)]
+    reset_launches()
+    warm = build_engine(cfg, params, QWEN3_CELL, QWEN3_CELL.hbm_ample, 0)
+    serve(warm, [p + p[:QWEN2_TAIL] for p in prompts[:2]], HORIZON)
+    dispatches = warm.get_statistics()["engine"]["prefill_dispatches"]
+    tail = total(read_launches()["K2"]) - cfg.num_layers
+    if dispatches != 2 or tail != cfg.num_layers:
+        fail(f"qwen2-moe: the warm-up took {dispatches} prefill dispatches "
+             f"and {tail + cfg.num_layers} K2 launches; want 2 (64, then "
+             f"{QWEN2_TAIL} tokens) and {2 * cfg.num_layers}")
+    del warm
+    launches, _ = tiered_vs_ample("qwen2-moe", cfg, params, QWEN3_CELL,
+                                  prompts)
+    check_windows("qwen2-moe", launches, lambda n: {("int8", 0): n})
+    phase_anatomy(f"Qwen2-57B-A14B ({QWEN2_MOE_LAYERS} layers)", cfg, params,
+                  prompts, peaks, matmuls=False)
+    del params
+    return dict(launches, tail=tail)
 
 
 def phi3_hf_config(num_layers: int):
@@ -3948,6 +4044,419 @@ def phase_migrate(cfg, params, prompts) -> dict:
                                for k, v in arms.items()}}
 
 
+# ---------------------------------------------------------------------------
+# the front ends: a checkpoint, the HTTP server, dense scoring
+# ---------------------------------------------------------------------------
+
+class ToyTokenizer:
+    """Token ids as characters past U+10000, so decode inverts encode on
+    every id of a 128256-token vocabulary and a string `stop` taken from
+    decoded output encodes back to the same ids; other text maps to ids
+    1-250. `apply_chat_template` as in `tests/test_server.py`."""
+
+    def encode(self, s):
+        return [ord(c) - 0x10000 if ord(c) >= 0x10000 else ord(c) % 250 + 1
+                for c in s]
+
+    def decode(self, ids):
+        return "".join(chr(0x10000 + i) for i in ids)
+
+    def apply_chat_template(self, messages, add_generation_prompt=False):
+        text = "".join(f"<{m['role']}>{m['content']}" for m in messages)
+        return self.encode(text + ("<assistant>" if add_generation_prompt
+                                   else ""))
+
+
+def tree_leaves(tree, prefix=""):
+    """(path, tensor) for every tensor of a parameter tree, a quantized
+    leaf as its q and s."""
+    from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from tree_leaves(v, f"{prefix}{k}/")
+        elif isinstance(v, QuantizedTensor):
+            yield f"{prefix}{k}:q", v.q
+            yield f"{prefix}{k}:s", v.s
+        else:
+            yield prefix + k, v
+
+
+def server_checkpoint(params) -> dict:
+    """`save_params` of `params` into a temporary directory, then
+    `load_params(like=params)` back onto the card: every leaf bit-equal,
+    the peak device memory above the tree during the load at most the tree
+    plus its largest leaf. Prints the directory's bytes and both times;
+    the directory is removed. Returns the loaded tree."""
+    import tempfile
+
+    from cxl_speckv_tpu_torch.models import load_params, save_params
+
+    with tempfile.TemporaryDirectory(prefix="speckv-ckpt-") as d:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        save_params(params, d)
+        t_save = time.monotonic() - t0
+        size = sum(f.stat().st_size for f in Path(d).iterdir())
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loaded = load_params(d, like=params, device=DEV)
+        torch.cuda.synchronize()
+        t_load = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+    want = dict(tree_leaves(params))
+    got = dict(tree_leaves(loaded))
+    if list(got) != list(want):
+        fail(f"server: the loaded tree's leaves {list(got)} != {list(want)}")
+    for key, w in want.items():
+        g = got[key]
+        if not (g.device.type == torch.device(DEV).type and g.dtype == w.dtype
+                and g.shape == w.shape and torch.equal(g, w)):
+            fail(f"server: checkpoint leaf {key} differs after the round "
+                 f"trip")
+    tree = nbytes(*got.values())
+    largest = max(nbytes(t) for t in got.values())
+    print(f"[server] checkpoint: {len(want)} tensors, {size / 2**30:.3f} GiB "
+          f"on disk, saved in {t_save:.2f} s, loaded onto the card in "
+          f"{t_load:.2f} s; bit-equal; torch.cuda.max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB above the base during the load (tree "
+          f"{tree / 2**30:.3f} GiB, largest leaf {largest / 2**30:.3f} GiB)",
+          flush=True)
+    if peak > tree + largest:
+        fail(f"server: the load peaked {peak} bytes above the base, over the "
+             f"tree {tree} + its largest leaf {largest}")
+    return loaded
+
+
+def http(port: int, path: str, body=None, timeout=HTTP_TIMEOUT):
+    """GET (body None) or POST JSON; returns (status, the response's bytes).
+    A timeout or a refused connection raises."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_json(port: int, path: str, body=None) -> dict:
+    """`http`, failing the phase on any status but 200."""
+    code, raw = http(port, path, body)
+    if code != 200:
+        fail(f"server: {path} answered {code}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def http_stream(port: int, body: dict) -> list:
+    """A streamed completion: the chunks' tokens concatenated; fails
+    without the closing [DONE]."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    toks = []
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+        for line in r:
+            line = line.decode().strip()
+            if line == "data: [DONE]":
+                return toks
+            if line.startswith("data: "):
+                toks.extend(json.loads(line[6:])["tokens"])
+    fail(f"server: a stream ended without [DONE] after {len(toks)} tokens")
+
+
+def concurrent_clients(fn, n: int) -> list:
+    """fn(i) on n threads at once; returns the results in order. A client
+    that raised or did not finish within HTTP_TIMEOUT fails the phase."""
+    import threading
+
+    results, errors = [None] * n, []
+
+    def go(i):
+        try:
+            results[i] = fn(i)
+        except (Exception, SystemExit) as e:   # reported on the main thread
+            errors.append(f"client {i}: {e!r}")
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"server: clients failed or timed out: {errors}")
+    return results
+
+
+@contextlib.contextmanager
+def counting_plain():
+    """Counts the calls of K1's and K2's plain versions from their
+    wrappers while the context is open (a wrapper calls its plain version
+    only for tensors on the CPU); yields the Counter."""
+    from collections import Counter
+
+    kernels()        # imports both wrappers' modules
+    mod = lambda name: sys.modules[f"cxl_speckv_tpu_torch.ops.{name}"]
+    calls = Counter()
+    saved = [(mod("paged_attention"), "paged_attention_ref"),
+             (mod("chunk_attention_cuda"), "paged_chunk_attention")]
+    originals = [getattr(m, n) for m, n in saved]
+
+    def counted(key, fn):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+    for (m, n), fn in zip(saved, originals):
+        setattr(m, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(saved, originals):
+            setattr(m, n, fn)
+
+
+def count_steps(eng) -> list:
+    """Wraps `eng.step` to record, at each step, the requests live in the
+    engine (running + waiting); returns that list."""
+    live, step = [], eng.step
+
+    def counted():
+        live.append(eng.scheduler.num_running + eng.scheduler.num_waiting)
+        return step()
+    eng.step = counted
+    return live
+
+
+def server_disconnect(srv, eng, prompt) -> str:
+    """A streaming client (max_tokens SERVER_LONG, ignore_eos) that closes
+    its socket after the first chunk: its request must end "cancelled",
+    and the free HBM and host block counts return to their values before
+    it. Returns a summary."""
+    import socket
+
+    before = http_json(srv.port, "/v1/stats")
+    body = json.dumps({"prompt": prompt, "max_tokens": SERVER_LONG,
+                       "stream": True, "ignore_eos": True}).encode()
+    with socket.create_connection(("127.0.0.1", srv.port),
+                                  timeout=HTTP_TIMEOUT) as s:
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: smoke\r\n"
+                  b"Content-Type: application/json\r\n"
+                  + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+        got = b""
+        while b"data: " not in got:
+            chunk = s.recv(4096)
+            if not chunk:
+                fail("server: the stream closed before its first chunk")
+            got += chunk
+    deadline = time.monotonic() + HTTP_TIMEOUT
+    req = None
+    while time.monotonic() < deadline:
+        req = next((r for r in list(eng._requests.values())
+                    if r.prompt == prompt), None)
+        if req is not None and req.finish_reason and not eng.has_work:
+            break
+        time.sleep(0.05)
+    if req is None or req.finish_reason != "cancelled":
+        fail(f"server: the disconnected request ended "
+             f"{None if req is None else req.finish_reason!r}, not "
+             f"'cancelled'")
+    after = http_json(srv.port, "/v1/stats")
+    free = {k: (before[k], after[k]) for k in ("hbm_free", "host_free")}
+    if any(a != b for a, b in free.values()):
+        fail(f"server: free blocks (before, after) a disconnect: {free}")
+    return (f"disconnect after the first chunk: cancelled at "
+            f"{len(req.output)} of {SERVER_LONG} tokens; free blocks back "
+            f"(hbm, host) {free['hbm_free'][1]}, {free['host_free'][1]}")
+
+
+def server_http(cfg, params, prompts) -> None:
+    """The HTTP server on an engine of `params`: 16 concurrent greedy
+    clients held to the same requests through the engine API (equal, or a
+    first divergence at a dense top-2 gap <= NEAR_TIE_GAP); a prompt
+    streamed alone == non-streamed alone, also with a matching string
+    `stop` (the holdback path); a disconnect; n = 3 sampled choices; a chat
+    completion, /health, /metrics, /v1/stats. K1 / K2 launched over the
+    served requests and no plain version."""
+    from cxl_speckv_tpu_torch.server import SpeckvServer
+
+    cell, ps = SERVER_CELL, prompts[:SERVER_CELL.n_req]
+    tok = ToyTokenizer()
+    api = build_engine(cfg, params, cell, cell.hbm_tiered, cell.host_tiered)
+    api_live = count_steps(api)
+    outs, dt_api = serve(api, ps, SERVER_GEN)
+    want = [outs[i] for i in sorted(outs)]
+    api_lat = [(r.finish_time - r.arrival_time) * 1e3
+               for r in api._requests.values()]
+    del api
+    eng = build_engine(cfg, params, cell, cell.hbm_tiered, cell.host_tiered)
+    http_live = count_steps(eng)
+    reset_launches()
+    with counting_plain() as plain_calls, SpeckvServer(
+            eng, host="127.0.0.1", port=0, tokenizer=tok) as srv:
+        def client(i):
+            t = time.monotonic()
+            out = http_json(srv.port, "/v1/completions",
+                            {"prompt": ps[i], "max_tokens": SERVER_GEN})
+            return out, (time.monotonic() - t) * 1e3
+        t0 = time.monotonic()
+        got, http_lat = zip(*concurrent_clients(client, len(ps)))
+        dt_http = time.monotonic() - t0
+        steps_http = list(http_live)
+        exact, notes = 0, []
+        for i, (g, w) in enumerate(zip(got, want)):
+            j = first_divergence(g["tokens"], w.tokens)
+            if j is None:
+                exact += 1
+                continue
+            gap = top2_gap(cfg, params, ps[i] + w.tokens[:j])
+            notes.append(f"client {i} diverges at token {j}, top-2 gap "
+                         f"{gap:.4f}")
+            if gap > NEAR_TIE_GAP:
+                fail(f"server: client {i} diverges from the engine API at "
+                     f"token {j} at a top-2 gap of {gap:.4f} (limit "
+                     f"{NEAR_TIE_GAP})")
+        p = ps[0][::-1]
+        full = http_json(srv.port, "/v1/completions",
+                         {"prompt": p, "max_tokens": SERVER_GEN})
+        streamed = http_stream(srv.port, {"prompt": p,
+                                          "max_tokens": SERVER_GEN})
+        t = full["tokens"]
+        j = next(k for k in range(len(t) - 1) if t[k:k + 2] == t[10:12])
+        stop = tok.decode(t[10:12])
+        cut = http_json(srv.port, "/v1/completions",
+                        {"prompt": p, "max_tokens": SERVER_GEN, "stop": stop})
+        cut_streamed = http_stream(srv.port, {"prompt": p,
+                                              "max_tokens": SERVER_GEN,
+                                              "stop": [stop]})
+        if streamed != t or cut["tokens"] != t[:j] or cut_streamed != t[:j] \
+                or cut["finish_reason"] != "stop":
+            fail(f"server: streamed {streamed} / non-streamed {t}; with the "
+                 f"stop {t[10:12]}: {cut_streamed} / {cut['tokens']} "
+                 f"({cut['finish_reason']}), want {t[:j]}")
+        disconnect = server_disconnect(srv, eng, ps[1][::-1])
+        ch = http_json(srv.port, "/v1/completions",
+                       {"prompt": ps[2][::-1], "max_tokens": 16,
+                        "temperature": 0.9, "n": 3})["choices"]
+        if len(ch) != 3 or len({tuple(c["tokens"]) for c in ch}) < 2:
+            fail(f"server: n = 3 gave {[c['tokens'] for c in ch]}")
+        chat = http_json(srv.port, "/v1/chat/completions", {
+            "messages": [{"role": "user", "content": "hello"}],
+            "max_tokens": 8})
+        if chat["object"] != "chat.completion" or len(chat["tokens"]) != 8:
+            fail(f"server: chat completion {chat}")
+        if http_json(srv.port, "/health") != {"status": "ok"}:
+            fail("server: /health")
+        http_json(srv.port, "/v1/stats")          # JSON, or the phase fails
+        code, raw = http(srv.port, "/metrics")
+        lines = raw.decode().strip().splitlines()
+        try:
+            gauges = {n: float(v) for n, v in
+                      (ln.rsplit(" ", 1) for ln in lines)}
+        except ValueError as e:
+            fail(f"server: a /metrics line does not parse: {e}")
+        if code != 200 or len(gauges) != len(lines) or not gauges:
+            fail(f"server: /metrics answered {code} with {len(lines)} lines")
+        if not srv.loop.alive:
+            fail("server: the serving loop thread died")
+    launches = read_launches()
+    k1, k2 = total(launches["K1"]), total(launches["K2"])
+    if not (k1 > 0 and k2 > 0) or sum(plain_calls.values()):
+        fail(f"server: K1 / K2 launches {k1} / {k2} (CUDA), plain-version "
+             f"calls {dict(plain_calls)}")
+    print(f"[server] {len(ps)} concurrent clients x (64 + {SERVER_GEN}): "
+          f"{exact}/{len(ps)} token-identical to the engine API"
+          + (f" ({'; '.join(notes)})" if notes else "")
+          + f"; {dt_http:.2f} s over HTTP against {dt_api:.2f} s through "
+          f"the engine API; TTFT p50 {p50([g['ttft_ms'] for g in got]):.1f} "
+          f"ms over HTTP / {p50([o.ttft_ms for o in want]):.1f} ms engine "
+          f"API, TPOT p50 {p50([g['tpot_ms'] for g in got]):.2f} / "
+          f"{p50([o.tpot_ms for o in want]):.2f} ms (the engine's own "
+          f"clocks: TTFT starts at add_request, which a client reaches only "
+          f"when the loop's lock is free); request latency p50 "
+          f"{p50(http_lat):.1f} ms (client clock, POST to response; max "
+          f"{max(http_lat):.1f}) / {p50(api_lat):.1f} ms (arrival to "
+          f"finish; max {max(api_lat):.1f}); engine steps {len(steps_http)} "
+          f"/ {len(api_live)}, requests live at a step at most "
+          f"{max(steps_http)} / {max(api_live)} (HTTP / engine API)",
+          flush=True)
+    print(f"[server] streamed == non-streamed ({len(t)} tokens), and with "
+          f"a matching string stop ({j} tokens, finish 'stop'); "
+          f"{disconnect}; n = 3 choices distinct; chat, /health, /metrics "
+          f"({len(gauges)} gauges), /v1/stats JSON; K1 {k1}, K2 {k2} CUDA "
+          f"launches, no plain-version call; the loop thread alive",
+          flush=True)
+
+
+def server_scoring(cfg, params) -> None:
+    """`Engine.score_prompts` (dense) on SCORE_LENS prompts against the
+    echo prompt logprobs of the same prompts: at float32 activations over
+    BF16 KV, the reference's own pairing and tolerance
+    (`tests/test_logprobs.py:test_prompt_logprobs_match_dense_across_chunks`),
+    held within ECHO_TOL; over INT8 KV at float32 and at bf16 activations
+    (the served scheme), recorded. Prints the seconds and peak device
+    memory of each scoring call above its engine."""
+    import dataclasses
+
+    rng = np.random.RandomState(15)
+    seqs = [rng.randint(1, cfg.vocab_size, n).tolist() for n in SCORE_LENS]
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    cell = SCORE_CELL
+    res = {}
+    for tag, c, kv in (("f32 bf16-kv", c32, "bf16"), ("f32 int8-kv", c32,
+                                                      "int8"),
+                       ("bf16 int8-kv", cfg, "int8")):
+        eng = build_engine(c, params, cell, cell.hbm_ample, 0, kv=kv)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        scores = eng.score_prompts(seqs)
+        secs = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        echo, _ = serve_each(eng, [(x, dict(max_new_tokens=1,
+                                            prompt_logprobs=True))
+                                   for x in seqs])
+        del eng
+        if [len(x) for x in scores] != [n - 1 for n in SCORE_LENS] or not \
+                all(np.isfinite(x).all() for x in scores):
+            fail(f"server: score_prompts {tag} gave lengths "
+                 f"{[len(x) for x in scores]} or non-finite values")
+        res[tag] = max(float(np.abs(np.array(x) - np.array(
+            o.prompt_logprobs[1:])).max()) for x, o in zip(scores, echo))
+        print(f"[server] score_prompts (dense), {tag}: {len(seqs)} prompts "
+              f"of {'/'.join(map(str, SCORE_LENS))} tokens in {secs:.2f} s, "
+              f"torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB above "
+              f"the engine; max |score - echo prompt logprob| "
+              f"{res[tag]:.5f}" + (f" (held <= {ECHO_TOL})" if tag ==
+                                   "f32 bf16-kv" else " (recorded)"),
+              flush=True)
+    if res["f32 bf16-kv"] > ECHO_TOL:
+        fail(f"server: dense scores differ from the BF16-KV echo by "
+             f"{res['f32 bf16-kv']} at float32 activations, above {ECHO_TOL}")
+
+
+def phase_server(cfg, params, prompts) -> None:
+    """The front ends on `cfg` (Llama-3-8B's first SERVER_LAYERS layers): a
+    checkpoint round trip, the HTTP server on the loaded tree, and dense
+    scoring."""
+    loaded = server_checkpoint(params)
+    server_http(cfg, loaded, prompts)
+    server_scoring(cfg, loaded)
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -4022,6 +4531,8 @@ def main() -> int:
     stream = timed("stream", phase_stream, cfg, params, prompts, peaks)
     timed("prefetch", phase_prefetch, cfg, params, prompts)
     timed("migrate", phase_migrate, cfg, params, prompts)
+    timed("server", phase_server, *first_layers(cfg, params, SERVER_LAYERS),
+          prompts)
     del params
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
@@ -4029,6 +4540,7 @@ def main() -> int:
     fam_launches = {"qwen3": timed("qwen3", phase_qwen3),
                     "gemma3": timed("gemma3", phase_gemma3),
                     "qwen3-moe": timed("qwen3-moe", phase_qwen3_moe, peaks),
+                    "qwen2-moe": timed("qwen2-moe", phase_qwen2_moe, peaks),
                     "phi3": timed("phi3-hf", phase_phi3_hf)}
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
@@ -4086,11 +4598,12 @@ def main() -> int:
     # serve
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
-        for fam, label in (("qwen3", "qwen3-8b"),
-                           ("qwen3-moe", "qwen3-30b-a3b"),
-                           ("phi3", "phi3-mini hf")):
+        for fam, row, label in (("qwen3", "qwen3", "qwen3-8b"),
+                                ("qwen3-moe", "qwen3-moe", "qwen3-30b-a3b"),
+                                ("phi3", "phi3", "phi3-mini hf"),
+                                ("qwen2-moe", "qwen2", "qwen2-57b-a14b")):
             entries.append(kernel_entry(f"{kname} {label}", key,
-                                        fam_rows[f"{key} {fam}"],
+                                        fam_rows[f"{key} {row}"],
                                         total(fam_launches[fam][key])))
         for tag, window, label in (("win", GEMMA3_WINDOW, "sliding"),
                                    ("glob", 0, "global")):
@@ -4098,6 +4611,11 @@ def main() -> int:
                 f"{kname} gemma3-12b {label}", key,
                 fam_rows[f"{key} gemma3 {tag}"],
                 fam_launches["gemma3"][key].get(("int8", window), 0)))
+    # Qwen2's 37-token tail chunk (259 rows), launches from the qwen2-moe
+    # warm-up's second prefill dispatch
+    entries.append(kernel_entry(
+        f"paged_chunk_attention qwen2-57b-a14b tail T={QWEN2_TAIL}", "K2",
+        fam_rows["K2 qwen2 tail"], fam_launches["qwen2-moe"]["tail"]))
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         # time lost over the serves against the bound, back to back

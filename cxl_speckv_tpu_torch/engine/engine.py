@@ -70,8 +70,8 @@ without one runs the plain path.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Mesh serving and `score_prompts` are not ported yet: asking for
-one raises.
+the CPU. Mesh serving is not ported yet: asking for it raises.
+`score_prompts` scores whole prompts offline (`engine/scoring.py`).
 """
 
 from __future__ import annotations
@@ -87,6 +87,7 @@ from cxl_speckv_tpu_torch.config import KVDtype, SystemConfig
 from cxl_speckv_tpu_torch.core.directory import BlockState
 from cxl_speckv_tpu_torch.core.stats import Statistics, ratio
 from cxl_speckv_tpu_torch.engine.request import Request, RequestState
+from cxl_speckv_tpu_torch.engine import scoring
 from cxl_speckv_tpu_torch.engine.sampling import encode_pen_info, encode_sampling
 from cxl_speckv_tpu_torch.engine.scheduler import Scheduler
 from cxl_speckv_tpu_torch.engine.spec import NgramProposer, SpecDecoder
@@ -1731,6 +1732,21 @@ class Engine:
                             req.ttft_ms, req.tpot_ms, req.session_id,
                             logprobs=_result_logprobs(req),
                             prompt_logprobs=_result_prompt_logprobs(req))
+
+    def score_prompts(self, prompts: list[list[int]], *,
+                      mode: str = "dense",
+                      parallel_size: int | None = None,
+                      num_microbatches: int = 4) -> list[list[float]]:
+        """Offline batch scoring (perplexity / reranking): per-token
+        log p(prompt[i] | prompt[:i]) from one forward of the engine's
+        weights at the model's precision, with no KV pools and no serving
+        state (`engine/scoring.py`). Distinct from
+        `add_request(prompt_logprobs=True)`, which scores through the
+        quantized serving path. mode "pp" / "sp" raise NotImplementedError
+        (the parallel package is not ported)."""
+        return scoring.score_prompts(self.params, self.model_config, prompts,
+                                     mode=mode, parallel_size=parallel_size,
+                                     num_microbatches=num_microbatches)
 
     # -- statistics -------------------------------------------------------------------
 

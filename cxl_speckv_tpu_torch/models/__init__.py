@@ -12,11 +12,16 @@ from cxl_speckv_tpu_torch.models.configs import (  # noqa: F401
     mixtral_8x7b,
     phi3_mini,
     qwen2_7b,
+    qwen2_moe_57b,
     qwen3_8b,
     qwen3_moe_30b,
     tiny_test_config,
 )
 from cxl_speckv_tpu_torch.models import moe  # noqa: F401
+from cxl_speckv_tpu_torch.models.checkpoint import (  # noqa: F401
+    load_params,
+    save_params,
+)
 from cxl_speckv_tpu_torch.models.llama import (  # noqa: F401
     decode_step,
     forward_dense,

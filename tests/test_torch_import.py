@@ -23,7 +23,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "cxl_speckv_tpu" or m.startswith("cxl_speckv_tpu.")
-             or m.split(".")[0] in ("transformers", "safetensors"))
+             or m.split(".")[0] in ("transformers", "safetensors", "orbax"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                  "engine.engine", "engine.spec", "runtime.kv_cache",
                  "runtime.hoststore",
                  "prefetcher.controller", "prefetcher.lstm",
-                 "utils.dispatch", "scripts.train_predictor"):
+                 "utils.dispatch", "scripts.train_predictor",
+                 "server", "engine.scoring", "models.checkpoint"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
 
 
@@ -58,6 +59,21 @@ def test_hf_convert_imports_no_transformers():
              "import cxl_speckv_tpu_torch.models.hf_convert\n"
              "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
              " in ('transformers', 'safetensors', 'jax'))))")
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == []
+
+
+@pytest.mark.parametrize("module", ["models.checkpoint", "server",
+                                    "engine.scoring"])
+def test_front_end_modules_import_no_jax_orbax_safetensors(module):
+    """The checkpoint format is the port's own (`torch.save` and a JSON
+    index): loading it, the server or the scorer brings in neither JAX nor
+    orbax nor safetensors, none of which the card's machine has."""
+    r = _run("import json, sys\n"
+             f"import cxl_speckv_tpu_torch.{module}\n"
+             "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules"
+             " if m.split('.')[0] in ('orbax', 'safetensors', 'jax', "
+             "'jaxlib', 'cxl_speckv_tpu')})))")
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout.strip().splitlines()[-1]) == []
 

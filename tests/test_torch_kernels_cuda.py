@@ -1173,3 +1173,83 @@ def test_hf_convert_int8_on_card_equals_cpu(dev, family):
                  else [(g, c)])
         for a, b in pairs:
             assert a.is_cuda and torch.equal(a.cpu(), b), name
+
+
+# ---------------------------------------------------------------------------
+# Qwen2 (Qwen2-7B, Qwen2-57B-A14B): 28 query heads on 4 KV heads, G 7 -- an
+# odd group, and odd row counts T * G in K2's 16-row tensor-core tiles --
+# in 32-token blocks; and the HTTP server on the card
+# ---------------------------------------------------------------------------
+
+QWEN2_HEADS = (28, 4, 128)
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [KVDtype.INT8, KVDtype.INT4])
+def test_decode_kernel_qwen2_heads_matches_plain(dev, kv, cd):
+    """K1 at G 7 over a decode step of 8 lanes (a 0 lane, partial and whole
+    blocks, one long enough to split), against the plain version unsplit
+    and in the split form of the count the kernel ran."""
+    lens = [0, 1, 31, 32, 65, 96, 127, 2100]
+    got, want, split_want, _ = decode_case(dev, kv, cd, lens, seed=80,
+                                           heads=QWEN2_HEADS, bs=32)
+    close(got, want, cd)
+    close(got, split_want, cd)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 5, 37, 64])
+def test_chunk_kernel_qwen2_heads_matches_plain(dev, T, cd):
+    """K2 at G 7: T * G = 7, 35, 259 and 448 rows, at the first chunk and
+    at unaligned starts behind a context, INT8 and INT4."""
+    for kv in (KVDtype.INT8, KVDtype.INT4):
+        got, want, _ = chunk_case(dev, kv, cd, T, [0, 64, 77, 130], seed=81,
+                                  heads=QWEN2_HEADS, bs=32)
+        close(got, want, cd)
+
+
+def test_server_completion_on_card_equals_engine_run(dev):
+    """One greedy completion over HTTP from a server whose engine runs on
+    the card (the loop thread launches K1 and K2) equals `Engine.run` of a
+    second engine on the same weights."""
+    import json
+    import urllib.request
+
+    from cxl_speckv_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        PrefetchConfig,
+        SystemConfig,
+    )
+    from cxl_speckv_tpu_torch.engine import Engine
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+    from cxl_speckv_tpu_torch.server import SpeckvServer
+
+    def engine(params=None):
+        sc = SystemConfig(
+            cache=CacheConfig(block_size=8, num_hbm_blocks=64,
+                              num_host_blocks=64, kv_dtype=KVDtype.INT8),
+            prefetch=PrefetchConfig(enabled=False),
+            engine=EngineConfig(max_batch_size=4, max_seq_len=128,
+                                prefill_chunk=32, decode_horizon=2))
+        return Engine(tiny_test_config(), sc, params=params, device=None,
+                      seed=9, enable_lstm=False)
+
+    served = engine()
+    prompt = np.random.RandomState(9).randint(1, 256, 21).tolist()
+    ref = engine(served.params)
+    rid = ref.add_request(prompt, max_new_tokens=12)
+    want = {o.req_id: o.tokens for o in ref.run()}[rid]
+    k1, k2 = launched(paged_attention), launched(paged_chunk_attention_cuda)
+    with SpeckvServer(served, port=0) as srv:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/completions",
+            data=json.dumps({"prompt": prompt, "max_tokens": 12}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+        assert srv.loop.alive
+    assert body["tokens"] == want
+    assert launched(paged_attention) > k1
+    assert launched(paged_chunk_attention_cuda) > k2
