@@ -51,14 +51,18 @@ Phases, each printing its results; any failure exits non-zero:
               window 1024 and global in turns;
 5c. anatomy probes -- the decode-anatomy probes P1-P3
               (`ops/decode_anatomy.py`: K1's walk with parts stripped, K1's
-              math on the TPU's kT pool, a cp.async ring) against their
-              plain versions for INT8, INT4 and BF16 at Llama-3-8B's heads,
-              bs 32, lanes up to 1024 tokens, and v2 against K1 at one
-              split (the arithmetic v2 mirrors); then the probe's command
-              line at its default geometry (B 8, ctx 8192, 512 MB pools) at
-              bs 32 and 128, each variant timed back to back, K1 also in
-              single-launch windows and by split count (1, the chosen S
-              and multiples of it);
+              math on the TPU's kT pool, a ring of bulk copies) against
+              their plain versions for INT8, INT4 and BF16 at Llama-3-8B's
+              heads, bs 32, lanes up to 1024 tokens; P1 and P3 at their
+              derived split count, at one split and at a forced count above
+              the short lanes' blocks, and two calls bit-equal; v2 against
+              K1 at one split (the arithmetic v2 mirrors); then the probe's
+              command line at its default geometry (B 8, ctx 8192, 512 MB
+              pools) at bs 32 and 128, each variant timed back to back, K1
+              also in single-launch windows and by split count (1, the
+              chosen S and multiples of it), P1 and P3 by ring depth and
+              split count; each probe's time against the bytes it moves
+              and against its PyTorch library call;
 6. serve   -- Llama-3-8B at full width and depth, random weights from a
               seeded generator, W8A16, INT8 KV in 32-token blocks: 32
               requests x (64 prompt + 64 new tokens), batch 8, decode horizon
@@ -332,6 +336,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -558,6 +563,23 @@ def phase_build() -> None:
     if not hmma["chunk_mma_kernel"] or hmma["chunk_kernel"]:
         fail(f"chunk_attention: HMMA counts {hmma}: tensor cores must run "
              f"the bf16-compute kernels and only them")
+    # P1: the products (matmul, matmulT) on the tensor cores, the sums not
+    hmma = {"product_kernel": 0, "sum kernels": 0}
+    for fn, n in cuda_build.sass_counts("anatomy_variants", "HMMA").items():
+        hmma["product_kernel" if "product_kernel" in fn
+             else "sum kernels"] += n
+    print(f"[build] anatomy_variants: HMMA instructions in the SASS of the "
+          f"matmul / matmulT kernels {hmma['product_kernel']}, of the sum "
+          f"kernels {hmma['sum kernels']}", flush=True)
+    if not hmma["product_kernel"] or hmma["sum kernels"]:
+        fail(f"anatomy_variants: HMMA counts {hmma}: tensor cores must run "
+             f"the products and only them")
+    for name, log in sorted(logs.items()):
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
+        print(f"[build] {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
+              f"-{max(regs, default=0)}, spill bytes (stores + loads) {spill}",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1224,6 +1246,7 @@ def phase_kernels_families(peaks) -> dict:
 # ---------------------------------------------------------------------------
 
 PROBE_LENS = [1024, 1023, 999, 512, 33, 32, 1, 0]     # the check's lanes
+PROBE_FORCED_S = 12      # above the blocks of the 0- to 33-token lanes
 # what the wrappers refuse at Llama-3-8B's heads (D 128), by scheme and bs:
 # w8a8 on BF16 pools, and a ring over the 227 KB of shared memory a block
 # may have (a stage is K + V + scales of one block: 8.25 KB at INT8 bs 32,
@@ -1259,7 +1282,9 @@ def check_probes(scheme: str, seed: int) -> None:
                        seed=seed, lens=PROBE_LENS, shuffle=True, device=DEV)
     kern, plain = da.probe_calls(p), da.plain_calls(p)
     refuse = PROBE_REFUSED[(scheme, BS)]
-    errs = []
+    split = [lb for lb in LABELS[1:] if probe_of(lb) != "P2"
+             and lb not in refuse]
+    errs, want = [], {}
     for label in LABELS[1:]:
         try:
             got = kern[label]()
@@ -1271,10 +1296,28 @@ def check_probes(scheme: str, seed: int) -> None:
         if label in refuse:
             fail(f"probe {scheme} {label}: the wrapper did not refuse it")
         torch.cuda.synchronize()
-        err, ok, tol = da.agreement(label, got, plain[label](), p)
+        want[label] = plain[label]()
+        err, ok, tol = da.agreement(label, got, want[label], p)
         if not ok:
             fail(f"probe {scheme} {label}: error {err} beyond {tol}")
         errs.append(f"{label} {err:.2e}")
+        if label in split:
+            again = kern[label]()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"probe {scheme} {label}: two calls differ")
+    # P1 and P3 at one split and at a count above the short lanes' blocks
+    worst = {}
+    for ns in (1, PROBE_FORCED_S):
+        forced = da.probe_calls(p, num_splits=ns)
+        for label in split:
+            got = forced[label]()
+            torch.cuda.synchronize()
+            err, ok, tol = da.agreement(label, got, want[label], p)
+            if not ok:
+                fail(f"probe {scheme} {label} at S={ns}: error {err} beyond "
+                     f"{tol}")
+            worst[ns] = max(worst.get(ns, 0.0), err)
     # both round q and p * vs to bf16 against the walk's running max and sum
     # in float32: rtol = atol = 2e-4 against K1 unsplit, the arithmetic v2
     # mirrors ("full" runs K1's chosen split count, held to the plain
@@ -1284,10 +1327,59 @@ def check_probes(scheme: str, seed: int) -> None:
     torch.cuda.synchronize()
     if not ok:
         fail(f"probe {scheme}: v2 differs from K1 (num_splits=1) by {err}")
+    derived = {lb: da.probe_setting(lb, p) for lb in split}
     print(f"[probe] {scheme} lens={PROBE_LENS}: every probe within its "
           f"tolerance of its plain version (max |err|: {', '.join(errs)}); "
-          f"K1 at S={da.k1_splits(p)}; v2 vs K1 at S=1 {err:.2e} "
+          f"P1 / P3 (depth, S) derived {derived}, two calls bit-equal; at "
+          f"S=1 max |err| {worst[1]:.2e}, at S={PROBE_FORCED_S} "
+          f"{worst[PROBE_FORCED_S]:.2e} (fetchint exact); K1 at "
+          f"S={da.k1_splits(p)}; v2 vs K1 at S=1 {err:.2e} "
           f"(rtol = atol = {TOL[torch.float32]:g})", flush=True)
+
+
+def probe_sweep(p) -> None:
+    """P1 and P3 at the probe's geometry, back to back, in turns (the list
+    forward, then backward; the mean of the two): every P1 mode at each
+    ring depth it takes (0: registers) at that depth's derived split
+    count, and at its default depth, and each ring, also at 1, half, twice
+    and four times the derived count. The evidence for the defaults."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    tm = (*p.token_major(), p.table, p.lens, p.kv)
+    bs, row = p.k.shape[2], p.k.shape[3] * p.k.element_size()
+    cases = []
+    for label in (*da.P1_MODES, *(f"v5ring{n}" for n in da.RING_DEPTHS)):
+        ring = label.startswith("v5ring")
+        if ring and da.ring_bytes(int(label[6:]), bs, row) > da.SMEM_LIMIT:
+            continue
+        default = da.probe_setting(label, p)[0]
+        for depth in (default,) if ring else da.P1_DEPTHS:
+            try:
+                d, S = da.probe_setting(label, p, None if ring else depth)
+            except ValueError:                 # no such ring for this mode
+                continue
+            counts = ({1, max(S // 2, 1), S, min(2 * S, da.MAX_SPLITS),
+                       min(4 * S, da.MAX_SPLITS)} if d == default else {S})
+            cases += [(label, d, n) for n in sorted(counts)]
+
+    def call(label, d, n):
+        if label.startswith("v5ring"):
+            return lambda: da.ring(d, *tm, num_splits=n)
+        return lambda: da.variant(label, p.q, *tm, num_splits=n, depth=d)
+
+    times = {c: [] for c in cases}
+    for order in (cases, cases[::-1]):
+        for c in order:
+            times[c].append(b2b_ms(call(*c)))
+    for label in dict.fromkeys(c[0] for c in cases):
+        mb = da.moved_bytes(label, p)
+        print(f"[probe-sweep] {label} at ctx {int(p.lens.max())}, bs {bs} "
+              f"(default depth, S = {da.probe_setting(label, p)}), ms back to "
+              f"back in turns / GB/s moved: " + ", ".join(
+                  f"depth {d} S={n} {sum(t) / 2:.4f} / "
+                  f"{mb / (sum(t) / 2) / 1e6:.0f}"
+                  for (lb, d, n), t in times.items() if lb == label),
+              flush=True)
 
 
 def phase_probe(peaks) -> list:
@@ -1336,6 +1428,7 @@ def phase_probe(peaks) -> list:
               f"S={n} {sum(t) / len(t):.4f} ms" for n, t in by_s.items())
           + f"; S=1 / S={chosen}: "
           f"{sum(by_s[1]) / sum(by_s[chosen]):.2f}x", flush=True)
+    probe_sweep(p)
     print(f"[probe] K1 at ctx {int(p.lens.max())}, bs {BS}: {full:.1f} us back to back, "
           f"{rows['full'].get('single_us', float('nan')):.1f} us in a "
           f"single-launch window; "
@@ -1366,20 +1459,39 @@ def phase_probe(peaks) -> list:
         lib = da.contiguous_sums(label, p)
         nb, ops = da.probe_work(label, p)
         b_ms, by = bound_ms(peaks, nb, ops)
+        moved = da.moved_bytes(label, p)
+        moved_ms = moved / peaks["hbm"] * 1e3
+        ms = rows[label]["us"] / 1e3
         src, replaces = PROBE_SOURCES[probe_of(label)]
         entry = {"name": f"anatomy {label}", "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches[label],
-                 "max_abs_err": err, "ms": rows[label]["us"] / 1e3,
+                 "max_abs_err": err, "ms": ms,
                  "plain_ms": time_ms(plain[label], iters=2, warmup=1),
                  "bound_ms": b_ms, "bound_by": by,
+                 # the whole-tile walk at the HBM rate: what the kernel
+                 # moves (fetchrow and the rings: whole tiles for row 0)
+                 "moved_bound_ms": moved_ms,
                  # the PyTorch reductions of the same sums over the
                  # contiguous table (decode_anatomy.contiguous_sums), where
-                 # there are such; none for dequant, the products and P2
-                 "library_ms": time_ms(lib, iters=5) if lib else None}
-        print(f"[probe] {label}: {entry['ms']:.4f} ms back to back, plain "
-              f"{entry['plain_ms']:.3f} ms, bound {b_ms:.5f} ms ({by}), "
-              f"library {entry['library_ms']}, max |err| {err:.3e} ({tol})",
-              flush=True)
+                 # there are such, back to back as the kernel is timed;
+                 # none for dequant, the products and P2
+                 "library_ms": b2b_ms(lib) if lib else None}
+        lib_line = "none"
+        if lib:
+            lib_line = (f"{entry['library_ms']:.4f} ms back to back "
+                        f"({time_ms(lib, iters=5):.4f} in single-launch "
+                        f"windows), kernel / library "
+                        f"{ms / entry['library_ms']:.2f}x")
+        if probe_of(label) != "P2":
+            entry["depth"], entry["splits"] = da.probe_setting(label, p)
+        print(f"[probe] {label}: {ms:.4f} ms back to back"
+              + (f" (depth {entry['depth']}, S={entry['splits']})"
+                 if "splits" in entry else "")
+              + f", {moved / ms / 1e6:.0f} GB/s of the {moved / 1e6:.1f} MB "
+              f"it moves, {moved_ms / ms:.1%} of that moved-bytes bound "
+              f"({moved_ms:.5f} ms); library {lib_line}; plain "
+              f"{entry['plain_ms']:.3f} ms; bound {b_ms:.5f} ms ({by}); max "
+              f"|err| {err:.3e} ({tol})", flush=True)
         entries.append(entry)
     return entries
 

@@ -1,124 +1,91 @@
-// P3: a ring of asynchronous copies keeping nbuf blocks in flight (Hopper,
-// sm_90a).
+// P3: a ring of bulk copies keeping nbuf blocks in flight (Hopper, sm_90a).
 //
 // Replaces the Pallas TPU probe `scripts/kernel_anatomy.py:462`
 // (`run_v5.<locals>.loop`, body `v5_kernel`, `:389-445`): a manual
 // make_async_copy ring with DMA semaphores, nbuf blocks of K, V and both
 // scales in flight, and one token row of each tile summed (`compute ==
-// "row"`, `:421-424`). Here a ring of NBUF stages in dynamic shared memory,
-// each holding one block's K tile, V tile and both scale rows of the CTA's
-// kv head, is filled with 16-byte `cp.async.cg` copies, one commit group a
-// block; `cp.async.wait_group<NBUF - 1>` (an immediate, hence the template
-// parameter) waits for the oldest block while NBUF - 1 more stay in flight,
-// and the stage is refilled with block i + NBUF once every thread has read
-// it. For the CTA's kv head h of lane b it computes the float32 sum over the
-// lane's blocks of token row 0 of the K tile and of the V tile (the stored
-// elements as numbers: int8 bytes, INT4 packed bytes read as int8, bf16
-// values) -- the same function as P1's fetchrow.
+// "row"`, `:421-424`). Here the ring of tile_ring.cuh with NBUF stages
+// (the template parameter; 4, 8 or 16), each holding one block's K tile, V
+// tile and both scale rows of the CTA's kv head, filled by TMA bulk copies
+// from one producer warp and read by four consumer warps, the CTA's slice
+// of the block-table row staged in shared memory before the copies. For
+// kv head h of lane b it computes the float32 sum over the lane's blocks
+// of token row 0 of the K tile and of the V tile (the stored elements as
+// numbers: int8 bytes, INT4 packed bytes read as int8, bf16 values) -- the
+// same function as P1's fetchrow.
 //
-// Why K1's grid, one CTA per (lane, kv head), and not the TPU's (B,): the
-// TPU has one core that runs the grid in order, while (B,) on the card
-// would give 8 CTAs at the probe's batch and leave 124 of 132 SMs idle.
-// Pools as in K1: token-major K, V [S, Hkv, bs, D/pack], scales
-// [S, Hkv, bs]. A stage is 2 * bs * row_bytes + 8 * bs bytes (8 KB + 256 B
-// at bs 32, D 128, INT8); a ring that does not fit in the 227 KB a block
-// may have is refused (nbuf 16 at BF16 needs ~264 KB). Bound: the bytes of
-// the blocks copied (K, V and both scales once).
+// Grid: (lane, kv head, split), as P1's (tile_ring.cuh: the split plan
+// and the fixed-order merge of the partials), not the TPU's (B,): the TPU
+// has one core that runs the grid in order, while (B,) on the card would
+// give 8 CTAs at the probe's batch. Pools as in K1: token-major K, V
+// [S, Hkv, bs, D/pack], scales [S, Hkv, bs]. A stage is
+// 2 * bs * row_bytes + 8 * bs bytes (8 KB + 256 B at bs 32, D 128, INT8),
+// and its two barriers 16 more; a ring that does not fit in the 227 KB a
+// block may have is refused (nbuf 16 at BF16 needs ~264 KB). Bound: the
+// bytes of the blocks copied (K, V and both scales once); what the kernel
+// computes is only the rows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_ring.cuh"
+
 namespace {
 
-constexpr int NT = 128;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+constexpr int NC = 128;            // consumer threads (4 warps)
+constexpr int NT = NC + 32;        // + the producer warp
 
 template <int NBUF, bool BF16>
 __global__ void __launch_bounds__(NT)
 ring_kernel(const char* __restrict__ k_pool, const char* __restrict__ v_pool,
-            const char* __restrict__ k_scale, const char* __restrict__ v_scale,
+            const float* __restrict__ k_scale, const float* __restrict__ v_scale,
             const int* __restrict__ block_table,
-            const int* __restrict__ seq_lens, float* __restrict__ out, int Hkv,
-            int bs, int row_bytes, int max_blocks) {
-  extern __shared__ uint4 ring[];
-  __shared__ float red[NT / 32];
+            const int* __restrict__ seq_lens, float* __restrict__ dst, int Hkv,
+            int bs, int row_bytes, int width, int S) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float red[NC / 32];
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / Hkv, h = blockIdx.x % Hkv;
-  int nblk = (seq_lens[b] + bs - 1) / bs;
-  if (nblk > max_blocks) nblk = max_blocks;
-  const int tile_vec = bs * row_bytes / 16;   // 16-byte vectors a tile
-  const int sc_vec = bs * 4 / 16;             // a scale row
-  const int stage_vec = 2 * tile_vec + 2 * sc_vec;
-
-  // every thread copies its share of block `blk` into stage `st`
-  auto copy_block = [&](int blk, int st) {
-    const int slot = block_table[(size_t)b * max_blocks + blk];
-    const size_t tile = ((size_t)slot * Hkv + h) * bs;
-    const char* src[4] = {k_pool + tile * row_bytes, v_pool + tile * row_bytes,
-                          k_scale + tile * 4, v_scale + tile * 4};
-    uint4* dst = ring + (size_t)st * stage_vec;
-    for (int i = tid; i < stage_vec; i += NT) {
-      const int part = i < tile_vec ? 0 : i < 2 * tile_vec ? 1
-                     : i < 2 * tile_vec + sc_vec ? 2 : 3;
-      const int off = part < 2 ? i - part * tile_vec
-                               : i - 2 * tile_vec - (part - 2) * sc_vec;
-      cp_async16(dst + i, src[part] + (size_t)off * 16);
-    }
-  };
-
-  // fill the ring; one commit group a stage, empty ones too, so that group
-  // i always holds block i
-  for (int w = 0; w < NBUF; ++w) {
-    if (w < nblk) copy_block(w, w);
-    cp_async_commit();
+  const tile_ring::Walk w = tile_ring::walk_of(seq_lens, Hkv, bs, width, S);
+  const uint32_t tile_bytes = (uint32_t)bs * row_bytes;
+  tile_ring::Ring<NBUF> ring(smem, 2 * tile_bytes + 8 * bs);
+  ring.init(NC / 32);
+  if (tid >= NC) {                            // the producer warp
+    ring.produce(block_table + (size_t)w.b * width, w.sp.first, w.sp.count,
+                 tid % 32, [&](int slot, unsigned char* st, uint64_t* bar) {
+      const size_t t = tile_ring::tile_row(slot, Hkv, w.h, bs);
+      tile_ring::bulk_copy(st, k_pool + t * row_bytes, tile_bytes, bar);
+      tile_ring::bulk_copy(st + tile_bytes, v_pool + t * row_bytes, tile_bytes,
+                           bar);
+      tile_ring::bulk_copy(st + 2 * tile_bytes, k_scale + t, 4 * bs, bar);
+      tile_ring::bulk_copy(st + 2 * tile_bytes + 4 * bs, v_scale + t, 4 * bs,
+                           bar);
+    });
+    return;
   }
   float acc = 0.f;
   const int row_elems = row_bytes / (BF16 ? 2 : 1);
-  for (int i = 0; i < nblk; ++i) {
-    const int st = i % NBUF;
-    cp_async_wait<NBUF - 1>();                // block i has landed
-    __syncthreads();
-    const char* stage = reinterpret_cast<const char*>(ring + (size_t)st * stage_vec);
-    for (int e = tid; e < row_elems; e += NT) {
+  for (int i = 0; i < w.sp.count; ++i) {
+    const unsigned char* stage = ring.acquire(i);
+    for (int e = tid; e < row_elems; e += NC) {
       if constexpr (BF16) {
         const uint16_t* k = reinterpret_cast<const uint16_t*>(stage);
-        const uint16_t* v = reinterpret_cast<const uint16_t*>(
-            stage + (size_t)tile_vec * 16);
+        const uint16_t* v = reinterpret_cast<const uint16_t*>(stage + tile_bytes);
         acc += __uint_as_float((uint32_t)k[e] << 16) +
                __uint_as_float((uint32_t)v[e] << 16);
       } else {
-        acc += (float)(int8_t)stage[e] +
-               (float)(int8_t)stage[(size_t)tile_vec * 16 + e];
+        acc += (float)(int8_t)stage[e] + (float)(int8_t)stage[tile_bytes + e];
       }
     }
-    __syncthreads();                          // the stage is free again
-    if (i + NBUF < nblk) copy_block(i + NBUF, st);
-    cp_async_commit();
+    ring.release(i);
   }
-  cp_async_wait<0>();
-
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
   if (tid % 32 == 0) red[tid / 32] = acc;
-  __syncthreads();
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
   if (tid == 0) {
     float s = 0.f;
-    for (int w = 0; w < NT / 32; ++w) s += red[w];
-    out[blockIdx.x] = s;
+    for (int v = 0; v < NC / 32; ++v) s += red[v];
+    dst[(size_t)blockIdx.x * S + w.z] = s;
   }
 }
 
@@ -138,28 +105,34 @@ Kernel pick(int nbuf, bool bf16) {
 // Returns a cudaError_t code (0 = launched). nbuf is 4, 8 or 16; elem_bytes
 // 1 (int8 / INT4 bytes) or 2 (bf16); row_bytes = D / pack * elem_bytes, a
 // multiple of 16; bs % 4 == 0 (a scale row is whole 16-byte vectors). out
-// [B, Hkv] float32. The Python wrapper refuses a ring above 227 KB; the
-// launch returns cudaErrorInvalidValue for one too.
+// [B, Hkv] float32; num_splits S >= 1 CTAs a (lane, kv head), and at S > 1
+// `work` [B * Hkv, S] holds the partials that a merge launch adds. The
+// Python wrapper refuses a ring above 227 KB; the launch returns
+// cudaErrorInvalidValue for one too.
 extern "C" int anatomy_ring_launch(
     const void* k_pool, const void* v_pool, const float* k_scale,
     const float* v_scale, const int* block_table, const int* seq_lens,
-    float* out, int B, int Hkv, int bs, int row_bytes, int max_blocks,
-    int elem_bytes, int nbuf, void* stream) {
+    float* out, float* work, int B, int Hkv, int bs, int row_bytes,
+    int max_blocks, int elem_bytes, int nbuf, int num_splits, void* stream) {
   const Kernel kern = pick(nbuf, elem_bytes == 2);
-  const size_t smem = (size_t)nbuf * (2 * (size_t)bs * row_bytes + 8 * (size_t)bs);
+  const int S = num_splits;
+  const size_t smem = kern ? tile_ring::ring_smem_bytes(
+      nbuf, 2 * (size_t)bs * row_bytes + 8 * (size_t)bs) : 0;
   if (!kern || row_bytes % 16 || bs % 4 || (elem_bytes != 1 && elem_bytes != 2) ||
-      smem > 232448)
+      smem > 232448 || S < 1 || (S > 1 && !work))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<B * Hkv, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return (int)e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kern<<<dim3(B * Hkv, S), NT, smem, st>>>(
       static_cast<const char*>(k_pool), static_cast<const char*>(v_pool),
-      reinterpret_cast<const char*>(k_scale),
-      reinterpret_cast<const char*>(v_scale), block_table, seq_lens, out, Hkv,
-      bs, row_bytes, max_blocks);
-  return (int)cudaGetLastError();
+      k_scale, v_scale, block_table, seq_lens, S == 1 ? out : work, Hkv, bs,
+      row_bytes, max_blocks, S);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (S == 1) return 0;
+  return (int)tile_ring::launch_merge<float>(work, out, B * Hkv, S, 1, st);
 }

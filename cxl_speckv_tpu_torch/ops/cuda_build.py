@@ -36,9 +36,11 @@ SIGNATURES = {
     "chunk_attention": ("chunk_attention_launch",
                         [_P] * 11 + [_I] * 11 + [_F, _F, _P]),
     # the decode-anatomy probes P1, P2, P3 (ops/decode_anatomy.py)
-    "anatomy_variants": ("anatomy_variants_launch", [_P] * 8 + [_I] * 9 + [_P]),
+    "anatomy_variants": ("anatomy_variants_launch", [_P] * 9 + [_I] * 11 + [_P]),
     "anatomy_kt": ("anatomy_kt_launch", [_P] * 8 + [_I] * 9 + [_F, _P]),
-    "anatomy_ring": ("anatomy_ring_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    "anatomy_ring": ("anatomy_ring_launch", [_P] * 8 + [_I] * 8 + [_P]),
+    # the card tests' hold on a stream (utils/card.py:StreamHold)
+    "stream_hold": ("stream_hold_launch", [_P, ctypes.c_longlong, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -18,23 +18,35 @@ package drives them.
   ("kT") pool, variants `v2`, `v3fused` and `w8a8`; `kt_attention_plain`.
 - P3, `ring(nbuf, ...)`, `csrc/anatomy_ring.cu`, replaces
   `scripts/kernel_anatomy.py:462` (`run_v5.<locals>.loop`, call `:464`): a
-  ring of nbuf (4, 8, 16) `cp.async` stages in shared memory; the sum of
+  ring of nbuf (4, 8, 16) bulk-copy stages in shared memory; the sum of
   token row 0 of every K and V tile, the function of P1's `fetchrow`.
 
 What bounds them on the card: the bytes, at every mode. At the probe's
 default geometry (B 8, Hq 32, Hkv 8, D 128, ctx 8192, INT8) a call reads
-134 MB of K and V tiles (40 us at 3.35 TB/s); even the products of
-`matmul` and `matmulT`, 1.07 GFLOP, take 16 us at the float32 rate the
-kernels run them at (`probe_work` counts both). `fetchrow` and the rings
-move whole tiles, as the TPU DMA did, but their function is the sum of
-token row 0 of each tile: their bound counts those rows only (4.2 MB,
-1.25 us), so their time against it is what moving the rest costs.
+134 MB of K and V tiles (40 us at 3.35 TB/s); the products of `matmul`
+and `matmulT`, 1.07 GFLOP, run on the tensor cores (`probe_work` counts
+both). `fetchrow` and the rings move whole tiles, as the TPU DMA did, but
+their function is the sum of token row 0 of each tile: their bound counts
+those rows only (4.2 MB, 1.25 us), so their time against it is what
+moving the rest costs; `moved_bytes` counts what they move, the bound
+their time is held to (`moved_bound_ms` in `chip_smoke.py`).
+
+How P1 and P3 run on the card (`csrc/tile_ring.cuh`): on a grid of (lane,
+kv head, split), over K1's token-major pools [S, Hkv, bs, D/pack], so
+that each mode is literally "K1 minus something". A CTA walks its split
+of the lane's blocks (`split_ranges`) through a ring of shared-memory
+stages that one producer warp fills with TMA bulk copies (`depth` stages
+for P1, nbuf for P3), its slice of the block-table row staged in shared
+memory first; a merge launch adds the splits' partials in a fixed order,
+so two calls give the same bits. `num_splits=None` takes `probe_splits`
+of the shapes (a few CTAs an SM, no split shorter than the depth); an
+int forces S (1..64), for tests and sweeps. P1's fetch, fetchint and
+dequant may instead read their tiles into registers (`depth=0`: no faster
+on the card, PERF.md §6; taken where no ring fits).
 
 Where the designs depart from the TPU bodies, and why:
-- P1 and P3 run on K1's grid, one CTA per (lane, kv head), over K1's
-  token-major pools [S, Hkv, bs, D/pack], so that each mode is literally
-  "K1 minus something". The TPU ring ran on a grid of (B,): on the card
-  that is 8 CTAs at the probe's batch, 124 of 132 SMs idle.
+- P1 and P3 split a lane's walk over CTAs. The TPU ring ran on a grid of
+  (B,): on the card that is 8 CTAs at the probe's batch.
 - P1's products are taken within a head. The TPU tile spans all Hkv heads,
   so its body multiplied every query row by all Hkv * bs columns (and took
   matmulT's max over them); K1 on the card never does.
@@ -67,6 +79,7 @@ from cxl_speckv_tpu_torch.ops.paged_attention import (
     KV_KINDS,
     default_splits,
     paged_attention,
+    sm_count,
 )
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import (
     NEG_INF,
@@ -82,6 +95,12 @@ SUM_MODES = P1_MODES[:4]
 P2_VARIANTS = ("v2", "v3fused", "w8a8")
 RING_DEPTHS = (4, 8, 16)
 SMEM_LIMIT = 232448          # bytes of shared memory a block may have (H100)
+P1_DEPTHS = (0, 2, 4, 8)     # P1's ring stages; 0: registers (sum modes)
+P1_DEPTH = {mode: 4 for mode in P1_MODES}   # the default, by measurement
+PROBE_WAVES = 4              # CTAs an SM the derived split count aims at,
+PRODUCT_WAVES = 2            # and for matmul / matmulT (4 fit an SM)
+MAX_SPLITS = 64
+TABLE_WINDOW = 256           # table entries a ring stages at once
 PROBE_HEADS = (32, 8, 128)   # Hq, Hkv, D: the script's default, Llama-3-8B's
 PROBE_BATCH = 8
 
@@ -234,6 +253,95 @@ def _lane_blocks(table, lens, b: int, bs: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the split walk of P1 and P3 (csrc/tile_ring.cuh)
+# ---------------------------------------------------------------------------
+
+def split_ranges(n: int, num_splits: int) -> list[tuple[int, int]]:
+    """(first, count) of each split's blocks of a lane of n blocks, as
+    `tile_ring.cuh:split_range` takes them: per = ceil(n / S), split z from
+    z * per, the last ones short or empty."""
+    per = -(-n // num_splits)
+    return [(z * per, max(0, min(per, n - z * per))) for z in range(num_splits)]
+
+
+def probe_splits(ctas: int, width: int, depth: int, sms: int,
+                 products: bool = False) -> int:
+    """The split count for `ctas` (lane, kv head) pairs over a block table
+    `width` blocks wide, at ring depth `depth` (0: registers, no ring), on
+    a card of `sms` SMs: about PROBE_WAVES CTAs an SM (PRODUCT_WAVES for
+    matmul / matmulT, whose registers fit 4 CTAs an SM: more splits queue
+    a second wave), no split shorter than the depth (the table width over
+    S), at most MAX_SPLITS; 1 where the pairs alone fill the card. Reads no
+    sequence lengths."""
+    if ctas == 0:
+        return 1
+    waves = PRODUCT_WAVES if products else PROBE_WAVES
+    s = min(-(-waves * sms // ctas), width // max(depth, 1), MAX_SPLITS)
+    return max(s, 1)
+
+
+def _ring_smem(depth: int, stage: int) -> int:
+    """`tile_ring.cuh:ring_smem_bytes`: barriers and the table window, then
+    the stages from a 128-byte boundary."""
+    return -(-(16 * depth + 4 * TABLE_WINDOW) // 128) * 128 + depth * stage
+
+
+def _p1_stage(mode: str, bs: int, row_bytes: int) -> int:
+    """Shared memory of a P1 stage: K and V tiles, and the scale rows where
+    the mode reads them."""
+    return 2 * bs * row_bytes + (8 * bs if mode in ("fetch", "dequant") else 0)
+
+
+def _p1_smem(mode: str, depth: int, bs: int, row_bytes: int) -> int:
+    """The kernel's dynamic shared memory (the products: each consumer
+    warp's float32 scores [8][bs rounded up to 16] and the warps' sum
+    [8][D/pack], counted here at row_bytes >= D/pack elements)."""
+    if depth == 0:
+        return 0
+    extra = (4 * (4 * 8 * -(-bs // 16) * 16 + 8 * row_bytes)
+             if mode in ("matmul", "matmulT") else 0)
+    return _ring_smem(depth, _p1_stage(mode, bs, row_bytes)) + extra
+
+
+def p1_depth(mode: str, bs: int, row_bytes: int, depth=None) -> int:
+    """P1's ring depth for `mode`: `depth`, or P1_DEPTH's, halved while the
+    ring does not fit in shared memory (fetch, fetchint and dequant then
+    read into registers). Raises ValueError where no ring of 2 fits, or
+    for a depth P1 does not take."""
+    if depth is not None:
+        if depth not in P1_DEPTHS or (depth == 0 and mode not in
+                                      ("fetch", "fetchint", "dequant")):
+            raise ValueError(f"anatomy variant {mode}: depth {depth} (of "
+                             f"{P1_DEPTHS}; 0 only for fetch, fetchint, "
+                             f"dequant)")
+        if _p1_smem(mode, depth, bs, row_bytes) > SMEM_LIMIT:
+            raise ValueError(f"anatomy variant {mode}: a ring of {depth} "
+                             f"stages does not fit in shared memory")
+        return depth
+    d = P1_DEPTH[mode]
+    while d > 2 and _p1_smem(mode, d, bs, row_bytes) > SMEM_LIMIT:
+        d //= 2
+    if d and _p1_smem(mode, d, bs, row_bytes) > SMEM_LIMIT:
+        if mode in ("fetch", "fetchint", "dequant"):
+            return 0
+        raise ValueError(f"anatomy variant {mode}: two stages of {bs}-token "
+                         f"tiles do not fit in shared memory")
+    return d
+
+
+def _splits(num_splits, ctas: int, width: int, depth: int, dev,
+            products: bool = False) -> int:
+    if num_splits is None:
+        return probe_splits(ctas, width, depth, sm_count(
+            dev.index if dev.index is not None else torch.cuda.current_device()),
+            products)
+    if not isinstance(num_splits, int) or not 1 <= num_splits <= MAX_SPLITS:
+        raise ValueError(f"num_splits must be an int in 1..{MAX_SPLITS}, not "
+                         f"{num_splits!r}")
+    return num_splits
+
+
+# ---------------------------------------------------------------------------
 # P1: K1's walk with parts stripped
 # ---------------------------------------------------------------------------
 
@@ -292,10 +400,14 @@ def variant_plain(mode: str, q, k, v, ks, vs, table, lens, kv: KVDtype,
     return out
 
 
-def variant(mode: str, q, k, v, ks, vs, table, lens,
-            kv: KVDtype) -> torch.Tensor:
+def variant(mode: str, q, k, v, ks, vs, table, lens, kv: KVDtype,
+            num_splits: int | None = None, depth: int | None = None
+            ) -> torch.Tensor:
     """P1 mode `mode` (see `variant_plain`) on the card, or its plain
-    version for CPU tensors."""
+    version for CPU tensors. `num_splits`: None for `probe_splits`, or a
+    forced count 1..64; `depth`: None for `p1_depth`'s, or one of
+    P1_DEPTHS (0: registers, fetch / fetchint / dequant only). Both are
+    checked on either device and change no result."""
     dev = _check("anatomy variant", kv, (k, v, ks, vs), (q, table, lens))
     if mode not in P1_MODES:
         raise ValueError(f"unknown P1 mode {mode!r}")
@@ -306,19 +418,30 @@ def variant(mode: str, q, k, v, ks, vs, table, lens,
             or ks.shape != k.shape[:3] or vs.shape != ks.shape):
         raise ValueError(f"anatomy variant: unsupported shape q "
                          f"{tuple(q.shape)} pool {tuple(k.shape)}")
+    depth = p1_depth(mode, bs, dp * k.element_size(), depth)
     if dev.type == "cpu":
+        if num_splits is not None:
+            _splits(num_splits, B * hkv, table.shape[1], depth, dev)
         return variant_plain(mode, q, k, v, ks, vs, table, lens, kv)
+    ns = _splits(num_splits, B * hkv, table.shape[1], depth, dev,
+                 mode not in SUM_MODES)
+    G = hq // hkv
     if mode in SUM_MODES:
-        out = torch.empty((B, hkv), device=dev, dtype=torch.int32
-                          if mode == "fetchint" else torch.float32)
+        dt = torch.int32 if mode == "fetchint" else torch.float32
+        out = torch.empty((B, hkv), device=dev, dtype=dt)
+        work = torch.empty((B * hkv, ns), device=dev, dtype=dt) if ns > 1 \
+            else None
     else:
-        out = torch.empty((B, hkv, hq // hkv, dp), device=dev)
+        out = torch.empty((B, hkv, G, dp), device=dev)
+        work = torch.empty((B * hkv, ns, G, dp), device=dev) if ns > 1 \
+            else None
     qf = q.float().contiguous()
     err = cuda_build.kernel("anatomy_variants")(
         qf.data_ptr(), k.data_ptr(), v.data_ptr(), ks.data_ptr(),
-        vs.data_ptr(), table.data_ptr(), lens.data_ptr(), out.data_ptr(), B,
-        hq, hkv, d, dp, bs, table.shape[1], KV_KINDS[kv],
-        P1_MODES.index(mode), _stream(dev))
+        vs.data_ptr(), table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), B, hq, hkv, d, dp, bs,
+        table.shape[1], KV_KINDS[kv], P1_MODES.index(mode), ns, depth,
+        _stream(dev))
     cuda_build.check_launch("anatomy_variants", err)
     variant.launches[mode] += 1
     return out
@@ -453,15 +576,16 @@ kt_attention.launches = Counter()
 
 def ring_bytes(nbuf: int, bs: int, row_bytes: int) -> int:
     """Shared memory of a ring: nbuf stages of one block's K and V tiles and
-    both scale rows."""
-    return nbuf * (2 * bs * row_bytes + 8 * bs)
+    both scale rows, each with its two 8-byte barriers ("full", "empty")."""
+    return nbuf * (2 * bs * row_bytes + 8 * bs + 16)
 
 
-def ring(nbuf: int, k, v, ks, vs, table, lens, kv: KVDtype) -> torch.Tensor:
+def ring(nbuf: int, k, v, ks, vs, table, lens, kv: KVDtype,
+         num_splits: int | None = None) -> torch.Tensor:
     """P3 at depth `nbuf` (4, 8, 16) -> [B, Hkv] float32, the function of
     `variant_plain("fetchrow", ...)`, which is its plain version for CPU
     tensors. Raises ValueError for a ring that does not fit in shared
-    memory, on either device."""
+    memory, on either device. `num_splits` as `variant`'s."""
     name = f"anatomy ring{nbuf}"
     if nbuf not in RING_DEPTHS:
         raise ValueError(f"{name}: depth must be one of {RING_DEPTHS}")
@@ -478,13 +602,18 @@ def ring(nbuf: int, k, v, ks, vs, table, lens, kv: KVDtype) -> torch.Tensor:
     if ks.shape != k.shape[:3] or vs.shape != ks.shape or v.shape != k.shape:
         raise ValueError(f"{name}: pool / scale shapes disagree")
     if dev.type == "cpu":
+        if num_splits is not None:
+            _splits(num_splits, B * hkv, table.shape[1], nbuf, dev)
         q = torch.zeros((B, hkv, 1))
         return variant_plain("fetchrow", q, k, v, ks, vs, table, lens, kv)
+    ns = _splits(num_splits, B * hkv, table.shape[1], nbuf, dev)
     out = torch.empty((B, hkv), device=dev)
+    work = torch.empty((B * hkv, ns), device=dev) if ns > 1 else None
     err = cuda_build.kernel("anatomy_ring")(
         k.data_ptr(), v.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        table.data_ptr(), lens.data_ptr(), out.data_ptr(), B, hkv, bs,
-        row_bytes, table.shape[1], k.element_size(), nbuf, _stream(dev))
+        table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), B, hkv, bs, row_bytes,
+        table.shape[1], k.element_size(), nbuf, ns, _stream(dev))
     cuda_build.check_launch("anatomy_ring", err)
     ring.launches[f"v5ring{nbuf}"] += 1
     return out
@@ -511,6 +640,19 @@ def _scales(label: str, p: ProbePools) -> tuple:
     return (p.scf, None) if label == "v3fused" else (p.ks, p.vs)
 
 
+def probe_setting(label: str, p: ProbePools, depth=None) -> tuple[int, int]:
+    """(ring depth, split count) that a P1 mode (`depth` or its default) or
+    a P3 ring ("v5ring8": its nbuf) takes on `p` on the current card."""
+    row = p.k.shape[3] * p.k.element_size()
+    if label.startswith("v5ring"):
+        d = int(label[len("v5ring"):])
+    else:
+        d = p1_depth(label, p.k.shape[2], row, depth)
+    return d, probe_splits(p.lens.shape[0] * p.k.shape[1], p.table.shape[1],
+                           d, sm_count(torch.cuda.current_device()),
+                           label in P1_MODES and label not in SUM_MODES)
+
+
 def k1_splits(p: ProbePools) -> int:
     """The split count K1 chooses on `p` (1 on the CPU)."""
     return default_splits(p.q, p.k, p.table, None)
@@ -524,20 +666,22 @@ def k1_call(p: ProbePools, num_splits: int | None = None):
                                    num_splits=num_splits)
 
 
-def probe_calls(p: ProbePools) -> dict:
+def probe_calls(p: ProbePools, num_splits: int | None = None) -> dict:
     """{label: a function of no arguments making one call on `p`}: "full"
     is K1 at bf16 compute and its chosen split count, then every P1 mode,
     P2 variant and ring depth ("v5ring4", ...) under the TPU script's
-    names."""
+    names; P1 and P3 at `num_splits` (None: `probe_splits`)."""
     tm = (*p.token_major(), p.table, p.lens, p.kv)
     fns = {"full": k1_call(p)}
     for mode in P1_MODES:
-        fns[mode] = lambda mode=mode: variant(mode, p.q, *tm)
+        fns[mode] = lambda mode=mode: variant(mode, p.q, *tm,
+                                              num_splits=num_splits)
     for name in P2_VARIANTS:
         fns[name] = lambda name=name: kt_attention(
             p.q, p.kt, p.v, *_scales(name, p), p.table, p.lens, p.kv, name)
     for nbuf in RING_DEPTHS:
-        fns[f"v5ring{nbuf}"] = lambda nbuf=nbuf: ring(nbuf, *tm)
+        fns[f"v5ring{nbuf}"] = lambda nbuf=nbuf: ring(nbuf, *tm,
+                                                      num_splits=num_splits)
     return fns
 
 
@@ -630,6 +774,24 @@ def probe_work(label: str, p: ProbePools) -> tuple[int, dict]:
     if label == "w8a8":
         return nb, {"int8": 2 * G * d * ctx, "bf16": 2 * G * d * ctx}
     return nb, {"bf16": 4 * G * d * ctx}
+
+
+def moved_bytes(label: str, p: ProbePools) -> int:
+    """Bytes a call of probe `label` on `p` moves between device memory and
+    the SMs: `probe_work`'s, except that fetchrow and the rings move each
+    whole K and V tile (the rings both scale rows too) where their function
+    reads token row 0 only. Over the card's HBM rate it is the least time
+    of what the kernel does (`moved_bound_ms`), beside the function's
+    bound."""
+    nb = probe_work(label, p)[0]
+    if label != "fetchrow" and not label.startswith("v5ring"):
+        return nb
+    S, hkv, bs, dp = p.k.shape
+    blocks = sum(min(-(-int(n) // bs), p.table.shape[1]) for n in p.lens.tolist())
+    row = hkv * dp * p.k.element_size()
+    whole = hkv * bs * dp * p.k.element_size() + (
+        hkv * bs * 4 if label.startswith("v5ring") else 0)
+    return nb + blocks * 2 * (whole - row)
 
 
 def contiguous_sums(label: str, p: ProbePools):

@@ -26,7 +26,8 @@ times are the host's, printed as such. Pools hold random values from
 `--seed` (0 by default) over a contiguous table, or with `--constants` the
 script's constants (zero K, V and q, unit scales). The script's `--ppb`
 has no counterpart: it set the blocks a TPU grid step fetched, and here a
-CTA walks all of its lane's blocks in one loop.
+CTA walks its share of a lane's blocks in one loop (P1 and P3 split a
+lane's walk over `decode_anatomy.probe_splits` CTAs).
 """
 
 from __future__ import annotations
@@ -53,7 +54,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         description=__doc__.split("\n\n")[0],
         epilog="The TPU script's --ppb (blocks a grid step fetched) has no "
-               "counterpart: a CTA walks all of its lane's blocks in one loop.")
+               "counterpart: a CTA walks its share of a lane's blocks in one "
+               "loop.")
     ap.add_argument("--scheme", default="int8", choices=sorted(da.SCHEMES))
     ap.add_argument("--bs", type=int, default=128, help="KV block size")
     ap.add_argument("--ctx", type=int, default=8192,

@@ -111,3 +111,37 @@ def graph_us(fn, iters: int, replays: int = 3) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / (iters * replays) * 1e3
+
+
+class StreamHold:
+    """A hold on a CUDA stream that the caller releases: `csrc/
+    stream_hold.cu`'s kernel, queued on `stream` (default: the current
+    one), spins on a word of pinned host memory, so work queued behind it
+    waits until `release()` (or leaving the `with` block), however slow
+    the host is. The kernel gives up after `max_s` seconds so that a
+    forgotten hold cannot stall the card; `timed_out()`, once the stream
+    has passed the hold, says whether it did."""
+
+    def __init__(self, stream=None, max_s: float = 30.0):
+        import torch
+
+        from cxl_speckv_tpu_torch.ops import cuda_build
+
+        self.flag = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+        st = stream if stream is not None else torch.cuda.current_stream()
+        err = cuda_build.kernel("stream_hold")(
+            self.flag.data_ptr(), int(max_s * 1e9), st.cuda_stream)
+        cuda_build.check_launch("stream_hold", err)
+
+    def release(self) -> None:
+        if int(self.flag[0]) == 0:
+            self.flag[0] = 1
+
+    def timed_out(self) -> bool:
+        return int(self.flag[0]) == 2
+
+    def __enter__(self) -> "StreamHold":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()

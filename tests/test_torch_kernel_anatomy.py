@@ -150,6 +150,96 @@ def test_p3_ring_that_does_not_fit_raises():
                 da.ring(nbuf, *args)
 
 
+@pytest.mark.parametrize("lens,bs,width,splits", [
+    ((8192,) * 8, 32, 256, 5),      # the probe's lanes at the derived S
+    ((0, 1, 32, 33), 32, 4, 3),     # lanes of 0 and 1 tokens, short lanes
+    ((64, 37), 8, 8, 7),            # fewer blocks than splits
+    ((100, 9000), 32, 10, 4),       # the table's width caps the walk
+    ((8192,), 32, 256, 1),
+    ((5 * 32,), 32, 5, 64),
+])
+def test_split_plan_covers_every_block_once(lens, bs, width, splits):
+    """`split_ranges` (the kernels' `tile_ring.cuh:split_range`): the
+    splits of each lane cover its min(ceil(len / bs), width) blocks, each
+    exactly once, in order; an empty split has count 0."""
+    for n in lens:
+        blocks = min(-(-n // bs), width)
+        ranges = da.split_ranges(blocks, splits)
+        assert len(ranges) == splits
+        walked = [i for first, count in ranges
+                  for i in range(first, first + count)]
+        assert walked == list(range(blocks))
+        assert all(count >= 0 for _, count in ranges)
+
+
+@pytest.mark.parametrize("sm", [132, 114])
+@pytest.mark.parametrize("depth", [0, 2, 4, 8, 16])
+def test_derived_splits_fill_the_card(sm, depth):
+    """At the probe's geometry (B 8, Hkv 8, ctx 8192 at bs 32: a table 256
+    blocks wide; at bs 128, 64 blocks, where no ring deeper than 4 fits)
+    the derived count puts at least two CTAs on every SM and leaves no
+    split shorter than the ring depth; where the lanes alone fill the card
+    it is 1."""
+    ctas = da.PROBE_BATCH * da.PROBE_HEADS[1]
+    for products in (False, True):
+        for width in (256, 64) if depth <= 4 else (256,):
+            S = da.probe_splits(ctas, width, depth, sm, products)
+            assert ctas * S >= 2 * sm
+            assert S <= width // max(depth, 1) and S <= da.MAX_SPLITS
+        assert da.probe_splits(4 * sm, 256, depth, sm, products) == 1
+        assert da.probe_splits(0, 256, depth, sm, products) == 1
+
+
+@pytest.mark.parametrize("scheme,bs,nbuf,fits", [
+    ("int8", 32, 4, True), ("int8", 32, 8, True), ("int8", 32, 16, True),
+    ("int4", 32, 16, True), ("bf16", 32, 8, True), ("bf16", 32, 16, False),
+    ("int8", 128, 4, True), ("int8", 128, 8, False), ("int8", 128, 16, False),
+])
+def test_ring_bytes_give_the_refusal_table(scheme, bs, nbuf, fits):
+    """`ring_bytes` counts each stage's two 8-byte barriers beside K, V and
+    both scale rows; at D 128 the rings it refuses are still the ones
+    `chip_smoke.py`'s PROBE_REFUSED names (BF16 ring16 at bs 32, INT8
+    ring8 / ring16 at bs 128)."""
+    row = 128 // (2 if scheme == "int4" else 1) * (2 if scheme == "bf16" else 1)
+    assert da.ring_bytes(nbuf, bs, row) == nbuf * (2 * bs * row + 8 * bs + 16)
+    assert (da.ring_bytes(nbuf, bs, row) <= da.SMEM_LIMIT) == fits
+    p = da.build_pools(scheme, bs, bs, batch=1, heads=(4, 1, 128), seed=0,
+                       device="cpu")
+    args = (*p.token_major(), p.table, p.lens, p.kv)
+    if fits:
+        da.ring(nbuf, *args)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            da.ring(nbuf, *args)
+
+
+def test_split_and_depth_arguments_are_checked():
+    """Forced split counts and depths change no result (the CPU runs the
+    plain version) and are checked on either device."""
+    p = probe_pools("int8")
+    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
+    want = da.variant("fetch", *args)
+    assert torch.equal(da.variant("fetch", *args, num_splits=7, depth=0), want)
+    assert torch.equal(da.ring(4, *args[1:], num_splits=64),
+                       da.variant("fetchrow", *args))
+    for bad in (0, 65, 2.0):
+        with pytest.raises(ValueError, match="num_splits"):
+            da.variant("fetch", *args, num_splits=bad)
+        with pytest.raises(ValueError, match="num_splits"):
+            da.ring(8, *args[1:], num_splits=bad)
+    for mode, depth in (("fetchrow", 0), ("matmul", 0), ("fetch", 3),
+                        ("fetch", 16)):
+        with pytest.raises(ValueError, match="depth"):
+            da.variant(mode, *args, depth=depth)
+    assert da.p1_depth("fetch", 32, 128) == da.P1_DEPTH["fetch"]
+    # BF16 tiles at bs 128 (64 KB + 1 KB a stage): the ring halves to 2
+    # stages (and fetch / dequant would read into registers past that)
+    assert da.p1_depth("dequant", 128, 256) == 2
+    assert da.p1_depth("dequant", 256, 256) == 0
+    with pytest.raises(ValueError, match="shared memory"):
+        da.p1_depth("matmul", 256, 256)
+
+
 @pytest.mark.parametrize("scheme", ["int8", "int4"])
 def test_w8a8_scores_bit_exact(scheme):
     """`kernel_anatomy.py:265-280`: q8 = clip(q * 127) truncated to int8

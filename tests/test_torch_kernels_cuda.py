@@ -16,8 +16,8 @@ tensor-core kernel, at float32 compute the float32 FMA kernel. Tolerances:
 bfloat16, and so does the output; a different float32 sum can round to the
 neighbouring value); float32 q at bf16 compute: `TOL_F32_Q`. Then the
 card's migration batch against `migrate_program` byte for byte, the copy
-stream's ordering with a stream held busy (`torch.cuda._sleep`), and
-fused rounds on the card. This file imports no JAX.
+stream's ordering with a stream held until the test releases it
+(`utils.card.StreamHold`), and fused rounds on the card. This file imports no JAX.
 """
 
 import numpy as np
@@ -35,6 +35,7 @@ from cxl_speckv_tpu_torch.ops.paged_attention import (
 )
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import paged_attention_ref
 from cxl_speckv_tpu_torch.ops.quant import encode_for_pool, quantize_kv
+from cxl_speckv_tpu_torch.utils.card import StreamHold
 
 pytestmark = pytest.mark.cuda
 
@@ -653,10 +654,12 @@ def test_default_engine_config_on_card(dev):
 # the decode-anatomy probes P1-P3 (ops/decode_anatomy.py): every mode,
 # variant and ring depth against its plain version, at Llama-3-8B's heads
 # and the served block size, lanes of 300, 257, 33 and 0 tokens at shuffled
-# slots. Sums within 1e-5 of (|plain| + the plain sum of |terms|); matmul /
-# matmulT within 2e-3 of each (lane, head)'s largest value; P2 (float32
-# outputs) within the float32 tolerance above, against its plain version
-# and against K1.
+# slots; P1 and P3 at one split, the derived count and a forced 7 (more
+# than the 33-token lane's 2 blocks), and a second call bit-equal to the
+# first. Sums within 1e-5 of (|plain| + the plain sum of |terms|), fetchint
+# exact; matmul / matmulT within 2e-3 of each (lane, head)'s largest value;
+# P2 (float32 outputs) within the float32 tolerance above, against its
+# plain version and against K1.
 # ---------------------------------------------------------------------------
 
 def probe_pools(scheme, seed=11):
@@ -667,19 +670,7 @@ def probe_pools(scheme, seed=11):
                           device="cuda")
 
 
-@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
-@pytest.mark.parametrize("mode", ["fetchrow", "fetchint", "fetch", "dequant",
-                                  "matmul", "matmulT"])
-def test_anatomy_variant_kernel_matches_plain(dev, scheme, mode):
-    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
-
-    p = probe_pools(scheme)
-    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
-    n0 = da.variant.launches[mode]
-    got = da.variant(mode, *args)
-    torch.cuda.synchronize()
-    assert da.variant.launches[mode] == n0 + 1
-    want = da.variant_plain(mode, *args)
+def held_to_plain(da, mode, got, want, args):
     if mode == "fetchint":
         assert torch.equal(got, want)
     elif mode in da.SUM_MODES:
@@ -689,7 +680,68 @@ def test_anatomy_variant_kernel_matches_plain(dev, scheme, mode):
     else:
         err, ok = da.within_rows(got, want)
         assert ok, err
+
+
+@pytest.mark.parametrize("splits", [1, None, 7])
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("mode", ["fetchrow", "fetchint", "fetch", "dequant",
+                                  "matmul", "matmulT"])
+def test_anatomy_variant_kernel_matches_plain(dev, scheme, mode, splits):
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme)
+    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
+    n0 = da.variant.launches[mode]
+    got = da.variant(mode, *args, num_splits=splits)
+    again = da.variant(mode, *args, num_splits=splits)
+    torch.cuda.synchronize()
+    assert da.variant.launches[mode] == n0 + 2
+    assert torch.equal(got, again)
+    want = da.variant_plain(mode, *args)
+    held_to_plain(da, mode, got, want, args)
     assert not got[3].any()                       # seq_len 0 -> zeros
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+@pytest.mark.parametrize("scheme", ["int8", "bf16"])
+@pytest.mark.parametrize("depth", [0, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["fetchrow", "fetchint", "fetch", "dequant",
+                                  "matmul", "matmulT"])
+def test_anatomy_variant_depths_match_plain(dev, scheme, mode, depth, splits):
+    """Every ring depth P1 takes, and the register path (depth 0) of the
+    sum modes that have one; the others refuse depth 0. At one split the
+    300-token lane walks 10 blocks in one CTA, more than the ring's stages
+    and than its consumer warps."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme, seed=12)
+    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
+    if depth == 0 and mode in ("fetchrow", "matmul", "matmulT"):
+        with pytest.raises(ValueError, match="depth"):
+            da.variant(mode, *args, depth=0, num_splits=splits)
+        return
+    got = da.variant(mode, *args, depth=depth, num_splits=splits)
+    torch.cuda.synchronize()
+    held_to_plain(da, mode, got, da.variant_plain(mode, *args), args)
+
+
+@pytest.mark.parametrize("scheme", ["int8", "bf16"])
+def test_anatomy_long_walk_matches_plain(dev, scheme):
+    """One split of 282 blocks: the ring stages the table slice in windows
+    of 256 entries, so the walk passes a window's end (P1 and P3)."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = da.build_pools(scheme, 32, 9000, batch=2, heads=(32, 8, 128), seed=13,
+                       lens=[9000, 8200], shuffle=True, device="cuda")
+    args = (p.q, *p.token_major(), p.table, p.lens, p.kv)
+    for mode in ("fetchrow", "fetch", "fetchint", "matmulT"):
+        for depth in (None, 0) if mode in ("fetch", "fetchint") else (None,):
+            got = da.variant(mode, *args, num_splits=1, depth=depth)
+            torch.cuda.synchronize()
+            held_to_plain(da, mode, got, da.variant_plain(mode, *args), args)
+    got = da.ring(8, *args[1:], num_splits=1)
+    held_to_plain(da, "fetchrow", got, da.variant_plain("fetchrow", *args),
+                  args)
 
 
 @pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
@@ -716,9 +768,10 @@ def test_anatomy_kt_kernel_matches_plain(dev, scheme, name):
         close(got, k1, torch.float32)
 
 
+@pytest.mark.parametrize("splits", [1, None, 7])
 @pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
 @pytest.mark.parametrize("nbuf", [4, 8, 16])
-def test_anatomy_ring_kernel_matches_plain(dev, scheme, nbuf):
+def test_anatomy_ring_kernel_matches_plain(dev, scheme, nbuf, splits):
     """bs 32, D 128: a BF16 stage is 16 KB + 256 B, so 16 of them (264 KB)
     do not fit in the 227 KB a block may have and must be refused."""
     from cxl_speckv_tpu_torch.ops import decode_anatomy as da
@@ -727,11 +780,13 @@ def test_anatomy_ring_kernel_matches_plain(dev, scheme, nbuf):
     args = (*p.token_major(), p.table, p.lens, p.kv)
     if scheme == "bf16" and nbuf == 16:
         with pytest.raises(ValueError, match="shared memory"):
-            da.ring(nbuf, *args)
+            da.ring(nbuf, *args, num_splits=splits)
         return
-    got = da.ring(nbuf, *args)
+    got = da.ring(nbuf, *args, num_splits=splits)
+    again = da.ring(nbuf, *args, num_splits=splits)
     torch.cuda.synchronize()
     assert da.ring.launches[f"v5ring{nbuf}"] > 0
+    assert torch.equal(got, again)
     want = da.variant_plain("fetchrow", p.q, *args)
     err, ok = da.within_sum(got, want, da.variant_plain(
         "fetchrow", p.q, *args, absolute=True))
@@ -972,11 +1027,13 @@ def test_copy_stream_demote_after_round(dev):
     bid = kvc.pool.seq(s).blocks[0]
     slot = kvc.directory.entry(bid).hbm_slot
     torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)
-    for p in kvc.pools:
-        p[:, slot].fill_(7)
-    host = card_demote(kvc, bid)
+    hold = StreamHold()             # the round, held until released
+    with hold:
+        for p in kvc.pools:
+            p[:, slot].fill_(7)
+        host = card_demote(kvc, bid)
     kvc.drain()
+    assert not hold.timed_out()
     for v in kvc.store.units(0, kvc.store.num_layers):
         assert bool((v[host] == 7).all())
 
@@ -994,19 +1051,20 @@ def test_copy_stream_holds_demoted_slot(dev):
     slot = kvc.directory.entry(bid).hbm_slot
     free0 = kvc.directory.hbm_free
     torch.cuda.synchronize()
-    with torch.cuda.stream(kvc.copier.stream):
-        torch.cuda._sleep(50_000_000)
-    host = card_demote(kvc, bid)
-    assert kvc.transfer.inflight_down == 1
-    assert not kvc.transfer.inflight[0].done.query()
-    assert kvc.directory.hbm_free == free0
-    s2 = kvc.add_seq()
-    kvc.extend_seq(s2, 8)
-    slot2 = kvc.directory.entry(kvc.pool.seq(s2).blocks[0]).hbm_slot
-    assert slot2 != slot
-    for p in kvc.pools:
-        p[:, slot2].fill_(9)
+    hold = StreamHold(kvc.copier.stream)
+    with hold:
+        host = card_demote(kvc, bid)
+        assert kvc.transfer.inflight_down == 1
+        assert not kvc.transfer.inflight[0].done.query()
+        assert kvc.directory.hbm_free == free0
+        s2 = kvc.add_seq()
+        kvc.extend_seq(s2, 8)
+        slot2 = kvc.directory.entry(kvc.pool.seq(s2).blocks[0]).hbm_slot
+        assert slot2 != slot
+        for p in kvc.pools:
+            p[:, slot2].fill_(9)
     kvc.drain()
+    assert not hold.timed_out()
     assert kvc.directory.hbm_free == free0
     for v in kvc.store.units(0, kvc.store.num_layers):
         assert bool((v[host] == 3).all())
@@ -1026,13 +1084,14 @@ def test_round_waits_for_its_promote(dev):
     for p in kvc.pools:
         p.fill_(0)
     torch.cuda.synchronize()
-    with torch.cuda.stream(kvc.copier.stream):
-        torch.cuda._sleep(50_000_000)
-    kvc.ensure_resident([s])
-    slot = kvc.directory.entry(bid).hbm_slot
-    kvc.order_round([slot])
-    seen = [p[:, slot].clone() for p in kvc.pools]
+    hold = StreamHold(kvc.copier.stream)
+    with hold:
+        kvc.ensure_resident([s])
+        slot = kvc.directory.entry(bid).hbm_slot
+        kvc.order_round([slot])
+        seen = [p[:, slot].clone() for p in kvc.pools]
     torch.cuda.synchronize()
+    assert not hold.timed_out()
     assert all(bool((x == 5).all()) for x in seen)
 
 
