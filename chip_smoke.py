@@ -150,7 +150,9 @@ Phases, each printing its results; any failure exits non-zero:
               5 (one record an emitted token, top-1 == the token, tiered ==
               ample);
 9d. stream -- the host-streamed path on the serve's Llama-3-8B (INT8 KV,
-              32-token blocks, horizon 32, quantum 4, prefetch off): first
+              32-token blocks, horizon 32, quantum 4, prefetch off; its
+              mixed, cancel and session runs cut to the first 8 layers,
+              the depth cut keeping the script in time): first
               K2 at its pooled prefill (T = 256 at start 0) and K1 at its
               decode contexts, timed against their plain versions.
               stream-mixed: HBM 52 blocks (every request past 1600 tokens
@@ -160,8 +162,8 @@ Phases, each printing its results; any failure exits non-zero:
               path every round; the same run at stream_stage_mb 0
               (per-wave prefill, per-token decode) gives identical streamed
               tokens; the pooled tokens equal the same engine serving them
-              alone; K1 = pooled decode batches x 32 x 32 and K2 = pooled
-              prefill dispatches x 32 exactly (the streamed lanes launch
+              alone; K1 = pooled decode batches x 32 x L and K2 = pooled
+              prefill dispatches x L exactly (L layers; the streamed lanes launch
               neither); host_free back at its start. At float32
               activations the streamed lanes equal an ample pooled
               engine's tokens or first diverge at a token of its top two
@@ -422,6 +424,7 @@ GPT_OSS_WINDOW = 128
 # migrate serves on 16 layers
 GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 8, 12, 8, 8
 SCHEME_LAYERS = 8
+STREAM_LAYERS = 8       # stream-mixed / -cancel / -session's depth cut
 # the model families served from their configs (and Phi-3 from an HF state
 # dict): their heads (Hq, Hkv, D), cells and depth cuts. Qwen3-8B at all 36
 # layers, Qwen3-30B-A3B (128 experts top-8, G 8 = K1's MAX_G) on 12 of its
@@ -574,6 +577,29 @@ def phase_build() -> None:
     if not hmma["product_kernel"] or hmma["sum kernels"]:
         fail(f"anatomy_variants: HMMA counts {hmma}: tensor cores must run "
              f"the products and only them")
+    # P2: the score and PV products on the tensor cores (HMMA; w8a8's
+    # scores IMMA), K by 2-D TMA (UTMALDG) in every P2 kernel, no spills
+    p2 = {}
+    for op in ("HMMA", "IMMA", "UTMALDG"):
+        for fn, n in cuda_build.sass_counts("anatomy_kt", op).items():
+            kind = ("w8a8" if "kt_w8a8_kernel" in fn else
+                    "mma" if "kt_mma_kernel" in fn else "merge")
+            p2.setdefault((kind, op), []).append(n)
+    print(f"[build] anatomy_kt: per kernel, HMMA / IMMA / UTMALDG in the "
+          f"v2 / v3fused kernels {p2[('mma', 'HMMA')]} / "
+          f"{p2[('mma', 'IMMA')]} / {p2[('mma', 'UTMALDG')]}, in the w8a8 "
+          f"kernels {p2[('w8a8', 'HMMA')]} / {p2[('w8a8', 'IMMA')]} / "
+          f"{p2[('w8a8', 'UTMALDG')]}", flush=True)
+    if not (all(p2[("mma", "HMMA")]) and all(p2[("w8a8", "IMMA")])
+            and all(p2[("mma", "UTMALDG")]) and all(p2[("w8a8", "UTMALDG")])
+            and not any(p2[("mma", "IMMA")])):
+        fail(f"anatomy_kt: SASS counts {p2}: every P2 kernel must load K by "
+             f"2-D TMA and run its products on the tensor cores")
+    if "anatomy_kt" in logs:
+        spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill",
+                                               logs["anatomy_kt"]))
+        if spill:
+            fail(f"anatomy_kt: {spill} bytes of spills")
     for name, log in sorted(logs.items()):
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", log)]
         spill = sum(int(w) for w in re.findall(r"(\d+) bytes spill", log))
@@ -1282,8 +1308,7 @@ def check_probes(scheme: str, seed: int) -> None:
                        seed=seed, lens=PROBE_LENS, shuffle=True, device=DEV)
     kern, plain = da.probe_calls(p), da.plain_calls(p)
     refuse = PROBE_REFUSED[(scheme, BS)]
-    split = [lb for lb in LABELS[1:] if probe_of(lb) != "P2"
-             and lb not in refuse]
+    split = [lb for lb in LABELS[1:] if lb not in refuse]
     errs, want = [], {}
     for label in LABELS[1:]:
         try:
@@ -1306,54 +1331,64 @@ def check_probes(scheme: str, seed: int) -> None:
             torch.cuda.synchronize()
             if not torch.equal(got, again):
                 fail(f"probe {scheme} {label}: two calls differ")
-    # P1 and P3 at one split and at a count above the short lanes' blocks
+    # every probe at one split and at a count above the short lanes'
+    # blocks (P2 against the plain version's split form at that count)
     worst = {}
     for ns in (1, PROBE_FORCED_S):
         forced = da.probe_calls(p, num_splits=ns)
+        forced_plain = da.plain_calls(p, num_splits=ns)
         for label in split:
             got = forced[label]()
             torch.cuda.synchronize()
-            err, ok, tol = da.agreement(label, got, want[label], p)
+            ref = (forced_plain[label]() if probe_of(label) == "P2"
+                   else want[label])
+            err, ok, tol = da.agreement(label, got, ref, p)
             if not ok:
                 fail(f"probe {scheme} {label} at S={ns}: error {err} beyond "
                      f"{tol}")
             worst[ns] = max(worst.get(ns, 0.0), err)
     # both round q and p * vs to bf16 against the walk's running max and sum
-    # in float32: rtol = atol = 2e-4 against K1 unsplit, the arithmetic v2
-    # mirrors ("full" runs K1's chosen split count, held to the plain
-    # version's split form at that count above)
-    err, ok = compare(kern["v2"](), da.k1_call(p, num_splits=1)(),
-                      TOL[torch.float32])
+    # in float32: at one split each lane is one walk in block order in
+    # both, so v2 holds to K1 unsplit at rtol = atol = 2e-4 ("full" runs
+    # K1's chosen split count, held to the plain version's split form at
+    # that count above; a split moves where p * vs rounds)
+    err, ok = compare(da.probe_calls(p, num_splits=1)["v2"](),
+                      da.k1_call(p, num_splits=1)(), TOL[torch.float32])
     torch.cuda.synchronize()
     if not ok:
-        fail(f"probe {scheme}: v2 differs from K1 (num_splits=1) by {err}")
+        fail(f"probe {scheme}: v2 at S=1 differs from K1 (num_splits=1) by "
+             f"{err}")
     derived = {lb: da.probe_setting(lb, p) for lb in split}
     print(f"[probe] {scheme} lens={PROBE_LENS}: every probe within its "
           f"tolerance of its plain version (max |err|: {', '.join(errs)}); "
-          f"P1 / P3 (depth, S) derived {derived}, two calls bit-equal; at "
-          f"S=1 max |err| {worst[1]:.2e}, at S={PROBE_FORCED_S} "
-          f"{worst[PROBE_FORCED_S]:.2e} (fetchint exact); K1 at "
-          f"S={da.k1_splits(p)}; v2 vs K1 at S=1 {err:.2e} "
-          f"(rtol = atol = {TOL[torch.float32]:g})", flush=True)
+          f"P1 / P2 / P3 (depth, S) derived {derived}, two calls bit-equal; "
+          f"at S=1 max |err| {worst[1]:.2e}, at S={PROBE_FORCED_S} "
+          f"{worst[PROBE_FORCED_S]:.2e} (fetchint exact; P2 against the "
+          f"plain split form at the kernel's S); K1 at S={da.k1_splits(p)}; "
+          f"v2 vs K1 at S=1 {err:.2e} (rtol = atol = "
+          f"{TOL[torch.float32]:g})", flush=True)
 
 
 def probe_sweep(p) -> None:
-    """P1 and P3 at the probe's geometry, back to back, in turns (the list
-    forward, then backward; the mean of the two): every P1 mode at each
-    ring depth it takes (0: registers) at that depth's derived split
-    count, and at its default depth, and each ring, also at 1, half, twice
-    and four times the derived count. The evidence for the defaults."""
+    """P1, P2 and P3 at the probe's geometry, back to back, in turns (the
+    list forward, then backward; the mean of the two): every P1 mode and P2
+    variant at each ring depth it takes (P1's 0: registers) at that depth's
+    derived split count, and at its default depth, and each ring, also at
+    1, half, twice and four times the derived count. The evidence for the
+    defaults."""
     from cxl_speckv_tpu_torch.ops import decode_anatomy as da
 
     tm = (*p.token_major(), p.table, p.lens, p.kv)
     bs, row = p.k.shape[2], p.k.shape[3] * p.k.element_size()
     cases = []
-    for label in (*da.P1_MODES, *(f"v5ring{n}" for n in da.RING_DEPTHS)):
+    for label in (*da.P1_MODES, *da.P2_VARIANTS,
+                  *(f"v5ring{n}" for n in da.RING_DEPTHS)):
         ring = label.startswith("v5ring")
         if ring and da.ring_bytes(int(label[6:]), bs, row) > da.SMEM_LIMIT:
             continue
         default = da.probe_setting(label, p)[0]
-        for depth in (default,) if ring else da.P1_DEPTHS:
+        depths = (da.P2_DEPTHS if label in da.P2_VARIANTS else da.P1_DEPTHS)
+        for depth in (default,) if ring else depths:
             try:
                 d, S = da.probe_setting(label, p, None if ring else depth)
             except ValueError:                 # no such ring for this mode
@@ -1365,6 +1400,11 @@ def probe_sweep(p) -> None:
     def call(label, d, n):
         if label.startswith("v5ring"):
             return lambda: da.ring(d, *tm, num_splits=n)
+        if label in da.P2_VARIANTS:
+            sc = (p.scf, None) if label == "v3fused" else (p.ks, p.vs)
+            return lambda: da.kt_attention(p.q, p.kt, p.v, *sc, p.table,
+                                           p.lens, p.kv, label, num_splits=n,
+                                           depth=d)
         return lambda: da.variant(label, p.q, *tm, num_splits=n, depth=d)
 
     times = {c: [] for c in cases}
@@ -1429,6 +1469,12 @@ def phase_probe(peaks) -> list:
           + f"; S=1 / S={chosen}: "
           f"{sum(by_s[1]) / sum(by_s[chosen]):.2f}x", flush=True)
     probe_sweep(p)
+    enc = {n: sorted(da.kt_map_host_us(p, n) for _ in range(20))[10]
+           for n in ("v2", "v3fused")}
+    print(f"[probe] P2 tensor-map encode on the host (cuTensorMapEncodeTiled "
+          f"through the runtime's entry point, every call), median of 20: "
+          f"v2 (one map) {enc['v2']:.2f} us, v3fused (two) "
+          f"{enc['v3fused']:.2f} us", flush=True)
     print(f"[probe] K1 at ctx {int(p.lens.max())}, bs {BS}: {full:.1f} us back to back, "
           f"{rows['full'].get('single_us', float('nan')):.1f} us in a "
           f"single-launch window; "
@@ -1482,8 +1528,7 @@ def phase_probe(peaks) -> list:
                         f"({time_ms(lib, iters=5):.4f} in single-launch "
                         f"windows), kernel / library "
                         f"{ms / entry['library_ms']:.2f}x")
-        if probe_of(label) != "P2":
-            entry["depth"], entry["splits"] = da.probe_setting(label, p)
+        entry["depth"], entry["splits"] = da.probe_setting(label, p)
         print(f"[probe] {label}: {ms:.4f} ms back to back"
               + (f" (depth {entry['depth']}, S={entry['splits']})"
                  if "splits" in entry else "")
@@ -2458,8 +2503,8 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
-              "K1 decode_kernel + decode_merge_kernel": (
-                  "decode_kernel", "decode_merge_kernel")}
+              "K1 decode_kernel + its merge (tile_ring::merge_lse)": (
+                  "decode_kernel", "merge_lse")}
     for label, keys in groups.items():
         us = sum(v for k, v in kernels_us.items()
                  if any(x in k for x in np.atleast_1d(keys)))
@@ -3583,19 +3628,23 @@ def stream_long(cfg, params, rng) -> dict:
 def phase_stream(cfg, params, prompts, peaks) -> dict:
     """The host-streamed path on Llama-3-8B: stream-mixed (bf16 served,
     per-wave, pooled alone, ample; float32 against ample), the streamed
-    cancel and session at float32 activations, stream-long. Returns the
-    kernel rows and the served stream-mixed run's launches."""
+    cancel and session at float32 activations, all on its first
+    STREAM_LAYERS layers (the depth cut keeps the script in time), and
+    stream-long at full depth (its slab must be over the fused budget).
+    Returns the kernel rows and the served stream-mixed run's launches."""
     import dataclasses
 
     rows = phase_kernels_stream(peaks)
     rng = np.random.RandomState(20)
     streamed = [rng.randint(1, cfg.vocab_size, STREAM_PROMPT).tolist()
                 for _ in range(STREAM_LANES)]
-    mixed = stream_mixed(cfg, params, prompts[:STREAM_MIXED.n_req], streamed)
-    c32 = dataclasses.replace(cfg, dtype="float32")
-    want32 = stream_f32(c32, params, streamed)
-    stream_cancel(c32, params, streamed, want32)
-    stream_session(c32, params, rng)
+    cut, cut_params = first_layers(cfg, params, STREAM_LAYERS)
+    mixed = stream_mixed(cut, cut_params, prompts[:STREAM_MIXED.n_req],
+                         streamed)
+    c32 = dataclasses.replace(cut, dtype="float32")
+    want32 = stream_f32(c32, cut_params, streamed)
+    stream_cancel(c32, cut_params, streamed, want32)
+    stream_session(c32, cut_params, rng)
     long = stream_long(cfg, params, rng)
     return {"rows": rows, "launches": mixed["launches"], "mixed": mixed,
             "long": long}

@@ -73,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "kv_tile.cuh"
+#include "tile_ring.cuh"
 
 namespace {
 
@@ -243,43 +244,9 @@ decode_kernel(const float* __restrict__ q, const void* __restrict__ k_pool,
   }
 }
 
-// The splits' partial states of one (lane, query head) -> its output row.
-// One CTA a row; the weights e^(m_s - M) in shared memory, the sums over
-// s = 0 .. S - 1 in that order.
+// The splits' partial states of one (lane, query head) -> its output row:
+// tile_ring.cuh's log-sum-exp merge, with the sinks. One CTA a row.
 constexpr int MERGE_NT = 128;
-
-__global__ void __launch_bounds__(MERGE_NT)
-decode_merge_kernel(const float* __restrict__ part_m,
-                    const float* __restrict__ part_l,
-                    const float* __restrict__ part_acc,
-                    const float* __restrict__ sinks, float* __restrict__ out,
-                    int Hq, int D, int S) {
-  __shared__ float w_s[MAX_SPLITS];
-  __shared__ float den_s;
-  const int tid = threadIdx.x;
-  const size_t row = blockIdx.x;              // b * Hq + query head
-  const float* pm = part_m + row * S;
-  float M = NEG_INF;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, pm[s]);
-  const float sk = sinks != nullptr ? sinks[row % Hq] : NEG_INF;
-  if (sinks != nullptr) M = fmaxf(M, sk);
-  if (tid < S) w_s[tid] = expf(pm[tid] - M);
-  __syncthreads();
-  if (tid == 0) {
-    const float* pl = part_l + row * S;
-    float l = 0.f;
-    for (int s = 0; s < S; ++s) l += pl[s] * w_s[s];
-    if (sinks != nullptr) l += expf(sk - M);
-    den_s = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  const float* pa = part_acc + row * S * D;
-  for (int d = tid; d < D; d += MERGE_NT) {
-    float a = 0.f;
-    for (int s = 0; s < S; ++s) a += pa[(size_t)s * D + d] * w_s[s];
-    out[row * D + d] = a / den_s;
-  }
-}
 
 using Kernel = decltype(&decode_kernel<KV_INT8, false>);
 
@@ -345,7 +312,7 @@ extern "C" int paged_attention_launch(
       softcap);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || num_splits == 1) return (int)e;
-  decode_merge_kernel<<<B * Hq, MERGE_NT, 0, st>>>(
+  tile_ring::merge_lse<MAX_SPLITS, MERGE_NT><<<B * Hq, MERGE_NT, 0, st>>>(
       part_m, part_l, part_acc, sinks, out, Hq, D, num_splits);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-// The split walk of the decode-anatomy probes P1 (anatomy_variants.cu) and
-// P3 (anatomy_ring.cu): a grid of (lane, kv head, split), each CTA walking
-// its split's share of the lane's blocks through a ring of shared-memory
-// stages filled by TMA bulk copies, and the deterministic merge of the
-// splits' partial results. K1's and K2's pipelined tiles (ROADMAP B1 / B3)
-// are queued to take the same loader.
+// The split walk of the decode-anatomy probes P1 (anatomy_variants.cu), P2
+// (anatomy_kt.cu) and P3 (anatomy_ring.cu): a grid of (lane, kv head,
+// split), each CTA walking its split's share of the lane's blocks through a
+// ring of shared-memory stages filled by TMA copies, and the deterministic
+// merges of the splits' partial results: a plain sum (`merge_splits`, P1 and
+// P3) and the log-sum-exp merge of attention states (`merge_lse`, K1 and
+// P2). K1's and K2's pipelined tiles (ROADMAP B1 / B3) are queued to take
+// the same loader.
 //
 // Split plan. Lane b has n = min(ceil(seq_len / bs), width) blocks (width:
 // the block table's row length). Split z of S takes blocks
@@ -26,6 +28,12 @@
 // producer warp, TABLE_WINDOW entries at a time (once for any split of up
 // to TABLE_WINDOW blocks) before the copies that use it, so no table read
 // from device memory sits between a wait and the next issue.
+//
+// A stage may also be filled by 2-D TMA copies through a tensor map
+// (`tma_load_2d`, P2's transposed K tile: rows of one head's columns at
+// the pool row's stride); a kernel whose stages are padded past the bytes
+// its copies bring (TMA wants each tensor destination on a 128-byte
+// boundary) arms the barrier with those bytes (`produce_tx`).
 //
 // Shared memory of a ring kernel (`ring_smem_bytes`): the 2 * DEPTH
 // barriers, the table window, then the DEPTH stages from a 128-byte
@@ -138,6 +146,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// the box at element coordinates (x, y) (x the inner dimension) of the
+// tensor that `map` describes, into shared memory at `dst` (128-byte
+// aligned), densely as [box rows][box columns]; elements past the tensor's
+// edge arrive as zeros. Completes on `bar`'s transaction count with the
+// whole box's bytes. `map` must be a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x,
+                                            int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(saddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(saddr(bar))
+      : "memory");
+}
+
 // The ring in the kernel's dynamic shared memory. Threads [0, consumers)
 // consume; the warp after them produces. Every thread of the CTA
 // constructs it and calls `init`; then the producer warp calls `produce`
@@ -184,6 +206,13 @@ struct Ring {
   template <class Issue>
   __device__ void produce(const int* row, int first, int count, int lane,
                           Issue issue) {
+    produce_tx(row, first, count, lane, stage_bytes, issue);
+  }
+
+  // the same, the copies of a block bringing `tx_bytes` (<= stage_bytes)
+  template <class Issue>
+  __device__ void produce_tx(const int* row, int first, int count, int lane,
+                             uint32_t tx_bytes, Issue issue) {
     for (int base = 0; base < count; base += TABLE_WINDOW) {
       const int nb = count - base < TABLE_WINDOW ? count - base : TABLE_WINDOW;
       __syncwarp();
@@ -194,7 +223,7 @@ struct Ring {
           const int i = base + j;
           const int s = i % DEPTH;
           if (i >= DEPTH) mbar_wait(&empty[s], ((i / DEPTH) - 1) & 1);
-          mbar_expect_tx(&full[s], stage_bytes);
+          mbar_expect_tx(&full[s], tx_bytes);
           issue(win[j], stage(i), &full[s]);
         }
       }
@@ -235,6 +264,52 @@ cudaError_t launch_merge(const T* part, T* out, int rows, int S, int E,
   if (n == 0) return cudaSuccess;
   merge_splits<T><<<(n + 255) / 256, 256, 0, st>>>(part, out, rows, S, E);
   return cudaGetLastError();
+}
+
+// The splits' attention states of one output row (a lane's query head) ->
+// the row, one CTA of NT threads a row: the split z of row r left its
+// running max part_m[r * S + z], its sum part_l[r * S + z] and its
+// accumulator part_acc[(r * S + z) * D + d], relative to its own max (an
+// empty split: m = -1e30, l = 0, acc = 0). With M = max_z m_z (and the
+// row's sink logit sk = sinks[r % Hq], where sinks is not null: M =
+// max(M, sk)),
+//   out = sum_z acc_z e^(m_z - M) / max(sum_z l_z e^(m_z - M) [+ e^(sk - M)],
+//         1e-30),
+// the sums over z = 0 .. S - 1 in that order: the same bits on every call.
+// An empty split adds exactly 0 (e^(-1e30 - M) = 0; never exp(-inf + inf)),
+// and a row every split of which is empty gives zeros.
+constexpr float MERGE_NEG_INF = -1e30f;
+
+template <int MAX_S, int NT>
+__global__ void __launch_bounds__(NT)
+merge_lse(const float* __restrict__ part_m, const float* __restrict__ part_l,
+          const float* __restrict__ part_acc, const float* __restrict__ sinks,
+          float* __restrict__ out, int Hq, int D, int S) {
+  __shared__ float w_s[MAX_S];
+  __shared__ float den_s;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;
+  const float* pm = part_m + row * S;
+  float M = MERGE_NEG_INF;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, pm[s]);
+  const float sk = sinks != nullptr ? sinks[row % Hq] : MERGE_NEG_INF;
+  if (sinks != nullptr) M = fmaxf(M, sk);
+  if (tid < S) w_s[tid] = expf(pm[tid] - M);
+  __syncthreads();
+  if (tid == 0) {
+    const float* pl = part_l + row * S;
+    float l = 0.f;
+    for (int s = 0; s < S; ++s) l += pl[s] * w_s[s];
+    if (sinks != nullptr) l += expf(sk - M);
+    den_s = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  const float* pa = part_acc + row * S * D;
+  for (int d = tid; d < D; d += NT) {
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) a += pa[(size_t)s * D + d] * w_s[s];
+    out[row * D + d] = a / den_s;
+  }
 }
 
 }  // namespace tile_ring

@@ -37,13 +37,14 @@ SIGNATURES = {
                         [_P] * 11 + [_I] * 11 + [_F, _F, _P]),
     # the decode-anatomy probes P1, P2, P3 (ops/decode_anatomy.py)
     "anatomy_variants": ("anatomy_variants_launch", [_P] * 9 + [_I] * 11 + [_P]),
-    "anatomy_kt": ("anatomy_kt_launch", [_P] * 8 + [_I] * 9 + [_F, _P]),
+    "anatomy_kt": ("anatomy_kt_launch", [_P] * 12 + [_I] * 12 + [_F, _P]),
     "anatomy_ring": ("anatomy_ring_launch", [_P] * 8 + [_I] * 8 + [_P]),
     # the card tests' hold on a stream (utils/card.py:StreamHold)
     "stream_hold": ("stream_hold_launch", [_P, ctypes.c_longlong, _P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+_sass: dict[Path, str] = {}
 
 
 def nvcc_path() -> str:
@@ -110,9 +111,13 @@ def sass_counts(name: str, opcode: str) -> dict[str, int]:
     with `opcode`} in source `name`'s built library (e.g. "HMMA", the
     tensor-core products), by `cuobjdump -sass` from the toolkit beside
     nvcc."""
-    tool = Path(nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
-                          capture_output=True, text=True, check=True).stdout
+    path = library_path(name)
+    sass = _sass.get(path)
+    if sass is None:                  # one dump a library, however many opcodes
+        tool = Path(nvcc_path()).with_name("cuobjdump")
+        sass = _sass[path] = subprocess.run(
+            [str(tool), "-sass", str(path)], capture_output=True, text=True,
+            check=True).stdout
     counts: dict[str, int] = {}
     fn = None
     for line in sass.splitlines():

@@ -31,18 +31,29 @@ those rows only (4.2 MB, 1.25 us), so their time against it is what
 moving the rest costs; `moved_bytes` counts what they move, the bound
 their time is held to (`moved_bound_ms` in `chip_smoke.py`).
 
-How P1 and P3 run on the card (`csrc/tile_ring.cuh`): on a grid of (lane,
-kv head, split), over K1's token-major pools [S, Hkv, bs, D/pack], so
-that each mode is literally "K1 minus something". A CTA walks its split
-of the lane's blocks (`split_ranges`) through a ring of shared-memory
-stages that one producer warp fills with TMA bulk copies (`depth` stages
-for P1, nbuf for P3), its slice of the block-table row staged in shared
-memory first; a merge launch adds the splits' partials in a fixed order,
-so two calls give the same bits. `num_splits=None` takes `probe_splits`
-of the shapes (a few CTAs an SM, no split shorter than the depth); an
-int forces S (1..64), for tests and sweeps. P1's fetch, fetchint and
-dequant may instead read their tiles into registers (`depth=0`: no faster
-on the card, PERF.md §6; taken where no ring fits).
+How the three run on the card (`csrc/tile_ring.cuh`): on a grid of (lane,
+kv head, split). A CTA walks its split of the lane's blocks
+(`split_ranges`) through a ring of shared-memory stages that one producer
+warp fills with TMA copies (`depth` stages for P1 and P2, nbuf for P3),
+its slice of the block-table row staged in shared memory first; a merge
+launch combines the splits' partials in a fixed order, so two calls give
+the same bits. `num_splits=None` takes `probe_splits` of the shapes (a
+few CTAs an SM, no split shorter than the depth); an int forces S
+(1..64), for tests and sweeps. P1 and P3 read K1's token-major pools
+[S, Hkv, bs, D/pack], so that each mode is literally "K1 minus
+something"; P1's fetch, fetchint and dequant may instead read their tiles
+into registers (`depth=0`: no faster on the card, PERF.md §6; taken where
+no ring fits). P2 reads the JAX kT pool: its K tile, D/pack rows of a
+head's bs columns at the pool row's stride, arrives by 2-D TMA boxes of a
+tensor map encoded on the host at every call, V and the scales by bulk
+copies (v3fused's fused scale rows by one 2-D box); its scores and PV run
+on `mma.sync` (w8a8's scores in int8 with int32 sums), the split's
+running max handed from warp to warp so that p * vs rounds as a
+sequential walk of the split rounds it, and its splits' (m, l, acc)
+merge by log-sum-exp (`tile_ring::merge_lse`, K1's merge).
+`kt_attention_plain(..., num_splits=k)` is the split form it is held to;
+`kt_fragment_slots` mirrors which token and element each of its score
+fragments' registers holds.
 
 Where the designs depart from the TPU bodies, and why:
 - P1 and P3 split a lane's walk over CTAs. The TPU ring ran on a grid of
@@ -53,20 +64,25 @@ Where the designs depart from the TPU bodies, and why:
 - P1's walk covers a lane's ceil(seq_len / bs) blocks; the TPU grid walked
   whole steps of `ppb` blocks with the index clamped to the last block.
   At the probe's full lanes the two are the same blocks.
-- P2 keeps the TPU layout (its point is the layout) but, on K1's grid,
-  needs no mask by head; it returns the whole [B, Hq, D] output, where the
-  TPU probe returned column 0, so it can be held against K1.
+- P2 keeps the TPU layout (its point is the layout) but, on a grid of
+  (lane, kv head, split), needs no mask by head; it returns the whole
+  [B, Hq, D] output, where the TPU probe returned column 0, so it can be
+  held against K1. A split rounds p * vs against its own running max, so
+  its output moves from the unsplit walk's by up to 2^-8 of a term.
 
 Every wrapper takes a CUDA tensor to its kernel (or raises) and a CPU
 tensor to the plain version; each counts its launches in a `Counter` keyed
 by the probe's label (`variant.launches["fetch"]`, `kt_attention.launches
-["v2"]`, `ring.launches["v5ring8"]`). What a kernel does not take raises
-ValueError on either device: w8a8 on BF16 pools, a ring that does not fit
-in the 227 KB of shared memory a block may have.
+["v2"]`, `ring.launches["v5ring8"]`; one a call, whatever merge launch
+follows). What a kernel does not take raises ValueError on either device:
+w8a8 on BF16 pools, a ring that does not fit in the 227 KB of shared
+memory a block may have, a kT row (Hkv * bs * element bytes) that is not
+a multiple of 16 bytes (a TMA map's row stride).
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from dataclasses import dataclass
 
@@ -84,6 +100,7 @@ from cxl_speckv_tpu_torch.ops.paged_attention import (
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import (
     NEG_INF,
     finalize,
+    merge_splits,
     online_update,
     paged_attention_ref,
 )
@@ -98,7 +115,9 @@ SMEM_LIMIT = 232448          # bytes of shared memory a block may have (H100)
 P1_DEPTHS = (0, 2, 4, 8)     # P1's ring stages; 0: registers (sum modes)
 P1_DEPTH = {mode: 4 for mode in P1_MODES}   # the default, by measurement
 PROBE_WAVES = 4              # CTAs an SM the derived split count aims at,
-PRODUCT_WAVES = 2            # and for matmul / matmulT (4 fit an SM)
+PRODUCT_WAVES = 2            # and for matmul / matmulT (4 fit an SM) and P2
+P2_DEPTHS = (2, 4, 8)        # P2's ring stages
+P2_DEPTH = 4                 # the default
 MAX_SPLITS = 64
 TABLE_WINDOW = 256           # table entries a ring stages at once
 PROBE_HEADS = (32, 8, 128)   # Hq, Hkv, D: the script's default, Llama-3-8B's
@@ -468,69 +487,282 @@ def _kt_tiles(kt, slots, hkv: int, kv: KVDtype) -> torch.Tensor:
     return dequant_values(raw, kv)
 
 
+def _w8a8_block(q8, tiles) -> torch.Tensor:
+    """int32 q8 . k8 of one block's tiles [B, Hkv, bs, D]; the products
+    are exact in float64 (|sum| <= 127 * 127 * D < 2^53)."""
+    return (q8 @ tiles.double().transpose(-1, -2)).to(torch.int32)
+
+
 def w8a8_scores(q, kt, table, lens, num_kv_heads: int,
                 kv: KVDtype) -> torch.Tensor:
     """w8a8's int32 scores q8 . k8 -> [B, Hkv, G, blocks * bs] over the
-    longest lane's blocks (positions past a lane's length included). The
-    products are exact in float64 (|sum| <= 127 * 127 * D < 2^53)."""
+    longest lane's blocks (positions past a lane's length included)."""
     B, hq, d = q.shape
     G = hq // num_kv_heads
     q8 = _q8(q.reshape(B, num_kv_heads, G, d).bfloat16().float()).double()
     bs = kt.shape[2] // num_kv_heads
     nblk = min(-(-int(lens.max()) // bs) if B else 0, table.shape[1])
-    cols = [q8 @ _kt_tiles(kt, table[:, i].long(), num_kv_heads,
-                           kv).double().transpose(-1, -2)
+    cols = [_w8a8_block(q8, _kt_tiles(kt, table[:, i].long(), num_kv_heads,
+                                      kv))
             for i in range(nblk)]
     if not cols:
         return torch.zeros((B, num_kv_heads, G, 0), dtype=torch.int32,
                            device=q.device)
-    return torch.cat(cols, -1).to(torch.int32)
+    return torch.cat(cols, -1)
+
+
+def _kt_walk(q, kt, v, ks, vs, table, lens, kv, w8a8, blocks, live):
+    """One split's walk from a fresh state: step j takes block blocks[:, j]
+    of each lane (live[:, j] False: a step past the split's end, masked).
+    -> (m, l, acc) [B, Hkv, G, 1 | D]."""
+    B, hq, d = q.shape
+    hkv = v.shape[1]
+    G = hq // hkv
+    bs = kt.shape[2] // hkv
+    qg = q.reshape(B, hkv, G, d).bfloat16().float()
+    q8 = _q8(qg).double() if w8a8 else None
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    state = (torch.full((B, hkv, G, 1), NEG_INF, device=q.device),
+             torch.zeros((B, hkv, G, 1), device=q.device),
+             torch.zeros((B, hkv, G, d), device=q.device))
+    width = table.shape[1]
+    for j in range(blocks.shape[1]):
+        blk = blocks[:, j]
+        slots = torch.gather(table.long(), 1,
+                             blk.clamp(max=width - 1)[:, None])[:, 0]
+        tiles = _kt_tiles(kt, slots, hkv, kv)
+        if w8a8:
+            s = (_w8a8_block(q8, tiles).float()
+                 * torch.tensor(1.0 / 127.0, dtype=torch.float32))
+        else:
+            s = qg @ tiles.transpose(-1, -2)
+        s = s * ks[slots][:, :, None, :] * scale
+        pos = blk[:, None] * bs + torch.arange(bs, device=q.device)
+        ok = (live[:, j, None] & (pos < lens.long()[:, None]))[:, None, None, :]
+        state = online_update(state, s, ok, dequant_values(v[slots], kv),
+                              vs[slots][:, :, None, :], torch.bfloat16)
+    return state
 
 
 def kt_attention_plain(q, kt, v, k_scale, v_scale, table, lens, kv: KVDtype,
-                       variant_name: str = "v2") -> torch.Tensor:
+                       variant_name: str = "v2",
+                       num_splits: int | None = None) -> torch.Tensor:
     """P2's function -> [B, Hq, D] float32: q rounded to bf16; per block,
     s = (q . k) * ks * D^-0.5 (w8a8: the int32 scores of `w8a8_scores`
     times float32(1/127) first); pos >= lens masked; an online softmax in
     float32; p * vs rounded to bf16 before PV (`paged_attention_ref`'s
-    update). v3fused: `k_scale` is [S, 2, Hkv, bs] and `v_scale` None."""
+    update). v3fused: `k_scale` is [S, 2, Hkv, bs] and `v_scale` None.
+    `num_splits` k > 1 is the split form of the kernel's grid, the
+    counterpart of `paged_attention_ref(..., num_splits=k)`: each split
+    walks `split_ranges(n, k)`'s blocks of a lane of n blocks from a fresh
+    state, and `paged_attention_ref.merge_splits` combines the splits; None
+    or 1 is the unsplit walk, each lane's blocks in order."""
     B, hq, d = q.shape
     hkv = v.shape[1]
-    G = hq // hkv
     bs = kt.shape[2] // hkv
     if variant_name == "v3fused":
         k_scale, v_scale = k_scale[:, 0], k_scale[:, 1]
     ks = k_scale.reshape(k_scale.shape[0], hkv, bs)
     vs = v_scale.reshape(v_scale.shape[0], hkv, bs)
-    qg = q.reshape(B, hkv, G, d).bfloat16().float()
-    si = (w8a8_scores(q, kt, table, lens, hkv, kv)
-          if variant_name == "w8a8" else None)
-    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
-    state = (torch.full((B, hkv, G, 1), NEG_INF, device=q.device),
-             torch.zeros((B, hkv, G, 1), device=q.device),
-             torch.zeros((B, hkv, G, d), device=q.device))
-    nblk = min(-(-int(lens.max()) // bs) if B else 0, table.shape[1])
-    for i in range(nblk):
-        slots = table[:, i].long()
-        if si is None:
-            s = qg @ _kt_tiles(kt, slots, hkv, kv).transpose(-1, -2)
-        else:
-            s = (si[..., i * bs:(i + 1) * bs].float()
-                 * torch.tensor(1.0 / 127.0, dtype=torch.float32))
-        s = s * ks[slots][:, :, None, :] * scale
-        pos = i * bs + torch.arange(bs, device=q.device)
-        ok = (pos[None, :] < lens.long()[:, None])[:, None, None, :]
-        state = online_update(state, s, ok, dequant_values(v[slots], kv),
-                              vs[slots][:, :, None, :], torch.bfloat16)
-    return finalize(state, None).reshape(B, hq, d)
+    S = num_splits or 1
+    n = torch.clamp((lens.long() + bs - 1) // bs, max=table.shape[1])
+    states = []
+    for z in range(S):
+        ranges = [split_ranges(int(x), S)[z] for x in n.tolist()]
+        steps = max((c for _, c in ranges), default=0)
+        j = torch.arange(steps, device=q.device)
+        first = torch.tensor([f for f, _ in ranges], device=q.device,
+                             dtype=torch.long)
+        count = torch.tensor([c for _, c in ranges], device=q.device,
+                             dtype=torch.long)
+        states.append(_kt_walk(q, kt, v, ks, vs, table, lens, kv,
+                               variant_name == "w8a8",
+                               first[:, None] + j[None, :],
+                               j[None, :] < count[:, None]))
+    if S == 1:
+        return finalize(states[0], None).reshape(B, hq, d)
+    state = tuple(torch.stack([st[i] for st in states], 1) for i in range(3))
+    return merge_splits(state, None).reshape(B, hq, d)
+
+
+def kt_stage(kv: KVDtype, bs: int, d: int, fused: bool, hkv: int = 8) -> dict:
+    """One block's stage in the P2 kernel's ring (`anatomy_kt.cu:
+    stage_geometry`): K boxes of `kpt` columns by D/pack rows from offset 0
+    (a head's box starts on the 16-byte boundary at or before its first
+    column and spans its bs columns, rounded up to 16 bytes; 256 columns a
+    box where that passes 256), V's bs rows behind them, then both scale
+    rows (v3fused: from a 128-byte boundary, as 2-D boxes of `sw` columns);
+    `tx` the bytes a block's copies bring, `stage` the stride (a multiple
+    of 128)."""
+    eb = 2 if kv == KVDtype.BF16 else 1
+    dp = d // kv_pack(kv)
+    lead = max([(h * bs * eb) % 16 for h in range(1, min(hkv, 4))], default=0)
+    need = -(-(lead + bs * eb) // 16) * 16
+    kpieces = -(-need // (256 * eb))
+    kpt = need // eb if kpieces == 1 else 256
+    voff = kpieces * kpt * eb * dp
+    vend = voff + bs * dp * eb
+    if fused:
+        sw = bs if kpieces == 1 else 256
+        soff = -(-vend // 128) * 128
+        sbytes = kpieces * 8 * sw
+    else:
+        sw, soff, sbytes = bs, vend, 8 * bs
+    return {"kpt": kpt, "kpieces": kpieces, "voff": voff, "soff": soff,
+            "sw": sw, "tx": vend + sbytes,
+            "stage": -(-(soff + sbytes) // 128) * 128}
+
+
+def _p2_smem(depth: int, kv: KVDtype, bs: int, d: int, fused: bool,
+             hkv: int = 8) -> int:
+    """The P2 kernel's dynamic shared memory: the ring, then each consumer
+    warp's (m, l) [4][8], the running max slots [4][8] and their sequence
+    numbers [4], the warps' sum [8][D], float32, and room for the q
+    fragments [16][32][2] (kept there past D 128 and for w8a8)."""
+    return (_ring_smem(depth, kt_stage(kv, bs, d, fused, hkv)["stage"])
+            + 4 * (3 * 4 * 8 + 4 + 8 * d + 1024))
+
+
+def p2_depth(variant_name: str, kv: KVDtype, bs: int, d: int,
+             depth=None, hkv: int = 8) -> int:
+    """P2's ring depth: `depth` (one of P2_DEPTHS), or P2_DEPTH halved while
+    the ring does not fit in shared memory. Raises ValueError where a ring
+    of `depth` (or of 2) does not fit, or for a depth P2 does not take."""
+    fused = variant_name == "v3fused"
+    if depth is not None:
+        if depth not in P2_DEPTHS:
+            raise ValueError(f"anatomy kt {variant_name}: depth {depth} (of "
+                             f"{P2_DEPTHS})")
+        if _p2_smem(depth, kv, bs, d, fused, hkv) > SMEM_LIMIT:
+            raise ValueError(f"anatomy kt {variant_name}: a ring of {depth} "
+                             f"stages does not fit in shared memory")
+        return depth
+    dep = P2_DEPTH
+    while dep > 2 and _p2_smem(dep, kv, bs, d, fused, hkv) > SMEM_LIMIT:
+        dep //= 2
+    if _p2_smem(dep, kv, bs, d, fused, hkv) > SMEM_LIMIT:
+        raise ValueError(f"anatomy kt {variant_name}: two stages of {bs}-token "
+                         f"blocks do not fit in shared memory")
+    return dep
+
+
+def kt_fragment_slots(kv: KVDtype, bs: int, dp: int, w8a8: bool = False):
+    """The P2 kernel's fragment slots of one block's score product, as
+    `anatomy_kt.cu:kt_body` reads its stage, yielded as (mma, M row, k
+    position, token, element): for each product instruction (unit, m-tile
+    and k-step) and each lane's A register and its halves (w8a8: bytes),
+    the token and the K element (its kT row, INT4 its nibble: element row
+    or row + D/2) that the kernel puts there, and the element its q
+    fragment puts on that k position. Slots the kernel leaves zero (a row
+    past D/pack, a word of tokens past bs) are left out."""
+    bf16 = kv == KVDtype.BF16
+    i4 = kv == KVDtype.INT4
+    eb = 2 if bf16 else 1
+    tu = 16 if bf16 else 32
+    jn = tu // 8
+    dmax = 256 if dp * kv_pack(kv) > 128 else 128
+    steps = dmax // 32 if w8a8 else dmax // 16
+    for tb in range(0, bs, tu):
+        for kk in range(steps):
+            if kk * ((16 if i4 else 32) if w8a8 else (8 if i4 else 16)) >= dp:
+                break
+            for lane in range(32):
+                gq, tq = lane >> 2, lane & 3
+                if tb + jn * gq >= bs:
+                    continue
+                for j in range(jn):
+                    mt, mrow = j >> 1, gq + 8 * (j & 1)
+                    token = tb + jn * gq + j
+                    for hf in range(2):
+                        for b in range(4 if w8a8 else 2):
+                            if w8a8:
+                                kpos = 4 * tq + 16 * hf + b
+                                row = (16 * kk + 8 * hf + tq + 4 * (b >> 1)
+                                       if i4 else 32 * kk + 16 * hf + tq + 4 * b)
+                                half = b & 1 if i4 else 0
+                            else:
+                                kpos = 2 * tq + 8 * hf + b
+                                row = (8 * kk + tq + 4 * hf if i4
+                                       else 16 * kk + tq + 4 * (2 * hf + b))
+                                half = b if i4 else 0
+                            if row >= dp:
+                                continue
+                            element = row + half * dp
+                            # the q fragment's element on this k position
+                            if w8a8:
+                                qb = kpos - 4 * tq - 16 * hf
+                                q_el = ((16 * kk + 8 * hf + tq + 4 * (qb >> 1))
+                                        + (qb & 1) * dp if i4 else
+                                        32 * kk + 16 * hf + tq + 4 * qb)
+                            else:
+                                r = 8 * kk + tq if i4 else 16 * kk + tq
+                                pair = (kpos - 2 * tq) // 8
+                                k = (kpos - 2 * tq) % 8
+                                q_el = (r + 4 * pair + k * dp if i4
+                                        else r + 8 * pair + 4 * k)
+                            yield ((tb, mt, kk), mrow, kpos, token, element,
+                                   q_el)
+
+
+def _kt_check(name, variant_name, q, kt, v, k_scale, v_scale, kv) -> None:
+    fused = variant_name == "v3fused"
+    B, hq, d = q.shape
+    S, hkv, bs, dp = v.shape
+    want_sc = (S, 2, hkv, bs) if fused else None
+    if (hq % hkv or hq // hkv > 8 or d > 256 or d % 8 or dp * kv_pack(kv) != d
+            or kt.shape != (S, dp, hkv * bs)
+            or (fused and k_scale.shape != want_sc)
+            or (not fused and (k_scale.numel() != S * hkv * bs
+                               or v_scale.shape != k_scale.shape))):
+        raise ValueError(f"{name}: unsupported shape q {tuple(q.shape)} kT "
+                         f"{tuple(kt.shape)} V {tuple(v.shape)}")
+    row = hkv * bs * kt.element_size()
+    if row % 16:
+        raise ValueError(f"{name}: kT rows of {row} bytes (Hkv * bs * element "
+                         f"bytes; a multiple of 16 needed for the TMA map)")
+
+
+def _kt_launch(q, kt, v, k_scale, v_scale, table, lens, kv, variant_name,
+               ns: int, depth: int, host_us=None) -> torch.Tensor:
+    """One launch of the P2 kernel (and its merge at ns > 1); `host_us` a
+    ctypes double that receives the microseconds the tensor maps took."""
+    dev = q.device
+    B, hq, d = q.shape
+    S, hkv, bs, dp = v.shape
+    fused = variant_name == "v3fused"
+    out = torch.empty((B, hq, d), device=dev)
+    parts = ((torch.empty((B, hq, ns), device=dev),
+              torch.empty((B, hq, ns), device=dev),
+              torch.empty((B, hq, ns, d), device=dev)) if ns > 1
+             else (None, None, None))
+    qf = q.float().contiguous()
+    err = cuda_build.kernel("anatomy_kt")(
+        qf.data_ptr(), kt.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+        None if fused else v_scale.data_ptr(), table.data_ptr(),
+        lens.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in parts),
+        None if host_us is None else ctypes.addressof(host_us),
+        B, hq, hkv, d, bs, table.shape[1], S, KV_KINDS[kv], int(fused),
+        int(variant_name == "w8a8"), ns, depth, float(d ** -0.5), _stream(dev))
+    if err <= -1000:
+        raise RuntimeError(f"anatomy kt: the TMA tensor map could not be "
+                           f"encoded (CUresult {-1000 - err}; -1000: the "
+                           f"driver has no cuTensorMapEncodeTiled)")
+    cuda_build.check_launch("anatomy_kt", err)
+    return out
 
 
 def kt_attention(q, kt, v, k_scale, v_scale, table, lens, kv: KVDtype,
-                 variant_name: str = "v2") -> torch.Tensor:
+                 variant_name: str = "v2", num_splits: int | None = None,
+                 depth: int | None = None) -> torch.Tensor:
     """P2 variant `variant_name` ("v2", "v3fused", "w8a8") on the card, or
     its plain version for CPU tensors -> [B, Hq, D] float32. kt
     [S, D/pack, Hkv * bs], v [S, Hkv, bs, D/pack]; scales [S, Hkv, bs] (or
-    flat [S, 1, Hkv * bs]); v3fused: k_scale [S, 2, Hkv, bs], v_scale None."""
+    flat [S, 1, Hkv * bs]); v3fused: k_scale [S, 2, Hkv, bs], v_scale None.
+    `num_splits`: None for `probe_splits` (the products' rule), or a forced
+    count 1..64; `depth`: None for `p2_depth`'s, or one of P2_DEPTHS. Both
+    are checked on either device; the card's result is the plain version's
+    split form at its split count (within rounding)."""
     name = "anatomy kt"
     if variant_name not in P2_VARIANTS:
         raise ValueError(f"unknown P2 variant {variant_name!r}")
@@ -541,33 +773,35 @@ def kt_attention(q, kt, v, k_scale, v_scale, table, lens, kv: KVDtype,
         raise ValueError(f"{name}: w8a8 takes integer pools, not BF16")
     dev = _check(name, kv, (kt, v, k_scale, v_scale), (q, table, lens))
     B, hq, d = q.shape
-    S, hkv, bs, dp = v.shape
+    hkv, bs = v.shape[1], v.shape[2]
     _walk(name, v, table, lens)
-    want_sc = (S, 2, hkv, bs) if fused else None
-    if (hq % hkv or hq // hkv > 8 or d > 256 or d % 8 or dp * kv_pack(kv) != d
-            or kt.shape != (S, dp, hkv * bs)
-            or (fused and k_scale.shape != want_sc)
-            or (not fused and (k_scale.numel() != S * hkv * bs
-                               or v_scale.shape != k_scale.shape))):
-        raise ValueError(f"{name}: unsupported shape q {tuple(q.shape)} kT "
-                         f"{tuple(kt.shape)} V {tuple(v.shape)}")
+    _kt_check(name, variant_name, q, kt, v, k_scale, v_scale, kv)
+    depth = p2_depth(variant_name, kv, bs, d, depth, hkv)
     if dev.type == "cpu":
+        if num_splits is not None:
+            _splits(num_splits, B * hkv, table.shape[1], depth, dev)
         return kt_attention_plain(q, kt, v, k_scale, v_scale, table, lens, kv,
                                   variant_name)
-    out = torch.empty((B, hq, d), device=dev)
-    qf = q.float().contiguous()
-    err = cuda_build.kernel("anatomy_kt")(
-        qf.data_ptr(), kt.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-        None if fused else v_scale.data_ptr(), table.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), B, hq, hkv, d, bs, table.shape[1],
-        KV_KINDS[kv], int(fused), int(variant_name == "w8a8"),
-        float(d ** -0.5), _stream(dev))
-    cuda_build.check_launch("anatomy_kt", err)
+    ns = _splits(num_splits, B * hkv, table.shape[1], depth, dev, True)
+    out = _kt_launch(q, kt, v, k_scale, v_scale, table, lens, kv,
+                     variant_name, ns, depth)
     kt_attention.launches[variant_name] += 1
     return out
 
 
 kt_attention.launches = Counter()
+
+
+def kt_map_host_us(p: "ProbePools", variant_name: str = "v2") -> float:
+    """Host microseconds that one P2 call on `p` (on the card) spends
+    encoding its TMA tensor maps, as the launch measures them. Counts no
+    launch."""
+    us = ctypes.c_double(0.0)
+    name, (ks, vs) = variant_name, _scales(variant_name, p)
+    depth = p2_depth(name, p.kv, p.v.shape[2], p.q.shape[2], None, p.v.shape[1])
+    _kt_launch(p.q, p.kt, p.v, ks, vs, p.table, p.lens, p.kv, name, 1, depth,
+               us)
+    return us.value
 
 
 # ---------------------------------------------------------------------------
@@ -641,16 +875,21 @@ def _scales(label: str, p: ProbePools) -> tuple:
 
 
 def probe_setting(label: str, p: ProbePools, depth=None) -> tuple[int, int]:
-    """(ring depth, split count) that a P1 mode (`depth` or its default) or
-    a P3 ring ("v5ring8": its nbuf) takes on `p` on the current card."""
+    """(ring depth, split count) that a P1 mode or P2 variant (`depth` or
+    its default) or a P3 ring ("v5ring8": its nbuf) takes on `p` on the
+    current card."""
     row = p.k.shape[3] * p.k.element_size()
     if label.startswith("v5ring"):
         d = int(label[len("v5ring"):])
+    elif label in P2_VARIANTS:
+        d = p2_depth(label, p.kv, p.k.shape[2], p.q.shape[2], depth,
+                     p.k.shape[1])
     else:
         d = p1_depth(label, p.k.shape[2], row, depth)
     return d, probe_splits(p.lens.shape[0] * p.k.shape[1], p.table.shape[1],
                            d, sm_count(torch.cuda.current_device()),
-                           label in P1_MODES and label not in SUM_MODES)
+                           label in P2_VARIANTS or (label in P1_MODES
+                                                    and label not in SUM_MODES))
 
 
 def k1_splits(p: ProbePools) -> int:
@@ -670,7 +909,7 @@ def probe_calls(p: ProbePools, num_splits: int | None = None) -> dict:
     """{label: a function of no arguments making one call on `p`}: "full"
     is K1 at bf16 compute and its chosen split count, then every P1 mode,
     P2 variant and ring depth ("v5ring4", ...) under the TPU script's
-    names; P1 and P3 at `num_splits` (None: `probe_splits`)."""
+    names; P1, P2 and P3 at `num_splits` (None: `probe_splits`)."""
     tm = (*p.token_major(), p.table, p.lens, p.kv)
     fns = {"full": k1_call(p)}
     for mode in P1_MODES:
@@ -678,16 +917,26 @@ def probe_calls(p: ProbePools, num_splits: int | None = None) -> dict:
                                               num_splits=num_splits)
     for name in P2_VARIANTS:
         fns[name] = lambda name=name: kt_attention(
-            p.q, p.kt, p.v, *_scales(name, p), p.table, p.lens, p.kv, name)
+            p.q, p.kt, p.v, *_scales(name, p), p.table, p.lens, p.kv, name,
+            num_splits=num_splits)
     for nbuf in RING_DEPTHS:
         fns[f"v5ring{nbuf}"] = lambda nbuf=nbuf: ring(nbuf, *tm,
                                                       num_splits=num_splits)
     return fns
 
 
-def plain_calls(p: ProbePools) -> dict:
+def p2_splits(p: ProbePools, label: str = "v2") -> int:
+    """The split count a P2 call on `p` takes by default (1 on the CPU,
+    where the plain version runs unsplit)."""
+    if p.q.device.type != "cuda":
+        return 1
+    return probe_setting(label, p)[1]
+
+
+def plain_calls(p: ProbePools, num_splits: int | None = None) -> dict:
     """{label: its plain version on `p`}, the labels of `probe_calls` ("full"
-    in the split form of K1's chosen count)."""
+    in the split form of K1's chosen count; P2 in the split form of
+    `num_splits`, None: the count its call takes, `p2_splits`)."""
     tm = (*p.token_major(), p.table, p.lens, p.kv)
     fns = {"full": lambda: paged_attention_ref(
         p.q, *tm, compute_dtype=torch.bfloat16, num_splits=k1_splits(p))}
@@ -695,7 +944,8 @@ def plain_calls(p: ProbePools) -> dict:
         fns[mode] = lambda mode=mode: variant_plain(mode, p.q, *tm)
     for name in P2_VARIANTS:
         fns[name] = lambda name=name: kt_attention_plain(
-            p.q, p.kt, p.v, *_scales(name, p), p.table, p.lens, p.kv, name)
+            p.q, p.kt, p.v, *_scales(name, p), p.table, p.lens, p.kv, name,
+            num_splits=num_splits or p2_splits(p, name))
     for nbuf in RING_DEPTHS:
         fns[f"v5ring{nbuf}"] = lambda: variant_plain("fetchrow", p.q, *tm)
     return fns

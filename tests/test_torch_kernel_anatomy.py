@@ -6,18 +6,22 @@ for INT8, INT4 and BF16 pools.
 The TPU probes are closures inside `scripts/kernel_anatomy.py:main` and
 print only times, so each plain version is held against an independent
 numpy statement of the TPU body it mirrors (cited per test); P2 against
-the JAX package's `paged_attention` in interpret mode on the same kT pools;
-and the port's command line against the JAX script, label by label.
-Tolerances: `fetchint` and the w8a8 int32 scores bit-exact; the float sums
-within 1e-6 relative plus 1e-3 absolute (float64 sums in another order,
-then rounded to float32); matmul / matmulT within 2e-3 of each (lane,
-head)'s largest value (a float32 score can round to the neighbouring bf16
-value, one step of 2^-8 of its share); P2 within rtol = atol = 2e-4, the
-existing bf16 K1 tests' tolerance. The kernels themselves need the card:
-tests/test_torch_kernels_cuda.py."""
+the JAX package's `paged_attention` in interpret mode on the same kT pools,
+unsplit and in its split form; and the port's command line against the
+JAX script, label by label. Tolerances: `fetchint` and the w8a8 int32
+scores bit-exact; the float sums within 1e-6 relative plus 1e-3 absolute
+(float64 sums in another order, then rounded to float32); matmul / matmulT
+within 2e-3 of each (lane, head)'s largest value (a float32 score can
+round to the neighbouring bf16 value, one step of 2^-8 of its share); P2
+within rtol = atol = 2e-4, the existing bf16 K1 tests' tolerance, and its
+split form within that plus 2^-8 of the largest |vs * v| of the lane's
+tokens (a split rounds p * vs to bf16 against its own running max: each
+term may land one bf16 step, 2^-8 of itself, from the unsplit walk's). The
+kernels themselves need the card: tests/test_torch_kernels_cuda.py."""
 
 import os
 import re
+from collections import Counter
 import subprocess
 import sys
 from pathlib import Path
@@ -298,6 +302,172 @@ def test_p2_plain_matches_jax_kernel(scheme, name):
     k1 = paged_attention(p.q, *tm, p.table, p.lens, p.kv,
                          compute_dtype=torch.bfloat16)
     np.testing.assert_allclose(k1.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+def vs_v_max(p) -> torch.Tensor:
+    """max over each lane's tokens of |vs * v| -> [B, Hq, D] (each query
+    head of a kv head takes its row), dequantized as the plain version."""
+    from cxl_speckv_tpu_torch.ops.quant import dequant_values
+    B, hq, d = p.q.shape
+    hkv = p.v.shape[1]
+    out = torch.zeros((B, hkv, d))
+    for b in range(B):
+        blk = da._lane_blocks(p.table, p.lens, b, BS)
+        n = int(p.lens[b])
+        if not n:
+            continue
+        x = (dequant_values(p.v[blk], p.kv) * p.vs[blk][..., None]).abs()
+        x = x.permute(1, 0, 2, 3).reshape(hkv, -1, d)[:, :n]
+        out[b] = x.amax(1)
+    return out.repeat_interleave(hq // hkv, 1)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7])
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("name", ["v2", "v3fused"])
+def test_p2_split_form_matches_jax_kernel(scheme, name, splits):
+    """`kt_attention_plain(..., num_splits=S)`, the kernel's grid on the
+    CPU: each split walks `split_ranges`' blocks from a fresh state and
+    `merge_splits` combines them. Against the JAX `paged_attention`
+    (interpret mode, compute bf16): S = 1 bit-equal to the unsplit walk and
+    within rtol = atol = 2e-4; S > 1 within that plus 2^-8 of the lane's
+    largest |vs * v| (where p * vs rounds)."""
+    p = probe_pools(scheme)
+    S = p.kt.shape[0]
+    flat = lambda s: s.reshape(S, 1, -1)
+    want = np.asarray(j_decode(
+        jnp.asarray(np_(p.q)), jax_pool(p.kt), jax_pool(p.v),
+        jnp.asarray(np_(flat(p.ks))), jnp.asarray(np_(flat(p.vs))),
+        jnp.asarray(p.table.numpy()), jnp.asarray(p.lens.numpy()),
+        JKV(scheme), interpret=True, compute_dtype=jnp.bfloat16))
+    sc = (p.scf, None) if name == "v3fused" else (p.ks, p.vs)
+    args = (p.q, p.kt, p.v, *sc, p.table, p.lens, p.kv, name)
+    got = da.kt_attention_plain(*args, num_splits=splits)
+    if splits == 1:
+        assert torch.equal(got, da.kt_attention_plain(*args))
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+        return
+    bound = 2e-4 + 2e-4 * np.abs(want) + 2.0 ** -8 * vs_v_max(p).numpy()
+    err = np.abs(got.numpy() - want)
+    assert (err <= bound).all(), float(err.max())
+    assert not got.isnan().any()
+
+
+@pytest.mark.parametrize("splits", [2, 7, 64])
+@pytest.mark.parametrize("scheme", ["int8", "int4"])
+def test_p2_w8a8_split_form_merges_the_same_scores(scheme, splits):
+    """w8a8's split form walks the same int32 scores (`w8a8_scores`, bit
+    exact above) through the split plan: within 2^-8 of the lane's largest
+    |vs * v| of its unsplit walk, every split's blocks taken once."""
+    p = probe_pools(scheme)
+    args = (p.q, p.kt, p.v, p.ks, p.vs, p.table, p.lens, p.kv, "w8a8")
+    one = da.kt_attention_plain(*args)
+    got = da.kt_attention_plain(*args, num_splits=splits)
+    assert torch.equal(da.kt_attention_plain(*args, num_splits=1), one)
+    bound = 4e-4 + 2.0 ** -8 * vs_v_max(p)
+    assert bool(((got - one).abs() <= bound).all())
+    assert not got[1:].isnan().any()
+
+
+@pytest.mark.parametrize("dp", [16, 64, 128])
+@pytest.mark.parametrize("bs", [8, 32, 128])
+@pytest.mark.parametrize("kind", ["int8", "int4", "bf16", "int8-w8a8",
+                                  "int4-w8a8"])
+def test_p2_fragment_slots_take_every_element_once(kind, bs, dp):
+    """`kt_fragment_slots`, the Python mirror of the P2 kernel's score
+    fragments: each register position of each product instruction is
+    filled once, the K element a slot holds is the element its q fragment
+    puts on that k position, and every (token, element) of the block
+    (token < bs, element < D) is taken exactly once."""
+    scheme, _, w8 = kind.partition("-")
+    kv = da.SCHEMES[scheme]
+    d = dp * (2 if scheme == "int4" else 1)
+    slots = list(da.kt_fragment_slots(kv, bs, dp, bool(w8)))
+    positions = Counter((mma, row, kpos) for mma, row, kpos, *_ in slots)
+    assert max(positions.values()) == 1
+    assert all(el == q_el for *_, el, q_el in slots)
+    taken = Counter((t, el) for _, _, _, t, el, _ in slots if t < bs)
+    assert set(taken) == {(t, e) for t in range(bs) for e in range(d)}
+    assert max(taken.values()) == 1
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("bs", [32, 128])
+def test_p2_shared_memory_plan_refuses_no_variant(scheme, bs):
+    """`p2_depth` at Llama-3-8B's D 128: every P2 variant takes a ring at bs
+    32 and bs 128 (PROBE_REFUSED in chip_smoke.py refuses none of them;
+    w8a8 on BF16 stays refused, by the wrapper); the default depth halves
+    while the ring does not fit (BF16 at bs 128: 2), and a forced depth
+    that does not fit raises."""
+    kv = da.SCHEMES[scheme]
+    for name in da.P2_VARIANTS:
+        dep = da.p2_depth(name, kv, bs, 128)
+        assert dep in da.P2_DEPTHS
+        fused = name == "v3fused"
+        assert da._p2_smem(dep, kv, bs, 128, fused) <= da.SMEM_LIMIT
+        if dep < da.P2_DEPTH:
+            assert da._p2_smem(2 * dep, kv, bs, 128, fused) > da.SMEM_LIMIT
+        for depth in da.P2_DEPTHS:
+            if da._p2_smem(depth, kv, bs, 128, fused) <= da.SMEM_LIMIT:
+                assert da.p2_depth(name, kv, bs, 128, depth) == depth
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    da.p2_depth(name, kv, bs, 128, depth)
+    want = {("int8", 32): 4, ("int4", 32): 4, ("bf16", 32): 4,
+            ("int8", 128): 4, ("int4", 128): 4, ("bf16", 128): 2}
+    assert da.p2_depth("v2", kv, bs, 128) == want[(scheme, bs)]
+    p = da.build_pools(scheme, bs, bs, batch=1, heads=(4, 1, 128), seed=0,
+                       device="cpu")
+    args = (p.q, p.kt, p.v, p.ks, p.vs, p.table, p.lens, p.kv)
+    if scheme == "bf16":
+        with pytest.raises(ValueError, match="w8a8"):
+            da.kt_attention(*args, "w8a8")
+    else:
+        da.kt_attention(*args, "w8a8")
+
+
+def test_p2_stage_layout():
+    """`kt_stage` (the kernel's `stage_geometry`): at the probe cell a stage
+    is 4 KB of K, 4 KB of V and 256 B of scales; the K box widens to 16
+    bytes at bs 8 INT8 and starts on a 16-byte boundary, so it spans the
+    bytes of the head before as far back as that; v3fused's scale box
+    starts on a 128-byte boundary; bs past 256 takes 256-column boxes."""
+    g = da.kt_stage(da.SCHEMES["int8"], 32, 128, False)
+    assert (g["kpt"], g["voff"], g["soff"], g["tx"], g["stage"]) == (
+        32, 4096, 8192, 8448, 8448)
+    g = da.kt_stage(da.SCHEMES["int8"], 8, 32, False, hkv=2)
+    assert g["kpt"] == 16 and g["voff"] == 16 * 32 and g["tx"] == 512 + 256 + 64
+    g = da.kt_stage(da.SCHEMES["bf16"], 8, 32, True, hkv=2)
+    assert g["kpt"] == 8 and g["soff"] % 128 == 0 and g["sw"] == 8
+    # bs 12 INT8: heads start 12, 8, 4 bytes past a 16-byte boundary
+    assert da.kt_stage(da.SCHEMES["int8"], 12, 32, False, hkv=4)["kpt"] == 32
+    assert da.kt_stage(da.SCHEMES["int8"], 12, 32, False, hkv=1)["kpt"] == 16
+    g = da.kt_stage(da.SCHEMES["int4"], 260, 32, True)
+    assert (g["kpieces"], g["kpt"], g["sw"]) == (2, 256, 256)
+    assert g["tx"] == 2 * 256 * 16 + 260 * 16 + 2 * 8 * 256
+    assert g["stage"] % 128 == 0 and g["stage"] >= g["soff"] + 2 * 8 * 256
+
+
+def test_p2_split_and_depth_arguments_are_checked():
+    """P2's forced split counts and depths change no result on the CPU (the
+    plain version runs) and are checked on either device; a kT row that is
+    not a multiple of 16 bytes (the TMA map's row stride) is refused."""
+    p = probe_pools("int8")
+    args = (p.q, p.kt, p.v, p.ks, p.vs, p.table, p.lens, p.kv, "v2")
+    want = da.kt_attention(*args)
+    for ns, depth in ((1, 2), (7, 4), (64, 8), (None, 8)):
+        assert torch.equal(da.kt_attention(*args, num_splits=ns, depth=depth),
+                           want)
+    for bad in (0, 65, 2.0):
+        with pytest.raises(ValueError, match="num_splits"):
+            da.kt_attention(*args, num_splits=bad)
+    for bad in (0, 3, 16):
+        with pytest.raises(ValueError, match="depth"):
+            da.kt_attention(*args, depth=bad)
+    q = da.build_pools("int8", 8, 16, batch=1, heads=(2, 1, 32), seed=0,
+                       device="cpu")
+    with pytest.raises(ValueError, match="kT rows of 8 bytes"):
+        da.kt_attention(q.q, q.kt, q.v, q.ks, q.vs, q.table, q.lens, q.kv)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

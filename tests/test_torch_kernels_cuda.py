@@ -659,7 +659,8 @@ def test_default_engine_config_on_card(dev):
 # first. Sums within 1e-5 of (|plain| + the plain sum of |terms|), fetchint
 # exact; matmul / matmulT within 2e-3 of each (lane, head)'s largest value;
 # P2 (float32 outputs) within the float32 tolerance above, against its
-# plain version and against K1.
+# plain version's split form at the kernel's count, and at one split
+# against K1.
 # ---------------------------------------------------------------------------
 
 def probe_pools(scheme, seed=11):
@@ -728,7 +729,7 @@ def test_anatomy_variant_depths_match_plain(dev, scheme, mode, depth, splits):
 @pytest.mark.parametrize("scheme", ["int8", "bf16"])
 def test_anatomy_long_walk_matches_plain(dev, scheme):
     """One split of 282 blocks: the ring stages the table slice in windows
-    of 256 entries, so the walk passes a window's end (P1 and P3)."""
+    of 256 entries, so the walk passes a window's end (P1, P2 and P3)."""
     from cxl_speckv_tpu_torch.ops import decode_anatomy as da
 
     p = da.build_pools(scheme, 32, 9000, batch=2, heads=(32, 8, 128), seed=13,
@@ -742,11 +743,37 @@ def test_anatomy_long_walk_matches_plain(dev, scheme):
     got = da.ring(8, *args[1:], num_splits=1)
     held_to_plain(da, "fetchrow", got, da.variant_plain("fetchrow", *args),
                   args)
+    kt_held_to_plain(da, p, "v2", 1)              # P2 past a window too
 
 
+def kt_held_to_plain(da, p, name, splits=None, depth=None):
+    """P2 `name` on `p` twice: the two bit-equal, each within rtol = atol =
+    2e-4 of the plain version's split form at the kernel's own count, a
+    0-token lane zeros; returns (output, its split count)."""
+    sc = (p.scf, None) if name == "v3fused" else (p.ks, p.vs)
+    args = (p.q, p.kt, p.v, *sc, p.table, p.lens, p.kv, name)
+    n0 = da.kt_attention.launches[name]
+    got = da.kt_attention(*args, num_splits=splits, depth=depth)
+    again = da.kt_attention(*args, num_splits=splits, depth=depth)
+    torch.cuda.synchronize()
+    assert da.kt_attention.launches[name] == n0 + 2
+    assert torch.equal(got, again)
+    ns = splits or da.probe_setting(name, p, depth)[1]
+    close(got, da.kt_attention_plain(*args, num_splits=ns), torch.float32)
+    for b, n in enumerate(p.lens.tolist()):
+        if n == 0:
+            assert not got[b].any()
+    return got, ns
+
+
+@pytest.mark.parametrize("splits", [1, None, 7])
 @pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
 @pytest.mark.parametrize("name", ["v2", "v3fused", "w8a8"])
-def test_anatomy_kt_kernel_matches_plain(dev, scheme, name):
+def test_anatomy_kt_kernel_matches_plain(dev, scheme, name, splits):
+    """P2 at one split, its derived count and a forced 7 (more than the
+    33-token lane's 2 blocks), against the plain version's split form at
+    that count; at one split v2 and v3fused also against K1 unsplit (each
+    lane one walk in block order in both)."""
     from cxl_speckv_tpu_torch.ops import decode_anatomy as da
 
     p = probe_pools(scheme)
@@ -754,18 +781,57 @@ def test_anatomy_kt_kernel_matches_plain(dev, scheme, name):
     args = (p.q, p.kt, p.v, *sc, p.table, p.lens, p.kv, name)
     if name == "w8a8" and scheme == "bf16":
         with pytest.raises(ValueError, match="w8a8"):
-            da.kt_attention(*args)
+            da.kt_attention(*args, num_splits=splits)
         return
-    got = da.kt_attention(*args)
-    torch.cuda.synchronize()
-    close(got, da.kt_attention_plain(*args), torch.float32)
-    assert not got[3].any()
-    if name != "w8a8":
-        # K1 unsplit: the arithmetic v2 mirrors (rounding p * vs against
-        # the whole walk's running max)
+    got, _ = kt_held_to_plain(da, p, name, splits)
+    if name != "w8a8" and splits == 1:
         k1 = paged_attention(p.q, *p.token_major(), p.table, p.lens, p.kv,
                              compute_dtype=torch.bfloat16, num_splits=1)
         close(got, k1, torch.float32)
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+@pytest.mark.parametrize("geometry", ["bs8-d32", "bs128", "d256"])
+def test_anatomy_kt_block_sizes_match_plain(dev, scheme, geometry, splits):
+    """bs 8 at D 32, Hkv 2 (a head's columns of a kT row are 8 bytes at
+    INT8 and INT4: the TMA box widened to 16 bytes, over the neighbour
+    head's columns or zeros past the last head), bs 128 at Llama-3-8B's
+    heads (a stage of 33 KB at INT8; BF16 halves the ring to 2 stages) and
+    D 256 at Gemma's heads (two CTAs a (lane, head, split), each holding
+    half of D), every variant the wrapper takes."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    if geometry == "bs8-d32":
+        p = da.build_pools(scheme, 8, 64, batch=3, heads=(8, 2, 32), seed=21,
+                           lens=[64, 37, 0], shuffle=True, device="cuda")
+    elif geometry == "d256":
+        p = da.build_pools(scheme, 32, 300, batch=3, heads=(16, 8, 256),
+                           seed=23, lens=[300, 200, 0], shuffle=True,
+                           device="cuda")
+    else:
+        p = da.build_pools(scheme, 128, 1024, batch=4, heads=(32, 8, 128),
+                           seed=22, lens=[1024, 1000, 129, 0], shuffle=True,
+                           device="cuda")
+    for name in da.P2_VARIANTS:
+        if name == "w8a8" and scheme == "bf16":
+            continue
+        kt_held_to_plain(da, p, name, splits)
+
+
+@pytest.mark.parametrize("scheme", ["int8", "bf16"])
+@pytest.mark.parametrize("depth", [2, 4, 8])
+def test_anatomy_kt_depths_match_plain(dev, scheme, depth):
+    """Every ring depth P2 takes at bs 32, at its derived count and at one
+    split (the 300-token lane's 10 blocks in one CTA: more than the ring's
+    stages and its consumer warps, so the running max passes from warp to
+    warp around the ring)."""
+    from cxl_speckv_tpu_torch.ops import decode_anatomy as da
+
+    p = probe_pools(scheme, seed=12)
+    for name in ("v2", "v3fused"):
+        for splits in (None, 1):
+            kt_held_to_plain(da, p, name, splits, depth)
 
 
 @pytest.mark.parametrize("splits", [1, None, 7])
