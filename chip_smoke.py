@@ -8,7 +8,9 @@ Phases, each printing its results; any failure exits non-zero:
 1. device  -- the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build   -- compile every CUDA kernel of the serving path from
               `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in
-              parallel), print each kernel's registers and spills, and
+              parallel; the W4A16 unpack `w4_unpack.cu` among them) and the
+              native directory library (g++), print each kernel's
+              registers and spills, and
               require tensor-core (HMMA) instructions in the SASS of K2's
               bf16-compute kernels and none in its float32 ones;
 3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
@@ -252,6 +254,35 @@ Phases, each printing its results; any failure exits non-zero:
               against the echo prompt logprobs, within 0.02 at float32
               activations over BF16 KV (the reference's pairing), over INT8
               KV and at bf16 recorded; seconds and peak memory;
+9h. host-numpy -- the serve cell on Llama-3-8B's first 8 layers (the
+              depth cut keeps the script in time), tiered with
+              `host_store_backend="numpy"`: a pageable host store, promotes
+              staged on the stager thread's own stream, demotes gathered on
+              the compute stream and bounced through pinned buffers on a
+              side stream. Tokens equal to the device backend's tiered run
+              and to an ample pool, migrations both ways in both tiered
+              runs, launches exact; printed: the staged H2D and D2H ms a
+              batch (CUDA events) and the host's blocked ms;
+9i. native -- the same tiered serve on the native C++ directory and block
+              pool (`SPECKV_NATIVE=1`, g++ over `native/*.cpp` into the
+              port's `_build/`): tokens, every directory statistic and the
+              pool statistics equal to the Python directory's run;
+9j. serve-w4a16 -- Llama-3-8B at full width and depth, W4A16
+              (`init_params_quantized(bits=4)` on the card: int4 matmul
+              weights and head, int8 embedding), after the W8A16 tree is
+              freed: its allocated GiB beside the W8A16 serve's; the serve
+              cell on its first 8 layers (the depth cut keeps the script
+              in time) tiered and ample with the serve's checks (tiered ==
+              ample tokens, migrations both ways, exact K1 / K2 launches),
+              and `w4_unpack` launches == int4 matmul calls; the unpack
+              kernel bit-equal to its plain version at every matrix shape
+              of the model (layer 0's q / k / v / o / gate / up / down,
+              lm_head) and at Qwen3-30B-A3B's expert stacks, `up` timed
+              against its bound and the W8A16 int8 -> bf16 copy of the same
+              matrix; prefill logits of 3 prompts against the dequantized
+              float32 tree on the first 8 layers at float32 activations
+              over BF16 KV (within 2e-2); then one decode round's anatomy
+              at full depth (the unpack kernel's share of device time);
 10. gemma2 -- Gemma-2-9B at full width, 12 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
@@ -507,6 +538,13 @@ QWEN2_MOE_LAYERS, QWEN2_TAIL = 8, 37
 # (max_seq_len 608 covers it); then dense scoring of SCORE_LENS prompts
 # against their echo (prompt logprobs) in chunks of 256, ample
 SERVER_LAYERS, SERVER_GEN, SERVER_LONG = 8, 32, 512
+# host-numpy / native: the serve cell on Llama-3-8B's first HOST_LAYERS
+# layers; serve-w4a16's serve on its first W4A16_LAYERS (the depth cut
+# keeps the script in time: at full depth the phase took 58.6-83.9 s), the
+# logits check on the first W4_LOGITS_LAYERS at float32 activations
+HOST_LAYERS = 8
+W4A16_LAYERS = 8
+W4_LOGITS_LAYERS = 8
 SERVER_CELL = Cell(16, 64, SERVER_LONG, BATCH, 64, hbm_tiered=52)
 HTTP_TIMEOUT = 120                      # seconds a client waits, at most
 SCORE_LENS = (96, 200, 384, 512)
@@ -554,6 +592,14 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {'compiled ' + ', '.join(sorted(logs)) if logs else 'cached'}"
           f" in {dt:.1f} s", flush=True)
+    # the native residency directory (g++ over native/*.cpp)
+    from cxl_speckv_tpu_torch import native
+
+    t0 = time.monotonic()
+    lib = native.build()
+    native.load_library()
+    print(f"[build] native runtime {lib.name} ready in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
     # K2: the bf16-compute kernel runs its context products on the tensor
     # cores, the float32-compute kernel on none
     hmma = {"chunk_mma_kernel": 0, "chunk_kernel": 0}
@@ -649,10 +695,13 @@ def kernels():
 
 
 def reset_launches() -> None:
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+
     for fn in kernels().values():
         fn.launches.clear()
         fn.sink_launches.clear()
     kernels()["K1"].split_launches.clear()
+    w4_unpack.launches.clear()
 
 
 def read_launches(counter: str = "launches") -> dict:
@@ -1547,12 +1596,13 @@ def phase_probe(peaks) -> list:
 
 def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                  kv="int8", layer_kv=None, engine_kw=None, prefetch=None,
-                 **spec):
+                 wq="int8", cache_kw=None, **spec):
     """The serving engine of `cell`; KV scheme `kv`, or the per-layer
     table `layer_kv` (INT8 / FP8 entries); `engine_kw`: more EngineConfig
     fields; `prefetch`: a PrefetchConfig in place of prefetch off (as
-    `bench.py`); `spec`: the other arguments of `Engine` (speculative
-    decoding, `enable_lstm`)."""
+    `bench.py`); `wq`: the weight dtype ("int8" W8A16, "int4" W4A16);
+    `cache_kw`: more CacheConfig fields; `spec`: the other arguments of
+    `Engine` (speculative decoding, `enable_lstm`)."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
@@ -1567,13 +1617,13 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                           num_host_blocks=host_blocks, kv_dtype=KVDtype(kv),
                           layer_kv_dtypes=(tuple(map(KVDtype, layer_kv))
                                            if layer_kv else None),
-                          prefetch_reserve_frac=0.25),
+                          prefetch_reserve_frac=0.25, **(cache_kw or {})),
         prefetch=prefetch or PrefetchConfig(depth=4, min_depth=3,
                                             enabled=False, train_online=False),
         engine=EngineConfig(max_batch_size=cell.batch,
                             max_seq_len=cell.max_seq,
                             prefill_chunk=cell.chunk, decode_horizon=HORIZON,
-                            sched_quantum=QUANTUM, weight_dtype="int8",
+                            sched_quantum=QUANTUM, weight_dtype=wq,
                             **(engine_kw or {})))
     return Engine(cfg, sc, params=params, device=DEV, **spec)
 
@@ -1608,7 +1658,11 @@ def first_layers(cfg, params, n: int):
                                   params["layers"].items()}})
 
 
-def init_model(cfg, label: str, seed: int):
+# GiB allocated on the card right after each model's init, by label
+INIT_GIB: dict = {}
+
+
+def init_model(cfg, label: str, seed: int, bits: int = 8):
     from cxl_speckv_tpu_torch.models.llama import init_params_quantized
 
     gc.collect()
@@ -1616,12 +1670,12 @@ def init_model(cfg, label: str, seed: int):
     t0 = time.monotonic()
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
-    params = init_params_quantized(cfg, gen, device=DEV)
+    params = init_params_quantized(cfg, gen, device=DEV, bits=bits)
     torch.cuda.synchronize()
-    print(f"[{label}] W8A16 random init on the card in "
-          f"{time.monotonic() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
-          flush=True)
+    INIT_GIB[label] = torch.cuda.memory_allocated() / 2**30
+    print(f"[{label}] W{bits}A16 random init on the card in "
+          f"{time.monotonic() - t0:.1f} s, {INIT_GIB[label]:.2f} GiB "
+          f"allocated", flush=True)
     return params
 
 
@@ -2502,6 +2556,7 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
           f"({'profiler saw no device time' if not kernels_us else 'torch.profiler'})",
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
+              "W4A16 weight unpack (w4_unpack)": "unpack",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
               "K1 decode_kernel + its merge (tile_ring::merge_lse)": (
                   "decode_kernel", "merge_lse")}
@@ -4128,34 +4183,6 @@ def copy_stream_ms(timings) -> tuple[list, list]:
     return down, up
 
 
-def migrate_arm(cfg, params, prompts, hbm, host, fused=False) -> dict:
-    """The serve cell on one engine, launches held exact; the copy
-    stream's batches timed."""
-    reset_launches()
-    eng = build_engine(cfg, params, SHORT, hbm, host,
-                       engine_kw={"fused_rounds": fused})
-    eng.kvc.copier.timings = []
-    outs, dt = serve(eng, prompts, SHORT.gen)
-    st = eng.get_statistics()
-    L = cfg.num_layers
-    want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
-            "K2": st["engine"]["prefill_dispatches"] * L}
-    got = {k: total(v) for k, v in read_launches().items()}
-    tag = "fused" if fused else ("split" if host else "ample")
-    if got != want:
-        fail(f"migrate {tag}: kernel launches {got} != expected {want}")
-    if len(outs) != SHORT.n_req or any(
-            o.finish_reason not in ("length", "eos") for o in outs.values()):
-        fail(f"migrate {tag}: not every request finished")
-    if fused != eng._fused_rounds:
-        fail(f"migrate {tag}: _fused_rounds {eng._fused_rounds}")
-    down, up = copy_stream_ms(eng.kvc.copier.timings)
-    toks = sum(len(o.tokens) for o in outs.values())
-    del eng
-    return {"tokens": tokens_in_order(outs), "tok_s": toks / dt, "st": st,
-            "down_ms": down, "up_ms": up, "launches": got}
-
-
 def phase_migrate(cfg, params, prompts) -> dict:
     """Migrations on the copy stream and fused rounds, on the serve's
     Llama-3-8B at full width: the ordering checks and one batch against
@@ -4167,14 +4194,17 @@ def phase_migrate(cfg, params, prompts) -> dict:
     migrate_hazards(cfg)
     batch = migrate_batch_check(cfg)
     cut = first_layers(cfg, params, MIGRATE_LAYERS)
-    arms = {"split": migrate_arm(*cut, prompts, SHORT.hbm_tiered,
-                                 SHORT.host_tiered),
-            "fused": migrate_arm(*cut, prompts, SHORT.hbm_tiered,
-                                 SHORT.host_tiered, fused=True),
-            "ample": migrate_arm(*cut, prompts, SHORT.hbm_ample, 0)}
+    arms = {tag: tiered_arm(f"migrate {tag}", *cut, prompts, hbm, host,
+                            engine_kw={"fused_rounds": tag == "fused"})
+            for tag, hbm, host in (
+                ("split", SHORT.hbm_tiered, SHORT.host_tiered),
+                ("fused", SHORT.hbm_tiered, SHORT.host_tiered),
+                ("ample", SHORT.hbm_ample, 0))}
     ref = arms["ample"]["tokens"]
     for tag in ("split", "fused"):
         a = arms[tag]
+        if a["fused"] != (tag == "fused"):
+            fail(f"migrate {tag}: _fused_rounds {a['fused']}")
         diff = [i for i, (x, y) in enumerate(zip(a["tokens"], ref)) if x != y]
         if diff:
             fail(f"migrate {tag}: tokens differ from ample for requests "
@@ -4191,9 +4221,9 @@ def phase_migrate(cfg, params, prompts) -> dict:
               f"ms | up {tr['up_transfers']} down {tr['down_transfers']} in "
               f"{tr['up_batches']} / {tr['down_batches']} batches, "
               f"{rt['migrate_dispatches']} on the copy stream: ms a batch "
-              f"(median) down {med(a['down_ms'])} ({len(a['down_ms'])}), "
-              f"up {med(a['up_ms'])} ({len(a['up_ms'])}) | host blocked: "
-              f"up_wait_ms {tr['up_wait_ms']:.3f}, down_wait_ms "
+              f"(median) down {med(a['ms']['down'])} ({len(a['ms']['down'])})"
+              f", up {med(a['ms']['up'])} ({len(a['ms']['up'])}) | host "
+              f"blocked: up_wait_ms {tr['up_wait_ms']:.3f}, down_wait_ms "
               f"{tr['down_wait_ms']:.3f}, polls {tr['polls']} | launches "
               f"{a['launches']}", flush=True)
     print(f"[migrate] split == fused == ample tokens for all {SHORT.n_req} "
@@ -4618,6 +4648,276 @@ def phase_server(cfg, params, prompts) -> None:
     server_scoring(cfg, loaded)
 
 
+# ---------------------------------------------------------------------------
+# the pageable host store, the native directory, W4A16 weights
+# ---------------------------------------------------------------------------
+
+def tiered_arm(label, cfg, params, prompts, hbm, host, **kw) -> dict:
+    """The serve cell on one engine (`kw`: `build_engine`'s arguments):
+    every request finished, launches exact; the migration batches timed
+    (CUDA events): the copy stream's ms a batch and direction, or with the
+    numpy host store its staged and bounced batches."""
+    reset_launches()
+    eng = build_engine(cfg, params, SHORT, hbm, host, **kw)
+    timed_by = eng.kvc.copier if eng.kvc.device_mode else eng.kvc.transfer
+    timed_by.timings = []
+    outs, dt = serve(eng, prompts, SHORT.gen)
+    st = eng.get_statistics()
+    L = cfg.num_layers
+    want = {"K1": st["scheduler"]["decode_batches"] * HORIZON * L,
+            "K2": st["engine"]["prefill_dispatches"] * L}
+    got = {k: total(v) for k, v in read_launches().items()}
+    if got != want:
+        fail(f"{label}: kernel launches {got} != expected {want}")
+    if len(outs) != SHORT.n_req or any(
+            o.finish_reason not in ("length", "eos") for o in outs.values()):
+        fail(f"{label}: not every request finished")
+    if eng.kvc.device_mode:
+        ms = dict(zip(("down", "up"), copy_stream_ms(timed_by.timings)))
+    else:
+        ms = {"up": [], "down": []}
+        for kind, _, start, end in timed_by.timings:
+            ms[kind].append(start.elapsed_time(end))
+    toks = sum(len(o.tokens) for o in outs.values())
+    arm = {"tokens": tokens_in_order(outs), "tok_s": toks / dt, "st": st,
+           "ms": ms, "launches": got, "fused": eng._fused_rounds,
+           "directory": type(eng.kvc.directory).__name__}
+    del eng
+    return arm
+
+
+def phase_host_numpy(cfg, params, prompts) -> dict:
+    """The serve cell on Llama-3-8B's first HOST_LAYERS layers, tiered with
+    `host_store_backend="numpy"` (a pageable host store: promotes staged on
+    the stager thread's stream, demotes bounced through pinned buffers),
+    against the device backend's tiered run and an ample pool: tokens
+    equal, migrations both ways. Returns the device backend's run (the
+    native phase's reference)."""
+    arms = {"numpy": tiered_arm("host-numpy", cfg, params, prompts,
+                                SHORT.hbm_tiered, SHORT.host_tiered,
+                                cache_kw={"host_store_backend": "numpy"}),
+            "device": tiered_arm("host-device", cfg, params, prompts,
+                                 SHORT.hbm_tiered, SHORT.host_tiered),
+            "ample": tiered_arm("host-ample", cfg, params, prompts,
+                                SHORT.hbm_ample, 0)}
+    ref = arms["ample"]["tokens"]
+    for tag in ("numpy", "device"):
+        a = arms[tag]
+        diff = [i for i, (x, y) in enumerate(zip(a["tokens"], ref)) if x != y]
+        if diff:
+            fail(f"host-numpy {tag}: tokens differ from ample for requests "
+                 f"{diff}")
+        tr = a["st"]["transfer"]
+        if not (tr["up_transfers"] > 0 and tr["down_transfers"] > 0):
+            fail(f"host-numpy {tag}: migrated nothing both ways: {tr}")
+    med = lambda xs: f"{np.median(xs):.4f}" if xs else "-"
+    for tag, a in arms.items():
+        tr, e = a["st"]["transfer"], a["st"]["engine"]
+        print(f"[host-numpy] {tag}: {a['tok_s']:.1f} tok/s, TTFT p50 "
+              f"{e['p50_ttft_ms']:.1f} ms, TPOT p50 {e['p50_tpot_ms']:.2f} ms"
+              f" | up {tr['up_transfers']} down {tr['down_transfers']} in "
+              f"{tr['up_batches']} / {tr['down_batches']} batches | host "
+              f"blocked: up_wait_ms {tr['up_wait_ms']:.3f}, down_wait_ms "
+              f"{tr['down_wait_ms']:.3f}, polls {tr['polls']} | launches "
+              f"{a['launches']}", flush=True)
+    ms = arms["numpy"]["ms"]
+    print(f"[host-numpy] staged batches (CUDA events on the stager / bounce "
+          f"streams): H2D {len(ms['up'])} batches, median {med(ms['up'])} ms"
+          f" a batch; D2H {len(ms['down'])} batches, median "
+          f"{med(ms['down'])} ms a batch; numpy / device tok/s "
+          f"{arms['numpy']['tok_s'] / arms['device']['tok_s']:.3f}; tokens "
+          f"numpy == device == ample for all {SHORT.n_req} requests "
+          f"({cfg.num_layers} layers)", flush=True)
+    return arms["device"]
+
+
+def phase_native(cfg, params, prompts, python_run: dict) -> None:
+    """The same tiered serve on the native C++ directory and block pool
+    (`SPECKV_NATIVE=1`): tokens and every directory statistic equal to the
+    Python directory's run (`python_run`, from the host-numpy phase)."""
+    import os
+
+    os.environ["SPECKV_NATIVE"] = "1"
+    try:
+        nat = tiered_arm("native", cfg, params, prompts, SHORT.hbm_tiered,
+                         SHORT.host_tiered)
+    finally:
+        os.environ.pop("SPECKV_NATIVE", None)
+    if nat["directory"] != "NativeResidencyDirectory":
+        fail(f"native: the engine ran on {nat['directory']}")
+    if nat["tokens"] != python_run["tokens"]:
+        fail("native: tokens differ from the Python directory's")
+    dn, dp = nat["st"]["directory"], python_run["st"]["directory"]
+    if dn != dp:
+        fail(f"native: directory statistics {dn} != Python directory's {dp}")
+    if nat["st"]["pool"] != python_run["st"]["pool"]:
+        fail(f"native: pool statistics {nat['st']['pool']} != "
+             f"{python_run['st']['pool']}")
+    print(f"[native] C++ directory: tokens and all {len(dn)} directory "
+          f"statistics equal to the Python directory's (hit rate "
+          f"{dn['hit_rate']:.3f}, promotions {dn['promotions']}, demotions "
+          f"{dn['demotions']}, evictions {dn['evictions']}); "
+          f"{nat['tok_s']:.1f} tok/s against {python_run['tok_s']:.1f}",
+          flush=True)
+
+
+def unpack_row(q: torch.Tensor, peaks, label: str, timed_row=False) -> dict:
+    """`w4_unpack` on packed weight bytes `q` against its plain version
+    (bf16 out): bit-equal; timed with the bound when `timed_row`."""
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack, w4_unpack_plain
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
+
+    got = w4_unpack(q, torch.bfloat16)
+    want = w4_unpack_plain(q, torch.bfloat16)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"w4_unpack {label} {tuple(q.shape)}: not bit-equal to its "
+             f"plain version")
+    row = {"case": f"w4_unpack {label} {tuple(got.shape)}", "err": 0.0}
+    if timed_row:
+        n = got.numel()
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            peaks, q.numel() + 2 * n, {})
+        row["ms"] = time_ms(lambda: w4_unpack(q, torch.bfloat16))
+        row["b2b_ms"] = b2b_ms(lambda: w4_unpack(q, torch.bfloat16))
+        row["plain_ms"] = time_ms(lambda: w4_unpack_plain(q, torch.bfloat16))
+        q8 = torch.randint(-127, 128, got.shape, dtype=torch.int8,
+                           device=DEV)
+        row["w8_copy_ms"] = time_ms(lambda: q8.to(torch.bfloat16))
+        row["w8_copy_b2b_ms"] = b2b_ms(lambda: q8.to(torch.bfloat16))
+        row["w8_bound_ms"] = bound_ms(peaks, 3 * n, {})[0]
+        del q8
+    del got, want
+    return row
+
+
+def w4_unpack_checks(params, peaks) -> dict:
+    """The unpack kernel bit-equal to its plain version on every matrix
+    shape of the served W4A16 model (layer 0's q / k / v / o / gate / up /
+    down and lm_head) and on Qwen3-30B-A3B's expert stacks; `up` timed
+    against the W8A16 int8 -> bf16 copy of a matrix of its shape."""
+    from cxl_speckv_tpu_torch.models.configs import qwen3_moe_30b
+
+    rows = {}
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        rows[name] = unpack_row(params["layers"][name][0].q, peaks, name,
+                                timed_row=name == "up")
+    rows["lm_head"] = unpack_row(params["lm_head"].q, peaks, "lm_head")
+    mc = qwen3_moe_30b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(18)
+    E, H, I = mc.num_experts, mc.hidden_size, mc.intermediate_size
+    for name, shape in (("qwen3-30b-a3b gate/up stack", (E, H, I // 2)),
+                        ("qwen3-30b-a3b down stack", (E, I, H // 2))):
+        q = torch.randint(-128, 128, shape, generator=gen, device=DEV,
+                          dtype=torch.int8)
+        rows[name] = unpack_row(q, peaks, name)
+        del q
+    up = rows["up"]
+    print(f"[serve-w4a16] w4_unpack bit-equal to its plain version on "
+          f"{len(rows)} shapes ({', '.join(rows)}); {up['case']}: "
+          f"kernel {up['ms']:.4f} ms, back to back {up['b2b_ms']:.4f} ms, "
+          f"plain {up['plain_ms']:.3f} ms, bound {up['bound_ms']:.4f} ms "
+          f"(bytes); the W8A16 int8 -> bf16 copy of the same matrix "
+          f"{up['w8_copy_ms']:.4f} ms, back to back "
+          f"{up['w8_copy_b2b_ms']:.4f} ms, bound {up['w8_bound_ms']:.4f} ms",
+          flush=True)
+    return up
+
+
+W4_LOGITS_TOL = 2e-2     # float32 activations, BF16 KV (see the phase)
+
+
+def w4_logits_check(cfg, params, prompts) -> float:
+    """Prefill logits of a few prompts through the W4A16 tree against the
+    same tree dequantized to float32 (K2 on both), at float32 activations on
+    the model's first W4_LOGITS_LAYERS layers over BF16 KV: the two differ
+    only in where the scale multiplies ((x @ q) * s against x @ (q * s)),
+    to float32 rounding, and in the bf16 K / V roundings that this moves
+    across a boundary; held within W4_LOGITS_TOL absolute. Returns the
+    largest difference."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.config import KVDtype
+    from cxl_speckv_tpu_torch.models.llama import prefill_chunk
+    from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
+
+    c8, p8 = first_layers(cfg, params, W4_LOGITS_LAYERS)
+    c8 = dataclasses.replace(c8, dtype="float32")
+    deq = lambda w: (w.dequantize(torch.float32)
+                     if isinstance(w, QuantizedTensor) else w)
+    dense = {**{k: deq(v) for k, v in p8.items() if k != "layers"},
+             "layers": {k: deq(v) for k, v in p8["layers"].items()}}
+    worst = 0.0
+    for p in prompts[:3]:
+        toks = torch.tensor(p, device=DEV)
+        nb = -(-len(p) // BS)
+        row = torch.arange(nb + 1, dtype=torch.int32, device=DEV)
+        out = []
+        for tree in (p8, dense):
+            shape = (c8.num_layers, nb + 1, c8.num_kv_heads, BS, c8.head_dim)
+            pools = (torch.zeros(shape, dtype=torch.bfloat16, device=DEV),
+                     torch.zeros(shape, dtype=torch.bfloat16, device=DEV),
+                     torch.ones(shape[:-1], device=DEV),
+                     torch.ones(shape[:-1], device=DEV))
+            out.append(prefill_chunk(tree, c8, KVDtype.BF16, toks, 0, pools,
+                                     row))
+        if not all(torch.isfinite(o).all() for o in out):
+            fail("serve-w4a16: non-finite prefill logits")
+        worst = max(worst, float((out[0] - out[1]).abs().max()))
+    del dense
+    if worst > W4_LOGITS_TOL:
+        fail(f"serve-w4a16: prefill logits {worst:.3e} from the dequantized "
+             f"tree's (above {W4_LOGITS_TOL})")
+    print(f"[serve-w4a16] prefill logits of 3 prompts (float32 activations, "
+          f"first {W4_LOGITS_LAYERS} layers, BF16 KV): max |W4A16 - "
+          f"dequantized float32 tree| {worst:.3e} (held within "
+          f"{W4_LOGITS_TOL})", flush=True)
+    return worst
+
+
+def phase_serve_w4a16(prompts, peaks) -> dict:
+    """Llama-3-8B at full width and depth, W4A16 (`init_params_quantized(
+    bits=4)` on the card): memory against the W8A16 tree; the serve cell
+    tiered and ample on its first W4A16_LAYERS layers with the serve
+    phase's checks, every quantized matmul launching the unpack kernel
+    once; the unpack kernel at every matrix shape; the prefill logits
+    against the dequantized tree; one decode round's anatomy at full depth.
+    Returns the kernel entry's row with the serve's unpack launches."""
+    from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+    from cxl_speckv_tpu_torch.ops import wquant
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+    from cxl_speckv_tpu_torch.utils.dispatch import params_byte_size
+
+    cfg = llama_3_8b()
+    params = init_model(cfg, "serve-w4a16", 0, bits=4)
+    print(f"[serve-w4a16] weights {params_byte_size(params) / 2**30:.2f} GiB"
+          f" (W4A16, embedding int8) allocated "
+          f"{INIT_GIB['serve-w4a16']:.2f} GiB against the W8A16 serve's "
+          f"{INIT_GIB.get('serve', float('nan')):.2f} GiB", flush=True)
+    reset_launches()
+    calls = wquant.quantized_calls[4]
+    launches, _ = tiered_vs_ample(
+        "serve-w4a16", *first_layers(cfg, params, W4A16_LAYERS), SHORT,
+        prompts, wq="int4")
+    check_windows("serve-w4a16", launches, lambda n: {("int8", 0): n})
+    unpacks = total(w4_unpack.launches)
+    calls = wquant.quantized_calls[4] - calls
+    if unpacks != calls or not unpacks:
+        fail(f"serve-w4a16: {unpacks} unpack launches for {calls} quantized "
+             f"matmul calls")
+    print(f"[serve-w4a16] {unpacks} w4_unpack launches == {calls} int4 "
+          f"matmul calls over the tiered and ample serves ({W4A16_LAYERS} "
+          f"layers)", flush=True)
+    row = w4_unpack_checks(params, peaks)
+    row["launches"] = unpacks
+    w4_logits_check(cfg, params, prompts)
+    phase_anatomy(f"Llama-3-8B W4A16 ({cfg.num_layers} layers)", cfg, params,
+                  prompts, peaks, matmuls=False, wq="int4")
+    del params
+    return row
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -4694,7 +4994,12 @@ def main() -> int:
     timed("migrate", phase_migrate, cfg, params, prompts)
     timed("server", phase_server, *first_layers(cfg, params, SERVER_LAYERS),
           prompts)
-    del params
+    python_run = timed("host-numpy", phase_host_numpy,
+                       *first_layers(cfg, params, HOST_LAYERS), prompts)
+    timed("native", phase_native, *first_layers(cfg, params, HOST_LAYERS),
+          prompts, python_run)
+    del params, python_run
+    w4_row = timed("serve-w4a16", phase_serve_w4a16, prompts, peaks)
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
     gpt_launches = timed("gpt-oss", phase_gpt_oss, peaks)
@@ -4795,6 +5100,19 @@ def main() -> int:
             print(f"[loss] K1 on the device alone (CUDA-graph times): "
                   f"{dev:.3f} s", flush=True)
     entries += probe_entries
+    # replaces no pl.pallas_call: the JAX package's int4 weights convert
+    # inside XLA's matmul fusion (`mm`); no single PyTorch call unpacks
+    # half-split nibbles
+    entries.append({
+        "name": "w4_unpack llama-3-8b up", "route": "cuda",
+        "source": "cxl_speckv_tpu_torch/csrc/w4_unpack.cu",
+        "replaces": "none (no pl.pallas_call; XLA fuses the int4 convert in "
+                    "cxl_speckv_tpu/ops/wquant.py:186)",
+        "launches": w4_row["launches"], "max_abs_err": w4_row["err"],
+        "ms": w4_row["ms"], "b2b_ms": w4_row["b2b_ms"],
+        "plain_ms": w4_row["plain_ms"], "bound_ms": w4_row["bound_ms"],
+        "bound_by": w4_row["bound_by"], "library_ms": None,
+        "w8_copy_ms": w4_row["w8_copy_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

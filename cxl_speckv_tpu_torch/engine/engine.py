@@ -71,6 +71,14 @@ without one runs the plain path.
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
 the CPU. Mesh serving is not ported yet: asking for it raises.
+
+`EngineConfig.weight_dtype` "int8" serves W8A16 and "int4" W4A16 weights
+(`ops/wquant.py`; each int4 matmul unpacks its weight in one launch of
+`ops/w4_unpack.py`'s kernel); a tree passed already quantized serves as it
+is. `CacheConfig.host_store_backend="numpy"` keeps the host tier in
+pageable host memory (`runtime/transfer.py:TransferEngine`), and
+`TieredKVCache(native=True)` or `SPECKV_NATIVE=1` runs the C++ residency
+directory (`cxl_speckv_tpu_torch/native`).
 `score_prompts` scores whole prompts offline (`engine/scoring.py`).
 """
 
@@ -258,13 +266,9 @@ class Engine:
         check_supported(model_config)
         ec = system_config.engine
         cc = system_config.cache
-        unported = {
-            "mesh serving (parallel)": system_config.parallel.num_devices > 1,
-            "weight_dtype int4": ec.weight_dtype == "int4",
-        }
-        bad = [k for k, v in unported.items() if v]
-        if bad:
-            raise NotImplementedError("not ported yet: " + ", ".join(bad))
+        if system_config.parallel.num_devices > 1:
+            raise NotImplementedError("not ported yet: mesh serving "
+                                      "(parallel)")
         lkd = cc.layer_kv_dtypes
         if lkd is not None and len(lkd) != model_config.num_layers:
             raise ValueError(
@@ -282,14 +286,19 @@ class Engine:
                                  max_seqs=ec.max_batch_size * 64,
                                  max_blocks_per_seq=max_blocks_per_seq,
                                  device=self.device)
+        # W8A16 / W4A16: a tree that is not quantized yet quantizes at the
+        # width `weight_dtype` asks for; a quantized one serves as it is
+        # (the JAX engine's rule)
+        wq_bits = {"int8": 8, "int4": 4}.get(ec.weight_dtype)
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
-            params = (init_params_quantized(model_config, gen, self.device)
-                      if ec.weight_dtype == "int8"
-                      else init_params(model_config, gen, self.device))
-        elif ec.weight_dtype == "int8" and not is_quantized(params):
-            params = quantize_weights(params)
+            params = (init_params_quantized(model_config, gen, self.device,
+                                            bits=wq_bits)
+                      if wq_bits else
+                      init_params(model_config, gen, self.device))
+        elif wq_bits and not is_quantized(params):
+            params = quantize_weights(params, bits=wq_bits)
         self.params = params
         if ec.decode_horizon <= 0:
             # written back, so that every reader of the config sees one
@@ -337,11 +346,12 @@ class Engine:
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(seed + 2)
                 draft_params = (
-                    init_params_quantized(draft_config, gen, self.device)
-                    if ec.weight_dtype == "int8"
-                    else init_params(draft_config, gen, self.device))
-            elif ec.weight_dtype == "int8" and not is_quantized(draft_params):
-                draft_params = quantize_weights(draft_params)
+                    init_params_quantized(draft_config, gen, self.device,
+                                          bits=wq_bits)
+                    if wq_bits else
+                    init_params(draft_config, gen, self.device))
+            elif wq_bits and not is_quantized(draft_params):
+                draft_params = quantize_weights(draft_params, bits=wq_bits)
             self.spec = SpecDecoder(draft_config, draft_params, self.kvc,
                                     gamma=spec_gamma,
                                     draft_kv_dtype=KVDtype(spec_draft_kv))
@@ -349,9 +359,11 @@ class Engine:
             self.scheduler.free_seq_hook = self.spec.on_free_seq
         # fused rounds (EngineConfig.fused_rounds): the queued migration
         # batch rides the next prefill / multi-step decode round; the spec
-        # path and single-step decode keep standalone batches, and an
-        # HBM-only engine has nothing to migrate (the JAX engine's rule)
-        self._fused_rounds = (ec.fused_rounds and self.spec is None
+        # path and single-step decode keep standalone batches, an HBM-only
+        # engine has nothing to migrate, and the numpy host-store backend
+        # migrates through its own transfer engine (the JAX engine's rule)
+        self._fused_rounds = (ec.fused_rounds and self.kvc.device_mode
+                              and self.spec is None
                               and cc.num_host_blocks > 0)
         self.kvc.defer_migrations = self._fused_rounds
         self.stats = EngineStatistics()
@@ -380,8 +392,11 @@ class Engine:
         self._pen_free = list(range(ec.penalty_rows))
         self._pen_guard = ec.penalty_rows
         # host-streamed requests (KV larger than the HBM pool): queued until
-        # their host blocks are allocated, then advanced every step
-        if ec.stream_enabled and cc.num_host_blocks > 2:
+        # their host blocks are allocated, then advanced every step; the
+        # streamed path reads the device backend's store, so the numpy
+        # backend streams nothing (the JAX engine's rule)
+        if (self.kvc.device_mode and ec.stream_enabled
+                and cc.num_host_blocks > 2):
             msl = ec.max_stream_seq_len or (cc.num_host_blocks - 2) * cc.block_size
             self._stream_max_blocks = min(-(-msl // cc.block_size),
                                           cc.num_host_blocks - 2)

@@ -8,8 +8,9 @@ a directory holding
   leaf's path in the tree ("layers/q"); a `QuantizedTensor` is stored as
   its two tensors, "<path>:q" and "<path>:s";
 - `index.json`: the tree's leaves by path, each with its dtype and shape
-  and, for a quantized leaf, its scale `axis` and both tensors' dtypes and
-  shapes.
+  and, for a quantized leaf, its scale `axis`, its `bits` (8, or 4 for a
+  W4A16 weight, whose q holds two nibbles a byte) and both tensors' dtypes
+  and shapes.
 
 `load_params` reads the tensors with `torch.load(weights_only=True,
 mmap=True)`: no pickled object beyond tensors and dicts is accepted, and
@@ -57,8 +58,8 @@ def _spec(t: torch.Tensor) -> dict:
 
 def _entry(leaf) -> dict:
     if isinstance(leaf, QuantizedTensor):
-        return {"kind": "quantized", "axis": leaf.axis, "q": _spec(leaf.q),
-                "s": _spec(leaf.s)}
+        return {"kind": "quantized", "axis": leaf.axis, "bits": leaf.bits,
+                "q": _spec(leaf.q), "s": _spec(leaf.s)}
     return {"kind": "tensor", **_spec(leaf)}
 
 
@@ -93,12 +94,17 @@ def save_params(params: dict, path) -> None:
 
 
 def read_index(path) -> dict:
-    """The checkpoint's leaves by path (see the module docstring)."""
+    """The checkpoint's leaves by path (see the module docstring); a
+    quantized leaf written before `bits` was recorded is int8."""
     meta = json.loads((Path(path) / INDEX).read_text())
     if meta.get("format") != FORMAT or meta.get("version") != VERSION:
         raise ValueError(f"{path}: not a checkpoint of this format "
                          f"({meta.get('format')!r} v{meta.get('version')})")
-    return meta["leaves"]
+    leaves = meta["leaves"]
+    for e in leaves.values():
+        if e["kind"] == "quantized":
+            e.setdefault("bits", 8)
+    return leaves
 
 
 def check_like(index: dict, like: dict) -> None:
@@ -139,7 +145,7 @@ def load_params(path, like: dict | None = None, device=None) -> dict:
             # the scale first: it is small, and q then lands beside it
             s = flat.pop(key + ":s").to(dev)
             node[name] = QuantizedTensor(flat.pop(key + ":q").to(dev), s,
-                                         int(e["axis"]))
+                                         int(e["axis"]), int(e["bits"]))
         else:
             node[name] = flat.pop(key).to(dev)
     if flat:

@@ -4,7 +4,9 @@ The input is the JAX package's tree with its leaves as numpy arrays (e.g.
 `jax.tree.map(np.asarray, params)`); nothing here imports JAX. bfloat16
 leaves arrive as `ml_dtypes.bfloat16` arrays, which `torch.from_numpy`
 rejects, so they cross as a uint16 view. A quantized weight arrives as its
-`(q, s, axis)` triple, or any object with those three attributes.
+`(q, s, axis)` triple, or any object with those three attributes; an int4
+q (`ml_dtypes.int4`, the JAX package's W4A16 storage) packs into the port's
+two nibbles a byte (`ops/wquant.pack_int4`).
 Every leaf crosses as it is, so a Gemma-2 tree keeps its post-norm leaves
 (`post_attn_norm`, `post_mlp_norm`) and its tied `embed`, quantized per
 row under W8A16, which then also serves as the head through `.T`; and a
@@ -17,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
+from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor, pack_int4
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -29,14 +31,21 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _quantized(q, s, axis, device) -> QuantizedTensor:
+    q = np.asarray(q)
+    if q.dtype.name == "int4":
+        return QuantizedTensor(
+            pack_int4(tensor_from_numpy(q.astype(np.int8))).to(device),
+            tensor_from_numpy(s, device), int(axis), bits=4)
+    return QuantizedTensor(tensor_from_numpy(q, device),
+                           tensor_from_numpy(s, device), int(axis))
+
+
 def _leaf(x, device):
     if isinstance(x, (tuple, list)) and len(x) == 3:
-        q, s, axis = x
-        return QuantizedTensor(tensor_from_numpy(q, device),
-                               tensor_from_numpy(s, device), int(axis))
+        return _quantized(*x, device)
     if all(hasattr(x, a) for a in ("q", "s", "axis")):
-        return QuantizedTensor(tensor_from_numpy(x.q, device),
-                               tensor_from_numpy(x.s, device), int(x.axis))
+        return _quantized(x.q, x.s, x.axis, device)
     return tensor_from_numpy(x, device)
 
 

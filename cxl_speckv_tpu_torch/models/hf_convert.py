@@ -16,9 +16,10 @@ HF's parameter names to torch tensors or numpy arrays. Linear weights are
 [out, in] in HF and [in, out] here, so a forward is `x @ W`.
 
 `weight_dtype="int8"` quantizes at conversion (W8A16, `ops/wquant.py`),
-one layer's matrix or expert stack at a time on the target device, so the
-full-precision tree never exists there: the device holds the int8 tree
-plus one float32 matrix or stack. The result is bit for bit the JAX
+and "int4" to W4A16 (the embedding int8 per row either way), one layer's
+matrix or expert stack at a time on the target device, so the
+full-precision tree never exists there: the device holds the quantized
+tree plus one float32 matrix or stack. The result is bit for bit the JAX
 converter's (`params_from_hf_state_dict` followed by its
 `quantize_weights`): each matrix is rounded to the activation dtype first,
 then quantized per output channel.
@@ -257,24 +258,26 @@ def _layer_sources(sd_has, config: LlamaConfig, get) -> dict:
     return src
 
 
-def _stack(layer_fn, num_layers: int, dtype, quantize: bool, device):
+def _stack(layer_fn, num_layers: int, dtype, bits: int | None, device):
     """[L, ...] of `layer_fn(i)` rounded to `dtype`, built one layer at a
-    time into its preallocated stack; quantized per output channel
-    (`QuantizedTensor`, axis -2) when `quantize`."""
+    time into its preallocated stack; quantized per output channel at
+    `bits` (`QuantizedTensor`, axis -2) unless `bits` is None."""
     out = None
     for i in range(num_layers):
         w = layer_fn(i).to(dtype)
         if out is None:
             shape = (num_layers, *w.shape)
-            if quantize:
+            if bits:
+                pack = 2 if bits == 4 else 1
                 out = QuantizedTensor(
-                    torch.empty(shape, dtype=torch.int8, device=device),
+                    torch.empty((*shape[:-1], shape[-1] // pack),
+                                dtype=torch.int8, device=device),
                     torch.empty((*shape[:-2], 1, shape[-1]),
-                                dtype=torch.float32, device=device), -2)
+                                dtype=torch.float32, device=device), -2, bits)
             else:
                 out = torch.empty(shape, dtype=dtype, device=device)
-        if quantize:
-            qt = quantize_tensor(w)
+        if bits:
+            qt = quantize_tensor(w, bits=bits)
             out.q[i], out.s[i] = qt.q, qt.s
         else:
             out[i] = w
@@ -287,20 +290,16 @@ def params_from_hf_state_dict(state_dict, config: LlamaConfig, dtype=None,
     the card, which raises without CUDA; "cpu" for the CPU), in the
     activation dtype `dtype` (default `config.dtype`; a torch dtype or its
     name). `weight_dtype` "native" keeps every leaf in `dtype`; "int8"
-    quantizes the matmul weights and the embedding at conversion (W8A16,
-    `ops/wquant.quantize_weights`' classes), a layer's matrix or expert
-    stack at a time; "int4" raises NotImplementedError, as the engine
-    does."""
-    if weight_dtype == "int4":
-        raise NotImplementedError("weight_dtype int4 (W4A16) is not ported "
-                                  "yet")
-    if weight_dtype not in ("native", "int8"):
+    (W8A16) or "int4" (W4A16) quantizes the matmul weights at conversion
+    (`ops/wquant.quantize_weights`' classes), a layer's matrix or expert
+    stack at a time, and the embedding per row at int8."""
+    if weight_dtype not in ("native", "int8", "int4"):
         raise ValueError(f"weight_dtype must be native/int8/int4, got "
                          f"{weight_dtype!r}")
     dev = resolve_device(device)
     dtype = dtype or config.dtype
     dtype = torch_dtype(dtype) if isinstance(dtype, str) else dtype
-    quantize = weight_dtype == "int8"
+    bits = {"int8": 8, "int4": 4}.get(weight_dtype)
 
     def get(name):
         t = state_dict[name]
@@ -312,14 +311,15 @@ def params_from_hf_state_dict(state_dict, config: LlamaConfig, dtype=None,
     for name, fn in _layer_sources(lambda n: n in state_dict, config,
                                    get).items():
         layers[name] = _stack(fn, config.num_layers, dtype,
-                              quantize and name in LAYER_MM_KEYS, dev)
+                              bits if name in LAYER_MM_KEYS else None, dev)
     embed = get("model.embed_tokens.weight").to(dtype)
     params = {
-        "embed": quantize_tensor(embed, axis=-1) if quantize else embed,
+        "embed": quantize_tensor(embed, axis=-1) if bits else embed,
         "layers": layers,
         "final_norm": get("model.norm.weight").to(dtype),
     }
     if not config.tie_embeddings:
         head = get("lm_head.weight").to(dtype).T.contiguous()
-        params["lm_head"] = quantize_tensor(head) if quantize else head
+        params["lm_head"] = (quantize_tensor(head, bits=bits) if bits
+                             else head)
     return params

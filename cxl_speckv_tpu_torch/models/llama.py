@@ -226,15 +226,16 @@ def _extra_leaves(config: LlamaConfig, generator, device, dtype) -> dict:
 
 
 def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
-                          device="cpu") -> Params:
-    """Random-init straight into W8A16 storage, one matrix at a time: each
-    layer's (and, with experts, each expert's) matrix is drawn in float32
-    and quantized before the next is drawn, so the full-precision tree
-    never exists (Llama-3-8B: ~8 GB of int8 instead of 16 GB of bf16 plus a
-    quantized copy; GPT-OSS-20B: one stacked expert leaf alone would need
-    ~25 GB of float32). Same tree layout as `init_params` followed by
-    `quantize_weights`; the MoE router, biases and sinks stay in the
-    activation dtype."""
+                          device="cpu", bits: int = 8) -> Params:
+    """Random-init straight into W8A16 (bits 8) or W4A16 (bits 4) storage,
+    one matrix at a time: each layer's (and, with experts, each expert's)
+    matrix is drawn in float32 and quantized before the next is drawn, so
+    the full-precision tree never exists (Llama-3-8B: ~8 GB of int8, ~4 GB
+    at int4, instead of 16 GB of bf16 plus a quantized copy; GPT-OSS-20B:
+    one stacked expert leaf alone would need ~25 GB of float32). Same tree
+    layout as `init_params` followed by `quantize_weights(bits=bits)`: the
+    embedding stays int8 per row at either width, and the MoE router,
+    biases and sinks stay in the activation dtype."""
     c = config
     check_supported(c)
     dtype = torch_dtype(c.dtype)
@@ -242,20 +243,22 @@ def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
     qd, kvd = c.num_q_heads * c.head_dim, c.num_kv_heads * c.head_dim
     shapes = {"q": ((H, qd), H), "k": ((H, kvd), H), "v": ((H, kvd), H),
               "o": ((qd, H), qd), **_mlp_shapes(c)}
+    pack = 2 if bits == 4 else 1
     layers = {}
     for name, (shape, fan_in) in shapes.items():
         if name not in wquant.LAYER_MM_KEYS:
             layers[name] = _normal((L, *shape), fan_in, generator,
                                    device).to(dtype)
             continue
-        q = torch.empty((L, *shape), dtype=torch.int8, device=device)
+        q = torch.empty((L, *shape[:-1], shape[-1] // pack), dtype=torch.int8,
+                        device=device)
         s = torch.empty((L, *shape[:-2], 1, shape[-1]), dtype=torch.float32,
                         device=device)
         for idx in np.ndindex(L, *shape[:-2]):        # (layer[, expert])
             qt = quantize_tensor(_normal(shape[-2:], fan_in, generator,
-                                         device))
+                                         device), bits=bits)
             q[idx], s[idx] = qt.q, qt.s
-        layers[name] = QuantizedTensor(q, s, -2)
+        layers[name] = QuantizedTensor(q, s, -2, bits)
     layers["attn_norm"] = torch.ones((L, H), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, H), dtype=dtype, device=device)
     layers.update(_extra_leaves(c, generator, device, dtype))
@@ -267,7 +270,7 @@ def init_params_quantized(config: LlamaConfig, generator: torch.Generator,
     }
     if not c.tie_embeddings:
         params["lm_head"] = quantize_tensor(
-            _normal((H, V), H, generator, device))
+            _normal((H, V), H, generator, device), bits=bits)
     return params
 
 

@@ -39,6 +39,9 @@ SIGNATURES = {
     "anatomy_variants": ("anatomy_variants_launch", [_P] * 9 + [_I] * 11 + [_P]),
     "anatomy_kt": ("anatomy_kt_launch", [_P] * 12 + [_I] * 12 + [_F, _P]),
     "anatomy_ring": ("anatomy_ring_launch", [_P] * 8 + [_I] * 8 + [_P]),
+    # W4A16 weights: packed int4 -> the activation dtype (ops/w4_unpack.py)
+    "w4_unpack": ("w4_unpack_launch",
+                  [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
     # the card tests' hold on a stream (utils/card.py:StreamHold)
     "stream_hold": ("stream_hold_launch", [_P, ctypes.c_longlong, _P]),
 }

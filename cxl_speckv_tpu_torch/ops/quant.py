@@ -76,6 +76,16 @@ def decode_from_pool(raw: torch.Tensor, kv_dtype: KVDtype) -> torch.Tensor:
     return raw
 
 
+def kv_storage_shape(shape: tuple[int, ...],
+                     kv_dtype: KVDtype) -> tuple[int, ...]:
+    """Shape of the quantized buffer for a logical [..., head_dim] shape."""
+    if kv_dtype == KVDtype.INT4:
+        if shape[-1] % 2:
+            raise ValueError("INT4 packing requires even head_dim")
+        return (*shape[:-1], shape[-1] // 2)
+    return shape
+
+
 def _row_scale(xf: torch.Tensor, qmax: float) -> torch.Tensor:
     amax = xf.abs().amax(dim=-1, keepdim=True)
     return torch.clamp_min(amax, 1e-8) / qmax
@@ -95,17 +105,24 @@ def quantize_kv(x: torch.Tensor,
         return q.to(torch.int8), scale
     if kv_dtype == KVDtype.INT4:
         scale = _row_scale(xf, _INT4_MAX)
-        q = torch.clamp(torch.round(xf / scale), -_INT4_MAX,
-                        _INT4_MAX).to(torch.int32)
-        d2 = q.shape[-1] // 2
-        lo = q[..., :d2] & 0x0F
-        hi = q[..., d2:] & 0x0F
-        packed = (lo | (hi << 4)).to(torch.uint8)
-        return packed.view(torch.int8), scale
+        q = torch.clamp(torch.round(xf / scale), -_INT4_MAX, _INT4_MAX)
+        return pack_int4(q.to(torch.int8)), scale
     if kv_dtype == KVDtype.FP8:
         scale = _row_scale(xf, _FP8_MAX)
         return (xf / scale).to(torch.float8_e4m3fn), scale
     raise ValueError(f"unknown kv_dtype {kv_dtype}")
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 values in [-8, 7], [..., n] (n even) -> [..., n/2] int8 bytes,
+    half-split: low nibble element j, high nibble element j + n/2 (the
+    inverse of `unpack_int4`)."""
+    if q.shape[-1] % 2:
+        raise ValueError(f"int4 packing needs an even last axis, got "
+                         f"{tuple(q.shape)}")
+    u = q.view(torch.uint8)
+    d2 = q.shape[-1] // 2
+    return ((u[..., :d2] & 0x0F) | (u[..., d2:] << 4)).view(torch.int8)
 
 
 def unpack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -171,6 +188,18 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, kv_dtype: KVDtype,
     if kv_dtype == KVDtype.BF16:
         return q.to(out_dtype)
     return (dequant_values(q, kv_dtype) * scale).to(out_dtype)
+
+
+def quantization_rms_error(x: torch.Tensor,
+                           kv_dtype: KVDtype) -> torch.Tensor:
+    """Relative RMS round-trip error of quantizing `x` under `kv_dtype`:
+    sqrt(mean((dequant(quant(x)) - x)^2) / max(mean(x^2), 1e-12)), a
+    float32 scalar."""
+    q, s = quantize_kv(x, kv_dtype)
+    xhat = dequantize_kv(q, s, kv_dtype)
+    xf = x.float()
+    return torch.sqrt(((xhat - xf) ** 2).mean()
+                      / torch.clamp_min((xf ** 2).mean(), 1e-12))
 
 
 def compressed_bytes_per_token(num_kv_heads: int, head_dim: int,

@@ -1,85 +1,122 @@
-"""Weight-only INT8 quantization of the model's matmul weights (W8A16).
+"""Weight-only quantization of the model's matmul weights (W8A16, W4A16).
 
-Counterpart of `cxl_speckv_tpu/ops/wquant.py`; q and s are bit-exact with it
-(tests/test_torch_wquant.py). Weights are stored as int8 with a float32
-scale per output channel; the matmul runs in the activation dtype and the
-scale multiplies the result:
+Counterpart of `cxl_speckv_tpu/ops/wquant.py`; values and scales are
+bit-exact with it (tests/test_torch_wquant.py, tests/test_torch_w4a16.py).
+Weights are stored as int8 (bits 8) or int4 (bits 4) with a float32 scale
+per output channel; the matmul runs in the activation dtype and the scale
+multiplies the result:
 
     (x @ q) * s  ==  x @ (q * s)        exactly, when s is per-out-column
 
 The embedding quantizes per ROW, so one table serves the gather and,
-transposed, the tied lm_head matmul. MoE expert weights [L, E, in, out]
-quantize per output channel of each expert (s [L, E, 1, out]); the router,
-biases, sinks and norms stay in full precision.
+transposed, the tied lm_head matmul; it stays int8 at bits 4, as in the JAX
+package. MoE expert weights [L, E, in, out] quantize per output channel of
+each expert (s [L, E, 1, out]); the router, biases, sinks and norms stay in
+full precision.
 
-`mm` and `qeinsum` convert the int8 weight to the activation dtype on
-every call (`x @ q.to(x.dtype) * s`): a full-width temporary copy per call,
-a known cost that a fused W8A16 kernel would remove. The JAX package runs
-these products outside any Pallas kernel too (XLA fuses its convert).
+An int4 weight stores two signed nibbles a byte along its LAST (output)
+axis, half-split (low nibble column j, high nibble column j + out/2, the
+INT4 KV order of `ops/quant.py`): q is [..., in, out/2] int8, while the
+scale [..., 1, out], leading-axis (layer / expert) indexing and layer
+slicing are those of int8. The JAX package stores jnp.int4, which XLA
+packs in HBM.
+
+`mm` and `qeinsum` convert the weight to the activation dtype on every
+call (`x @ q.to(x.dtype) * s`; an int4 weight unpacks in one launch of
+`ops/w4_unpack.w4_unpack`): a full-width temporary copy per call, a known
+cost that a fused kernel would remove. The JAX package runs these products
+outside any Pallas kernel too (XLA fuses its convert).
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
+
+from cxl_speckv_tpu_torch.ops.quant import pack_int4, unpack_int4
+from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+
+_QMAX = {8: 127, 4: 7}
 
 
 class QuantizedTensor:
-    """An int8 weight with a broadcastable per-channel scale.
+    """An int8 or int4 weight with a broadcastable per-channel scale.
 
-    q: int8, the original weight's shape.
-    s: float32, same rank with `axis` reduced to size 1.
+    q: int8; the original weight's shape at bits 8, its last axis halved
+       (two half-split nibbles a byte) at bits 4.
+    s: float32, the logical shape's rank with `axis` reduced to size 1.
     axis: the reduced axis, negative. Matmul weights [..., in, out] use -2
        (per-output-channel); the embedding table [V, H] uses -1 (per-row).
+    bits: 8 or 4.
     """
 
-    __slots__ = ("q", "s", "axis")
+    __slots__ = ("q", "s", "axis", "bits")
 
-    def __init__(self, q: torch.Tensor, s: torch.Tensor, axis: int):
+    def __init__(self, q: torch.Tensor, s: torch.Tensor, axis: int,
+                 bits: int = 8):
+        if bits not in _QMAX:
+            raise ValueError(f"bits must be 8 or 4, got {bits}")
         self.q = q
         self.s = s
         self.axis = axis
+        self.bits = bits
 
     @property
     def shape(self):
+        """The logical shape (an int4 weight's unpacked width)."""
+        if self.bits == 4:
+            return torch.Size((*self.q.shape[:-1], 2 * self.q.shape[-1]))
         return self.q.shape
 
     @property
     def T(self):
         """2-D transpose: a per-row embedding [V, H] becomes a per-out-column
-        head weight [H, V]."""
+        head weight [H, V]. int8 only: the nibbles pack along the last axis
+        (the JAX package transposes only the embedding, which stays int8)."""
+        if self.bits != 8:
+            raise ValueError("QuantizedTensor.T of an int4 weight: its "
+                             "nibbles pack along the last axis")
         if self.q.ndim != 2:
             raise ValueError("QuantizedTensor.T is 2-D only")
         return QuantizedTensor(self.q.T, self.s.T, -3 - self.axis)
 
     def __getitem__(self, idx):
         """Leading-axis indexing (layer slicing of stacked weights)."""
-        return QuantizedTensor(self.q[idx], self.s[idx], self.axis)
+        return QuantizedTensor(self.q[idx], self.s[idx], self.axis, self.bits)
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
-        return (self.q.float() * self.s).to(dtype)
+        q = unpack_int4(self.q) if self.bits == 4 else self.q
+        return (q.float() * self.s).to(dtype)
 
     def __repr__(self):
         return (f"QuantizedTensor(q={tuple(self.q.shape)}, "
-                f"s={tuple(self.s.shape)}, axis={self.axis})")
+                f"s={tuple(self.s.shape)}, axis={self.axis}, "
+                f"bits={self.bits})")
 
 
 def quantize_tensor(w: torch.Tensor, axis: int = -2,
                     bits: int = 8) -> QuantizedTensor:
-    """Symmetric per-channel int8: s = max(amax, 1e-8) / 127 over `axis`,
-    q = round-half-even(w / s) clipped to [-127, 127]. The same bits on the
-    card and on the CPU: 127 divides as a tensor, because CUDA turns a
-    division by a Python scalar into a multiplication by its reciprocal,
-    which can differ in the last bit."""
-    if bits != 8:
-        raise NotImplementedError("only bits=8 (W8A16) is ported")
+    """Symmetric per-channel intN: s = max(amax, 1e-8) / qmax over `axis`
+    (qmax 127 at bits 8, 7 at bits 4), q = round-half-even(w / s) clipped
+    to [-qmax, qmax]; at bits 4 packed two nibbles a byte along the last
+    axis (`pack_int4`; an odd last axis raises). The same bits on the card
+    and on the CPU: qmax divides as a tensor, because CUDA turns a division
+    by a Python scalar into a multiplication by its reciprocal, which can
+    differ in the last bit."""
+    if bits not in _QMAX:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    qmax = _QMAX[bits]
     axis = axis if axis < 0 else axis - w.ndim
     wf = w.float()
     amax = wf.abs().amax(dim=axis, keepdim=True)
-    s = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, 127)
+    s = torch.clamp_min(amax, 1e-8) / torch.full_like(amax, qmax)
     # rounded and clipped in place: one float32 temporary of w's size, not
     # three (a converter quantizes matrices of ~0.4 GB on the card)
-    q = (wf / s).round_().clamp_(-127, 127).to(torch.int8)
-    return QuantizedTensor(q, s, axis)
+    q = (wf / s).round_().clamp_(-qmax, qmax).to(torch.int8)
+    if bits == 4:
+        q = pack_int4(q)
+    return QuantizedTensor(q, s, axis, bits)
 
 
 # matmul weights of a layer (quantized per output channel)
@@ -92,14 +129,17 @@ SKIP_LAYER_KEYS = frozenset({"router", "router_bias", "shared_expert_gate",
 
 
 def quantize_weights(params: dict, bits: int = 8) -> dict:
-    """Quantize an `init_params`-layout tree to W8A16: every layer matmul
-    weight (dense and expert) and lm_head per output channel, the embedding
-    per row; norms, biases and `SKIP_LAYER_KEYS` stay as they are. A layer
-    leaf of 3 or more dimensions that is neither raises, as in the JAX
-    package. Idempotent on already-quantized leaves."""
+    """Quantize an `init_params`-layout tree to W8A16 (bits 8) or W4A16
+    (bits 4): every layer matmul weight (dense and expert) and lm_head per
+    output channel, the embedding per row and always at int8 (as in the JAX
+    package: it is gathered, not streamed, and its tied head is the last
+    projection before sampling); norms, biases and `SKIP_LAYER_KEYS` stay
+    as they are. A layer leaf of 3 or more dimensions that is neither
+    raises, as in the JAX package. Idempotent on already-quantized
+    leaves."""
     out = dict(params)
     if not isinstance(params["embed"], QuantizedTensor):
-        out["embed"] = quantize_tensor(params["embed"], axis=-1, bits=bits)
+        out["embed"] = quantize_tensor(params["embed"], axis=-1, bits=8)
     layers = dict(params["layers"])
     for k, w in layers.items():
         if isinstance(w, QuantizedTensor):
@@ -121,12 +161,25 @@ def is_quantized(params: dict) -> bool:
     return isinstance(params.get("embed"), QuantizedTensor)
 
 
+def operand(w: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weight's integer values in the activation dtype, the matmul's
+    operand: an int8 copy, or one `w4_unpack` launch for int4. Counts the
+    call in `quantized_calls` by bits."""
+    quantized_calls[w.bits] += 1
+    return w4_unpack(w.q, dtype) if w.bits == 4 else w.q.to(dtype)
+
+
+# quantized matmul calls (`mm`, `qeinsum`) by bits, on any device; on the
+# card every int4 call launches the unpack kernel once
+quantized_calls: Counter = Counter()
+
+
 def mm(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w for a plain tensor or a per-out-column QuantizedTensor."""
     if isinstance(w, QuantizedTensor):
         if w.axis != -2:
             raise ValueError(f"mm needs per-out-column scales, axis={w.axis}")
-        return (x @ w.q.to(x.dtype)) * w.s.to(x.dtype)
+        return (x @ operand(w, x.dtype)) * w.s.to(x.dtype)
     return x @ w
 
 
@@ -136,7 +189,7 @@ def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     last axes as [E, 1, out] against [E, C, out] (the MoE expert einsums
     "ech,ehi->eci" and "eci,eih->ech"), as in the JAX package."""
     if isinstance(w, QuantizedTensor):
-        y = torch.einsum(spec, x, w.q.to(x.dtype))
+        y = torch.einsum(spec, x, operand(w, x.dtype))
         return y * w.s.squeeze(w.axis).to(x.dtype)[..., None, :]
     return torch.einsum(spec, x, w)
 
@@ -148,5 +201,7 @@ def take_rows(w, ids: torch.Tensor, dtype=None) -> torch.Tensor:
         if w.axis != -1:
             raise ValueError("take_rows needs per-row scales (axis=-1)")
         dt = dtype or torch.bfloat16
-        return w.q[ids].to(dt) * w.s[ids].to(dt)
+        rows = w.q[ids]
+        vals = w4_unpack(rows, dt) if w.bits == 4 else rows.to(dt)
+        return vals * w.s[ids].to(dt)
     return w[ids]

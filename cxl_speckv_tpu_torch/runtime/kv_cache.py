@@ -1,9 +1,8 @@
 """TieredKVCache — the memory system facade.
 
-Counterpart of `cxl_speckv_tpu/runtime/kv_cache.py` with the "device"
-host-tier backend: owns the device pools, the host store, the residency
-directory, the per-sequence block pool and the migration queue, and gives
-the engine
+Counterpart of `cxl_speckv_tpu/runtime/kv_cache.py`: owns the device
+pools, the host store, the residency directory, the per-sequence block pool
+and the migration queue, and gives the engine
 
 - `extend_seq` / `free_seq`: capacity allocation with OOM backpressure;
 - `ensure_resident`: demand fetch for scheduled sequences;
@@ -24,14 +23,30 @@ padded writes):
 K is token-major like V (the JAX package stores it transposed for the TPU
 matrix unit), which is the host store's row layout: migration is a row
 copy. INT8 and FP8 share the int8 bytes, so blocks of both schemes (and of
-a per-layer MIXED8 table) live in one pool. The numpy host-store backend
-and the native C++ directory wait for a later slice.
+a per-layer MIXED8 table) live in one pool.
 
-On the card every migration batch runs on the cache's copy stream
-(`hoststore.CopyStream`, `hoststore.copy_batch`) and nothing here blocks
-the host on it, except where an HBM slot is needed now and the only one
-to be had is still being read by a demote (`_make_room`, `extend_seq`:
-`MigrationPlanner.settle`). On the CPU (`copier` None) a batch is
+Two host-tier backends (`CacheConfig.host_store_backend`), as in the JAX
+package:
+
+- "device" (the default): the host tier is a pinned store that the card
+  reads and writes itself (`runtime/hoststore.py`), migrations are batches
+  of `MigrationPlanner`;
+- "numpy": a pageable host-process store with background-staged promotes
+  and polled demotes (`runtime/transfer.py`'s `HostStore` and
+  `TransferEngine`), branching where the JAX cache branches on
+  `device_mode`. The engine serves no fused rounds and no host-streamed
+  requests on it.
+
+Two residency directories: the Python one (`core/directory.py`,
+`core/block_pool.py`) or, with `native=True` or `SPECKV_NATIVE=1`, the C++
+runtime of `native/` through ctypes (`cxl_speckv_tpu_torch/native`), of
+the same semantics; a native directory that cannot be built raises.
+
+In the device backend on the card every migration batch runs on the
+cache's copy stream (`hoststore.CopyStream`, `hoststore.copy_batch`) and
+nothing here blocks the host on it, except where an HBM slot is needed now
+and the only one to be had is still being read by a demote (`_make_room`,
+`extend_seq`: `MigrationPlanner.settle`). On the CPU (`copier` None) a batch is
 `migrate_program`, complete when issued, so the CPU engine keeps the JAX
 engine's transfer counts and slot choices.
 """
@@ -39,6 +54,7 @@ engine's transfer counts and slot choices.
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -66,7 +82,11 @@ from cxl_speckv_tpu_torch.runtime.hoststore import (
     migrate_program,
     pad_migration,
 )
-from cxl_speckv_tpu_torch.runtime.transfer import MigrationPlanner
+from cxl_speckv_tpu_torch.runtime.transfer import (
+    HostStore,
+    MigrationPlanner,
+    TransferEngine,
+)
 
 
 @dataclass
@@ -83,23 +103,34 @@ class CacheRuntimeStatistics(Statistics):
 class TieredKVCache:
     def __init__(self, cache_config: CacheConfig, model_config: LlamaConfig,
                  max_seqs: int, max_blocks_per_seq: int,
-                 device: str | torch.device = "cpu", copier=None):
-        """`copier`: what issues the migration batches (`hoststore.
-        CopyStream`'s interface); None means a `CopyStream` on the card and
-        the synchronous `migrate_program` on the CPU."""
+                 device: str | torch.device = "cpu", copier=None,
+                 native: bool | None = None):
+        """`copier`: what issues the device backend's migration batches
+        (`hoststore.CopyStream`'s interface); None means a `CopyStream` on
+        the card and the synchronous `migrate_program` on the CPU. `native`:
+        the C++ directory and block pool; None follows `SPECKV_NATIVE=1`."""
         cache_config.validate()
-        if cache_config.host_store_backend != "device":
-            raise NotImplementedError(
-                "the numpy host-store backend is not ported")
         self.config = cache_config
         self.model_config = model_config
         self.device = torch.device(device)
-        if copier is None and self.device.type == "cuda":
+        self._device_mode = cache_config.host_store_backend == "device"
+        if copier is None and self.device.type == "cuda" and self._device_mode:
             copier = CopyStream(self.device)
         self.copier = copier
-        self.directory = ResidencyDirectory(cache_config)
-        self.pool = BlockPool(cache_config, self.directory, max_seqs,
-                              max_blocks_per_seq)
+        if native is None:
+            native = os.environ.get("SPECKV_NATIVE") == "1"
+        if native:
+            from cxl_speckv_tpu_torch.native import (
+                NativeBlockPool,
+                NativeResidencyDirectory,
+            )
+            self.directory = NativeResidencyDirectory(cache_config)
+            self.pool = NativeBlockPool(cache_config, self.directory,
+                                        max_seqs, max_blocks_per_seq)
+        else:
+            self.directory = ResidencyDirectory(cache_config)
+            self.pool = BlockPool(cache_config, self.directory, max_seqs,
+                                  max_blocks_per_seq)
         self._prefix_map: dict[bytes, int] = {}
         self._alloc_storage(cache_config.kv_dtype)
         # blocks the scheduler expects to need soon (current + upcoming
@@ -135,10 +166,17 @@ class TieredKVCache:
                                    device=dev)
         self.v_scales = torch.ones(kv_shape[:-1], dtype=torch.float32,
                                    device=dev)
-        self.store = DeviceHostStore(
-            cc.num_host_blocks, c.num_layers, cc.block_size, c.num_kv_heads,
-            dp, elem, pin=dev.type == "cuda")
-        self.transfer = MigrationPlanner(self.store.bytes_per_block)
+        if self._device_mode:
+            self.store = DeviceHostStore(
+                cc.num_host_blocks, c.num_layers, cc.block_size,
+                c.num_kv_heads, dp, elem, pin=dev.type == "cuda")
+            self.host = None
+            self.transfer = MigrationPlanner(self.store.bytes_per_block)
+        else:
+            self.host = HostStore(cc.num_host_blocks, c.num_layers,
+                                  cc.block_size, c.num_kv_heads, dp, elem)
+            self.store = None
+            self.transfer = TransferEngine(self.host, dev)
 
     def rebuild_storage(self, kv_dtype: KVDtype) -> None:
         """Cross-width scheme switch (e.g. INT8 -> INT4 or -> BF16): new
@@ -160,6 +198,10 @@ class TieredKVCache:
         self._alloc_storage(kv_dtype)
 
     @property
+    def device_mode(self) -> bool:
+        return self._device_mode
+
+    @property
     def pools(self):
         return (self.k_pools, self.v_pools, self.k_scales, self.v_scales)
 
@@ -170,8 +212,9 @@ class TieredKVCache:
     # -- migration ------------------------------------------------------------
 
     def dispatch_migrations(self, limit_batches: int | None = None) -> int:
-        """Issue queued migrations, one batch per direction at a time.
-        Returns blocks moved."""
+        """Issue queued migrations, one batch per direction at a time
+        (device backend). Returns blocks moved."""
+        assert self._device_mode
         moved = 0
         batches = 0
         while self.transfer.queued:
@@ -240,6 +283,9 @@ class TieredKVCache:
 
     def drain(self) -> None:
         """Issue every queued migration and wait until all have landed."""
+        if not self._device_mode:
+            self.transfer.drain(self.pools, self.directory)
+            return
         self.dispatch_migrations()
         self.transfer.poll(self.directory, wait=True)
 
@@ -248,6 +294,7 @@ class TieredKVCache:
         batch a direction is issued on its own first (rare). Returns
         (mig [4, M] int32, up_bids, down_bids); pass the ids to
         `commit_migration` right after dispatching the round."""
+        assert self._device_mode
         while (self.transfer.pending_up > MIGRATE_BATCH
                or self.transfer.pending_down > MIGRATE_BATCH):
             self.dispatch_migrations(1)
@@ -272,7 +319,16 @@ class TieredKVCache:
     def extend_seq(self, seq_slot: int, new_total_tokens: int) -> bool:
         """Grow; on HBM pressure, evict cold blocks first. False = true OOM."""
         need = self.pool.blocks_needed(seq_slot, new_total_tokens)
-        if need > self.directory.hbm_free:
+        if need <= self.directory.hbm_free:
+            return self.pool.extend(seq_slot, new_total_tokens)
+        if not self._device_mode:
+            self._evict(need - self.directory.hbm_free)
+            if need > self.directory.hbm_free:
+                # only clean drops free slots at once; dirty writebacks must
+                # be flushed and completed first
+                self.transfer.flush(self.pools, self.directory)
+                self.transfer.poll(self.directory, wait=True)
+        else:
             self.transfer.poll(self.directory)
             free = self._free_soon()
             if need > free:
@@ -381,7 +437,10 @@ class TieredKVCache:
     def ensure_resident(self, seq_slots: list[int]) -> int:
         """Demand-fetch every non-resident block of the given sequences
         (promotes migrate now; queued writebacks ride along). Returns blocks
-        fetched."""
+        fetched. The numpy backend blocks on the staged copies (the
+        sync_fetch_page analog)."""
+        if not self._device_mode:
+            return self._ensure_resident_numpy(seq_slots)
         fetched = self.prepare_resident(seq_slots)
         if self.transfer.pending_up:
             self.dispatch_migrations()
@@ -389,33 +448,81 @@ class TieredKVCache:
 
     def prepare_resident(self, seq_slots: list[int]) -> int:
         """Enqueue demand promotes (and cancel queued writebacks) for the
-        given sequences; table rows sync to the reserved target slots."""
+        given sequences; table rows sync to the reserved target slots
+        (device backend)."""
+        assert self._device_mode
         fetched = 0
         for s in seq_slots:
             for b in self.pool.seq(s).live_blocks:
                 if self.directory.entry(b).state == BlockState.IN_FLIGHT_DOWN:
                     self.transfer.cancel_queued_demote(b, self.directory)
-            for bid in self.seq_nonresident_blocks(s):
-                while self.directory.hbm_free == 0:
-                    if not self._make_room() and not (
-                            self.reclaim_hook is not None
-                            and self.reclaim_hook()):
-                        raise RuntimeError(
-                            "cannot make HBM room for demand fetch: all "
-                            "resident blocks pinned — batch exceeds HBM capacity")
-                host_slot, hbm_slot = self.directory.start_promote(bid)
-                self.transfer.enqueue_promote(bid, host_slot, hbm_slot)
-                fetched += 1
+            fetched += self._promote_nonresident(s)
         if fetched:
             self.stats.demand_fetch_events += 1
             self.stats.demand_fetch_blocks += fetched
         self._sync_tables(seq_slots)
         return fetched
 
+    def _promote_nonresident(self, seq_slot: int) -> int:
+        """Enqueue a promote of each of the sequence's HOST blocks, making
+        HBM room (or reclaiming an idle session) first. Returns blocks
+        enqueued."""
+        fetched = 0
+        for bid in self.seq_nonresident_blocks(seq_slot):
+            while self.directory.hbm_free == 0:
+                if not self._make_room() and not (
+                        self.reclaim_hook is not None
+                        and self.reclaim_hook()):
+                    raise RuntimeError(
+                        "cannot make HBM room for demand fetch: all "
+                        "resident blocks pinned — batch exceeds HBM capacity")
+            host_slot, hbm_slot = self.directory.start_promote(bid)
+            self.transfer.enqueue_promote(bid, host_slot, hbm_slot)
+            fetched += 1
+        return fetched
+
+    def _ensure_resident_numpy(self, seq_slots: list[int]) -> int:
+        fetched = 0
+        settle_up = False
+        for s in seq_slots:
+            # blocks mid-flight downward: cancel writebacks still queued
+            # (instant: the HBM copy never moved); only copies already in
+            # flight force a wait. A loop: the in-flight cap means one
+            # flush + poll may not drain every queued writeback.
+            while True:
+                inflight_down = [
+                    b for b in self.pool.seq(s).live_blocks
+                    if self.directory.entry(b).state
+                    == BlockState.IN_FLIGHT_DOWN]
+                if not inflight_down:
+                    break
+                remaining = [b for b in inflight_down
+                             if not self.transfer.cancel_queued_demote(
+                                 b, self.directory)]
+                if not remaining:
+                    break
+                self.transfer.flush(self.pools, self.directory)
+                self.transfer.poll(self.directory, wait=True)
+            fetched += self._promote_nonresident(s)
+            # prefetched blocks still staging (IN_FLIGHT_UP) must land before
+            # this sequence decodes: its table row points at their slots
+            settle_up = settle_up or any(
+                self.directory.entry(b).state == BlockState.IN_FLIGHT_UP
+                for b in self.pool.seq(s).live_blocks)
+        if fetched or settle_up:
+            if fetched:
+                self.stats.demand_fetch_events += 1
+                self.stats.demand_fetch_blocks += fetched
+            self.transfer.flush(self.pools, self.directory, wait_up=True)
+            self._sync_tables(seq_slots)
+        return fetched
+
     def _make_room(self) -> bool:
         """Free at least one HBM slot now, waiting only when the one to be
         had is held by a demote in flight. False if nothing can be
         reclaimed (everything pinned)."""
+        if not self._device_mode:
+            return self._make_room_numpy()
         before = self.directory.hbm_free
         if self.transfer.queued:
             self.dispatch_migrations()
@@ -428,13 +535,34 @@ class TieredKVCache:
         self.dispatch_migrations()
         return self._got_slot(before)
 
+    def _make_room_numpy(self) -> bool:
+        before = self.directory.hbm_free
+        if self.transfer.queued or self.transfer.inflight_down:
+            # settle in-flight traffic: completed writebacks free their
+            # slots outright; completed promotes turn reserved slots into
+            # evictable (unpinned) blocks
+            self.transfer.flush(self.pools, self.directory, wait_up=True)
+            self.transfer.poll(self.directory, wait=True)
+            self.pool.sync_moved()
+            if self.directory.hbm_free > before:
+                return True
+        cands = self._evict_candidates(max(1, self.directory.hbm_pressure()))
+        if not cands:
+            return False
+        before = self.directory.hbm_free
+        self._demote(cands)
+        self.transfer.flush(self.pools, self.directory)
+        self.transfer.poll(self.directory, wait=True)
+        return self.directory.hbm_free > before
+
     def prefetch_blocks(self, bids: list[int]) -> int:
         """Asynchronous promote of specific blocks (prefetcher path). Stops
         at the landing-zone reserve, so prefetch and eviction never churn
         the same blocks."""
         started = 0
         floor = self.directory.config.num_reserved_blocks
-        self.transfer.poll(self.directory)
+        if self._device_mode:
+            self.transfer.poll(self.directory)
         for bid in bids:
             e = self.directory.entry(bid)
             if e.state != BlockState.HOST:
@@ -457,6 +585,14 @@ class TieredKVCache:
         `defer_migrations` leaves it to the next fused round), re-sync
         block-table rows."""
         self.transfer.poll(self.directory)
+        if not self._device_mode:
+            pressure = self.directory.hbm_pressure()
+            if pressure > 0:
+                self._evict(pressure)
+            self.pool.reap_deferred()
+            self.transfer.flush(self.pools, self.directory)
+            self.pool.sync_moved()
+            return
         # queued and in-flight demotes free their slots when their copies
         # land: count them as already reclaiming so deferred flushing
         # doesn't over-demote

@@ -85,7 +85,8 @@ def derive_decode_horizon(param_bytes: int, cap: int = 32,
 
 def params_byte_size(params) -> int:
     """Bytes of a param tree (dicts and lists of tensors); a quantized
-    weight counts its int8 values and its scales."""
+    weight counts its stored values (an int4 weight nibble-packed, two a
+    byte, as the JAX package counts it) and its scales."""
     if isinstance(params, QuantizedTensor):
         return params_byte_size(params.q) + params_byte_size(params.s)
     if isinstance(params, torch.Tensor):

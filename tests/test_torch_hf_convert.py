@@ -12,7 +12,7 @@ the CPU from tiny configs (nothing is downloaded):
 - the port's `forward_dense` on the converted tree gives HF's logits within
   3e-4 (the JAX tests' bound) for Qwen3, Gemma-3 (5:1 pattern, local base,
   linear scaling), Phi-3 (fused projections) and Qwen3-MoE;
-- `weight_dtype="int4"` and Phi-3 longrope raise.
+- an unknown `weight_dtype` and Phi-3 longrope raise ("int4" converts).
 """
 
 import dataclasses
@@ -196,9 +196,11 @@ def test_logits_match_hf(family):
 def test_refusals():
     model = hf_model("qwen3")
     cfg = thf.config_from_hf(model.config)
-    with pytest.raises(NotImplementedError, match="int4"):
-        thf.params_from_hf_state_dict(model.state_dict(), cfg,
-                                      weight_dtype="int4", device="cpu")
+    # "int4" converts to W4A16 (bit-exact with the JAX converter in
+    # test_torch_w4a16.py); only unknown widths refuse
+    four = thf.params_from_hf_state_dict(model.state_dict(), cfg,
+                                         weight_dtype="int4", device="cpu")
+    assert four["layers"]["q"].bits == 4 and four["embed"].bits == 8
     with pytest.raises(ValueError, match="weight_dtype"):
         thf.params_from_hf_state_dict(model.state_dict(), cfg,
                                       weight_dtype="fp8", device="cpu")

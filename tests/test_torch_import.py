@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
                  "runtime.hoststore",
                  "prefetcher.controller", "prefetcher.lstm",
                  "utils.dispatch", "scripts.train_predictor",
-                 "server", "engine.scoring", "models.checkpoint"):
+                 "server", "engine.scoring", "models.checkpoint",
+                 "native", "ops.w4_unpack", "runtime.transfer"):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
 
 

@@ -1378,3 +1378,106 @@ def test_server_completion_on_card_equals_engine_run(dev):
     assert body["tokens"] == want
     assert launched(paged_attention) > k1
     assert launched(paged_chunk_attention_cuda) > k2
+
+
+# ---------------------------------------------------------------------------
+# W4A16: the unpack kernel, and engines on the card with int4 weights, the
+# numpy host-store backend and the native directory
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("shape", [(64, 32), (3, 16, 40), (5, 7),
+                                   (2, 4, 96, 24)])
+def test_w4_unpack_kernel_equals_plain(dev, shape, dtype):
+    """Bit-equal to `unpack_int4(q).to(dtype)` for every byte value, on the
+    16-byte path (half width a multiple of 16), the byte path (7, 20) and
+    an unaligned view (the byte path too)."""
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack, w4_unpack_plain
+
+    rng = np.random.RandomState(sum(shape))
+    q = torch.from_numpy(rng.randint(-128, 128, shape).astype(np.int8)).to(dev)
+    before = sum(w4_unpack.launches.values())
+    got = w4_unpack(q, dtype)
+    torch.cuda.synchronize()
+    assert sum(w4_unpack.launches.values()) == before + 1
+    want = w4_unpack_plain(q.cpu(), dtype)
+    assert got.shape == (*shape[:-1], 2 * shape[-1]) and got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
+    # a view one byte past an aligned start takes the byte path
+    big = torch.from_numpy(rng.randint(-128, 128, 65).astype(np.int8)).to(dev)
+    flat = big[1:].reshape(4, 16)
+    assert torch.equal(w4_unpack(flat, dtype).cpu(),
+                       w4_unpack_plain(flat.cpu(), dtype))
+
+
+def _tiny_engine(dev_kw, hbm, **cache_kw):
+    from cxl_speckv_tpu_torch.config import (
+        CacheConfig,
+        EngineConfig,
+        PrefetchConfig,
+        SystemConfig,
+    )
+    from cxl_speckv_tpu_torch.engine import Engine
+    from cxl_speckv_tpu_torch.models.configs import tiny_test_config
+
+    wq = cache_kw.pop("weight_dtype", "int8")
+    native = cache_kw.pop("native", False)
+    sc = SystemConfig(
+        cache=CacheConfig(block_size=8, num_hbm_blocks=hbm,
+                          num_host_blocks=256, kv_dtype=KVDtype.INT8,
+                          **cache_kw),
+        prefetch=PrefetchConfig(enabled=True, depth=2),
+        engine=EngineConfig(max_batch_size=2, max_seq_len=128,
+                            prefill_chunk=32, decode_horizon=4,
+                            weight_dtype=wq))
+    import os
+
+    if native:                      # the engine's cache reads SPECKV_NATIVE
+        os.environ["SPECKV_NATIVE"] = "1"
+    try:
+        return Engine(tiny_test_config(), sc, seed=3, enable_lstm=False,
+                      **dev_kw)
+    finally:
+        os.environ.pop("SPECKV_NATIVE", None)
+
+
+def _prompts():
+    rng = np.random.RandomState(5)
+    return [rng.randint(1, 256, rng.randint(6, 24)).tolist() for _ in range(8)]
+
+
+def test_w4a16_engine_on_card(dev):
+    """The tiny model at int4 weights on the card: every quantized matmul
+    launches the unpack kernel once, and tiered == ample tokens."""
+    from cxl_speckv_tpu_torch.ops import wquant
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+
+    ample = _tiny_engine({}, 256, weight_dtype="int4")
+    assert ample.params["layers"]["up"].bits == 4
+    calls, launches = wquant.quantized_calls[4], sum(w4_unpack.launches.values())
+    want = ample.generate(_prompts(), max_new_tokens=12)
+    assert (sum(w4_unpack.launches.values()) - launches
+            == wquant.quantized_calls[4] - calls > 0)
+    tiered = _tiny_engine({}, 14, weight_dtype="int4")
+    tiered.params = ample.params
+    assert tiered.generate(_prompts(), max_new_tokens=12) == want
+
+
+@pytest.mark.parametrize("arm", ["numpy", "native"])
+def test_host_numpy_and_native_engines_on_card(dev, arm):
+    """The numpy host-store backend (staged H2D on the stager's stream,
+    demotes bounced through pinned buffers) and the native directory on the
+    card: the device backend's tokens, migrations both ways."""
+    ref = _tiny_engine({}, 14)
+    want = ref.generate(_prompts(), max_new_tokens=12)
+    kw = ({"host_store_backend": "numpy"} if arm == "numpy"
+          else {"native": True})
+    eng = _tiny_engine({}, 14, **kw)
+    eng.params = ref.params
+    assert eng.generate(_prompts(), max_new_tokens=12) == want
+    st = eng.get_statistics()
+    assert st["transfer"]["up_transfers"] > 0
+    assert st["transfer"]["down_transfers"] > 0
+    if arm == "native":
+        assert st["directory"] == ref.get_statistics()["directory"]

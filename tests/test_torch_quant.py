@@ -160,3 +160,35 @@ def test_scheme_id_table_matches_jax():
     assert jq.scheme_id_table(JKV.INT8) is None
     with pytest.raises(ValueError, match="scheme id"):
         tq.dequant_values(torch.zeros(4, dtype=torch.int8), KVDtype.MIXED8)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES + ["mixed8"])
+def test_kv_storage_shape_matches_jax(scheme):
+    for shape in ((4, 3, 32), (7, 2), (1, 128)):
+        assert (tq.kv_storage_shape(shape, KVDtype(scheme))
+                == jq.kv_storage_shape(shape, JKV(scheme)))
+    if scheme == "int4":
+        with pytest.raises(ValueError, match="even"):
+            tq.kv_storage_shape((4, 5), KVDtype.INT4)
+        with pytest.raises(ValueError, match="even"):
+            jq.kv_storage_shape((4, 5), JKV.INT4)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES + ["mixed8"])
+def test_quantization_rms_error_matches_jax(scheme):
+    """The round trip's relative RMS error equals the JAX package's (to
+    float32 rounding: the means sum in other orders); MIXED8 has no single
+    quantizer and raises in both."""
+    x = _inputs(6)
+    if scheme == "mixed8":
+        with pytest.raises(ValueError):
+            tq.quantization_rms_error(torch.from_numpy(x), KVDtype.MIXED8)
+        with pytest.raises(ValueError):
+            jq.quantization_rms_error(jnp.asarray(x), JKV.MIXED8)
+        return
+    got = tq.quantization_rms_error(torch.from_numpy(x), KVDtype(scheme))
+    want = float(jq.quantization_rms_error(jnp.asarray(x), JKV(scheme)))
+    assert got.dtype == torch.float32 and got.ndim == 0
+    np.testing.assert_allclose(float(got), want, rtol=1e-5, atol=0)
+    assert float(got) < {"bf16": 0.01, "int8": 0.02, "int4": 0.2,
+                         "fp8": 0.05}[scheme]

@@ -106,5 +106,10 @@ def test_quantize_weights_tree_matches_jax():
             np.testing.assert_array_equal(w.s.numpy(), c.s.numpy())
         else:
             np.testing.assert_array_equal(w.numpy(), c.numpy())
-    with pytest.raises(NotImplementedError):
-        tw.quantize_tensor(torch.zeros(4, 4), bits=4)
+    # W4A16 is served: bits 4 packs two nibbles a byte along the last
+    # axis (values bit-exact with the JAX package in test_torch_w4a16.py);
+    # other widths refuse, as in the JAX package
+    four = tw.quantize_tensor(torch.zeros(4, 4), bits=4)
+    assert four.bits == 4 and four.shape == (4, 4) and four.q.shape == (4, 2)
+    with pytest.raises(ValueError, match="bits"):
+        tw.quantize_tensor(torch.zeros(4, 4), bits=3)
