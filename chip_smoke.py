@@ -81,7 +81,8 @@ Phases, each printing its results; any failure exits non-zero:
               and with a per-layer table of INT8 (even layers) and FP8 (odd
               layers): same checks, launch counts exact per (scheme,
               window); then the decode-round anatomy of each;
-9. switch  -- `Engine.set_kv_dtype` on the ample pool: 8 requests under
+9. switch  -- `Engine.set_kv_dtype` on the ample pool, on the serve's
+              Llama-3-8B cut to its first 8 layers: 8 requests under
               INT8, two steps, FP8 for 8 more; each cohort equals a fresh
               engine fixed to its scheme; INT4 refused while busy, then
               rebuilt when idle (pool rows halve), equal to a fresh INT4
@@ -283,7 +284,7 @@ Phases, each printing its results; any failure exits non-zero:
               float32 tree on the first 8 layers at float32 activations
               over BF16 KV (within 2e-2); then one decode round's anatomy
               at full depth (the unpack kernel's share of device time);
-10. gemma2 -- Gemma-2-9B at full width, 12 of its 42 layers (the depth
+10. gemma2 -- Gemma-2-9B at full width, 8 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
@@ -295,12 +296,13 @@ Phases, each printing its results; any failure exits non-zero:
               them with window 4096; the long pair's decode at S > 1 in
               every launch (`split_launches`), and its ample serve again
               with K1 at S = 1 for TTFT / TPOT beside it;
-11. mistral -- Mistral-7B at full width and depth (uniform window 4096):
+11. mistral -- Mistral-7B at full width, 16 of its 32 layers (uniform
+              window 4096; the depth cut keeps the script in time):
               2 requests x (4160 + 64), tiered and ample. Out-of-window KV
               blocks must retire (`window_retired_blocks` > 0), tokens must
               be identical, every launch must carry window 4096, every K1
               launch S > 1; the ample serve again at S = 1, as for Gemma-2;
-12. gpt-oss -- GPT-OSS-20B at full width, 8 of its 24 layers (the depth
+12. gpt-oss -- GPT-OSS-20B at full width, 4 of its 24 layers (the depth
               cut keeps the script inside its time limit; alternating
               window 128 and global attention, 32 experts top-4 in the dense
               MoE mode, q/k/v/o biases, sinks, YaRN rope, vocabulary 201088),
@@ -311,7 +313,8 @@ Phases, each printing its results; any failure exits non-zero:
               with sinks (`sink_launches` == `launches`; no other serve
               launches with sinks), no block retired; then its decode-round
               anatomy with the expert-weight copies' share;
-13. qwen3  -- Qwen3-8B at full width and depth (per-head q/k RMSNorm):
+13. qwen3  -- Qwen3-8B at full width, 12 of its 36 layers (per-head q/k
+              RMSNorm; the depth cut keeps the script in time):
               16 requests x (64 + 64), batch 8, on 40 tiered HBM blocks
               against a demand of 80, and ample; the serve's checks, every
               launch global;
@@ -324,12 +327,12 @@ Phases, each printing its results; any failure exits non-zero:
               5/6 of the launches with window 1024 and 1/6 global, no
               block retired;
 15. qwen3-moe -- Qwen3-30B-A3B at full width (128 experts top-8,
-              renormalised, dense MoE mode), 12 of its 48 layers: the
+              renormalised, dense MoE mode), 8 of its 48 layers: the
               qwen3 cell's serve and checks; then its decode-round anatomy
               with the expert stacks' copy share;
 15b. qwen2-moe -- Qwen2-57B-A14B at full width (G 7, q/k/v bias, 64
               experts top-8 without renormalisation, the sigmoid-gated
-              shared expert of 20480, dense MoE mode), 8 of its 28 layers:
+              shared expert of 20480, dense MoE mode), 4 of its 28 layers:
               a warm-up of two 64 + 37-token prompts (the tail chunk's
               launches), then the qwen3 cell's serve and checks; then its
               decode-round anatomy (device ms a step);
@@ -341,6 +344,30 @@ Phases, each printing its results; any failure exits non-zero:
               the state dict printed and held to the int8 tree plus four of
               its largest float32 matrix; then the qwen3 cell's serve and
               checks on the converted weights (MHA: G 1, D 96).
+
+17. scripts -- the JAX package's measurement and check scripts ported to
+              `cxl_speckv_tpu_torch/scripts/`, each `main([...])` in this
+              process, its output under `[scripts] <name>`: round_anatomy
+              (Llama-3.2-1B, the full sweep at reps 2: K1 launches ==
+              calls x horizon x 16 exactly, device busy <= host time, the
+              host dispatch a step >= 0); kernel_probe (INT8 / INT4, bs 32,
+              splits 1 and the rule's S) and kernel_bench (ctx 8192, INT8):
+              each point's first output within 2e-4 of K1's plain version,
+              GB/s at most 105% of the HBM peak, their K1 rows in the
+              kernel line; verify_gamma_probe (1B, gammas 2 / 4 / 8, ctx
+              256): K2 launches == calls x 16, no slot in two lanes'
+              tables; spec_bench (1B, plain / ngram / self, 16 x (64 +
+              32), no warm-up): every request finished, the JAX script's
+              JSON keys;
+              tpu_spec_check at float32 weights and attention (plain and
+              sharp agreement >= 0.95; bf16 recorded); stream_bench (1B, 2 x
+              (2048 + 8)): finished, tok/s both ways; bench_ablate (smooth,
+              1B cut to its first 4 layers, no warm-up): the three modes'
+              tokens equal; kv_quant_ppl (tiny, float32 attention): each
+              scheme's NLL within 2e-3 of the CPU's; kv_quant_accuracy:
+              finite, BF16 agreement >= INT4's; tpu_window_check (its 18
+              cases within 2e-2), tpu_f32_identity (its three legs) and
+              hostop_probe (every program's bytes == index_select).
 
 Each serve prints K1's launches by split count, and its tiered run's
 copy-stream time (CUDA events) and host-blocked ms for migrations. Each model's weights are
@@ -452,14 +479,15 @@ GPT_OSS_WINDOW = 128
 # (their layers, of 24, 42 and 32): since the family serves came, the whole
 # script took 1139.5 s on a slow host (an H100 80GB HBM3 at 700 W) with
 # GPT-OSS on 12, Gemma-2 on 20 and the spec, surface, INT4 / per-layer and
-# migrate serves on 16 layers
-GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 8, 12, 8, 8
+# migrate serves on 16 layers; 1097.9 s on a slow host with the scripts
+# phase before GPT-OSS was cut from 8 to 4 layers and Gemma-2 from 12 to 8
+GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 4, 8, 8, 8
 SCHEME_LAYERS = 8
 STREAM_LAYERS = 8       # stream-mixed / -cancel / -session's depth cut
 # the model families served from their configs (and Phi-3 from an HF state
-# dict): their heads (Hq, Hkv, D), cells and depth cuts. Qwen3-8B at all 36
-# layers, Qwen3-30B-A3B (128 experts top-8, G 8 = K1's MAX_G) on 12 of its
-# 48 layers and Phi-3-mini (MHA, G 1, D 96) on 8 of its 32 serve 16 requests
+# dict): their heads (Hq, Hkv, D), cells and depth cuts. Qwen3-8B on 12 of
+# its 36 layers, Qwen3-30B-A3B (128 experts top-8, G 8 = K1's MAX_G) on 8 of
+# its 48 layers and Phi-3-mini (MHA, G 1, D 96) on 8 of its 32 serve 16 requests
 # of the serve cell's shape, a demand of 80 blocks, on 40 tiered HBM blocks
 # (at 44 or more a group's growth fits beside the next one's prefill and
 # fewer blocks migrate; at 48, none). Gemma-3-12B on 12 of its 48 layers (two whole
@@ -471,8 +499,12 @@ QWEN3_HEADS, QWEN3_MOE_HEADS = (32, 8, 128), (32, 4, 128)
 GEMMA3_HEADS, PHI3_HEADS = (16, 8, 256), (32, 32, 96)
 GEMMA3_WINDOW = 1024
 QWEN3_CELL = Cell(16, 64, 64, BATCH, 64, hbm_tiered=40)
+# depth cuts that keep the script in time once the [scripts] phase runs
+QWEN3_LAYERS = 12
+MISTRAL_LAYERS = 16
+SCRIPTS_ABLATE_LAYERS = 4
 GEMMA3_CELL = Cell(4, 1280, 64, 4, 256, hbm_tiered=2 * 43 + 4)
-GEMMA3_LAYERS, QWEN3_MOE_LAYERS, PHI3_LAYERS = 12, 12, 8
+GEMMA3_LAYERS, QWEN3_MOE_LAYERS, PHI3_LAYERS = 12, 8, 8
 # the converted Phi-3's device memory across its conversion, above the
 # state dict: at most its int8 tree plus this many of its largest float32
 # matrix (the transients of one matrix's quantization; a full-precision
@@ -526,11 +558,11 @@ MIGRATE_LAYERS = 8
 # Qwen2-57B-A14B: 28 query heads on 4 KV heads (G 7, the first odd group on
 # the card: a 64-token chunk is 448 rows of K2's 16-row tensor-core tiles, a
 # 37-token tail 259), q/k/v bias, 64 experts top-8 without renormalisation
-# and a sigmoid-gated shared expert of 20480; on 8 of its 28 layers (its
+# and a sigmoid-gated shared expert of 20480; on 4 of its 28 layers (its
 # W8A16 expert stacks are ~2 GB a layer), on QWEN3_CELL. Its warm-up serves
 # two prompts of 64 + QWEN2_TAIL tokens, so the tail chunk is served too.
 QWEN2_HEADS = (28, 4, 128)
-QWEN2_MOE_LAYERS, QWEN2_TAIL = 8, 37
+QWEN2_MOE_LAYERS, QWEN2_TAIL = 4, 37
 # the server phase, on the serve's Llama-3-8B cut to its first
 # SERVER_LAYERS layers: a checkpoint saved and loaded back, then the HTTP
 # server on the loaded tree, W8A16, INT8 KV, tiered on 52 HBM blocks: 16
@@ -2236,10 +2268,13 @@ def phase_gemma(peaks) -> dict:
 
 
 def phase_mistral() -> dict:
-    """Mistral-7B: uniform window, so out-of-window blocks retire."""
+    """Mistral-7B at full width and MISTRAL_LAYERS of its 32 layers:
+    uniform window, so out-of-window blocks retire."""
+    import dataclasses
+
     from cxl_speckv_tpu_torch.models.configs import mistral_7b
 
-    cfg = mistral_7b()
+    cfg = dataclasses.replace(mistral_7b(), num_layers=MISTRAL_LAYERS)
     params = init_model(cfg, "mistral", 2)
     rng = np.random.RandomState(2)
     prompts = [rng.randint(1, cfg.vocab_size, MISTRAL.prompt).tolist()
@@ -2289,11 +2324,13 @@ def phase_gpt_oss(peaks) -> dict:
 
 
 def phase_qwen3() -> dict:
-    """Qwen3-8B at full width and depth (per-head q/k RMSNorm): the serve
-    cell's shape on QWEN3_CELL."""
+    """Qwen3-8B at full width and QWEN3_LAYERS of its 36 layers (per-head
+    q/k RMSNorm): the serve cell's shape on QWEN3_CELL."""
+    import dataclasses
+
     from cxl_speckv_tpu_torch.models.configs import qwen3_8b
 
-    cfg = qwen3_8b()
+    cfg = dataclasses.replace(qwen3_8b(), num_layers=QWEN3_LAYERS)
     params = init_model(cfg, "qwen3", 5)
     rng = np.random.RandomState(5)
     prompts = [rng.randint(1, cfg.vocab_size, QWEN3_CELL.prompt).tolist()
@@ -4918,6 +4955,211 @@ def phase_serve_w4a16(prompts, peaks) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# the ported measurement and check scripts
+# ---------------------------------------------------------------------------
+
+class Prefixed:
+    """A text stream that writes each complete line to `out` behind
+    `prefix` (a script's output inside the phase's own lines)."""
+
+    def __init__(self, out, prefix: str):
+        self.out, self.prefix, self.buf = out, prefix, ""
+
+    def write(self, s: str) -> int:
+        self.buf += s
+        *lines, self.buf = self.buf.split("\n")
+        for line in lines:
+            self.out.write(f"{self.prefix} {line}\n")
+        return len(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def run_script(name: str, argv: list):
+    """`cxl_speckv_tpu_torch.scripts.<name>.main(argv)` in this process,
+    its output under `[scripts] <name>`, its seconds after; returns what
+    main returned and the K1 / K2 launches it made."""
+    import importlib
+
+    mod = importlib.import_module(f"cxl_speckv_tpu_torch.scripts.{name}")
+    reset_launches()
+    out = Prefixed(sys.stdout, f"[scripts] {name}")
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        res = mod.main(argv)
+    out.write(out.buf and "\n")
+    torch.cuda.synchronize()
+    launches = {k: total(v) for k, v in read_launches().items()}
+    print(f"[scripts] {name}: {time.monotonic() - t0:.1f} s, K1 / K2 "
+          f"launches {launches['K1']} / {launches['K2']}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def probe_row(label: str, r: dict, launches: int, p, peaks) -> dict:
+    """A kernel-line entry for K1 at a script's shape: single-launch and
+    back-to-back ms, the plain version's ms, the bound, the error."""
+    from cxl_speckv_tpu_torch.scripts.kernel_probe import bound
+
+    b, by = bound(p, peaks)
+    return {"name": f"paged_attention {label}", "route": "cuda",
+            "source": "cxl_speckv_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "cxl_speckv_tpu/ops/paged_attention.py:232",
+            "launches": launches, "max_abs_err": r["err"],
+            "ms": r["single_ms"], "b2b_ms": r["us"] / 1e3,
+            "plain_ms": r["plain_ms"], "bound_ms": b, "bound_by": by,
+            "library_ms": None, "splits": r.get("rule_splits", r.get("splits")),
+            "gb_s": r["gbps"], "hbm_share": r["share"]}
+
+
+def check_k1_points(name: str, rows: dict) -> None:
+    for key, r in rows.items():
+        if not r["ok"]:
+            fail(f"{name} {key}: K1's first output off its plain version by "
+                 f"{r['err']:.3e}")
+        if r["share"] > 1.05:
+            fail(f"{name} {key}: {100 * r['share']:.1f}% of the HBM peak: the "
+                 f"pool sat in the L2")
+
+
+def scripts_round_anatomy() -> None:
+    res, _ = run_script("round_anatomy", ["--reps", "2"])
+    L = res["layers"]
+    for (arm, h, cb), r in res["points"].items():
+        if r["k1"] != r["calls"] * h * L or r["k2"]:
+            fail(f"round_anatomy {arm} h={h} ctx={cb}: K1 / K2 launches "
+                 f"{r['k1']} / {r['k2']} for {r['calls']} calls x {h} steps "
+                 f"x {L} layers")
+        if r["busy"] is not None and r["busy"] > r["host"]:
+            fail(f"round_anatomy {arm} h={h} ctx={cb}: device busy "
+                 f"{r['busy']} s against host {r['host']} s")
+    if res["host_dispatch_step_s"] is None or res["host_dispatch_step_s"] < 0:
+        fail(f"round_anatomy: host dispatch a step on device time "
+             f"{res['host_dispatch_step_s']}")
+
+
+def scripts_kernel_rows(peaks) -> list:
+    """kernel_probe and kernel_bench, checked; their K1 rows at the rule's
+    split count for the kernel line."""
+    from cxl_speckv_tpu_torch.scripts.kernel_probe import probe_pools
+
+    rows, launches = run_script("kernel_probe", [
+        "--schemes", "int8,int4", "--bs", "32", "--splits", "1,S",
+        "--iters", "30", "--check"])
+    check_k1_points("kernel_probe", rows)
+    entries = []
+    for (scheme, bs, n), r in rows.items():
+        if n == r["rule_splits"]:
+            p = probe_pools(scheme, bs, 8192, 8, 0, 0, DEV)
+            entries.append(probe_row(f"kernel_probe {scheme} bs{bs} ctx8192",
+                                     r, launches["K1"], p, peaks))
+    bench, launches = run_script("kernel_bench", [
+        "--ctx", "8192", "--schemes", "int8", "--check"])
+    check_k1_points("kernel_bench", bench)
+    p = probe_pools("int8", 32, 8192, 8, 0, 0, DEV)
+    entries.append(probe_row("kernel_bench int8 ctx8192", bench[("int8", 8192)],
+                             launches["K1"], p, peaks))
+    return entries
+
+
+def scripts_verify_gamma() -> None:
+    from cxl_speckv_tpu_torch.scripts.verify_gamma_probe import tables_for
+
+    res, _ = run_script("verify_gamma_probe", [
+        "--model", "1b", "--gammas", "2,4,8", "--ctx", "256", "--reps", "2"])
+    for g in (2, 4, 8):
+        if res[g]["k2"] != res[g]["calls"] * res["layers"]:
+            fail(f"verify_gamma_probe gamma {g}: K2 launches {res[g]['k2']} "
+                 f"for {res[g]['calls']} calls x {res['layers']} layers")
+    tables, n_slots = tables_for(BATCH, 256)
+    held = tables.reshape(-1)
+    if len(set(held.tolist())) != held.size or held.max() >= n_slots - 1:
+        fail("verify_gamma_probe: a slot is shared by two lanes' tables")
+
+
+def scripts_spec() -> None:
+    from cxl_speckv_tpu_torch.scripts.spec_bench import JSON_KEYS
+
+    res, _ = run_script("spec_bench", [
+        "--model", "1b", "--arms", "plain,ngram,self", "--n", "16",
+        "--prompt", "64", "--gen", "32", "--no-warm"])
+    keys = (*JSON_KEYS, "ngram_speedup_vs_plain_at_acceptance", "measured")
+    if not all(res["finished"].values()) or any(k not in res["json"]
+                                                for k in keys):
+        fail(f"spec_bench: finished {res['finished']}, keys "
+             f"{sorted(res['json'])}")
+    res, _ = run_script("tpu_spec_check", ["--f32", "--wdtype", "float32"])
+    if min(res["plain"], res["sharp"]) < SELF_DRAFT_MIN_ACCEPT:
+        fail(f"tpu_spec_check: agreement at float32 {res}")
+    run_script("tpu_spec_check", [])           # bf16, recorded
+
+
+def scripts_stream_ablate() -> None:
+    res, _ = run_script("stream_bench", [
+        "--model", "1b", "--prompt", "2048", "--gen", "8", "--lanes", "2"])
+    if not all(res["finished"].values()) or res["stream_tokens"] <= 0:
+        fail(f"stream_bench: finished {res['finished']}, streamed tokens "
+             f"{res['stream_tokens']}")
+    res, _ = run_script("bench_ablate", [
+        "--regime", "smooth", "--reps", "1", "--modes",
+        "lstm,nolstm,noprefetch", "--layers", str(SCRIPTS_ABLATE_LAYERS),
+        "--no-warm"])
+    toks = list(res["tokens"].values())
+    if not all(res["finished"].values()) or any(t != toks[0] for t in toks):
+        fail("bench_ablate: the modes' tokens differ or a request did not "
+             "finish")
+
+
+def scripts_quant() -> None:
+    from cxl_speckv_tpu_torch.scripts import kv_quant_ppl as kp
+
+    argv = ["--seqs", "4", "--len", "96", "--compute", "float32"]
+    card, _ = run_script("kv_quant_ppl", argv)
+    cfg, params, prompts = kp.setup(kp.parse_args(argv), DEV)
+    cpu = {k: v.cpu() for k, v in params.items() if k != "layers"}
+    cpu["layers"] = {k: v.cpu() for k, v in params["layers"].items()}
+    for scheme, nll in card["kv"].items():
+        want = kp.mean_nll(cfg, cpu, scheme, prompts, 32, device="cpu")
+        print(f"[scripts] kv_quant_ppl {scheme}: NLL a token {nll:.6f} on the "
+              f"card, {want:.6f} on the CPU (|d| {abs(nll - want):.2e})",
+              flush=True)
+        if abs(nll - want) > 2e-3:
+            fail(f"kv_quant_ppl {scheme}: card {nll} vs CPU {want}")
+    res, _ = run_script("kv_quant_accuracy", ["--seqs", "4"])
+    vals = [v for r in res.values() for v in r.values()]
+    if not np.isfinite(vals).all() or (res["bf16"]["greedy_agreement"]
+                                       < res["int4"]["greedy_agreement"]):
+        fail(f"kv_quant_accuracy: {res}")
+
+
+def scripts_checks() -> None:
+    from cxl_speckv_tpu_torch.scripts.tpu_window_check import CASES, TOL
+
+    errs, _ = run_script("tpu_window_check", [])
+    if len(errs) != len(CASES) or max(errs.values()) >= TOL:
+        fail(f"tpu_window_check: {errs}")
+    run_script("tpu_f32_identity", [])
+    run_script("hostop_probe", [])
+
+
+def phase_scripts(peaks) -> list:
+    """The ported measurement and check scripts (`cxl_speckv_tpu_torch/
+    scripts/`), each `main([...])` in this process at the phase's sizes,
+    with its checks; returns the kernel-line rows of K1 at the shapes
+    kernel_probe and kernel_bench time."""
+    scripts_round_anatomy()
+    entries = scripts_kernel_rows(peaks)
+    scripts_verify_gamma()
+    scripts_spec()
+    scripts_stream_ablate()
+    scripts_quant()
+    scripts_checks()
+    return entries
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -4984,7 +5226,8 @@ def main() -> int:
           prompts, peaks, matmuls=False,
           layer_kv=MIXED_LAYERS * (SCHEME_LAYERS // 2))
     del cut
-    timed("switch", phase_switch, cfg, params, prompts)
+    timed("switch", phase_switch, *first_layers(cfg, params, SCHEME_LAYERS),
+          prompts)
     spec = timed("spec", phase_spec, *first_layers(cfg, params, SPEC_LAYERS),
                  prompts, peaks)
     surface = timed("surface", phase_surface,
@@ -5008,6 +5251,7 @@ def main() -> int:
                     "qwen3-moe": timed("qwen3-moe", phase_qwen3_moe, peaks),
                     "qwen2-moe": timed("qwen2-moe", phase_qwen2_moe, peaks),
                     "phi3": timed("phi3-hf", phase_phi3_hf)}
+    script_entries = timed("scripts", phase_scripts, peaks)
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
@@ -5100,6 +5344,7 @@ def main() -> int:
             print(f"[loss] K1 on the device alone (CUDA-graph times): "
                   f"{dev:.3f} s", flush=True)
     entries += probe_entries
+    entries += script_entries
     # replaces no pl.pallas_call: the JAX package's int4 weights convert
     # inside XLA's matmul fusion (`mm`); no single PyTorch call unpacks
     # half-split nibbles

@@ -12,6 +12,12 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parent.parent
+# the measurement and check scripts ported from the JAX package's scripts/
+SCRIPTS = ("round_anatomy", "kernel_probe", "kernel_bench",
+           "verify_gamma_probe", "spec_bench", "tpu_spec_check",
+           "stream_bench", "kv_quant_ppl", "kv_quant_accuracy",
+           "tpu_window_check", "tpu_f32_identity", "hostop_probe",
+           "bench_ablate")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -49,7 +55,8 @@ def test_port_imports_no_jax():
                  "prefetcher.controller", "prefetcher.lstm",
                  "utils.dispatch", "scripts.train_predictor",
                  "server", "engine.scoring", "models.checkpoint",
-                 "native", "ops.w4_unpack", "runtime.transfer"):
+                 "native", "ops.w4_unpack", "runtime.transfer",
+                 *(f"scripts.{m}" for m in ("common", *SCRIPTS))):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
 
 
@@ -131,3 +138,19 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                             if k != "PYTHONPATH"})
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("name", SCRIPTS)
+def test_scripts_need_cuda_by_default(name):
+    """Each ported script runs on the card unless `--device cpu` is given,
+    and raises without CUDA rather than fall back to the CPU; its
+    docstring names its counterpart in the JAX package's scripts/."""
+    import importlib
+
+    mod = importlib.import_module(f"cxl_speckv_tpu_torch.scripts.{name}")
+    assert f"scripts/{name}.py" in mod.__doc__
+    assert mod.parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        mod.main([])

@@ -1481,3 +1481,59 @@ def test_host_numpy_and_native_engines_on_card(dev, arm):
     assert st["transfer"]["down_transfers"] > 0
     if arm == "native":
         assert st["directory"] == ref.get_statistics()["directory"]
+
+
+# the ported scripts whose checks need the card (kernel_probe,
+# kernel_bench, tpu_window_check, hostop_probe), at small sizes
+
+
+@pytest.mark.parametrize("scheme", ["int8", "int4", "bf16"])
+def test_kernel_probe_points_on_card(dev, scheme):
+    """K1 at kernel_probe's points (split counts 1, the rule's S, 2S): the
+    first output equals the plain version's split form at the same count
+    within 2e-4, and the dependent loop's last bf16 q equals the same loop
+    of plain calls within 2e-2 (each step's output rounds to bf16)."""
+    from cxl_speckv_tpu_torch.scripts import kernel_probe as kp
+
+    p = kp.probe_pools(scheme, 16, 512, 2, 0, 1, "cuda", heads=(HQ, HKV, D))
+    for n in kp.split_counts("1,S,2S", max(kp.rule_splits(p, "cuda"), 2)):
+        r = kp.time_point(p, n, 3, "cuda", True, torch.float32)
+        assert r["ok"], (n, r["err"])
+        q = p.q.to(torch.bfloat16)
+        for _ in range(5):          # back_to_back_us: 2 warm-up calls + 3
+            q = paged_attention_ref(q, p.k, p.v, p.ks, p.vs, p.table,
+                                    p.lens, p.kv, num_splits=n)
+        torch.testing.assert_close(r["out"].float(), q.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_kernel_bench_on_card(dev):
+    """kernel_bench's command line at ctx 2048: every point's first output
+    within 2e-4 of the plain version, rates positive."""
+    from cxl_speckv_tpu_torch.scripts import kernel_bench
+
+    rows = kernel_bench.main(["--ctx", "2048", "--check"])
+    assert len(rows) == 3
+    for key, r in rows.items():
+        assert r["ok"], (key, r["err"])
+        assert r["gbps"] > 0 and r["us"] > 0
+
+
+def test_window_check_on_card(dev):
+    """tpu_window_check's 18 cases: K1 / K2 at bf16 compute within the
+    script's 2e-2 of their plain versions."""
+    from cxl_speckv_tpu_torch.scripts import tpu_window_check as twc
+
+    errs = twc.main([])
+    assert set(errs) == set(twc.CASES)
+    assert max(errs.values()) < twc.TOL
+
+
+def test_hostop_probe_on_card(dev):
+    """hostop_probe's programs on the pinned store: each gathers the bytes
+    index_select gives (checked inside), copies counted."""
+    from cxl_speckv_tpu_torch.scripts import hostop_probe
+
+    res = hostop_probe.main(["--reps", "1"])
+    assert [res[k]["copies"] for k in "ABCD"] == [8192, 2048, 512, 8192]
+    assert all(res[k]["host_s"] > 0 for k in "ABCD")
