@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py          # from the repository root, one CUDA card
 
+(With arguments it is a rank of the [parallel] phase's worlds, started by
+that phase.)
+
 Phases, each printing its results; any failure exits non-zero:
 
 1. device  -- the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
@@ -91,15 +94,16 @@ Phases, each printing its results; any failure exits non-zero:
               first 8 layers (the depth cut keeps the script in time), gamma 4, the
               first 16 of its prompts, tiered (52 HBM blocks) and ample, in
               three arms: n-gram lookup (verify through K2, no K1 at all),
-              a Llama-3.2-1B draft at full width (W8A16, INT8 draft KV; K1
-              at D 64) and a self-draft (the target proposes for itself,
+              a Llama-3.2-1B draft at full width, its first 8 of 16 layers
+              (the depth cut keeps the script in time; W8A16, INT8 draft
+              KV; K1 at D 64) and a self-draft (the target proposes for itself,
               INT8 draft KV); first K1 at the draft's shape and K2 at the
               verify's (T = 5 at unaligned starts) timed against their plain
               versions. Every request must finish, tiered tokens equal ample
               tokens in every arm, the tiered run migrate both ways, the
               launches be exactly K2 = target prefill dispatches x 8 +
               draft prefill dispatches x L_draft + rounds x 8 and K1 =
-              rounds x 5 x L_draft (L_draft 16, 8, 0 for ngram); then the
+              rounds x 5 x L_draft (L_draft 8, 8, 0 for ngram); then the
               self-draft again at float32 activations (the served bf16
               K1 / K2 variants), whose acceptance -- the cascade-free
               agreement of decode through K1 and verify through K2 -- must
@@ -111,9 +115,10 @@ Phases, each printing its results; any failure exits non-zero:
               prompts (the top-2 gap of the dense logits at each first
               divergence);
 9c. surface -- the serving surface on the serve's Llama-3-8B cut to its
-              first 8 layers (the depth cut keeps the script in time): first K2 at
-              a session turn's shape (T = 33 at unaligned starts 96-191)
-              and K1 at session contexts (up to 224 tokens) timed against
+              first 4 layers (the depth cut keeps the script in time):
+              first K2 at a session turn's shape (T = 33 at
+              unaligned starts 96-191) and K1 at session contexts (up to
+              224 tokens) timed against
               their plain versions. Sessions: 16 x 3 turns (64 + 32, then
               32 new + 32 generated twice: 224 tokens, 7 blocks a session),
               a group of 8 at a time, tiered (52 HBM blocks, a 136-block
@@ -183,7 +188,9 @@ Phases, each printing its results; any failure exits non-zero:
               staging copies (CUDA events), the stream timer's share;
               against an ample pooled engine (600 HBM blocks), recorded;
 9e. prefetch -- the speculative prefetcher and the automatic horizon on
-              the serve's Llama-3-8B at full width and depth. prefetch-lstm:
+              the serve's Llama-3-8B at full width, cut to its first 8
+              layers (the depth cut keeps the script in time).
+              prefetch-lstm:
               the serve cell tiered (52 HBM blocks) with prefetch off, then
               on at depth 2 with the LSTM (online training on its worker
               thread, the in-round continue-probability leg): every request
@@ -200,8 +207,8 @@ Phases, each printing its results; any failure exits non-zero:
               measured on the card) on 8 x (64 + 32), tokens equal to the
               same requests at horizon 32, launches exact; the dispatch
               cost, the derived horizon, tok/s at both; then the step
-              constants of `utils/dispatch.py`: a fused step's ms at 32 and
-              16 layers (decode.program p50 / 32 over 4 rounds of 8 lanes),
+              constants of `utils/dispatch.py`: a fused step's ms at 8 and
+              4 layers (decode.program p50 / 32 over 4 rounds of 8 lanes),
               fitted as weight bytes / rate + floor. The LSTM's third use
               runs in the spec phase (spec-ngram-seeded): the n-gram arm
               with the LSTM seeding lookup misses (`seed_ngram`) at float32
@@ -348,7 +355,7 @@ Phases, each printing its results; any failure exits non-zero:
 17. scripts -- the JAX package's measurement and check scripts ported to
               `cxl_speckv_tpu_torch/scripts/`, each `main([...])` in this
               process, its output under `[scripts] <name>`: round_anatomy
-              (Llama-3.2-1B, the full sweep at reps 2: K1 launches ==
+              (Llama-3.2-1B, the full sweep at reps 1: K1 launches ==
               calls x horizon x 16 exactly, device busy <= host time, the
               host dispatch a step >= 0); kernel_probe (INT8 / INT4, bs 32,
               splits 1 and the rule's S) and kernel_bench (ctx 8192, INT8):
@@ -368,6 +375,31 @@ Phases, each printing its results; any failure exits non-zero:
               finite, BF16 agreement >= INT4's; tpu_window_check (its 18
               cases within 2e-2), tpu_f32_identity (its three legs) and
               hostop_probe (every program's bytes == index_select).
+18. parallel -- mesh serving on torch.distributed: Llama-3-8B at full
+              width cut to its first 4 layers (W8A16, INT8 KV, bs 32, 16 x
+              (64 + 64), batch 8, HBM 44 blocks against a demand of 80,
+              every request with logprobs 2 and ignore_eos) served by the
+              single-process engine and by a tp 2 world of two ranks of
+              this script (`--mode tp`) sharing the one card over gloo, at
+              float32 and at bf16 activations. At float32 both ranks'
+              tokens must equal the single process's (a divergence only as
+              a top-2 swap under 0.06), and at both each rank's K1 / K2
+              launches must equal the single process's; printed: the
+              first step's max |logit| difference and the share of equal
+              tokens (bf16: the difference held to PAR_BF16_RATIO times the
+              single process's own bf16 - float32 distance on the same
+              inputs, the tokens recorded), each rank's ms a decode
+              step, its collectives' ms a step (CUDA events) and their
+              backends, and whether gloo takes each collective of
+              `parallel/mesh.py:COLLECTIVES` on CUDA tensors (it must). K1 / K2 timed at
+              the shard's shapes (16 q / 4 kv heads). Then NCCL at world 1
+              (`--mode nccl`: init and the mesh's collective helpers on the
+              card) and NCCL's answer to two ranks on one device
+              (recorded), and `scripts/multiproc_serve.py` in tpspan
+              (Llama-3.2-1B widths, float32) and dptp (tiny, and tiny with
+              float32 attention) with its identity checks, and what
+              explains a logprob gap: the INT8 KV codes that differ from
+              one process's and K1's split counts.
 
 Each serve prints K1's launches by split count, and its tiered run's
 copy-stream time (CUDA events) and host-blocked ms for migrations. Each model's weights are
@@ -480,8 +512,12 @@ GPT_OSS_WINDOW = 128
 # script took 1139.5 s on a slow host (an H100 80GB HBM3 at 700 W) with
 # GPT-OSS on 12, Gemma-2 on 20 and the spec, surface, INT4 / per-layer and
 # migrate serves on 16 layers; 1097.9 s on a slow host with the scripts
-# phase before GPT-OSS was cut from 8 to 4 layers and Gemma-2 from 12 to 8
-GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 4, 8, 8, 8
+# phase before GPT-OSS was cut from 8 to 4 layers and Gemma-2 from 12 to 8;
+# ~1220 s on a slow host with the parallel phase before the prefetch phase
+# was cut from 32 to 8 layers, the spec phase's 1B draft from 16 to 8, the
+# surface phase from 8 to 4 and round_anatomy's sweep to one rep
+GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 4, 8, 8, 4
+PREFETCH_LAYERS, SPEC_DRAFT_LAYERS = 8, 8
 SCHEME_LAYERS = 8
 STREAM_LAYERS = 8       # stream-mixed / -cancel / -session's depth cut
 # the model families served from their configs (and Phi-3 from an HF state
@@ -1628,17 +1664,19 @@ def phase_probe(peaks) -> list:
 
 def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                  kv="int8", layer_kv=None, engine_kw=None, prefetch=None,
-                 wq="int8", cache_kw=None, **spec):
+                 wq="int8", cache_kw=None, parallel=None, **spec):
     """The serving engine of `cell`; KV scheme `kv`, or the per-layer
     table `layer_kv` (INT8 / FP8 entries); `engine_kw`: more EngineConfig
     fields; `prefetch`: a PrefetchConfig in place of prefetch off (as
     `bench.py`); `wq`: the weight dtype ("int8" W8A16, "int4" W4A16);
-    `cache_kw`: more CacheConfig fields; `spec`: the other arguments of
-    `Engine` (speculative decoding, `enable_lstm`)."""
+    `cache_kw`: more CacheConfig fields; `parallel`: a ParallelConfig (a
+    mesh engine, on a rank of an initialized world); `spec`: the other
+    arguments of `Engine` (speculative decoding, `enable_lstm`)."""
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
         EngineConfig,
         KVDtype,
+        ParallelConfig,
         PrefetchConfig,
         SystemConfig,
     )
@@ -1656,7 +1694,8 @@ def build_engine(cfg, params, cell: Cell, hbm_blocks, host_blocks,
                             max_seq_len=cell.max_seq,
                             prefill_chunk=cell.chunk, decode_horizon=HORIZON,
                             sched_quantum=QUANTUM, weight_dtype=wq,
-                            **(engine_kw or {})))
+                            **(engine_kw or {})),
+        parallel=parallel or ParallelConfig())
     return Engine(cfg, sc, params=params, device=DEV, **spec)
 
 
@@ -2205,7 +2244,9 @@ def phase_spec(cfg, params, prompts, peaks) -> dict:
     ps = prompts[:SPEC_REQ]
     plain, _ = serve(build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0),
                      ps, SHORT.gen)
-    dcfg = llama_3_2_1b()
+    import dataclasses
+
+    dcfg = dataclasses.replace(llama_3_2_1b(), num_layers=SPEC_DRAFT_LAYERS)
     dparams = init_model(dcfg, "spec", 4)
     arms = {"ngram": dict(spec_ngram=True),
             "draft": dict(draft_config=dcfg, draft_params=dparams,
@@ -2991,15 +3032,15 @@ def surface_logprobs(cfg, params, kinds) -> dict:
 def plain_k2():
     """The model passes call K2's plain PyTorch version (on the card's
     tensors) in place of the kernel while the context is open."""
-    llama = sys.modules["cxl_speckv_tpu_torch.models.llama"]
     from cxl_speckv_tpu_torch.ops.chunk_attention import paged_chunk_attention
+    from cxl_speckv_tpu_torch.parallel import shard_kernels
 
-    kernel = llama.paged_chunk_attention_cuda
-    llama.paged_chunk_attention_cuda = paged_chunk_attention
+    kernel = shard_kernels.paged_chunk_attention_cuda
+    shard_kernels.paged_chunk_attention_cuda = paged_chunk_attention
     try:
         yield
     finally:
-        llama.paged_chunk_attention_cuda = kernel
+        shard_kernels.paged_chunk_attention_cuda = kernel
 
 
 def echo_scores(cfg, params, seqs, cell) -> np.ndarray:
@@ -3980,9 +4021,9 @@ def prefetch_default_arm(cfg, params, prompts) -> dict:
 
 
 def phase_prefetch(cfg, params, prompts) -> dict:
-    """The prefetcher on the serve's Llama-3-8B at full depth: the LSTM
-    arm and the default-config arm (the n-gram seed arm runs in the spec
-    phase)."""
+    """The prefetcher on the serve's Llama-3-8B (cut to PREFETCH_LAYERS by
+    the caller): the LSTM arm and the default-config arm (the n-gram seed
+    arm runs in the spec phase)."""
     return {"lstm": prefetch_lstm_arm(cfg, params, prompts),
             "default": prefetch_default_arm(cfg, params, prompts)}
 
@@ -5026,7 +5067,7 @@ def check_k1_points(name: str, rows: dict) -> None:
 
 
 def scripts_round_anatomy() -> None:
-    res, _ = run_script("round_anatomy", ["--reps", "2"])
+    res, _ = run_script("round_anatomy", ["--reps", "1"])
     L = res["layers"]
     for (arm, h, cb), r in res["points"].items():
         if r["k1"] != r["calls"] * h * L or r["k2"]:
@@ -5160,6 +5201,458 @@ def phase_scripts(peaks) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: mesh serving on torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_LAYERS = 4                 # [parallel]'s depth cut of Llama-3-8B
+PAR_TP = 2
+# the serve cell's geometry at 16 requests: 16 x (64 + 64), 5 blocks a
+# sequence, two groups of 8 in turns; HBM 44 blocks against a demand of 80
+# (the pool is smaller than the live KV of both groups), host 88
+PAR_CELL = Cell(16, 64, 64, BATCH, 64, hbm_tiered=44)
+PAR_TIMEOUT_S = 240.0
+# bf16: the first step's max |tp 2 - single| may be at most this multiple of
+# the single process's own bf16 - float32 distance on the same inputs
+PAR_BF16_RATIO = 2.0
+PAR_SHARD_HEADS = (LLAMA_HEADS[0] // PAR_TP, LLAMA_HEADS[1] // PAR_TP,
+                   LLAMA_HEADS[2])
+
+
+def par_config(dtype: str):
+    """Llama-3-8B at full width, its first PAR_LAYERS layers, activations
+    and attention compute in `dtype`."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+
+    return dataclasses.replace(llama_3_8b(), num_layers=PAR_LAYERS,
+                               dtype=dtype, attn_compute_dtype=dtype)
+
+
+def par_prompts(cfg) -> list:
+    rng = np.random.RandomState(20)
+    return [rng.randint(1, cfg.vocab_size, PAR_CELL.prompt).tolist()
+            for _ in range(PAR_CELL.n_req)]
+
+
+class FirstLogits:
+    """Holds the first `models.llama._final_logits` output of the run (the
+    first prefill dispatch's [B, V] float32 logits), on the host."""
+
+    def __enter__(self):
+        from cxl_speckv_tpu_torch.models import llama
+
+        self.mod, self.orig, self.logits = llama, llama._final_logits, None
+        rec = self
+
+        def first(*a, **kw):
+            out = rec.orig(*a, **kw)
+            if rec.logits is None:
+                rec.logits = out.detach().float().cpu()
+            return out
+
+        llama._final_logits = first
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._final_logits = self.orig
+
+
+def par_serve(cfg, params, parallel=None) -> dict:
+    """PAR_CELL served tiered by one engine (a mesh rank's with
+    `parallel`): every request with logprobs 2 and ignore_eos, so that the
+    lengths and launches are fixed and a divergence can be judged by the
+    near-tie rule. Returns tokens, top-2 records, launches, the serve's
+    wall time over its decode steps (decode rounds x HORIZON) and the
+    collectives' time over the same steps, and the first step's logits."""
+    cell = PAR_CELL
+    eng = build_engine(cfg, params, cell, cell.hbm_tiered, cell.host_tiered,
+                       parallel=parallel)
+    mesh = eng.mesh
+    if mesh is not None:
+        mesh.timing = True
+    reset_launches()
+    with FirstLogits() as first:
+        outs, dt = serve_each(eng, [(p, dict(max_new_tokens=cell.gen,
+                                             logprobs=2, ignore_eos=True))
+                                    for p in par_prompts(cfg)])
+    st = eng.get_statistics()
+    if any(o is None or o.finish_reason != "length" for o in outs):
+        fail(f"[parallel] {cfg.dtype}: not every request finished")
+    tr = st["transfer"]
+    if not (tr["up_transfers"] and tr["down_transfers"]):
+        fail(f"[parallel] {cfg.dtype}: the tiered run migrated nothing both "
+             f"ways: {tr}")
+    steps = st["scheduler"]["decode_batches"] * HORIZON
+    coll = mesh.stats() if mesh is not None else {}
+    return {"tokens": [list(map(int, o.tokens)) for o in outs],
+            "top2": [[(r["top_ids"], r["top_logprobs"]) for r in o.logprobs]
+                     for o in outs],
+            "launches": {k: total(v) for k, v in read_launches().items()},
+            "steps": steps, "serve_s": dt, "step_ms": dt * 1e3 / steps,
+            "collectives": coll,
+            "collective_ms_a_step": sum(v["ms"] for v in coll.values())
+            / steps,
+            "migrations": [tr["up_transfers"], tr["down_transfers"]],
+            "logits": first.logits}
+
+
+def par_init(cfg, seed: int, dev):
+    """W8A16 weights of `cfg` from `seed` on `dev` (every rank draws the
+    same full tree, and its engine keeps its shard)."""
+    from cxl_speckv_tpu_torch.models.llama import init_params_quantized
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_params_quantized(cfg, gen, device=dev, bits=8)
+
+
+def gloo_cuda_probe(dev) -> dict:
+    """Which collectives gloo takes on a CUDA tensor itself: each tried
+    once on a group of its own; "ok" or the error gloo raises."""
+    import torch.distributed as dist
+
+    g = dist.new_group(backend="gloo")
+    x = torch.ones(4, device=dev)
+    out = {}
+    for op, call in (
+            ("all_reduce", lambda: dist.all_reduce(x, group=g)),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(dist.get_world_size())],
+                x, group=g))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[op] = "ok"
+        except (RuntimeError, ValueError) as e:
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def collective_ms(dev) -> dict:
+    """ms a call, back to back, of the mesh's collectives over the whole
+    world at a decode step's shapes: the all-reduce of [BATCH, 4096]
+    float32 (a layer's o / down partials) and the all-gather of [BATCH,
+    V / world] logits (Llama-3-8B's vocabulary)."""
+    import torch.distributed as dist
+
+    from cxl_speckv_tpu_torch.parallel import mesh
+
+    g, n = dist.group.WORLD, dist.get_world_size()
+    x = torch.randn(BATCH, 4096, device=dev)
+    lg = torch.randn(BATCH, 128256 // n, device=dev)
+    return {"all_reduce": b2b_ms(lambda: mesh.reduce_in_group(x, g),
+                                 iters=50),
+            "all_gather": b2b_ms(lambda: mesh.gather_in_group(lg, g, n, -1),
+                                 iters=50)}
+
+
+def par_rank(args) -> None:
+    """One rank of [parallel]'s tp world: the float32 and the bf16 serve
+    on a tp mesh, results to `{args.out}.rank{r}.*`."""
+    global DEV
+    from cxl_speckv_tpu_torch.config import ParallelConfig
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(4)
+    dev = distributed.initialize(args.rank, args.world, args.port,
+                                 device=args.device)
+    DEV = str(dev)
+    rec = {"rank": args.rank, "device": DEV,
+           "gloo_cuda": gloo_cuda_probe(dev) if dev.type == "cuda" else {}}
+    for dt in ("float32", "bfloat16"):
+        cfg = par_config(dt)
+        params = par_init(cfg, 0, dev)
+        r = par_serve(cfg, params, ParallelConfig(tp=args.world))
+        del params
+        torch.save(r.pop("logits"), f"{args.out}.rank{args.rank}.{dt}.pt")
+        rec[dt] = r
+        rec["backend"] = torch.distributed.get_backend()
+    rec["collective_ms"] = collective_ms(dev)
+    distributed.shutdown()
+    with open(f"{args.out}.rank{args.rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def nccl_rank(args) -> None:
+    """NCCL on the card: at world 1 `init_process_group("nccl")` and the
+    mesh's collective helpers on CUDA tensors (checked and timed); at world
+    2 on one card, whatever NCCL does with two ranks on one device,
+    recorded (the error it raises), not worked around."""
+    import torch.distributed as dist
+
+    from cxl_speckv_tpu_torch.parallel import distributed, mesh
+
+    rec = {"rank": args.rank, "world": args.world}
+    try:
+        # every rank on cuda:0, as on a one-card machine
+        dev = distributed.initialize(args.rank, args.world, args.port,
+                                     device="cuda", backend="nccl",
+                                     local_rank=0, local_world=1,
+                                     timeout_s=30)
+        rec["backend"] = dist.get_backend()
+        x = torch.randn(PAR_CELL.batch, 4096, device=dev)
+        g = dist.group.WORLD
+        n = args.world
+        y = mesh.reduce_in_group(x, g)
+        z = mesh.gather_in_group(x, g, n, 0)
+        torch.cuda.synchronize()
+        if n == 1:
+            if not (torch.equal(y, x) and torch.equal(z, x)):
+                raise RuntimeError("NCCL all_reduce / all_gather of one rank "
+                                   "changed the tensor")
+            rec["all_reduce_ms"] = b2b_ms(
+                lambda: mesh.reduce_in_group(x, g), iters=50)
+            rec["all_gather_ms"] = b2b_ms(
+                lambda: mesh.gather_in_group(x, g, 1, 0), iters=50)
+        rec["ok"] = True
+    except Exception as e:          # the outcome is the record
+        rec["ok"] = False
+        rec["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    finally:
+        distributed.shutdown()
+    with open(f"{args.out}.rank{args.rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def par_launch(kind: str, world: int, out: str, extra=()) -> list:
+    """Start `world` ranks of this script in `kind` mode and wait (at most
+    PAR_TIMEOUT_S); returns their records."""
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    log_dir = Path(f"{out}.logs")
+    log_dir.mkdir()
+    rcs = distributed.launch(
+        "chip_smoke", world, ["--mode", kind, "--out", out, "--device",
+                              DEV.split(":")[0], *extra],
+        timeout_s=PAR_TIMEOUT_S, cwd=str(Path(__file__).resolve().parent),
+        log_dir=str(log_dir))
+    logs = "".join(p.read_text()[-2000:]
+                   for p in sorted(log_dir.glob("rank*.log")))
+    if any(rcs):
+        fail(f"[parallel] {kind} ranks returned {rcs}:\n{logs}")
+    recs = []
+    for r in range(world):
+        with open(f"{out}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def near_tie_check(label, got: list, want: list, top2: list) -> int:
+    """Each request's tokens equal `want`'s, or first diverge at a top-2
+    swap of the reference (`top2`: its records) closer than NEAR_TIE_GAP.
+    Returns the number of such near-tie divergences."""
+    ties = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        n = first_divergence(g, w)
+        if n is None:
+            continue
+        ids, lps = top2[i][n] if n < len(top2[i]) else ([], [])
+        if not (len(ids) == 2 and g[n] in ids
+                and lps[0] - lps[1] < NEAR_TIE_GAP):
+            fail(f"[parallel] {label}: request {i} diverges at token {n} "
+                 f"({g[n:n + 3]} vs {w[n:n + 3]}), no near tie "
+                 f"(reference top-2 {ids} {lps})")
+        ties += 1
+    return ties
+
+
+def par_kernel_rows(peaks) -> dict:
+    """K1 / K2 at the tp shard's shapes (Llama-3-8B's heads over 2 ranks:
+    16 q / 4 kv heads, D 128) on [parallel]'s pool and table geometry:
+    one decode step of the 8 lanes, the first 64-token prefill chunk."""
+    from cxl_speckv_tpu_torch.config import KVDtype
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20)
+    geo = served_geometry(PAR_CELL)
+    rows = {
+        "K1": k1_case(gen, KVDtype.INT8, torch.bfloat16,
+                      served_lens(PAR_CELL, 20), peaks,
+                      heads=PAR_SHARD_HEADS, timed=True, geometry=geo),
+        "K2": k2_case(gen, KVDtype.INT8, torch.bfloat16, PAR_CELL.chunk,
+                      [0] * PAR_CELL.batch, peaks, heads=PAR_SHARD_HEADS,
+                      timed=True, geometry=geo)}
+    for row in rows.values():
+        row["case"] += " (tp 2 shard)"
+        report(row)
+    return rows
+
+
+def phase_parallel(peaks) -> dict:
+    """tp 2 at Llama-3-8B's widths on one card (two ranks on cuda:0 over
+    gloo) against the single-process engine; NCCL at world 1 and its
+    answer to two ranks on one device; `multiproc_serve` tpspan / dptp."""
+    import tempfile
+    import threading
+
+    tmp = Path(tempfile.mkdtemp(prefix="speckv_parallel_"))
+    print(f"[parallel] Llama-3-8B at full width, its first {PAR_LAYERS} of "
+          f"32 layers (the depth cut keeps the script in time), W8A16, INT8 "
+          f"KV, bs {BS}: {PAR_CELL.n_req} x ({PAR_CELL.prompt} + "
+          f"{PAR_CELL.gen}), batch {PAR_CELL.batch}, HBM "
+          f"{PAR_CELL.hbm_tiered} blocks for a demand of "
+          f"{PAR_CELL.n_req * PAR_CELL.blocks_per_seq}, host "
+          f"{PAR_CELL.host_tiered}; tp {PAR_TP} on one card", flush=True)
+    ref = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = par_config(dt)
+        params = par_init(cfg, 0, DEV)
+        ref[dt] = par_serve(cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = par_kernel_rows(peaks)
+
+    recs = par_launch("tp", PAR_TP, str(tmp / "tp"))
+    from cxl_speckv_tpu_torch.parallel.mesh import COLLECTIVES
+
+    probe = recs[0]["gloo_cuda"]
+    print(f"[parallel] gloo on CUDA tensors: {probe}", flush=True)
+    if DEV.startswith("cuda") and any(probe[op] != "ok"
+                                      for op in COLLECTIVES):
+        fail(f"[parallel] gloo refuses a collective the mesh issues on CUDA "
+             f"tensors ({probe}): parallel/mesh.py needs a route around it")
+    for r in recs:
+        for dt in ("float32", "bfloat16"):
+            if r[dt]["tokens"] != recs[0][dt]["tokens"]:
+                fail(f"[parallel] {dt}: rank {r['rank']}'s tokens differ "
+                     f"from rank 0's")
+    got, want = recs[0]["float32"], ref["float32"]
+    ties = near_tie_check("float32", got["tokens"], want["tokens"],
+                          want["top2"])
+    for r in recs:
+        for dt in ("float32", "bfloat16"):
+            if r[dt]["launches"] != ref[dt]["launches"]:
+                fail(f"[parallel] {dt}: rank {r['rank']}'s K1 / K2 launches "
+                     f"{r[dt]['launches']} != the single-process engine's "
+                     f"{ref[dt]['launches']}")
+    # bf16's own distance from float32: the single process's first-step
+    # logits at the two activation dtypes (the same int8 weights and inputs)
+    own = float((ref["bfloat16"]["logits"] - ref["float32"]["logits"])
+                .abs().max())
+    for dt in ("float32", "bfloat16"):
+        a = torch.load(f"{tmp / 'tp'}.rank0.{dt}.pt")
+        b = ref[dt]["logits"]
+        gap = float((a - b).abs().max())
+        toks = sum(len(t) for t in ref[dt]["tokens"])
+        same = sum(x == y for g, w in zip(recs[0][dt]["tokens"],
+                                          ref[dt]["tokens"])
+                   for x, y in zip(g, w))
+        print(f"[parallel] {dt}: first step's logits [{a.shape[0]}, "
+              f"{a.shape[1]}] max |tp 2 - single| {gap:.4e}; tokens equal "
+              f"{same}/{toks} ({same / toks:.4f})"
+              + (f", near-tie divergences {ties}" if dt == "float32"
+                 else f"; the single process's own max |bf16 - float32| "
+                 f"{own:.4e} (ratio {gap / own:.3f}, limit "
+                 f"{PAR_BF16_RATIO})"), flush=True)
+        if dt == "bfloat16" and not gap <= PAR_BF16_RATIO * own:
+            fail(f"[parallel] bf16: the first step's max |tp 2 - single| "
+                 f"{gap:.4e} exceeds {PAR_BF16_RATIO} x the single "
+                 f"process's own bf16 - float32 distance {own:.4e}")
+    for r in recs:
+        c = r["collective_ms"]
+        print(f"[parallel] rank {r['rank']}: {r['backend']} on CUDA tensors, "
+              f"back to back: all_reduce [{PAR_CELL.batch}, 4096] float32 "
+              f"{c['all_reduce']:.4f} ms, all_gather [{PAR_CELL.batch}, "
+              f"{128256 // PAR_TP}] float32 {c['all_gather']:.4f} ms a call",
+              flush=True)
+        for dt in ("float32", "bfloat16"):
+            x = r[dt]
+            print(f"[parallel] rank {r['rank']} {dt} ({r['backend']}, "
+                  f"{r['device']}): {x['steps']} decode steps, serve wall "
+                  f"{x['step_ms']:.2f} ms a step (single process "
+                  f"{ref[dt]['step_ms']:.2f}), "
+                  f"collectives {x['collective_ms_a_step']:.3f} ms a step "
+                  f"(CUDA events), launches {x['launches']} (single "
+                  f"process {ref[dt]['launches']}), migrations up / down "
+                  f"{x['migrations']}; by collective and backend: "
+                  f"{x['collectives']}", flush=True)
+
+    # NCCL: world 1 on the card, and two ranks on its one device
+    nccl = {}
+    threads = [threading.Thread(target=lambda w=w: nccl.__setitem__(
+        w, par_launch("nccl", w, str(tmp / f"nccl{w}"))))
+        for w in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    one = nccl[1][0]
+    if not one["ok"]:
+        fail(f"[parallel] NCCL at world 1: {one['error']}")
+    print(f"[parallel] NCCL at world 1 ({one['backend']}): all_reduce / "
+          f"all_gather of [{PAR_CELL.batch}, 4096] float32 "
+          f"{one['all_reduce_ms']:.4f} / {one['all_gather_ms']:.4f} ms back "
+          f"to back", flush=True)
+    for r in nccl[2]:
+        print(f"[parallel] NCCL with two ranks on one device, rank "
+              f"{r['rank']}: " + ("no error" if r["ok"] else r["error"]),
+              flush=True)
+
+    # the lockstep script across real processes on the card, all at once
+    # (their worlds and references share the card); dptp also with the tiny
+    # model's attention in float32, where nothing rounds at bf16 grade
+    from cxl_speckv_tpu_torch.scripts import multiproc_serve
+
+    runs = {}
+    jobs = (("tpspan", "1b"), ("dptp", "tiny"), ("dptp", "tiny-f32"))
+
+    def script(mode, model):
+        runs[mode, model] = multiproc_serve.main([
+            "--mode", mode, "--model", model,
+            "--out", str(tmp / f"mp_{mode}_{model}.json"),
+            "--device", DEV.split(":")[0], "--threads", "2"])
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=script, args=mm) for mm in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for mode, model in jobs:
+        if (mode, model) not in runs:
+            fail(f"[parallel] multiproc_serve {mode} {model} raised (see "
+                 f"above)")
+        m = runs[mode, model][mode]
+        print(f"[parallel] multiproc_serve {mode} ({model}): "
+              f"{m['requests_served']} requests, identical across "
+              f"{m['process_count']} processes "
+              f"{m['outputs_identical_across_processes']}, equal to one "
+              f"process {m['matches_single_process_reference']} "
+              f"({m['reference_comparison']}, logprob limit "
+              f"{m['logprob_limit']}); KV codes against the reference's, "
+              f"by rank: {m['kv_codes_vs_reference']}; K1 splits "
+              f"{m['k1_splits']}; rank 0's collectives "
+              f"{m['collectives_rank0']}", flush=True)
+        if not runs[mode, model]["ok"]:
+            fail(f"[parallel] multiproc_serve {mode} {model}: {m}")
+    print(f"[parallel] multiproc_serve, all three at once: "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return {"rows": rows, "launches": recs[0]["bfloat16"]["launches"]}
+
+
+def rank_main(argv) -> int:
+    """A rank of the [parallel] phase's worlds (started by `par_launch`)."""
+    import argparse
+
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    ap = argparse.ArgumentParser()
+    distributed.add_rank_args(ap)
+    ap.add_argument("--mode", choices=("tp", "nccl"), required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.device == "cpu":
+        # ranks on the CPU (gloo): nothing to synchronize
+        torch.cuda.synchronize = lambda *a, **kw: None
+    (par_rank if args.mode == "tp" else nccl_rank)(args)
+    return 0
+
+
+
 def timed(label: str, phase, *args, **kw):
     """Run one phase and print its wall time."""
     t0 = time.monotonic()
@@ -5192,6 +5685,8 @@ def kernel_entry(name, key, row, launches) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) > 1:
+        return rank_main(sys.argv[1:])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
@@ -5233,7 +5728,8 @@ def main() -> int:
     surface = timed("surface", phase_surface,
                     *first_layers(cfg, params, SURFACE_LAYERS), prompts, peaks)
     stream = timed("stream", phase_stream, cfg, params, prompts, peaks)
-    timed("prefetch", phase_prefetch, cfg, params, prompts)
+    timed("prefetch", phase_prefetch,
+          *first_layers(cfg, params, PREFETCH_LAYERS), prompts)
     timed("migrate", phase_migrate, cfg, params, prompts)
     timed("server", phase_server, *first_layers(cfg, params, SERVER_LAYERS),
           prompts)
@@ -5252,6 +5748,7 @@ def main() -> int:
                     "qwen2-moe": timed("qwen2-moe", phase_qwen2_moe, peaks),
                     "phi3": timed("phi3-hf", phase_phi3_hf)}
     script_entries = timed("scripts", phase_scripts, peaks)
+    par = timed("parallel", phase_parallel, peaks)
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
@@ -5343,6 +5840,11 @@ def main() -> int:
                       for e in rows)
             print(f"[loss] K1 on the device alone (CUDA-graph times): "
                   f"{dev:.3f} s", flush=True)
+    # K1 / K2 on a tp 2 rank's shard; launches: rank 0's bf16 serve
+    for key, kname in (("K1", "paged_attention"),
+                       ("K2", "paged_chunk_attention")):
+        entries.append(kernel_entry(f"{kname} llama-3-8b tp2 shard", key,
+                                    par["rows"][key], par["launches"][key]))
     entries += probe_entries
     entries += script_entries
     # replaces no pl.pallas_call: the JAX package's int4 weights convert

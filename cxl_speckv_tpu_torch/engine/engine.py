@@ -70,7 +70,24 @@ without one runs the plain path.
 
 The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
-the CPU. Mesh serving is not ported yet: asking for it raises.
+the CPU.
+
+Mesh serving (`SystemConfig.parallel`, dp x ep x tp > 1): one engine a rank
+of an initialized `torch.distributed` world (`parallel/distributed.py`),
+every rank fed the same commands (`parallel/lockstep.py`). Every rank runs
+the whole engine's bookkeeping over all lanes (scheduler, tables,
+directory, prefetcher, requests), so its decisions and req_ids are those of
+every other rank, and the ranks share the model's work
+(`parallel/sharding.py`): tp splits the weights, the KV heads of the pools
+and host store and the vocabulary; ep splits MoE experts; dp splits the
+lanes of every batch whose width it divides. Each pass returns the whole
+batch's results on every rank (`models/llama.py`), and the dp replicas of
+the pools stay bitwise equal (`parallel/shard_kernels.exchange_rows`). K1
+and K2 run on each rank's shard. A draft model shards with the target when
+its axes divide tp, else every rank serves it whole. Polls and flushes of
+the migrations wait under a mesh (`TieredKVCache(lockstep=True)`), the
+prefetch predictor keeps its host path (no in-round leg, as the JAX engine)
+and trains synchronously, and the derived `decode_horizon` is rank 0's.
 
 `EngineConfig.weight_dtype` "int8" serves W8A16 and "int4" W4A16 weights
 (`ops/wquant.py`; each int4 matmul unpacks its weight in one launch of
@@ -115,6 +132,12 @@ from cxl_speckv_tpu_torch.models.llama import (
 )
 from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
+from cxl_speckv_tpu_torch.parallel.mesh import Mesh
+from cxl_speckv_tpu_torch.parallel.sharding import (
+    shard_params,
+    tp_compatible,
+    validate_tp,
+)
 from cxl_speckv_tpu_torch.prefetcher.controller import PrefetchController
 from cxl_speckv_tpu_torch.prefetcher.lstm import LSTMPredictor, tree_to
 from cxl_speckv_tpu_torch.runtime.kv_cache import TieredKVCache
@@ -266,9 +289,7 @@ class Engine:
         check_supported(model_config)
         ec = system_config.engine
         cc = system_config.cache
-        if system_config.parallel.num_devices > 1:
-            raise NotImplementedError("not ported yet: mesh serving "
-                                      "(parallel)")
+        self.mesh = self._build_mesh(model_config, system_config)
         lkd = cc.layer_kv_dtypes
         if lkd is not None and len(lkd) != model_config.num_layers:
             raise ValueError(
@@ -282,10 +303,13 @@ class Engine:
         self._kv_scheme = cc.kv_dtype
         self._layer_schemes = tuple(lkd) if lkd is not None else None
         max_blocks_per_seq = -(-ec.max_seq_len // cc.block_size)
+        tp = system_config.parallel.tp
         self.kvc = TieredKVCache(cc, model_config,
                                  max_seqs=ec.max_batch_size * 64,
                                  max_blocks_per_seq=max_blocks_per_seq,
-                                 device=self.device)
+                                 device=self.device,
+                                 kv_heads=model_config.num_kv_heads // tp,
+                                 lockstep=self.mesh is not None)
         # W8A16 / W4A16: a tree that is not quantized yet quantizes at the
         # width `weight_dtype` asks for; a quantized one serves as it is
         # (the JAX engine's rule)
@@ -299,12 +323,17 @@ class Engine:
                       init_params(model_config, gen, self.device))
         elif wq_bits and not is_quantized(params):
             params = quantize_weights(params, bits=wq_bits)
-        self.params = params
+        self.params = (shard_params(params, model_config, self.mesh)
+                       if self.mesh is not None else params)
         if ec.decode_horizon <= 0:
             # written back, so that every reader of the config sees one
-            # number (utils/dispatch.py)
-            ec.decode_horizon = derive_decode_horizon(
-                params_byte_size(params), device=self.device)
+            # number (utils/dispatch.py); from the whole model's bytes, and
+            # rank 0's on a mesh, whose ranks must schedule alike
+            h = derive_decode_horizon(params_byte_size(params),
+                                      device=self.device)
+            ec.decode_horizon = (self.mesh.agree(h) if self.mesh is not None
+                                 else h)
+        del params
         self.eos_token_id = (ec.eos_token_id if ec.eos_token_id is not None
                              else model_config.eos_token_id)
         pf = system_config.prefetch
@@ -352,9 +381,17 @@ class Engine:
                     init_params(draft_config, gen, self.device))
             elif wq_bits and not is_quantized(draft_params):
                 draft_params = quantize_weights(draft_params, bits=wq_bits)
+            draft_heads = draft_config.num_kv_heads
+            if self.mesh is not None and tp_compatible(draft_config, tp):
+                # sharded with the target; otherwise served whole on every
+                # rank (a tiny draft with few heads)
+                draft_params = shard_params(draft_params, draft_config,
+                                            self.mesh)
+                draft_heads //= tp
             self.spec = SpecDecoder(draft_config, draft_params, self.kvc,
                                     gamma=spec_gamma,
-                                    draft_kv_dtype=KVDtype(spec_draft_kv))
+                                    draft_kv_dtype=KVDtype(spec_draft_kv),
+                                    kv_heads=draft_heads)
         if self.spec is not None:
             self.scheduler.free_seq_hook = self.spec.on_free_seq
         # fused rounds (EngineConfig.fused_rounds): the queued migration
@@ -404,6 +441,32 @@ class Engine:
             self._stream_max_blocks = 0
         self._stream_queue: deque[Request] = deque()
         self._streams: dict[int, StreamState] = {}
+
+    @staticmethod
+    def _build_mesh(model_config: LlamaConfig, system_config: SystemConfig):
+        """The mesh of `system_config.parallel` over the initialized world,
+        or None for one device. Checks the JAX engine's divisibility rules
+        and what lockstep scheduling needs."""
+        pc = system_config.parallel
+        if pc.num_devices == 1:
+            return None
+        ec = system_config.engine
+        validate_tp(model_config, pc.tp, ep=pc.ep)
+        if ec.max_batch_size % pc.dp:
+            raise ValueError("max_batch_size must be divisible by dp")
+        if ec.prefill_lanes and ec.prefill_lanes % pc.dp:
+            raise ValueError("prefill_lanes must be divisible by dp")
+        pf = system_config.prefetch
+        if pf.train_online and pf.train_async:
+            raise ValueError(
+                "mesh serving needs PrefetchConfig(train_async=False): every "
+                "rank must apply the predictor's updates at the same step")
+        if not torch.distributed.is_initialized():
+            raise RuntimeError(
+                f"a dp*ep*tp = {pc.num_devices} mesh serves one engine a "
+                "rank of an initialized torch.distributed world "
+                "(cxl_speckv_tpu_torch.parallel.distributed)")
+        return Mesh(dp=pc.dp, ep=pc.ep, tp=pc.tp)
 
     # -- public API -------------------------------------------------------------
 
@@ -1241,7 +1304,9 @@ class Engine:
         pc = self.config.prefetch
         if (pf.predictor is None or not pc.enabled or not pc.ingraph_pcont
                 or self.eos_token_id is None
-                or self.config.engine.decode_horizon <= 1):
+                or self.config.engine.decode_horizon <= 1
+                or self.mesh is not None):
+            # a mesh keeps the host path, as the JAX engine does
             return {}, None
         if pf.predictor.params is not self._lstm_src and (
                 self._lstm_dev is None
@@ -1757,8 +1822,9 @@ class Engine:
         weights at the model's precision, with no KV pools and no serving
         state (`engine/scoring.py`). Distinct from
         `add_request(prompt_logprobs=True)`, which scores through the
-        quantized serving path. mode "pp" / "sp" raise NotImplementedError
-        (the parallel package is not ported)."""
+        quantized serving path. On a mesh engine "dense" runs the forward
+        with the serving path's collectives; mode "pp" / "sp" raise
+        NotImplementedError (their port is the next slice)."""
         return scoring.score_prompts(self.params, self.model_config, prompts,
                                      mode=mode, parallel_size=parallel_size,
                                      num_microbatches=num_microbatches)
@@ -1793,7 +1859,24 @@ class Engine:
             "prefetch": self.prefetcher.get_statistics().as_dict(),
             "prefetch_depth": self.prefetcher.depth,
             **self.kvc.get_statistics(),
+            **({"mesh": self._mesh_statistics()} if self.mesh is not None
+               else {}),
         }
+
+    def _mesh_statistics(self) -> dict:
+        """The rank's place, the scope of the cache's byte counts (this
+        rank's kv heads) beside the whole mesh's, and the collectives."""
+        c = self.model_config
+        per_rank = self.kvc.compression_statistics()[
+            "bytes_per_token_per_layer"]
+        return {"dp": self.mesh.dp, "ep": self.mesh.ep, "tp": self.mesh.tp,
+                "rank": self.mesh.rank, "backend": self.mesh.backend,
+                "kv_heads_here": self.kvc.kv_heads,
+                "kv_heads_model": c.num_kv_heads,
+                "cache_bytes_scope": "rank",
+                "bytes_per_token_per_layer_rank": per_rank,
+                "bytes_per_token_per_layer_mesh": per_rank * self.mesh.tp,
+                "collectives": self.mesh.stats()}
 
     def reset_statistics(self) -> None:
         self.stats.reset()

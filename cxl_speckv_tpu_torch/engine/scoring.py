@@ -7,9 +7,11 @@ whole prompts scored at the model's precision with no KV pools at all
 (perplexity evals, reranking, distillation scoring).
 
 `mode="dense"` runs `models.llama.forward_dense` on the device the weights
-live on. The JAX package's pipeline (`"pp"`) and ring-attention (`"sp"`)
-executions of the same math belong to its `parallel` package, which the
-port has not ported: they raise NotImplementedError.
+live on; on a mesh-cut tree it runs with the serving path's tp / ep
+collectives. The JAX package's pipeline (`"pp"`) and ring-attention
+(`"sp"`) executions of the same math belong to the offline-scoring half of
+its `parallel` package, which the port has not ported yet: they raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -52,8 +54,9 @@ def score_prompts(params, config, prompts: list[list[int]], *,
         raise ValueError("each prompt needs >= 2 tokens to score")
     if mode in ("pp", "sp"):
         raise NotImplementedError(
-            f"not ported yet: score_prompts(mode={mode!r}) needs the "
-            f"parallel package (ROADMAP queue 1 item 8)")
+            f"not ported yet: score_prompts(mode={mode!r}) needs "
+            f"parallel/pipeline.py and parallel/ring.py, the next slice of "
+            f"the port (ROADMAP queue 1 item 5)")
     if mode != "dense":
         raise ValueError(f"unknown scoring mode {mode!r}")
     toks, B, T = _pad_batch(prompts, 1, 1)

@@ -30,7 +30,13 @@ The draft's KV lives in its own pool sized for the whole logical block
 space (`cache.total_blocks`, + a guard slot), in the port's token-major
 layout; it never tiers, only target KV migrates. Draft slots follow the
 target's logical blocks: prefix sharing, frees and window retirement.
-The JAX package's mesh arguments have no counterpart here.
+
+On a mesh engine a draft whose axes divide tp comes cut for the mesh
+(`parallel/sharding.py`) and its pool holds this rank's kv heads
+(`kv_heads`); the model functions then issue its collectives as the
+target's. Another draft is served whole on every rank. Every pass returns
+the whole batch's results on every rank, so the JAX package's `fetch_mesh`
+(a replicating fetch of sharded outputs) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -278,7 +284,8 @@ class SpecDecoder(_AcceptanceMixin):
     has_draft_model = True
 
     def __init__(self, draft_config: LlamaConfig, draft_params, target_kvc,
-                 gamma: int = 4, draft_kv_dtype: KVDtype = KVDtype.BF16):
+                 gamma: int = 4, draft_kv_dtype: KVDtype = KVDtype.BF16,
+                 kv_heads: int | None = None):
         self.config = draft_config
         self.params = draft_params
         self.kvc = target_kvc
@@ -288,7 +295,8 @@ class SpecDecoder(_AcceptanceMixin):
         c = draft_config
         n_slots = cache.total_blocks + 1  # every logical block fits; + guard
         # the port's pool layout (`runtime/kv_cache.py:_alloc_storage`)
-        shape = (c.num_layers, n_slots, c.num_kv_heads, cache.block_size,
+        shape = (c.num_layers, n_slots, kv_heads or c.num_kv_heads,
+                 cache.block_size,
                  c.head_dim // kv_pack(self.kv_dtype))
         elem, dev = kv_storage_dtype(self.kv_dtype), target_kvc.device
         self.pools = (torch.zeros(shape, dtype=elem, device=dev),

@@ -37,13 +37,22 @@ counterpart here.
 
 Attention goes through the kernel wrappers `ops.paged_attention.
 paged_attention` (K1, decode) and `ops.chunk_attention_cuda.
-paged_chunk_attention_cuda` (K2, prefill and verify): the CUDA kernels for
+paged_chunk_attention_cuda` (K2, prefill and verify), reached through
+`parallel/shard_kernels.py` with or without a mesh: the CUDA kernels for
 tensors on the card, their plain versions for tensors on the CPU.
 
 `kv_dtype` is one scheme for every layer, or a tuple of per-layer schemes
 (INT8 / FP8, `CacheConfig.layer_kv_dtypes`): layer li then quantizes with
 its own scheme and attends as MIXED8 with its scheme id
 (`layer_kv_schemes`).
+
+On a mesh (a tree cut by `parallel/sharding.shard_params`, which carries
+its mesh) the same functions run this rank's share: its tp heads, FFN
+columns and vocabulary rows, its dp lanes of a batch whose width dp
+divides; they issue the collectives themselves (`_embed`, `_final_logits`,
+`_block_residuals`, `moe.moe_ffn`, and the dp gather and KV-row exchange at
+the end of `_decode_core` / `_chunk_forward`), and every rank returns the
+whole batch's results.
 
 Activations other than SiLU and tanh-GELU raise NotImplementedError.
 """
@@ -60,10 +69,6 @@ from cxl_speckv_tpu_torch.config import KVDtype
 from cxl_speckv_tpu_torch.models import moe
 from cxl_speckv_tpu_torch.models.configs import LlamaConfig
 from cxl_speckv_tpu_torch.ops import wquant
-from cxl_speckv_tpu_torch.ops.chunk_attention_cuda import (
-    paged_chunk_attention_cuda,
-)
-from cxl_speckv_tpu_torch.ops.paged_attention import paged_attention
 from cxl_speckv_tpu_torch.ops.paged_attention_ref import sink_softmax, soft_cap
 from cxl_speckv_tpu_torch.ops.quant import (
     dequantize_kv,
@@ -82,6 +87,14 @@ from cxl_speckv_tpu_torch.ops.wquant import (
     quantize_tensor,
     take_rows,
 )
+from cxl_speckv_tpu_torch.parallel.shard_kernels import (
+    exchange_rows,
+    lane_slice,
+    shard_heads,
+    sharded_chunk_attention,
+    sharded_paged_attention,
+)
+from cxl_speckv_tpu_torch.parallel.sharding import mesh_of
 from cxl_speckv_tpu_torch.runtime.hoststore import (
     fetch_blocks,
     stage_layers,
@@ -300,8 +313,19 @@ def _norm(x: torch.Tensor, weight: torch.Tensor,
 
 def _embed(params: Params, config: LlamaConfig,
            token_ids: torch.Tensor) -> torch.Tensor:
-    x = take_rows(params["embed"], token_ids,
-                  dtype=torch_dtype(config.dtype))
+    """Embedding rows of `token_ids`. On a tp mesh each rank holds V/tp
+    rows: it looks up the ids that fall in its range, zeros the others and
+    the ranks' rows are summed (one non-zero term a token: exact)."""
+    mesh = mesh_of(params)
+    dt = torch_dtype(config.dtype)
+    if mesh is None or mesh.tp == 1:
+        x = take_rows(params["embed"], token_ids, dtype=dt)
+    else:
+        vl = params["embed"].shape[0]
+        local = token_ids - mesh.coords["tp"] * vl
+        hit = (local >= 0) & (local < vl)
+        x = take_rows(params["embed"], torch.where(hit, local, 0), dtype=dt)
+        x = mesh.all_reduce(x * hit[..., None].to(x.dtype), "tp")
     if config.embed_scale:
         # sqrt(H) rounded to the activation dtype first, as JAX and HF do
         # (bf16: sqrt(3584) = 59.87 becomes 59.75)
@@ -312,8 +336,13 @@ def _embed(params: Params, config: LlamaConfig,
 
 def _final_logits(x: torch.Tensor, params: Params,
                   config: LlamaConfig) -> torch.Tensor:
+    """Logits [..., V] float32; on a tp mesh each rank computes its V/tp
+    columns and they are gathered, so that every rank samples from the
+    whole distribution."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-    return soft_cap(mm(x, head).float(), config.final_softcap)
+    logits = soft_cap(mm(x, head).float(), config.final_softcap)
+    mesh = mesh_of(params)
+    return logits if mesh is None else mesh.all_gather(logits, "tp", -1)
 
 
 def rope_frequencies(config: LlamaConfig,
@@ -412,13 +441,15 @@ def _mlp(x, gate, up, down, act=torch.nn.functional.silu):
     return mm(act(mm(x, gate)) * mm(x, up), down)
 
 
-def _ffn(x, lp, config):
+def _ffn(x, lp, config, mesh=None):
     """The dense gated MLP, or the sparse-MoE block over the flattened
-    tokens when the layer has a router."""
+    tokens when the layer has a router. On a mesh the row-parallel down
+    products are summed over tp (over ep and tp for the experts)."""
     if "router" not in lp:
-        return _mlp(x, lp["gate"], lp["up"], lp["down"], _act(config))
-    return moe.moe_ffn(x.reshape(-1, x.shape[-1]), lp, config).reshape(
-        x.shape)
+        y = _mlp(x, lp["gate"], lp["up"], lp["down"], _act(config))
+        return y if mesh is None else mesh.all_reduce(y, "tp")
+    return moe.moe_ffn(x.reshape(-1, x.shape[-1]), lp, config,
+                       mesh).reshape(x.shape)
 
 
 def _qkv(h, lp, config: LlamaConfig):
@@ -437,35 +468,37 @@ def _qkv(h, lp, config: LlamaConfig):
     return q, k, v
 
 
-def _block_residuals(x, o_flat, lp, config):
+def _block_residuals(x, o_flat, lp, config, mesh=None):
     """o-projection (+ its bias, + Gemma-2 post-attention norm) + residual,
-    then the MLP block (+ post-MLP norm) + residual."""
+    then the MLP block (+ post-MLP norm) + residual. On a tp mesh o is
+    row-parallel: its partial products are summed before the bias and the
+    norm (`parallel/sharding.py`)."""
     att = mm(o_flat.to(x.dtype), lp["o"])
+    if mesh is not None:
+        att = mesh.all_reduce(att, "tp")
     if "o_bias" in lp:
         att = att + lp["o_bias"]
     if "post_attn_norm" in lp:
         att = _norm(att, lp["post_attn_norm"], config)
     x = x + att
-    mlp = _ffn(_norm(x, lp["mlp_norm"], config), lp, config)
+    mlp = _ffn(_norm(x, lp["mlp_norm"], config), lp, config, mesh)
     if "post_mlp_norm" in lp:
         mlp = _norm(mlp, lp["post_mlp_norm"], config)
     return x + mlp
 
 
-def _attend_fns(config: LlamaConfig):
-    """(decode_attend, chunk_attend) with the config's compute dtype and
-    attention softcap; callers pass each layer's window."""
+def _attend_fns(config: LlamaConfig, mesh=None):
+    """(decode_attend, chunk_attend): K1 and K2 with the config's compute
+    dtype and attention softcap on this rank's heads
+    (`parallel/shard_kernels.py`; all of them without a mesh), as the JAX
+    `_attend_fns(config, use_pallas, mesh)` shard-maps them; callers pass
+    each layer's window."""
     cd = torch_dtype(config.attn_compute_dtype)
     cap = config.attn_softcap
-
-    def decode(*args, **kw):
-        return paged_attention(*args, compute_dtype=cd, softcap=cap, **kw)
-
-    def chunk(*args, **kw):
-        return paged_chunk_attention_cuda(*args, compute_dtype=cd,
-                                          softcap=cap, **kw)
-
-    return decode, chunk
+    return (sharded_paged_attention(mesh, config, compute_dtype=cd,
+                                    softcap=cap),
+            sharded_chunk_attention(mesh, config, compute_dtype=cd,
+                                    softcap=cap))
 
 
 def _append_kv(pools: Pools, li: int, kenc, venc, ks, vs, slots, offs):
@@ -489,36 +522,49 @@ def _decode_core(params: Params, config: LlamaConfig, schemes: list,
                  seq_lens: torch.Tensor) -> torch.Tensor:
     """One decode step: append each lane's token KV at `positions`, attend
     over the pool including it; returns logits [B, V] float32. `schemes`
-    comes from `layer_kv_schemes`."""
+    comes from `layer_kv_schemes`.
+
+    On a mesh this rank runs its dp lanes (`lane_slice`) over its tp heads;
+    the final hidden states are gathered over dp, so every rank computes
+    the whole batch's logits, and the KV rows each dp rank appended are
+    exchanged (`exchange_rows`)."""
     c = config
-    B = token_ids.shape[0]
+    mesh = mesh_of(params)
     bs = pools[1].shape[3]
     ropes = layer_ropes(c, token_ids.device)
-    x = _embed(params, c, token_ids)                      # [B, H]
     # clamped: overshoot steps past a finished lane stay inside the table
     blk = torch.clamp(positions // bs, 0, block_table.shape[1] - 1)
     slots = torch.gather(block_table, 1, blk[:, None].long())[:, 0].long()
     offs = (positions % bs).long()
-    attend, _ = _attend_fns(c)
+    lanes = lane_slice(mesh, token_ids.shape[0])
+    sl = lanes if lanes is not None else slice(None)
+    x = _embed(params, c, token_ids[sl])                  # [B, H]
+    B = x.shape[0]
+    attend, _ = _attend_fns(c, mesh)
+    hq, hkv = shard_heads(c, mesh)
     windows = c.layer_windows()
     for li in range(c.num_layers):
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
-        q = apply_rope(q.reshape(B, c.num_q_heads, c.head_dim), positions,
+        q = apply_rope(q.reshape(B, hq, c.head_dim), positions[sl],
                        ropes[li])
-        k = apply_rope(k.reshape(B, c.num_kv_heads, c.head_dim), positions,
+        k = apply_rope(k.reshape(B, hkv, c.head_dim), positions[sl],
                        ropes[li])
-        v = v.reshape(B, c.num_kv_heads, c.head_dim)
+        v = v.reshape(B, hkv, c.head_dim)
         scheme, read_as, sid = schemes[li]
         kq, ks = quantize_kv(k, scheme)
         vq, vs = quantize_kv(v, scheme)
         _append_kv(pools, li, encode_for_pool(kq, scheme),
-                   encode_for_pool(vq, scheme), ks, vs, slots, offs)
+                   encode_for_pool(vq, scheme), ks, vs, slots[sl], offs[sl])
         o = attend(q, pools[0][li], pools[1][li], pools[2][li], pools[3][li],
-                   block_table, seq_lens, read_as, sm_scale=c.sm_scale,
-                   window=windows[li], sinks=lp.get("sinks"), scheme_id=sid)
-        x = _block_residuals(x, o.reshape(B, -1), lp, c)
+                   block_table[sl], seq_lens[sl], read_as,
+                   sm_scale=c.sm_scale, window=windows[li],
+                   sinks=lp.get("sinks"), scheme_id=sid)
+        x = _block_residuals(x, o.reshape(B, -1), lp, c, mesh)
+    if lanes is not None:
+        x = mesh.all_gather(x, "dp", 0)
+        exchange_rows(pools, mesh, lanes, slots[:, None], offs[:, None])
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)
 
@@ -713,11 +759,16 @@ def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
     dequantized values, exactly what a later decode step reads from the
     pool (fresh float32 K/V would disagree with the quantized view near
     ties), and are appended to the pools in place after attention;
-    positions where `write` [B, T] is False write the guard slot."""
+    positions where `write` [B, T] is False write the guard slot.
+
+    On a mesh, as `_decode_core`: this rank's dp lanes over its tp heads,
+    the hidden states gathered over dp (every rank returns all B lanes) and
+    the appended rows exchanged."""
     c = config
+    mesh = mesh_of(params)
     schemes = layer_kv_schemes(kv_dtype, c.num_layers)
     dev = token_ids.device
-    B, T = token_ids.shape
+    T = token_ids.shape[1]
     bs = pools[1].shape[3]
     guard_slot = pools[0].shape[1] - 1
     positions = start[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
@@ -726,30 +777,36 @@ def _chunk_forward(params: Params, config: LlamaConfig, kv_dtype,
     slots = torch.where(write, slots, torch.full_like(slots, guard_slot))
     offs = (positions % bs).long()
     ropes = layer_ropes(c, dev)
-    x = _embed(params, c, token_ids)                         # [B, T, H]
-    _, attend_chunk = _attend_fns(c)
+    lanes = lane_slice(mesh, token_ids.shape[0])
+    sl = lanes if lanes is not None else slice(None)
+    pos_l, tables_l, start_l = positions[sl], tables[sl], start[sl]
+    x = _embed(params, c, token_ids[sl])                     # [B, T, H]
+    B = x.shape[0]
+    _, attend_chunk = _attend_fns(c, mesh)
+    hq, hkv = shard_heads(c, mesh)
     windows = c.layer_windows()
     for li in range(c.num_layers):
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
-        q = apply_rope(q.reshape(B, T, c.num_q_heads, c.head_dim), positions,
-                       ropes[li])
-        k = apply_rope(k.reshape(B, T, c.num_kv_heads, c.head_dim),
-                       positions, ropes[li])
-        v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
+        q = apply_rope(q.reshape(B, T, hq, c.head_dim), pos_l, ropes[li])
+        k = apply_rope(k.reshape(B, T, hkv, c.head_dim), pos_l, ropes[li])
+        v = v.reshape(B, T, hkv, c.head_dim)
         scheme, read_as, sid = schemes[li]
         kq, ks = quantize_kv(k, scheme)
         vq, vs = quantize_kv(v, scheme)
         o = attend_chunk(q, dequantize_kv(kq, ks, scheme),
                          dequantize_kv(vq, vs, scheme), pools[0][li],
-                         pools[1][li], pools[2][li], pools[3][li], tables,
-                         start, read_as, sm_scale=c.sm_scale,
+                         pools[1][li], pools[2][li], pools[3][li], tables_l,
+                         start_l, read_as, sm_scale=c.sm_scale,
                          window=windows[li], sinks=lp.get("sinks"),
                          scheme_id=sid)
-        x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
+        x = _block_residuals(x, o.reshape(B, T, -1), lp, c, mesh)
         _append_kv(pools, li, encode_for_pool(kq, scheme),
-                   encode_for_pool(vq, scheme), ks, vs, slots, offs)
+                   encode_for_pool(vq, scheme), ks, vs, slots[sl], offs[sl])
+    if lanes is not None:
+        x = mesh.all_gather(x, "dp", 0)
+        exchange_rows(pools, mesh, lanes, slots, offs)
     return x
 
 
@@ -980,7 +1037,7 @@ def _consolidated_append(payloads, store, kv_dtype) -> None:
 
 
 def _stream_layer(x, lp, config: LlamaConfig, kv_dtype, positions,
-                  inv_freq, window, attend_context):
+                  inv_freq, window, attend_context, mesh=None):
     """One layer of a streamed lane over T fresh tokens x [T, H]:
     `attend_context(q)` gives the context accumulators (a staged slab or
     the host store, wave by wave), the chunk's own quantize -> dequantized
@@ -990,11 +1047,10 @@ def _stream_layer(x, lp, config: LlamaConfig, kv_dtype, positions,
     T = x.shape[0]
     h = _norm(x, lp["attn_norm"], c)
     q, k, v = _qkv(h, lp, c)
-    q = apply_rope(q.reshape(T, c.num_q_heads, c.head_dim), positions,
-                   inv_freq)
-    k = apply_rope(k.reshape(T, c.num_kv_heads, c.head_dim), positions,
-                   inv_freq)
-    v = v.reshape(T, c.num_kv_heads, c.head_dim)
+    hq, hkv = shard_heads(c, mesh)
+    q = apply_rope(q.reshape(T, hq, c.head_dim), positions, inv_freq)
+    k = apply_rope(k.reshape(T, hkv, c.head_dim), positions, inv_freq)
+    v = v.reshape(T, hkv, c.head_dim)
     # store-consistent views of the fresh chunk KV
     kq, ksc = quantize_kv(k, kv_dtype)
     vq, vsc = quantize_kv(v, kv_dtype)
@@ -1003,7 +1059,7 @@ def _stream_layer(x, lp, config: LlamaConfig, kv_dtype, positions,
                            attend_context(q), sm_scale=c.sm_scale,
                            window=window, softcap=c.attn_softcap,
                            sinks=lp.get("sinks"))
-    x = _block_residuals(x, o.reshape(T, -1), lp, c)
+    x = _block_residuals(x, o.reshape(T, -1), lp, c, mesh)
     return x, (kq, vq, ksc[..., 0], vsc[..., 0])
 
 
@@ -1096,7 +1152,7 @@ def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
                     lambda q: stream_context_attention_slab(
                         q, slab, start, kv_dtype, bs, wave,
                         sm_scale=c.sm_scale, window=window,
-                        softcap=c.attn_softcap))
+                        softcap=c.attn_softcap), mesh_of(params))
                 kv_rows.append(kv)
     else:
         for li, window in enumerate(wins):
@@ -1106,7 +1162,7 @@ def _stream_lane(params: Params, config: LlamaConfig, kv_dtype,
                 lambda q: stream_context_attention(
                     q, store, host_row, start, li, kv_dtype, bs, tw_ctx,
                     wave, sm_scale=c.sm_scale, window=window,
-                    softcap=c.attn_softcap))
+                    softcap=c.attn_softcap), mesh_of(params))
             kv_rows.append(kv)
     chunks = tuple(torch.stack([kv[i] for kv in kv_rows]) for i in range(4))
     b0 = start // bs
@@ -1290,7 +1346,8 @@ def stream_decode_multi_batched(params: Params, config: LlamaConfig,
                     pos + torch.arange(1, device=dev), ropes[li], window,
                     lambda q: stream_context_attention_slab(
                         q, ctx, pos, kv_dtype, bs, wave, sm_scale=c.sm_scale,
-                        window=window, softcap=c.attn_softcap))
+                        window=window, softcap=c.attn_softcap),
+                    mesh_of(params))
                 kv_rows.append(kv)
                 if brow < n_ctx:
                     # the bytes the append will store (the last step's
@@ -1332,7 +1389,8 @@ def stream_decode_multi_batched(params: Params, config: LlamaConfig,
 def forward_dense(params: Params, config: LlamaConfig,
                   token_ids: torch.Tensor) -> torch.Tensor:
     """Full causal forward, no KV cache: token_ids [B, T] -> logits
-    [B, T, V] float32."""
+    [B, T, V] float32. On a mesh every dp rank runs the whole batch over its
+    tp heads, with the tp collectives of the serving path."""
     c = config
     check_supported(c)
     B, T = token_ids.shape
@@ -1341,6 +1399,8 @@ def forward_dense(params: Params, config: LlamaConfig,
     ropes = layer_ropes(c, dev)
     causal = positions[:, None] >= positions[None, :]
     x = _embed(params, c, token_ids)
+    mesh = mesh_of(params)
+    hq, hkv = shard_heads(c, mesh)
     G = c.q_group
     for li, window in enumerate(c.layer_windows()):
         mask = causal
@@ -1349,19 +1409,18 @@ def forward_dense(params: Params, config: LlamaConfig,
         lp = layer_params(params, li)
         h = _norm(x, lp["attn_norm"], c)
         q, k, v = _qkv(h, lp, c)
-        q = apply_rope(q.reshape(B, T, c.num_q_heads, c.head_dim),
+        q = apply_rope(q.reshape(B, T, hq, c.head_dim),
                        positions[None], ropes[li])
-        k = apply_rope(k.reshape(B, T, c.num_kv_heads, c.head_dim),
+        k = apply_rope(k.reshape(B, T, hkv, c.head_dim),
                        positions[None], ropes[li])
-        v = v.reshape(B, T, c.num_kv_heads, c.head_dim)
-        qg = q.reshape(B, T, c.num_kv_heads, G, c.head_dim).float()
+        v = v.reshape(B, T, hkv, c.head_dim)
+        qg = q.reshape(B, T, hkv, G, c.head_dim).float()
         s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale
         s = soft_cap(s, c.attn_softcap).masked_fill(~mask, -1e30)
-        sk = (lp["sinks"].reshape(c.num_kv_heads, G).float()[None, :, :,
-                                                             None, None]
+        sk = (lp["sinks"].reshape(hkv, G).float()[None, :, :, None, None]
               if "sinks" in lp else None)
         w = sink_softmax(s, sk)
         o = torch.einsum("bhgts,bshd->bthgd", w, v.float())
-        x = _block_residuals(x, o.reshape(B, T, -1), lp, c)
+        x = _block_residuals(x, o.reshape(B, T, -1), lp, c, mesh)
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)

@@ -24,6 +24,13 @@ Two compute modes, as in the JAX package:
 The expert products are PyTorch matmuls (`ops.wquant.qeinsum`, W8A16 with
 a per-call int8 -> activation-dtype copy); the JAX package computes them
 outside any Pallas kernel too.
+
+On a mesh (`parallel/sharding.py`) a rank holds E/ep experts, each with its
+tp slice of the FFN, and the shared expert's tp slice. The router is whole,
+so every rank routes every token; a rank combines its own experts' weighted
+partial outputs and one all-reduce over ep x tp sums them. The terms that
+must enter the sum once are added by one rank: GPT-OSS's down_bias by the
+tp index 0 of the expert's owner, the shared expert by ep index 0.
 """
 
 from __future__ import annotations
@@ -69,9 +76,11 @@ def _shared_expert(x2d: torch.Tensor, lp) -> torch.Tensor:
     return out * scale.to(out.dtype)
 
 
-def _expert_ffn(xe: torch.Tensor, lp, style: str) -> torch.Tensor:
+def _expert_ffn(xe: torch.Tensor, lp, style: str,
+                down_bias: bool = True) -> torch.Tensor:
     """Gated MLP batched over experts: xe [E, C, H] -> [E, C, H]. The
-    GPT-OSS biases are added in the activation dtype before the clamp."""
+    GPT-OSS biases are added in the activation dtype before the clamp;
+    `down_bias` False leaves the last one out (a tp rank other than 0)."""
     g = qeinsum("ech,ehi->eci", xe, lp["gate"])
     u = qeinsum("ech,ehi->eci", xe, lp["up"])
     if style == "gpt_oss":
@@ -79,26 +88,41 @@ def _expert_ffn(xe: torch.Tensor, lp, style: str) -> torch.Tensor:
         u = torch.clamp(u + lp["up_bias"][:, None, :], -_GPT_OSS_LIMIT,
                         _GPT_OSS_LIMIT)
         h = (u + 1.0) * (g * torch.sigmoid(g * _GPT_OSS_ALPHA))
-        return (qeinsum("eci,eih->ech", h, lp["down"])
-                + lp["down_bias"][:, None, :])
+        y = qeinsum("eci,eih->ech", h, lp["down"])
+        return y + lp["down_bias"][:, None, :] if down_bias else y
     return qeinsum("eci,eih->ech", torch.nn.functional.silu(g) * u,
                    lp["down"])
 
 
-def moe_ffn(x2d: torch.Tensor, lp, config: LlamaConfig) -> torch.Tensor:
+def moe_ffn(x2d: torch.Tensor, lp, config: LlamaConfig,
+            mesh=None) -> torch.Tensor:
     """Sparse-MoE MLP over a flat token batch x2d [N, H]; lp holds router
-    [H, E], gate / up [E, H, I], down [E, I, H] (+ the GPT-OSS biases).
+    [H, E], gate / up [E, H, I], down [E, I, H] (+ the GPT-OSS biases), or
+    on a `mesh` this rank's experts and FFN slices (module docstring).
     Returns [N, H] in x2d's dtype."""
     c = config
-    E = lp["gate"].shape[0]
+    El = lp["gate"].shape[0]
     N, H = x2d.shape
     cw = router_combine_weights(x2d, lp["router"], c.num_experts_per_tok,
                                 lp.get("router_bias"), c.moe_style,
                                 c.moe_norm_topk)
+    E = cw.shape[1]
+    e0 = mesh.coords["ep"] * El if mesh is not None else 0
+    bias = mesh is None or mesh.coords["tp"] == 0
+    shared = (_shared_expert(x2d, lp)
+              if mesh is None or mesh.coords["ep"] == 0
+              else torch.zeros_like(x2d))
+
+    def total(out):
+        if mesh is not None:
+            out = mesh.all_reduce(out + shared, ("ep", "tp"))
+            return out.to(x2d.dtype)
+        return (out + shared).to(x2d.dtype)
+
     if c.moe_impl == "dense":
-        ye = _expert_ffn(x2d[None].expand(E, N, H), lp, c.moe_style)
-        out = torch.einsum("ne,enh->nh", cw.to(ye.dtype), ye)
-        return (out + _shared_expert(x2d, lp)).to(x2d.dtype)
+        ye = _expert_ffn(x2d[None].expand(El, N, H), lp, c.moe_style, bias)
+        out = torch.einsum("ne,enh->nh", cw[:, e0:e0 + El].to(ye.dtype), ye)
+        return total(out)
     if c.moe_impl != "dispatch":
         raise ValueError(f"unknown moe_impl {c.moe_impl!r}")
 
@@ -111,9 +135,9 @@ def moe_ffn(x2d: torch.Tensor, lp, config: LlamaConfig) -> torch.Tensor:
     pos = torch.where(selected & (pos < cap), pos, torch.full_like(pos, cap))
     # one-hot over cap + 1 columns, the last (a drop) cut off
     disp = torch.nn.functional.one_hot(pos.long(), cap + 1)[..., :cap]
-    disp = disp.to(x2d.dtype)                                     # [N, E, C]
+    disp = disp[:, e0:e0 + El].to(x2d.dtype)                      # [N, E, C]
     xe = torch.einsum("nec,nh->ech", disp, x2d)                   # [E, C, H]
-    ye = _expert_ffn(xe, lp, c.moe_style)
-    comb = disp.float() * cw[..., None]                           # [N, E, C]
+    ye = _expert_ffn(xe, lp, c.moe_style, bias)
+    comb = disp.float() * cw[:, e0:e0 + El, None]                 # [N, E, C]
     out = torch.einsum("nec,ech->nh", comb.to(ye.dtype), ye)
-    return (out + _shared_expert(x2d, lp)).to(x2d.dtype)
+    return total(out)

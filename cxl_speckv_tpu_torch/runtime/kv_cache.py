@@ -49,6 +49,12 @@ and the only one to be had is still being read by a demote (`_make_room`,
 `extend_seq`: `MigrationPlanner.settle`). On the CPU (`copier` None) a batch is
 `migrate_program`, complete when issued, so the CPU engine keeps the JAX
 engine's transfer counts and slot choices.
+
+On a tp mesh (`kv_heads` = Hkv / tp) the pools and the host store hold this
+rank's kv heads only, and the byte statistics are this rank's. Under `lockstep`
+(every mesh engine) a poll or flush waits for what it tests, so that the
+directory changes at the same call on every rank and the ranks' schedulers
+stay identical; the copies still run on the copy stream.
 """
 
 from __future__ import annotations
@@ -104,14 +110,19 @@ class TieredKVCache:
     def __init__(self, cache_config: CacheConfig, model_config: LlamaConfig,
                  max_seqs: int, max_blocks_per_seq: int,
                  device: str | torch.device = "cpu", copier=None,
-                 native: bool | None = None):
+                 native: bool | None = None, kv_heads: int | None = None,
+                 lockstep: bool = False):
         """`copier`: what issues the device backend's migration batches
         (`hoststore.CopyStream`'s interface); None means a `CopyStream` on
         the card and the synchronous `migrate_program` on the CPU. `native`:
-        the C++ directory and block pool; None follows `SPECKV_NATIVE=1`."""
+        the C++ directory and block pool; None follows `SPECKV_NATIVE=1`.
+        `kv_heads`: the kv heads this cache holds (a tp rank's share; None
+        means all of the model's); `lockstep`: see the module docstring."""
         cache_config.validate()
         self.config = cache_config
         self.model_config = model_config
+        self.kv_heads = kv_heads or model_config.num_kv_heads
+        self.lockstep = lockstep
         self.device = torch.device(device)
         self._device_mode = cache_config.host_store_backend == "device"
         if copier is None and self.device.type == "cuda" and self._device_mode:
@@ -158,7 +169,7 @@ class TieredKVCache:
         dp = c.head_dim // kv_pack(kv_dtype)
         elem = kv_storage_dtype(kv_dtype)
         S = cc.num_hbm_blocks + 1     # + the guard slot
-        kv_shape = (c.num_layers, S, c.num_kv_heads, cc.block_size, dp)
+        kv_shape = (c.num_layers, S, self.kv_heads, cc.block_size, dp)
         dev = self.device
         self.k_pools = torch.zeros(kv_shape, dtype=elem, device=dev)
         self.v_pools = torch.zeros(kv_shape, dtype=elem, device=dev)
@@ -169,14 +180,15 @@ class TieredKVCache:
         if self._device_mode:
             self.store = DeviceHostStore(
                 cc.num_host_blocks, c.num_layers, cc.block_size,
-                c.num_kv_heads, dp, elem, pin=dev.type == "cuda")
+                self.kv_heads, dp, elem, pin=dev.type == "cuda")
             self.host = None
             self.transfer = MigrationPlanner(self.store.bytes_per_block)
         else:
             self.host = HostStore(cc.num_host_blocks, c.num_layers,
-                                  cc.block_size, c.num_kv_heads, dp, elem)
+                                  cc.block_size, self.kv_heads, dp, elem)
             self.store = None
             self.transfer = TransferEngine(self.host, dev)
+        self.transfer.lockstep = self.lockstep
 
     def rebuild_storage(self, kv_dtype: KVDtype) -> None:
         """Cross-width scheme switch (e.g. INT8 -> INT4 or -> BF16): new
@@ -666,12 +678,14 @@ class TieredKVCache:
 
     def compression_statistics(self) -> dict:
         """Storage ratio vs bf16 KV and the effective token-capacity
-        expansion vs an uncompressed HBM-only cache."""
+        expansion vs an uncompressed HBM-only cache. Bytes are this rank's
+        (its `kv_heads`; the engine's "mesh" statistics give the whole
+        mesh's)."""
         c = self.model_config
         cc = self.config
-        bytes_tok = compressed_bytes_per_token(c.num_kv_heads, c.head_dim,
+        bytes_tok = compressed_bytes_per_token(self.kv_heads, c.head_dim,
                                                self.kv_dtype) * c.num_layers
-        bf16_tok = compressed_bytes_per_token(c.num_kv_heads, c.head_dim,
+        bf16_tok = compressed_bytes_per_token(self.kv_heads, c.head_dim,
                                               KVDtype.BF16) * c.num_layers
         pooling = (cc.num_hbm_blocks + cc.num_host_blocks) / cc.num_hbm_blocks
         ratio = bf16_tok / bytes_tok

@@ -72,6 +72,9 @@ class MigrationPlanner:
         self._inflight: list[InFlight] = []
         self._bytes_per_block = bytes_per_block
         self.stats = TransferStatistics()
+        # mesh serving: every poll waits, so that a batch retires at the
+        # same call on every rank whatever its copies' timing
+        self.lockstep = False
 
     def enqueue_promote(self, bid: int, host_slot: int, hbm_slot: int) -> None:
         self._up.append((bid, host_slot, hbm_slot))
@@ -164,6 +167,7 @@ class MigrationPlanner:
         if not self._inflight:
             return 0
         self.stats.polls += 1
+        wait = wait or self.lockstep
         freed = 0
         for b in list(self._inflight):
             if not b.done.query():
@@ -284,6 +288,8 @@ class TransferEngine:
         self._d2h_stream = torch.cuda.Stream(self.device) if cuda else None
         self.timings: list | None = None
         self.stats = TransferStatistics()
+        # mesh serving: every flush and poll waits (`MigrationPlanner`)
+        self.lockstep = False
 
     def _stage_up(self, ups, guard_slot: int):
         """Worker: store rows -> staging tensors [nb, ...] on the device
@@ -350,8 +356,9 @@ class TransferEngine:
         returned for the JAX call shape). Queued promotes go to the stager
         (phase a); staged batches are scattered into the pools (phase b)
         and their blocks complete, all of them with `wait_up` (the demand
-        path). Queued demotes are gathered and their copies to the host
-        issued; they complete in `poll()`."""
+        path, or `lockstep`). Queued demotes are gathered and their copies
+        to the host issued; they complete in `poll()`."""
+        wait_up = wait_up or self.lockstep
         nb = _TRANSFER_BATCH
         k, v, ks, vs = pools
         guard = k.shape[1] - 1
@@ -430,8 +437,9 @@ class TransferEngine:
     def poll(self, directory, *, wait: bool = False) -> int:
         """Retire completed demotes into the host store. Returns the number
         of blocks retired. With wait=True, blocks until every pending demote
-        has (the flush_all analog)."""
+        has (the flush_all analog, and every poll under `lockstep`)."""
         self.stats.polls += 1
+        wait = wait or self.lockstep
         done = 0
         still = []
         for p in self._pending_down:

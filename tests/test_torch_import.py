@@ -17,7 +17,10 @@ SCRIPTS = ("round_anatomy", "kernel_probe", "kernel_bench",
            "verify_gamma_probe", "spec_bench", "tpu_spec_check",
            "stream_bench", "kv_quant_ppl", "kv_quant_accuracy",
            "tpu_window_check", "tpu_f32_identity", "hostop_probe",
-           "bench_ablate")
+           "bench_ablate", "multiproc_serve")
+PARALLEL = ("parallel", "parallel.mesh", "parallel.distributed",
+            "parallel.sharding", "parallel.shard_kernels",
+            "parallel.lockstep")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -56,8 +59,25 @@ def test_port_imports_no_jax():
                  "utils.dispatch", "scripts.train_predictor",
                  "server", "engine.scoring", "models.checkpoint",
                  "native", "ops.w4_unpack", "runtime.transfer",
+                 *PARALLEL,
                  *(f"scripts.{m}" for m in ("common", *SCRIPTS))):
         assert f"cxl_speckv_tpu_torch.{name}" in res["modules"]
+
+
+def test_parallel_package_imports_no_jax():
+    """The mesh modules and the lockstep script alone, in a fresh process:
+    neither JAX nor the JAX package (whose lockstep.py they copy), and no
+    process group or rank process started by importing them."""
+    mods = [f"cxl_speckv_tpu_torch.{m}"
+            for m in (*PARALLEL, "scripts.multiproc_serve")]
+    r = _run("import importlib, json, sys\n"
+             f"for m in {mods!r}: importlib.import_module(m)\n"
+             "import torch.distributed as dist\n"
+             "print(json.dumps([dist.is_initialized(), sorted(m for m in "
+             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+             "'cxl_speckv_tpu'))]))")
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == [False, []]
 
 
 def test_hf_convert_imports_no_transformers():

@@ -1537,3 +1537,142 @@ def test_hostop_probe_on_card(dev):
     res = hostop_probe.main(["--reps", "1"])
     assert [res[k]["copies"] for k in "ABCD"] == [8192, 2048, 512, 8192]
     assert all(res[k]["host_s"] > 0 for k in "ABCD")
+
+
+# -- K1 / K2 on a tp shard, in a world of two ranks on one card ----------------
+
+SHARD_LENS, SHARD_T, SHARD_STARTS = [37, 1, 64, 130], 5, [0, 17, 64, 99]
+
+
+def shard_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of a tp world on cuda:0 (gloo): K1 and K2 through the
+    mesh wrappers (`parallel/shard_kernels.py`) on this rank's heads and
+    pool shard, against their plain versions on the same shard and against
+    this rank's head slice of the kernels' whole outputs; the shards'
+    outputs gathered over tp against the whole outputs. Results as JSON at
+    `{out}.rank{rank}.json`."""
+    import json
+    from types import SimpleNamespace
+
+    from cxl_speckv_tpu_torch.parallel import distributed
+    from cxl_speckv_tpu_torch.parallel.mesh import Mesh
+    from cxl_speckv_tpu_torch.parallel.shard_kernels import (
+        sharded_chunk_attention,
+        sharded_paged_attention,
+    )
+
+    dev = distributed.initialize(rank, world, port, device="cuda")
+    mesh = Mesh(tp=world)
+    cfg = SimpleNamespace(num_q_heads=HQ, num_kv_heads=HKV)
+    hq, hkv = HQ // world, HKV // world
+    qh = slice(rank * hq, (rank + 1) * hq)
+    kh = slice(rank * hkv, (rank + 1) * hkv)
+    res = {}
+    for kv in (KVDtype.INT8, KVDtype.INT4):
+        for cd in (torch.float32, torch.bfloat16):
+            key = f"{kv.value} {str(cd)[6:]}"
+            g = torch.Generator().manual_seed(7)
+            # K1: the decode step of 4 lanes
+            p, table = pools(SHARD_LENS, kv, dev, seed=3)
+            ps = tuple(t[:, kh].contiguous() for t in p)
+            q = torch.randn((len(SHARD_LENS), HQ, D), generator=g).to(dev, cd)
+            lens = torch.tensor(SHARD_LENS, dtype=torch.int32, device=dev)
+            before = sum(paged_attention.launches.values())
+            got = sharded_paged_attention(mesh, cfg, compute_dtype=cd)(
+                q[:, qh].contiguous(), *ps, table, lens, kv)
+            launched = sum(paged_attention.launches.values()) - before
+            plain = paged_attention_ref(q[:, qh].contiguous(), *ps, table,
+                                        lens, kv, compute_dtype=cd)
+            whole = paged_attention(q, *p, table, lens, kv, compute_dtype=cd)
+            both = mesh.all_gather(got, "tp", 1)
+            torch.cuda.synchronize()
+            res[f"K1 {key}"] = {
+                "launched": launched,
+                "plain": _close(got, plain, TOL[cd]),
+                "slice": _close(got, whole[:, qh], TOL[cd]),
+                "gathered": _close(both, whole, TOL[cd])}
+            # K2: a 5-token chunk of each lane over its context
+            p, table = pools([s + SHARD_T for s in SHARD_STARTS], kv, dev,
+                             seed=4)
+            ps = tuple(t[:, kh].contiguous() for t in p)
+            B = len(SHARD_STARTS)
+            q = torch.randn((B, SHARD_T, HQ, D), generator=g).to(dev, cd)
+            kn = torch.randn((B, SHARD_T, HKV, D), generator=g).to(dev)
+            vn = torch.randn((B, SHARD_T, HKV, D), generator=g).to(dev)
+            st = torch.tensor(SHARD_STARTS, dtype=torch.int32, device=dev)
+            before = sum(paged_chunk_attention_cuda.launches.values())
+            args_s = (q[:, :, qh].contiguous(), kn[:, :, kh].contiguous(),
+                      vn[:, :, kh].contiguous(), *ps, table, st, kv)
+            got = sharded_chunk_attention(mesh, cfg, compute_dtype=cd)(
+                *args_s)
+            launched = (sum(paged_chunk_attention_cuda.launches.values())
+                        - before)
+            plain = paged_chunk_attention(*args_s, compute_dtype=cd)
+            whole = paged_chunk_attention_cuda(q, kn, vn, *p, table, st, kv,
+                                               compute_dtype=cd)
+            both = mesh.all_gather(got, "tp", 2)
+            torch.cuda.synchronize()
+            res[f"K2 {key}"] = {
+                "launched": launched,
+                "plain": _close(got, plain, TOL[cd]),
+                "slice": _close(got, whole[:, :, qh], TOL[cd]),
+                "gathered": _close(both, whole, TOL[cd])}
+    res["routes"] = sorted(mesh.stats())
+    distributed.shutdown()
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
+def _close(got, want, tol) -> list:
+    """[max |got - want|, within rtol = atol = tol everywhere]."""
+    d = (got.float() - want.float()).abs()
+    return [float(d.max()), bool((d <= tol + tol * want.float().abs()).all())]
+
+
+def test_tp_shard_kernels_in_a_world_of_two(dev, tmp_path):
+    """Two ranks on this card (gloo): each rank's K1 / K2 launch on its
+    shard (launch counted) and agree with their plain versions on the same
+    shard and with the head slice of the unsharded kernels' outputs; the
+    gathered shards give the whole output."""
+    import json
+    import os
+
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here))
+    rcs = distributed.launch("test_torch_kernels_cuda", 2,
+                             ["--out", str(tmp_path / "shard")],
+                             timeout_s=240, env=env, cwd=here,
+                             log_dir=str(tmp_path))
+    logs = [open(tmp_path / f"rank{r}.log").read()[-3000:] for r in range(2)]
+    assert rcs == [0, 0], logs
+    for r in range(2):
+        with open(tmp_path / f"shard.rank{r}.json") as f:
+            res = json.load(f)
+        assert res.pop("routes") == ["all_gather/gloo-cuda"]
+        for case, v in res.items():
+            assert v["launched"] == 1, (r, case)
+            for check in ("plain", "slice", "gathered"):
+                assert v[check][1], (r, case, check, v[check])
+
+
+def test_multiproc_serve_tpspan_on_card(dev):
+    """The lockstep script's tpspan mode with its ranks on this card:
+    identical outputs on both ranks, equal to one process."""
+    from cxl_speckv_tpu_torch.scripts import multiproc_serve
+
+    rec = multiproc_serve.main(["--mode", "tpspan", "--threads", "2"])
+    assert rec["ok"], rec
+
+
+if __name__ == "__main__":
+    import argparse
+
+    from cxl_speckv_tpu_torch.parallel.distributed import add_rank_args
+
+    ap = argparse.ArgumentParser()
+    add_rank_args(ap)
+    ap.add_argument("--out", required=True)
+    a = ap.parse_args()
+    shard_rank(a.rank, a.world, a.port, a.out)

@@ -136,7 +136,7 @@ def test_score_prompts_refusals():
     with pytest.raises(ValueError, match="2 tokens"):
         eng.score_prompts([])
     for mode in ("pp", "sp"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="next slice"):
             eng.score_prompts([[1, 2, 3]], mode=mode)
     with pytest.raises(ValueError, match="unknown scoring mode"):
         eng.score_prompts([[1, 2, 3]], mode="ring")
