@@ -94,7 +94,7 @@ Phases, each printing its results; any failure exits non-zero:
               first 8 layers (the depth cut keeps the script in time), gamma 4, the
               first 16 of its prompts, tiered (52 HBM blocks) and ample, in
               three arms: n-gram lookup (verify through K2, no K1 at all),
-              a Llama-3.2-1B draft at full width, its first 8 of 16 layers
+              a Llama-3.2-1B draft at full width, its first 4 of 16 layers
               (the depth cut keeps the script in time; W8A16, INT8 draft
               KV; K1 at D 64) and a self-draft (the target proposes for itself,
               INT8 draft KV); first K1 at the draft's shape and K2 at the
@@ -103,7 +103,7 @@ Phases, each printing its results; any failure exits non-zero:
               tokens in every arm, the tiered run migrate both ways, the
               launches be exactly K2 = target prefill dispatches x 8 +
               draft prefill dispatches x L_draft + rounds x 8 and K1 =
-              rounds x 5 x L_draft (L_draft 8, 8, 0 for ngram); then the
+              rounds x 5 x L_draft (L_draft 4, 8, 0 for ngram); then the
               self-draft again at float32 activations (the served bf16
               K1 / K2 variants), whose acceptance -- the cascade-free
               agreement of decode through K1 and verify through K2 -- must
@@ -291,7 +291,7 @@ Phases, each printing its results; any failure exits non-zero:
               float32 tree on the first 8 layers at float32 activations
               over BF16 KV (within 2e-2); then one decode round's anatomy
               at full depth (the unpack kernel's share of device time);
-10. gemma2 -- Gemma-2-9B at full width, 8 of its 42 layers (the depth
+10. gemma2 -- Gemma-2-9B at full width, 4 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
               vocabulary), same weights and KV formats: 32 requests x
@@ -391,7 +391,8 @@ Phases, each printing its results; any failure exits non-zero:
               inputs, the tokens recorded), each rank's ms a decode
               step, its collectives' ms a step (CUDA events) and their
               backends, and whether gloo takes each collective of
-              `parallel/mesh.py:COLLECTIVES` on CUDA tensors (it must). K1 / K2 timed at
+              `parallel/mesh.py:GLOO_CUDA_OPS` on CUDA tensors (it must).
+              K1 / K2 timed at
               the shard's shapes (16 q / 4 kv heads). Then NCCL at world 1
               (`--mode nccl`: init and the mesh's collective helpers on the
               card) and NCCL's answer to two ranks on one device
@@ -399,7 +400,19 @@ Phases, each printing its results; any failure exits non-zero:
               (Llama-3.2-1B widths, float32) and dptp (tiny, and tiny with
               float32 attention) with its identity checks, and what
               explains a logprob gap: the INT8 KV codes that differ from
-              one process's and K1's split counts.
+              one process's and K1's split counts. gloo's answer to
+              point-to-point on CUDA tensors (`--mode p2p`, recorded).
+              Last the scoring arms (PAR_ARMS, `--mode score`):
+              `score_prompts` over pp 2 (M = PAR_PP_M) and sp 2 on two
+              gloo ranks on the card, on the SCORE_LENS prompts and on
+              2 x 2048 tokens, the same 4-layer W8A16 tree, against dense
+              `score_prompts` here: every rank's scores and logits
+              bit-equal, float32 scores within PAR_SCORE_TOL of dense (bf16
+              recorded); printed: max |Δscore| and |Δlogit|, seconds a
+              call for dense, pp and sp, the line's shift / broadcast /
+              gather counts, bytes, ms and routes, the bubble and each
+              rank's peak memory. No kernel runs on these paths (plain
+              PyTorch, as the JAX forwards are plain jnp).
 
 Each serve prints K1's launches by split count, and its tiered run's
 copy-stream time (CUDA events) and host-blocked ms for migrations. Each model's weights are
@@ -515,9 +528,11 @@ GPT_OSS_WINDOW = 128
 # phase before GPT-OSS was cut from 8 to 4 layers and Gemma-2 from 12 to 8;
 # ~1220 s on a slow host with the parallel phase before the prefetch phase
 # was cut from 32 to 8 layers, the spec phase's 1B draft from 16 to 8, the
-# surface phase from 8 to 4 and round_anatomy's sweep to one rep
-GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 4, 8, 8, 4
-PREFETCH_LAYERS, SPEC_DRAFT_LAYERS = 8, 8
+# surface phase from 8 to 4 and round_anatomy's sweep to one rep;
+# 1067.2 s on a slow host with the parallel phase's scoring arms before
+# Gemma-2 was cut from 8 to 4 layers and the 1B draft from 8 to 4
+GPT_OSS_LAYERS, GEMMA_LAYERS, SPEC_LAYERS, SURFACE_LAYERS = 4, 4, 8, 4
+PREFETCH_LAYERS, SPEC_DRAFT_LAYERS = 8, 4
 SCHEME_LAYERS = 8
 STREAM_LAYERS = 8       # stream-mixed / -cancel / -session's depth cut
 # the model families served from their configs (and Phi-3 from an HF state
@@ -5217,6 +5232,18 @@ PAR_TIMEOUT_S = 240.0
 PAR_BF16_RATIO = 2.0
 PAR_SHARD_HEADS = (LLAMA_HEADS[0] // PAR_TP, LLAMA_HEADS[1] // PAR_TP,
                    LLAMA_HEADS[2])
+# [parallel]'s scoring arms: `score_prompts` over a line of two gloo ranks
+# on the card (pp 2 in PAR_PP_M microbatches, sp 2) on the same
+# PAR_LAYERS-layer W8A16 tree, against dense `score_prompts` in this process;
+# the float32 scores held within PAR_SCORE_TOL (the JAX package's limit,
+# `tests/test_pipeline_sp.py:test_score_prompts_dense_pp_sp_agree`), bf16
+# recorded. (arm, mode, prompt lengths)
+PAR_PP_M = 2
+PAR_SCORE_TOL = 2e-4
+PAR_ARMS = (("pp", "pp", SCORE_LENS), ("sp", "sp", SCORE_LENS),
+            ("sp-long", "sp", (2048, 2048)))
+# one untimed call a mode and dtype before the timed ones
+PAR_WARMUP = [[1, 2, 3, 4]] * PAR_PP_M
 
 
 def par_config(dtype: str):
@@ -5309,8 +5336,9 @@ def par_init(cfg, seed: int, dev):
 
 
 def gloo_cuda_probe(dev) -> dict:
-    """Which collectives gloo takes on a CUDA tensor itself: each tried
-    once on a group of its own; "ok" or the error gloo raises."""
+    """Which collectives gloo takes on a CUDA tensor itself
+    (`parallel/mesh.py:GLOO_CUDA_OPS`): each tried once on a group of its
+    own; "ok" or the error gloo raises."""
     import torch.distributed as dist
 
     g = dist.new_group(backend="gloo")
@@ -5320,7 +5348,8 @@ def gloo_cuda_probe(dev) -> dict:
             ("all_reduce", lambda: dist.all_reduce(x, group=g)),
             ("all_gather", lambda: dist.all_gather(
                 [torch.empty_like(x) for _ in range(dist.get_world_size())],
-                x, group=g))):
+                x, group=g)),
+            ("broadcast", lambda: dist.broadcast(x, src=0, group=g))):
         try:
             call()
             torch.cuda.synchronize()
@@ -5416,6 +5445,234 @@ def nccl_rank(args) -> None:
         json.dump(rec, f)
 
 
+def par_score_prompts(cfg, lens) -> list:
+    rng = np.random.RandomState(21)
+    return [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+
+
+def line_forward(params, cfg, prompts, mode: str, dev):
+    """The forward `score_prompts(mode=...)` runs, on the tokens it pads,
+    through a line of the whole world with timing on: (logits, the line's
+    `stats()`)."""
+    from cxl_speckv_tpu_torch.engine.scoring import _pad_batch
+    from cxl_speckv_tpu_torch.parallel.mesh import LineMesh
+    from cxl_speckv_tpu_torch.parallel.pipeline import pipeline_forward
+    from cxl_speckv_tpu_torch.parallel.ring import sp_forward_dense
+
+    with LineMesh(mode, device=dev) as mesh, torch.no_grad():
+        mesh.timing = True
+        if mode == "pp":
+            toks, _, _ = _pad_batch(prompts, PAR_PP_M, 1)
+            out = pipeline_forward(params, cfg, torch.from_numpy(toks).to(dev),
+                                   mesh=mesh, num_microbatches=PAR_PP_M)
+        else:
+            toks, _, _ = _pad_batch(prompts, 1, mesh.size)
+            out = sp_forward_dense(params, cfg, torch.from_numpy(toks).to(dev),
+                                   mesh=mesh)
+        return out, mesh.stats()
+
+
+def score_rank(args) -> None:
+    """One rank of [parallel]'s scoring world: every arm of PAR_ARMS by
+    `score_prompts` at float32 and bf16 activations, then its float32
+    forward once more through a timed line (the line's operation counts,
+    bytes, ms and routes; a digest of the logits' bits; rank 0 saves the
+    logits for the parent's max |Δlogit|). Results to
+    `{args.out}.rank{r}.json`."""
+    global DEV
+    from cxl_speckv_tpu_torch.engine.scoring import score_prompts
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    torch.set_num_threads(4)
+    dev = distributed.initialize(args.rank, args.world, args.port,
+                                 device=args.device)
+    DEV = str(dev)
+    rec = {"rank": args.rank, "backend": torch.distributed.get_backend(),
+           "arms": {}}
+    for dt in ("float32", "bfloat16"):
+        cfg = par_config(dt)
+        params = par_init(cfg, 0, dev)
+        for mode in ("pp", "sp"):
+            score_prompts(params, cfg, PAR_WARMUP, mode=mode,
+                          num_microbatches=PAR_PP_M)
+        for arm, mode, lens in PAR_ARMS:
+            prompts = par_score_prompts(cfg, lens)
+            r = rec["arms"].setdefault(arm, {})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            scores = score_prompts(params, cfg, prompts, mode=mode,
+                                   num_microbatches=PAR_PP_M)
+            r[dt] = {"scores": scores, "s": time.monotonic() - t0,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if dt == "float32":
+                logits, r["ops"] = line_forward(params, cfg, prompts, mode,
+                                                dev)
+                r["digest"] = int(logits.view(torch.int32).sum(
+                    dtype=torch.int64))
+                if args.rank == 0:
+                    np.save(f"{args.out}.{arm}.npy", logits.cpu().numpy())
+                del logits
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    with open(f"{args.out}.rank{args.rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def p2p_rank(args) -> None:
+    """gloo's point-to-point on CUDA tensors, recorded, not worked around:
+    each rank of two on cuda:0 sends a CUDA tensor to the other and
+    receives one (`batch_isend_irecv`); "ok", wrong values, or the error
+    gloo raises. A rank that dies shows as its return code."""
+    import torch.distributed as dist
+
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    dev = distributed.initialize(args.rank, args.world, args.port,
+                                 device=args.device, backend="gloo",
+                                 timeout_s=30)
+    rec = {"rank": args.rank, "backend": dist.get_backend()}
+    x = torch.full((4,), float(args.rank + 1), device=dev)
+    y = torch.zeros(4, device=dev)
+    peer = 1 - args.rank
+    try:
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, peer),
+                dist.P2POp(dist.irecv, y, peer)]):
+            work.wait()
+        torch.cuda.synchronize()
+        rec["shift"] = ("ok" if torch.equal(y.cpu(), torch.full(
+            (4,), float(peer + 1))) else f"wrong values {y.tolist()}")
+    except (RuntimeError, ValueError) as e:
+        rec["shift"] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    finally:
+        distributed.shutdown()
+    with open(f"{args.out}.rank{args.rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def p2p_probe(out: str) -> dict:
+    """Start p2p_rank's world of two and return what it recorded, or the
+    ranks' return codes and log tails when it did not finish."""
+    from cxl_speckv_tpu_torch.parallel import distributed
+
+    log_dir = Path(f"{out}.logs")
+    log_dir.mkdir()
+    rcs = distributed.launch(
+        "chip_smoke", 2, ["--mode", "p2p", "--out", out, "--device",
+                          DEV.split(":")[0]],
+        timeout_s=60, cwd=str(Path(__file__).resolve().parent),
+        log_dir=str(log_dir))
+    if any(rcs):
+        tails = [p.read_text()[-300:].strip().splitlines()[-1:]
+                 for p in sorted(log_dir.glob("rank*.log"))]
+        return {"ranks returned": rcs, "last log lines": tails}
+    recs = []
+    for r in range(2):
+        with open(f"{out}.rank{r}.json") as f:
+            recs.append(json.load(f))
+    return {f"rank {r['rank']}": r["shift"] for r in recs}
+
+
+def par_dense_scores() -> dict:
+    """Dense `score_prompts` of every arm in this process, at float32 and
+    bf16 activations: scores, seconds a call, and the float32 logits (on
+    the host) of the forward it runs."""
+    from cxl_speckv_tpu_torch.engine.scoring import _pad_batch, score_prompts
+    from cxl_speckv_tpu_torch.models.llama import forward_dense
+
+    ref: dict = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = par_config(dt)
+        params = par_init(cfg, 0, DEV)
+        score_prompts(params, cfg, PAR_WARMUP)
+        for arm, _, lens in PAR_ARMS:
+            prompts = par_score_prompts(cfg, lens)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            scores = score_prompts(params, cfg, prompts)
+            r = ref.setdefault(arm, {})
+            r[dt] = {"scores": scores, "s": time.monotonic() - t0}
+            if dt == "float32":
+                toks, _, _ = _pad_batch(prompts, 1, 1)
+                with torch.no_grad():
+                    r["logits"] = forward_dense(
+                        params, cfg, torch.from_numpy(toks).to(DEV)).cpu()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ref
+
+
+def score_gap(got: list, want: list) -> float:
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+               for a, b in zip(got, want))
+
+
+def logit_gap(path: str, want: torch.Tensor) -> float:
+    """max |Δlogit| of the saved line logits against `want` over the
+    prompts' rows (a line pads the batch or the length further)."""
+    got = torch.from_numpy(np.load(path, mmap_mode="r")[
+        :want.shape[0], :want.shape[1]].copy()).to(DEV)
+    gap = float((got - want.to(DEV)).abs().max())
+    del got
+    torch.cuda.empty_cache()
+    return gap
+
+
+def par_scoring(tmp: Path, smi: str) -> None:
+    """The scoring arms: dense here, then pp 2 / sp 2 as two gloo ranks on
+    the card (`score_rank`), checked against dense."""
+    from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+
+    full = llama_3_8b()
+    print(f"[parallel] scoring: Llama-3-8B at full width (hidden "
+          f"{full.hidden_size}, {full.num_q_heads} / {full.num_kv_heads} "
+          f"heads, vocabulary {full.vocab_size}), its first {PAR_LAYERS} of "
+          f"{full.num_layers} layers (depth cut), W8A16, seeded random "
+          f"weights; pp 2 in {PAR_PP_M} microbatches (bubble (S-1)/(S+M-1) "
+          f"= {1 / (1 + PAR_PP_M):.4f}) and sp 2, each two gloo ranks on one "
+          f"card, against dense score_prompts in one process; {smi}",
+          flush=True)
+    ref = par_dense_scores()
+    recs = par_launch("score", 2, str(tmp / "score"))
+    for arm, mode, lens in PAR_ARMS:
+        mine = [r["arms"][arm] for r in recs]
+        for r in mine[1:]:
+            if (r["digest"] != mine[0]["digest"]
+                    or any(r[dt]["scores"] != mine[0][dt]["scores"]
+                           for dt in ("float32", "bfloat16"))):
+                fail(f"[parallel] score {arm}: the ranks' logits or scores "
+                     f"differ")
+        gaps = {dt: score_gap(mine[0][dt]["scores"], ref[arm][dt]["scores"])
+                for dt in ("float32", "bfloat16")}
+        dlogit = logit_gap(f"{tmp / 'score'}.{arm}.npy", ref[arm]["logits"])
+        print(f"[parallel] score {arm} ({len(lens)} prompts of "
+              f"{'/'.join(map(str, lens))} tokens): float32 max |{mode} - "
+              f"dense| score {gaps['float32']:.3e} (limit {PAR_SCORE_TOL}), "
+              f"logit {dlogit:.3e}; bf16 score {gaps['bfloat16']:.3e} "
+              f"(recorded); s a call, float32 dense "
+              f"{ref[arm]['float32']['s']:.3f} / {mode} "
+              f"{mine[0]['float32']['s']:.3f}, bf16 dense "
+              f"{ref[arm]['bfloat16']['s']:.3f} / {mode} "
+              f"{mine[0]['bfloat16']['s']:.3f}; ranks' logits and scores "
+              f"bit-equal", flush=True)
+        for r, m in zip(recs, mine):
+            print(f"[parallel] score {arm} rank {r['rank']} ({r['backend']}):"
+                  f" torch.cuda.max_memory_allocated float32 "
+                  f"{m['float32']['peak_gib']:.3f} GiB, bf16 "
+                  f"{m['bfloat16']['peak_gib']:.3f} GiB; line operations of "
+                  f"the float32 forward (op/backend-route: calls, bytes, "
+                  f"ms): {m['ops']}", flush=True)
+        if not gaps["float32"] <= PAR_SCORE_TOL:
+            fail(f"[parallel] score {arm}: float32 scores differ from dense "
+                 f"by {gaps['float32']:.3e}, above {PAR_SCORE_TOL}")
+    del ref
+    gc.collect()
+
+
 def par_launch(kind: str, world: int, out: str, extra=()) -> list:
     """Start `world` ranks of this script in `kind` mode and wait (at most
     PAR_TIMEOUT_S); returns their records."""
@@ -5480,10 +5737,12 @@ def par_kernel_rows(peaks) -> dict:
     return rows
 
 
-def phase_parallel(peaks) -> dict:
+def phase_parallel(peaks, smi: str) -> dict:
     """tp 2 at Llama-3-8B's widths on one card (two ranks on cuda:0 over
     gloo) against the single-process engine; NCCL at world 1 and its
-    answer to two ranks on one device; `multiproc_serve` tpspan / dptp."""
+    answer to two ranks on one device; gloo's answer to point-to-point on
+    CUDA tensors; `multiproc_serve` tpspan / dptp; offline scoring over pp
+    2 and sp 2 against dense (`par_scoring`)."""
     import tempfile
     import threading
 
@@ -5506,13 +5765,13 @@ def phase_parallel(peaks) -> dict:
     rows = par_kernel_rows(peaks)
 
     recs = par_launch("tp", PAR_TP, str(tmp / "tp"))
-    from cxl_speckv_tpu_torch.parallel.mesh import COLLECTIVES
+    from cxl_speckv_tpu_torch.parallel.mesh import GLOO_CUDA_OPS
 
     probe = recs[0]["gloo_cuda"]
     print(f"[parallel] gloo on CUDA tensors: {probe}", flush=True)
     if DEV.startswith("cuda") and any(probe[op] != "ok"
-                                      for op in COLLECTIVES):
-        fail(f"[parallel] gloo refuses a collective the mesh issues on CUDA "
+                                      for op in GLOO_CUDA_OPS):
+        fail(f"[parallel] gloo refuses a collective the meshes issue on CUDA "
              f"tensors ({probe}): parallel/mesh.py needs a route around it")
     for r in recs:
         for dt in ("float32", "bfloat16"):
@@ -5570,15 +5829,22 @@ def phase_parallel(peaks) -> dict:
                   f"{x['migrations']}; by collective and backend: "
                   f"{x['collectives']}", flush=True)
 
-    # NCCL: world 1 on the card, and two ranks on its one device
+    # NCCL: world 1 on the card, and two ranks on its one device; gloo's
+    # point-to-point on CUDA tensors
     nccl = {}
     threads = [threading.Thread(target=lambda w=w: nccl.__setitem__(
         w, par_launch("nccl", w, str(tmp / f"nccl{w}"))))
         for w in (1, 2)]
+    threads.append(threading.Thread(target=lambda: nccl.__setitem__(
+        "p2p", p2p_probe(str(tmp / "p2p")))))
     for t in threads:
         t.start()
     for t in threads:
         t.join()
+    print(f"[parallel] gloo point-to-point (batch_isend_irecv) on CUDA "
+          f"tensors, two ranks on one card: {nccl['p2p']}; the line mesh "
+          f"shifts CUDA tensors under gloo through pinned host buffers "
+          f"whatever this shows (parallel/mesh.py)", flush=True)
     one = nccl[1][0]
     if not one["ok"]:
         fail(f"[parallel] NCCL at world 1: {one['error']}")
@@ -5630,6 +5896,10 @@ def phase_parallel(peaks) -> dict:
             fail(f"[parallel] multiproc_serve {mode} {model}: {m}")
     print(f"[parallel] multiproc_serve, all three at once: "
           f"{time.monotonic() - t0:.1f} s", flush=True)
+    t0 = time.monotonic()
+    par_scoring(tmp, smi)
+    print(f"[time] parallel scoring: {time.monotonic() - t0:.1f} s",
+          flush=True)
     return {"rows": rows, "launches": recs[0]["bfloat16"]["launches"]}
 
 
@@ -5641,14 +5911,16 @@ def rank_main(argv) -> int:
 
     ap = argparse.ArgumentParser()
     distributed.add_rank_args(ap)
-    ap.add_argument("--mode", choices=("tp", "nccl"), required=True)
+    ap.add_argument("--mode", choices=("tp", "nccl", "score", "p2p"),
+                    required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.device == "cpu":
         # ranks on the CPU (gloo): nothing to synchronize
         torch.cuda.synchronize = lambda *a, **kw: None
-    (par_rank if args.mode == "tp" else nccl_rank)(args)
+    {"tp": par_rank, "nccl": nccl_rank, "score": score_rank,
+     "p2p": p2p_rank}[args.mode](args)
     return 0
 
 
@@ -5748,7 +6020,7 @@ def main() -> int:
                     "qwen2-moe": timed("qwen2-moe", phase_qwen2_moe, peaks),
                     "phi3": timed("phi3-hf", phase_phi3_hf)}
     script_entries = timed("scripts", phase_scripts, peaks)
-    par = timed("parallel", phase_parallel, peaks)
+    par = timed("parallel", phase_parallel, peaks, smi)
     entries = [kernel_entry("paged_attention", "K1", main_rows["K1"],
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],

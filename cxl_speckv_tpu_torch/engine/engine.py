@@ -1822,9 +1822,22 @@ class Engine:
         weights at the model's precision, with no KV pools and no serving
         state (`engine/scoring.py`). Distinct from
         `add_request(prompt_logprobs=True)`, which scores through the
-        quantized serving path. On a mesh engine "dense" runs the forward
-        with the serving path's collectives; mode "pp" / "sp" raise
-        NotImplementedError (their port is the next slice)."""
+        quantized serving path. Mode "pp" / "sp" run the pipeline / ring
+        forward over a line of the world's ranks, every rank calling this
+        with the same arguments (`scoring.score_prompts`). On a mesh engine
+        "dense" runs the forward with the serving path's collectives, and
+        "pp" / "sp" raise ValueError: they would lay a second mesh over the
+        ranks the engine's (dp, ep, tp) mesh occupies and need the whole
+        tree where each rank holds its shard."""
+        if mode in ("pp", "sp") and self.mesh is not None:
+            raise ValueError(
+                f"score_prompts(mode={mode!r}) is not available on a "
+                f"mesh-sharded engine: it would build a second {mode!r} line "
+                f"over the ranks the engine's (dp, ep, tp) = "
+                f"{(self.mesh.dp, self.mesh.ep, self.mesh.tp)} mesh occupies, "
+                f"from the whole tree where each rank holds its shard. Use "
+                f"mode='dense' here, or score pp / sp from an engine without "
+                f"a mesh")
         return scoring.score_prompts(self.params, self.model_config, prompts,
                                      mode=mode, parallel_size=parallel_size,
                                      num_microbatches=num_microbatches)

@@ -59,6 +59,7 @@ Activations other than SiLU and tanh-GELU raise NotImplementedError.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -1383,8 +1384,60 @@ def stream_decode_multi_batched(params: Params, config: LlamaConfig,
 
 
 # ---------------------------------------------------------------------------
-# plain forward (no cache) — for parity tests
+# plain forward (no cache): parity tests, offline scoring, pp / sp
 # ---------------------------------------------------------------------------
+
+def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                   window: int | None) -> torch.Tensor:
+    """[Tq, Tk] bool at global positions: causal, and within `window` when
+    the layer has one."""
+    mask = q_pos[:, None] >= kv_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - kv_pos[None, :] < window
+    return mask
+
+
+def masked_attention(q, k, v, sinks, *, mask: torch.Tensor,
+                     config: LlamaConfig) -> torch.Tensor:
+    """Softmax attention of q [B, T, hq, D] over k / v [B, T', hkv, D]
+    under `mask` [T, T'] in float32, with the softcap and the learned sink
+    logits (`sinks` [hq] or None); -> [B, T, hq * D] float32."""
+    c = config
+    B, T, hkv = q.shape[0], q.shape[1], k.shape[2]
+    G = c.q_group
+    qg = q.reshape(B, T, hkv, G, c.head_dim).float()
+    s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale
+    s = soft_cap(s, c.attn_softcap).masked_fill(~mask, -1e30)
+    sk = (None if sinks is None
+          else sinks.reshape(hkv, G).float()[None, :, :, None, None])
+    w = sink_softmax(s, sk)
+    o = torch.einsum("bhgts,bshd->bthgd", w, v.float())
+    return o.reshape(B, T, -1)
+
+
+def dense_layer(x: torch.Tensor, lp: dict, config: LlamaConfig,
+                positions: torch.Tensor, inv_freq: torch.Tensor, attend,
+                mesh=None) -> torch.Tensor:
+    """One layer of the cache-free forward on x [B, T, H] whose rows sit
+    at the global `positions` [T]: norm, q / k / v rotated by the layer's
+    `inv_freq`, `attend(q, k, v, sinks)` -> [B, T, hq * D] (the whole
+    sequence's masked attention, or the ring's), then the o-projection and
+    MLP blocks. The one layer body of `forward_dense`,
+    `parallel.pipeline.pipeline_forward` and `parallel.ring.
+    sp_forward_dense`."""
+    c = config
+    B, T = x.shape[:2]
+    hq, hkv = shard_heads(c, mesh)
+    h = _norm(x, lp["attn_norm"], c)
+    q, k, v = _qkv(h, lp, c)
+    q = apply_rope(q.reshape(B, T, hq, c.head_dim), positions[None],
+                   inv_freq)
+    k = apply_rope(k.reshape(B, T, hkv, c.head_dim), positions[None],
+                   inv_freq)
+    v = v.reshape(B, T, hkv, c.head_dim)
+    o = attend(q, k, v, lp.get("sinks"))
+    return _block_residuals(x, o, lp, c, mesh)
+
 
 def forward_dense(params: Params, config: LlamaConfig,
                   token_ids: torch.Tensor) -> torch.Tensor:
@@ -1393,34 +1446,15 @@ def forward_dense(params: Params, config: LlamaConfig,
     tp heads, with the tp collectives of the serving path."""
     c = config
     check_supported(c)
-    B, T = token_ids.shape
-    dev = token_ids.device
-    positions = torch.arange(T, device=dev)
-    ropes = layer_ropes(c, dev)
-    causal = positions[:, None] >= positions[None, :]
+    T = token_ids.shape[1]
+    positions = torch.arange(T, device=token_ids.device)
+    ropes = layer_ropes(c, token_ids.device)
     x = _embed(params, c, token_ids)
     mesh = mesh_of(params)
-    hq, hkv = shard_heads(c, mesh)
-    G = c.q_group
     for li, window in enumerate(c.layer_windows()):
-        mask = causal
-        if window is not None:
-            mask = causal & (positions[:, None] - positions[None, :] < window)
-        lp = layer_params(params, li)
-        h = _norm(x, lp["attn_norm"], c)
-        q, k, v = _qkv(h, lp, c)
-        q = apply_rope(q.reshape(B, T, hq, c.head_dim),
-                       positions[None], ropes[li])
-        k = apply_rope(k.reshape(B, T, hkv, c.head_dim),
-                       positions[None], ropes[li])
-        v = v.reshape(B, T, hkv, c.head_dim)
-        qg = q.reshape(B, T, hkv, G, c.head_dim).float()
-        s = torch.einsum("bthgd,bshd->bhgts", qg, k.float()) * c.sm_scale
-        s = soft_cap(s, c.attn_softcap).masked_fill(~mask, -1e30)
-        sk = (lp["sinks"].reshape(hkv, G).float()[None, :, :, None, None]
-              if "sinks" in lp else None)
-        w = sink_softmax(s, sk)
-        o = torch.einsum("bhgts,bshd->bthgd", w, v.float())
-        x = _block_residuals(x, o.reshape(B, T, -1), lp, c, mesh)
+        mask = attention_mask(positions, positions, window)
+        x = dense_layer(x, layer_params(params, li), c, positions, ropes[li],
+                        functools.partial(masked_attention, mask=mask,
+                                          config=c), mesh)
     x = _norm(x, params["final_norm"], c)
     return _final_logits(x, params, c)

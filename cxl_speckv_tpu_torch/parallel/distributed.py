@@ -95,6 +95,14 @@ def initialize(rank: int, world_size: int, port: int, *,
     return dev
 
 
+def new_group(ranks: list[int]):
+    """A subgroup of the world's `ranks` with an explicit timeout (torch
+    gives a group made without one 30 minutes). Collective: every rank of
+    the world calls it, in the same order."""
+    return dist.new_group(sorted(ranks),
+                          timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+
+
 def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()

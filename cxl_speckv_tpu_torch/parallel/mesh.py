@@ -27,13 +27,33 @@ Which backend runs a collective:
 - gloo (CPU tensors, and ranks that share one card) runs both on CPU
   tensors and takes both on CUDA tensors too, copying through host memory
   inside the backend: with PyTorch 2.11 on the H100, `chip_smoke.py`'s
-  `[parallel]` phase issues each of `COLLECTIVES` on a CUDA tensor under
+  `[parallel]` phase issues each of `GLOO_CUDA_OPS` on a CUDA tensor under
   gloo and fails if one is refused. So no collective is routed around its
   backend, and nothing falls back silently: `Mesh.stats` names the backend
   of every collective issued.
 
 World 1 is the degenerate mesh: every axis has size 1 and no collective is
 issued.
+
+`LineMesh` is the one-axis mesh of offline scoring ("pp" for
+`parallel/pipeline.py`, "sp" for `parallel/ring.py`) over ranks 0 ... S-1
+of the world, the counterpart of the JAX package's
+`Mesh(devices[:S], ("pp",))`. Its operations, each counted and timed in
+`LineMesh.stats()` under its name and route:
+
+- `shift`: one hop along the line, the counterpart of `lax.ppermute`.
+  gloo's point-to-point takes CPU tensors only (the `torch.distributed`
+  backend table; with PyTorch 2.11 on the H100 a rank that sends a CUDA
+  tensor aborts in gloo's TCP transport, "writev ... Bad address", as
+  `chip_smoke.py`'s `--mode p2p` probe records), so under gloo a shift of
+  CUDA tensors copies through pinned host buffers, the route "gloo-host",
+  chosen when the mesh is built from its backend and device; NCCL and gloo
+  on the CPU send the tensors themselves;
+- `broadcast` from one rank of the line to the whole world;
+- `all_gather` along the line.
+
+The broadcast and the gather run on CUDA tensors under gloo itself, as the
+(dp, ep, tp) collectives do (`GLOO_CUDA_OPS`).
 """
 
 from __future__ import annotations
@@ -45,11 +65,13 @@ from collections import defaultdict
 import torch
 import torch.distributed as dist
 
+from cxl_speckv_tpu_torch.parallel import distributed
+
 AXES = ("dp", "ep", "tp")
 
-# the collectives the model issues; gloo must take each on a CUDA tensor
-# (the module docstring)
-COLLECTIVES = ("all_reduce", "all_gather")
+# the collectives both meshes issue on CUDA tensors under gloo itself (the
+# module docstring); `chip_smoke.py` checks that gloo takes each
+GLOO_CUDA_OPS = ("all_reduce", "all_gather", "broadcast")
 
 
 def coords_of(rank: int, ep: int, tp: int) -> dict[str, int]:
@@ -80,7 +102,57 @@ def gather_in_group(x: torch.Tensor, group, size: int,
     return torch.cat(parts, dim=dim)
 
 
-class Mesh:
+class _Counted:
+    """Per-operation counts, bytes and (while `timing` is on) times: CUDA
+    events around an operation on CUDA tensors, the host clock otherwise."""
+
+    backend = "none"
+
+    def _init_stats(self) -> None:
+        self.timing = False
+        self._stats: dict = defaultdict(lambda: {"calls": 0, "bytes": 0,
+                                                 "ms": 0.0})
+        self._pending: list = []
+
+    def _timed(self, op: str, x: torch.Tensor, fn, route: str | None = None,
+               nbytes: int | None = None):
+        st = self._stats[(op, f"{self.backend}-{route or x.device.type}")]
+        st["calls"] += 1
+        st["bytes"] += (x.numel() * x.element_size() if nbytes is None
+                        else nbytes)
+        if not self.timing:
+            return fn()
+        if x.device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            self._pending.append((st, a, b))
+            return out
+        t0 = time.perf_counter()
+        out = fn()
+        st["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def stats(self) -> dict:
+        """{"<op>/<backend>-<route>": {"calls", "bytes", "ms"}} since the
+        last reset, the route being the tensors' device or "host" (a copy
+        through pinned host buffers); ms only while `timing` was on.
+        Reading it synchronizes the pending CUDA events."""
+        for st, a, b in self._pending:
+            b.synchronize()
+            st["ms"] += a.elapsed_time(b)
+        self._pending.clear()
+        return {f"{op}/{where}": dict(v)
+                for (op, where), v in sorted(self._stats.items())}
+
+    def reset_stats(self) -> None:
+        self._pending.clear()
+        self._stats.clear()
+
+
+class Mesh(_Counted):
     """This rank's place in a (dp, ep, tp) mesh and its collective groups.
 
     Build it on every rank of an initialized world of dp * ep * tp ranks
@@ -102,11 +174,8 @@ class Mesh:
         self.world = world
         self.coords = coords_of(self.rank, ep, tp)
         self.backend = dist.get_backend() if world > 1 else "none"
-        self.timing = False
+        self._init_stats()
         self._groups: dict[tuple, object] = {}
-        self._stats: dict = defaultdict(lambda: {"calls": 0, "bytes": 0,
-                                                 "ms": 0.0})
-        self._pending: list = []
         if world > 1:
             self._make_groups()
 
@@ -123,7 +192,7 @@ class Mesh:
                     ranks = [rank_of({**base, **dict(zip(axes, v))}, ep, tp)
                              for v in itertools.product(
                                  *(range(self.shape[a]) for a in axes))]
-                    g = dist.new_group(sorted(ranks))
+                    g = distributed.new_group(ranks)
                     if self.rank in ranks:
                         self._groups[axes] = g
         # a subset spanning every rank is the world group
@@ -173,25 +242,6 @@ class Mesh:
                      if a in ((axes,) if isinstance(axes, str) else axes))
         return axes, self._groups[axes]
 
-    def _timed(self, op: str, x: torch.Tensor, fn):
-        st = self._stats[(op, f"{self.backend}-{x.device.type}")]
-        st["calls"] += 1
-        st["bytes"] += x.numel() * x.element_size()
-        if not self.timing:
-            return fn()
-        if x.device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn()
-            b.record()
-            self._pending.append((st, a, b))
-            return out
-        t0 = time.perf_counter()
-        out = fn()
-        st["ms"] += (time.perf_counter() - t0) * 1e3
-        return out
-
     def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Sum of `x` over `axes` (a name or a tuple of names), reduced in
         float32 and returned in x's dtype; `x` itself when the axes have
@@ -221,23 +271,129 @@ class Mesh:
         dist.broadcast_object_list(box, src=0)
         return box[0]
 
-    # -- statistics ---------------------------------------------------------
 
-    def stats(self) -> dict:
-        """{"<op>/<backend>-<device>": {"calls", "bytes", "ms"}} since the
-        last reset
-        (ms only while `timing` was on); reading it synchronizes the
-        pending CUDA events."""
-        for st, a, b in self._pending:
-            b.synchronize()
-            st["ms"] += a.elapsed_time(b)
-        self._pending.clear()
-        return {f"{op}/{where}": dict(v)
-                for (op, where), v in sorted(self._stats.items())}
+class LineMesh(_Counted):
+    """This rank's place on the one-axis mesh `axis` ("pp" or "sp") over
+    ranks 0 ... size - 1 of the initialized world (`size` None: the whole
+    world; with nothing initialized, the one-rank line). Line index i is
+    world rank i. A rank past the line has `index` None: it runs no part of
+    the forward and takes part only in the broadcast that gives every rank
+    of the world the result. `device` is where the operations' tensors
+    live; under gloo, CUDA tensors shift through pinned host buffers
+    (`route` "host", the module docstring).
 
-    def reset_stats(self) -> None:
-        self._pending.clear()
-        self._stats.clear()
+    Build it on every rank of the world (a line shorter than the world is a
+    subgroup, made collectively) and `close()` it on every rank, or use it
+    as a context manager. `timing` True times every operation (CUDA events
+    on CUDA tensors, the host clock otherwise); `stats()` sums them."""
+
+    def __init__(self, axis: str, size: int | None = None, *,
+                 device="cpu"):
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        size = world if size is None else size
+        if not 1 <= size <= world:
+            raise ValueError(
+                f"{axis}={size} needs {size} ranks, and the world has "
+                f"{world} (start one with parallel/distributed.py)")
+        self.axis, self.size, self.world = axis, size, world
+        self.rank = dist.get_rank() if world > 1 else 0
+        self.index = self.rank if self.rank < size else None
+        self.backend = dist.get_backend() if world > 1 else "none"
+        self.device = torch.device(device)
+        self.route = ("host" if self.backend == "gloo"
+                      and self.device.type == "cuda" else self.device.type)
+        self._init_stats()
+        self._pinned: dict = {}
+        self._own_group = 1 < size < world
+        self.group = (distributed.new_group(list(range(size)))
+                      if self._own_group else dist.group.WORLD)
+
+    def __repr__(self) -> str:
+        return (f"LineMesh({self.axis}={self.size}, index={self.index}, "
+                f"world={self.world}, backend={self.backend}, "
+                f"route={self.route})")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Free the line's subgroup (every rank of the world calls it)."""
+        if self._own_group:
+            if self.index is not None:
+                dist.destroy_process_group(self.group)
+            self._own_group = False
+
+    def _host_buffer(self, tag: str, like: torch.Tensor) -> torch.Tensor:
+        key = (tag, tuple(like.shape), like.dtype)
+        if key not in self._pinned:
+            self._pinned[key] = torch.empty(like.shape, dtype=like.dtype,
+                                            pin_memory=True)
+        return self._pinned[key]
+
+    def _p2p(self, x, recv):
+        i = self.index
+        nxt, prv = (i + 1) % self.size, (i - 1) % self.size
+        if self.route == "host":
+            sx = None if x is None else self._host_buffer("send", x).copy_(x)
+            rx = None if recv is None else self._host_buffer("recv", recv)
+        else:
+            sx, rx = (None if x is None else x.contiguous()), recv
+        ops = []
+        if sx is not None:
+            ops.append(dist.P2POp(dist.isend, sx, nxt, self.group))
+        if rx is not None:
+            ops.append(dist.P2POp(dist.irecv, rx, prv, self.group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if rx is not recv:
+            recv.copy_(rx)
+        return recv
+
+    def shift(self, x: torch.Tensor | None,
+              recv: torch.Tensor | None) -> torch.Tensor | None:
+        """One hop along the line, the counterpart of `lax.ppermute`: send
+        `x` to index (index + 1) % size and receive into `recv` (contiguous)
+        from index (index - 1) % size, both posted at once, so that no ring
+        deadlocks; None on either side: nothing that way (the pipeline's
+        open line passes None at its ends). Returns `recv`, filled. Counts
+        the bytes this rank sent and received. A tensor on another device
+        type than the line was built for raises (its route was chosen for
+        that type: gloo aborts the process on a CUDA tensor's send)."""
+        for t in (x, recv):
+            if t is not None and t.device.type != self.device.type:
+                raise ValueError(f"a {t.device.type} tensor on a line built "
+                                 f"for {self.device.type} tensors")
+        if self.size == 1 or (x is None and recv is None):
+            return recv
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (x, recv) if t is not None)
+        return self._timed("shift", x if x is not None else recv,
+                           lambda: self._p2p(x, recv), route=self.route,
+                           nbytes=nbytes)
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Line index `src`'s `x` on every rank of the world, in place:
+        every rank passes a contiguous tensor of the same shape and dtype.
+        `x` itself in a world of one."""
+        if self.world == 1:
+            return x
+
+        def call():
+            dist.broadcast(x, src=src)
+            return x
+
+        return self._timed("broadcast", x, call)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every line member's `x` concatenated along `dim` in line order
+        (members only); `x` itself on a line of one."""
+        if self.size == 1:
+            return x
+        return self._timed("all_gather", x, lambda: gather_in_group(
+            x, self.group, self.size, dim))
 
 
 def make_mesh(dp: int = 1, tp: int | None = None, ep: int = 1) -> Mesh:

@@ -20,7 +20,7 @@ SCRIPTS = ("round_anatomy", "kernel_probe", "kernel_bench",
            "bench_ablate", "multiproc_serve")
 PARALLEL = ("parallel", "parallel.mesh", "parallel.distributed",
             "parallel.sharding", "parallel.shard_kernels",
-            "parallel.lockstep")
+            "parallel.lockstep", "parallel.pipeline", "parallel.ring")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys

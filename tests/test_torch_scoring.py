@@ -13,7 +13,9 @@ package's, on tiny configs with the JAX weights carried over by
 Held: `score_prompts(mode="dense")` within 2e-4 of the JAX package's at
 float32 (the two forwards sum in other orders), on the prompt-length mix of
 `tests/test_pipeline_sp.py:test_score_prompts_dense_pp_sp_agree`, past the
-window of 6; `Engine.score_prompts` == `score_prompts`; the refusals.
+window of 6; `Engine.score_prompts` == `score_prompts`; the refusals (pp /
+sp themselves: `tests/test_torch_pipeline_ring.py`,
+`tests/test_torch_line_spawn.py`).
 """
 
 import dataclasses
@@ -37,6 +39,8 @@ from cxl_speckv_tpu_torch.engine import Engine
 from cxl_speckv_tpu_torch.engine.scoring import score_prompts
 from cxl_speckv_tpu_torch.models.configs import tiny_test_config
 from cxl_speckv_tpu_torch.models.convert import params_from_jax
+from cxl_speckv_tpu_torch.parallel.mesh import LineMesh
+from cxl_speckv_tpu_torch.parallel.pipeline import pipeline_forward
 
 GEMMA2 = dict(sliding_window=6, attn_pattern=(True, False), attn_softcap=30.0,
               final_softcap=10.0, norm_offset=True, post_norms=True,
@@ -136,8 +140,21 @@ def test_score_prompts_refusals():
     with pytest.raises(ValueError, match="2 tokens"):
         eng.score_prompts([])
     for mode in ("pp", "sp"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            eng.score_prompts([[1, 2, 3]], mode=mode)
+        # a line longer than the world (one process here), the JAX
+        # package's layer split refusal, JAX's device list
+        with pytest.raises(ValueError, match=f"{mode}=2 needs 2 ranks"):
+            eng.score_prompts([[1, 2, 3]], mode=mode, parallel_size=2)
+        with pytest.raises(ValueError, match="devices has no counterpart"):
+            score_prompts(eng.params, eng.model_config, [[1, 2, 3]],
+                          mode=mode, devices=[0])
+    with pytest.raises(ValueError, match="num_layers=2 not divisible by "
+                                         "pp=3"):
+        eng.score_prompts([[1, 2, 3]], mode="pp", parallel_size=3)
+    with pytest.raises(ValueError, match="batch 3 not divisible by "
+                                         "microbatches 2"):
+        pipeline_forward(eng.params, eng.model_config,
+                         torch.ones((3, 4), dtype=torch.long),
+                         mesh=LineMesh("pp"), num_microbatches=2)
     with pytest.raises(ValueError, match="unknown scoring mode"):
         eng.score_prompts([[1, 2, 3]], mode="ring")
 
