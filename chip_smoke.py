@@ -11,11 +11,13 @@ Phases, each printing its results; any failure exits non-zero:
 1. device  -- the card's name and power limit (nvidia-smi), torch, CUDA, nvcc;
 2. build   -- compile every CUDA kernel of the serving path from
               `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in
-              parallel; the W4A16 unpack `w4_unpack.cu` among them) and the
+              parallel; the W4A16 unpack `w4_unpack.cu` and the fused
+              int4 matmul `w4a16_mm.cu` among them) and the
               native directory library (g++), print each kernel's
               registers and spills, and
               require tensor-core (HMMA) instructions in the SASS of K2's
-              bf16-compute kernels and none in its float32 ones;
+              and the fused int4 matmul's bf16-compute kernels and none in
+              their float32 ones;
 3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
               versions at the Llama-3-8B attention geometry (Hq 32, Hkv 8,
               D 128, bs 32). K1 runs the split count its rule chooses
@@ -282,15 +284,23 @@ Phases, each printing its results; any failure exits non-zero:
               cell on its first 8 layers (the depth cut keeps the script
               in time) tiered and ample with the serve's checks (tiered ==
               ample tokens, migrations both ways, exact K1 / K2 launches),
-              and `w4_unpack` launches == int4 matmul calls; the unpack
-              kernel bit-equal to its plain version at every matrix shape
+              and `w4a16_mm` launches == int4 matmul calls (`w4_unpack`
+              launches 0), peak allocated memory over the serve; the fused
+              int4 matmul against its plain version at every matrix shape
               of the model (layer 0's q / k / v / o / gate / up / down,
-              lm_head) and at Qwen3-30B-A3B's expert stacks, `up` timed
-              against its bound and the W8A16 int8 -> bf16 copy of the same
-              matrix; prefill logits of 3 prompts against the dequantized
-              float32 tree on the first 8 layers at float32 activations
-              over BF16 KV (within 2e-2); then one decode round's anatomy
-              at full depth (the unpack kernel's share of device time);
+              lm_head) and at Qwen3-30B-A3B's expert stacks, at 1 / 8 / 40 /
+              512 rows in bf16 and float32 (two calls bit-equal), and `up`,
+              `down`, `lm_head` at 8 / 40 / 512 rows timed over the 32
+              layers' matrices against the bound, the composition it
+              replaced (`w4_unpack` + matmul + scale) and cuBLAS on the
+              dequantized bf16 weight; the unpack kernel (off the matmul
+              path) bit-equal to its plain version at the same shapes,
+              `up` timed against its bound and the W8A16 int8 -> bf16 copy
+              of the same matrix; prefill logits of 3 prompts against the
+              dequantized float32 tree on the first 8 layers at float32
+              activations (the fused kernel's float32 path) over BF16 KV
+              (within 2e-2); then one decode round's anatomy at full depth
+              (the fused matmul's share of device time);
 10. gemma2 -- Gemma-2-9B at full width, 4 of its 42 layers (the depth
               cut keeps the script in time; alternating
               window-4096 and global attention, caps 50 / 30, tied 256000
@@ -706,6 +716,18 @@ def phase_build() -> None:
     if not hmma["product_kernel"] or hmma["sum kernels"]:
         fail(f"anatomy_variants: HMMA counts {hmma}: tensor cores must run "
              f"the products and only them")
+    # the fused int4 matmul: tensor cores in the bf16 / f16 kernels, IEEE
+    # float32 FMA (no HMMA) in the float32 one
+    hmma = {"w4a16_mma_kernel": [], "w4a16_fma_kernel": []}
+    for fn, n in cuda_build.sass_counts("w4a16_mm", "HMMA").items():
+        hmma["w4a16_mma_kernel" if "w4a16_mma_kernel" in fn
+             else "w4a16_fma_kernel"].append(n)
+    print(f"[build] w4a16_mm: HMMA instructions in the SASS of the bf16 / "
+          f"f16 kernels {hmma['w4a16_mma_kernel']}, of the float32 kernel "
+          f"{hmma['w4a16_fma_kernel']}", flush=True)
+    if not all(hmma["w4a16_mma_kernel"]) or any(hmma["w4a16_fma_kernel"]):
+        fail(f"w4a16_mm: HMMA counts {hmma}: tensor cores must run the "
+             f"bf16 / f16 kernels and only them")
     # P2: the score and PV products on the tensor cores (HMMA; w8a8's
     # scores IMMA), K by 2-D TMA (UTMALDG) in every P2 kernel, no spills
     p2 = {}
@@ -779,12 +801,14 @@ def kernels():
 
 def reset_launches() -> None:
     from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
 
     for fn in kernels().values():
         fn.launches.clear()
         fn.sink_launches.clear()
     kernels()["K1"].split_launches.clear()
     w4_unpack.launches.clear()
+    w4a16_mm.launches.clear()
 
 
 def read_launches(counter: str = "launches") -> dict:
@@ -2650,6 +2674,7 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
           flush=True)
     groups = {"int8->bf16 weight copies and other casts": "copy",
               "W4A16 weight unpack (w4_unpack)": "unpack",
+              "W4A16 fused matmul (w4a16_mm)": "w4a16_",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
               "K1 decode_kernel + its merge (tile_ring::merge_lse)": (
                   "decode_kernel", "merge_lse")}
@@ -4918,13 +4943,196 @@ def w4_unpack_checks(params, peaks) -> dict:
     return up
 
 
+# the fused int4 matmul on the card: checked at every matrix shape of the
+# served W4A16 model at W4MM_ROWS rows of x; timed at W4MM_TIMED_ROWS for
+# W4MM_TIMED. Tolerance against its plain version (the same float32
+# products, summed in another order, so the sum rounded to bf16 may differ
+# by a step, and the scaled result by two): bf16 two steps of bf16 at
+# |want| (2 * 2^(floor(log2 |want|) - 7), between 2^-7 and 2^-6 of |want|)
+# plus W4MM_ABS of the largest |want| for outputs that cancel; float32
+# W4MM_F32 of the largest |want|
+W4MM_ROWS = (1, 8, 40, 512)
+W4MM_TIMED = ("up", "down", "lm_head")
+W4MM_TIMED_ROWS = (8, 40, 512)
+W4MM_STEPS, W4MM_ABS, W4MM_F32 = 2, 1e-3, 1e-5
+# bf16 weights the library yardstick cycles over, at least this many bytes
+# in all (more than the 50 MB L2)
+W4MM_LIB_BYTES = 200e6
+
+
+@contextlib.contextmanager
+def full_reduction():
+    """cuBLAS at its full float32 reduction in bf16 / f16 products, for
+    the plain versions the fused int4 matmul is held to."""
+    m = torch.backends.cuda.matmul
+    old = (m.allow_bf16_reduced_precision_reduction,
+           m.allow_fp16_reduced_precision_reduction)
+    m.allow_bf16_reduced_precision_reduction = False
+    m.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = old
+
+
+def w4mm_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, the largest |got - want| / bound; <= 1 passes)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    d = (g - w).abs()
+    if got.dtype == torch.float32:
+        bound = torch.full_like(w, W4MM_F32 * top)
+    else:
+        # a bf16 step at |w| in [2^(e-1), 2^e) is 2^(e-8)
+        step = torch.ldexp(torch.ones_like(w), torch.frexp(w)[1] - 8)
+        bound = W4MM_STEPS * step + W4MM_ABS * top
+    return float(d.max()), float((d / bound.clamp_min(1e-30)).max())
+
+
+def w4mm_checks(params) -> float:
+    """The fused int4 matmul against its plain version at every matrix
+    shape of the served model (layer 0's q / k / v / o / gate / up / down,
+    lm_head) and Qwen3-30B-A3B's expert stacks (batched over its 128
+    experts), at W4MM_ROWS rows in bf16 and float32; two calls bit-equal.
+    Returns the largest bf16 |difference|."""
+    from cxl_speckv_tpu_torch.models.configs import qwen3_moe_30b
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm, w4a16_mm_plain
+
+    mats = {n: (params["layers"][n][0].q, params["layers"][n][0].s)
+            for n in ("q", "k", "v", "o", "gate", "up", "down")}
+    mats["lm_head"] = (params["lm_head"].q, params["lm_head"].s)
+    mc = qwen3_moe_30b()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(22)
+    E, H, I = mc.num_experts, mc.hidden_size, mc.intermediate_size
+    for name, (k, n) in (("qwen3-30b-a3b gate/up stack", (H, I)),
+                         ("qwen3-30b-a3b down stack", (I, H))):
+        mats[name] = (torch.randint(-128, 128, (E, k, n // 2), generator=gen,
+                                    device=DEV, dtype=torch.int8),
+                      torch.rand((E, 1, n), generator=gen, device=DEV) * 0.02
+                      + 1e-3)
+    worst = {torch.bfloat16: (0.0, 0.0), torch.float32: (0.0, 0.0)}
+    t0 = time.monotonic()
+    with full_reduction():
+        for name, (q, sc) in mats.items():
+            lead = q.shape[:-2]
+            for dt in worst:
+                for M in W4MM_ROWS:
+                    x = torch.randn((*lead, M, q.shape[-2]), generator=gen,
+                                    device=DEV).to(dt)
+                    got = w4a16_mm(x, q, sc)
+                    again = w4a16_mm(x, q, sc)
+                    want = w4a16_mm_plain(x, q, sc)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        fail(f"w4a16_mm {name} {tuple(x.shape)} {dt}: two "
+                             f"calls differ")
+                    err, ratio = w4mm_err(got, want)
+                    if not ratio <= 1.0:
+                        fail(f"w4a16_mm {name} {tuple(x.shape)} {dt}: max "
+                             f"|Δ| {err:.3e} is {ratio:.2f}x the bound")
+                    worst[dt] = max(worst[dt], (ratio, err))
+                    del x, got, again, want
+    del mats
+    print(f"[serve-w4a16] w4a16_mm == its plain version at the 8 matrix "
+          f"shapes and 2 expert stacks x rows {W4MM_ROWS}, two calls "
+          f"bit-equal; bf16 worst |Δ| {worst[torch.bfloat16][1]:.3e} "
+          f"({worst[torch.bfloat16][0]:.3f} of the bound {W4MM_STEPS} bf16 "
+          f"steps at |want| + {W4MM_ABS} max |want|), float32 worst |Δ| "
+          f"{worst[torch.float32][1]:.3e} ({worst[torch.float32][0]:.3f} of "
+          f"the bound {W4MM_F32} max |want|); {time.monotonic() - t0:.1f} s",
+          flush=True)
+    return worst[torch.bfloat16][1]
+
+
+def w4mm_timed(params, peaks, name: str, M: int) -> dict:
+    """The fused int4 matmul at M bf16 rows against weight `name`, timed
+    over the 32 layers' matrices of that name in turn (one `up` is 29.4 MB
+    packed and fits the 50 MB L2; lm_head, 262.7 MB, is one matrix): a
+    single launch, back to back, and replayed from a CUDA graph (the
+    device's time without host dispatch, which back to back shows for
+    kernels shorter than their host work), with
+    the bound, the plain version and two yardsticks the port does not call:
+    the composition it replaced (`x @ w4_unpack(q) * s`) and cuBLAS on the
+    dequantized bf16 weight."""
+    import itertools
+
+    from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm, w4a16_mm_plain
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
+
+    w = params["lm_head"] if name == "lm_head" else params["layers"][name]
+    mats = [w] if name == "lm_head" else [w[i] for i in range(w.q.shape[0])]
+    K, N = mats[0].shape
+    bf = torch.bfloat16
+    x = torch.randn(M, K, device=DEV, dtype=bf)
+
+    def turns(fn, ws):
+        it = itertools.cycle(ws)
+        return lambda: fn(next(it))
+
+    fused = turns(lambda m: w4a16_mm(x, m.q, m.s), mats)
+    row = {"case": f"w4a16_mm {name} [{K}, {N}] M={M}", "name": name,
+           "M": M}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        peaks, K * N // 2 + 4 * N + 2 * M * K + 2 * M * N,
+        {"bf16": 2 * M * K * N})
+    row["ms"] = time_ms(fused)
+    row["b2b_ms"] = b2b_ms(fused)
+    row["graph_ms"] = graph_ms(fused)
+    row["plain_ms"] = time_ms(turns(lambda m: w4a16_mm_plain(x, m.q, m.s),
+                                    mats))
+    comp = turns(lambda m: (x @ w4_unpack(m.q, bf)) * m.s.to(bf), mats)
+    row["composition_ms"] = time_ms(comp)
+    row["composition_b2b_ms"] = b2b_ms(comp)
+    row["composition_graph_ms"] = graph_ms(comp)
+    nlib = min(len(mats), max(2, -(-int(W4MM_LIB_BYTES) // (2 * K * N))))
+    wb = [m.dequantize(bf) for m in mats[:nlib]]
+    lib = turns(lambda b: x @ b, wb)
+    row["library_ms"] = time_ms(lib)
+    row["library_b2b_ms"] = b2b_ms(lib)
+    row["library_graph_ms"] = graph_ms(lib)
+    del wb, x
+    return row
+
+
+def w4mm_timings(params, peaks) -> list:
+    rows = [w4mm_timed(params, peaks, n, M) for n in W4MM_TIMED
+            for M in W4MM_TIMED_ROWS]
+    for r in rows:
+        print(f"[serve-w4a16] {r['case']}: kernel {r['ms']:.4f} ms, back to "
+              f"back {r['b2b_ms']:.4f}, from a CUDA graph {r['graph_ms']:.4f};"
+              f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['graph_ms']:.1%} of it from the graph), "
+              f"plain {r['plain_ms']:.4f} ms; the composition it replaced "
+              f"{r['composition_ms']:.4f} ms (b2b "
+              f"{r['composition_b2b_ms']:.4f}, graph "
+              f"{r['composition_graph_ms']:.4f}), cuBLAS on the bf16 weight "
+              f"{r['library_ms']:.4f} ms (b2b {r['library_b2b_ms']:.4f}, "
+              f"graph {r['library_graph_ms']:.4f})", flush=True)
+    return rows
+
+
+def peak_above_gib(fn) -> float:
+    """GiB `torch.cuda.max_memory_allocated` rose above the allocated
+    memory before `fn` ran."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
 W4_LOGITS_TOL = 2e-2     # float32 activations, BF16 KV (see the phase)
 
 
 def w4_logits_check(cfg, params, prompts) -> float:
-    """Prefill logits of a few prompts through the W4A16 tree against the
-    same tree dequantized to float32 (K2 on both), at float32 activations on
-    the model's first W4_LOGITS_LAYERS layers over BF16 KV: the two differ
+    """Prefill logits of a few prompts through the W4A16 tree (the fused
+    int4 matmul's float32 path) against the same tree dequantized to
+    float32 (K2 on both), at float32 activations on the model's first
+    W4_LOGITS_LAYERS layers over BF16 KV: the two differ
     only in where the scale multiplies ((x @ q) * s against x @ (q * s)),
     to float32 rounding, and in the bf16 K / V roundings that this moves
     across a boundary; held within W4_LOGITS_TOL absolute. Returns the
@@ -4933,8 +5141,10 @@ def w4_logits_check(cfg, params, prompts) -> float:
 
     from cxl_speckv_tpu_torch.config import KVDtype
     from cxl_speckv_tpu_torch.models.llama import prefill_chunk
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
     from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
 
+    f32_launches = w4a16_mm.launches["float32"]
     c8, p8 = first_layers(cfg, params, W4_LOGITS_LAYERS)
     c8 = dataclasses.replace(c8, dtype="float32")
     deq = lambda w: (w.dequantize(torch.float32)
@@ -4959,6 +5169,8 @@ def w4_logits_check(cfg, params, prompts) -> float:
             fail("serve-w4a16: non-finite prefill logits")
         worst = max(worst, float((out[0] - out[1]).abs().max()))
     del dense
+    if w4a16_mm.launches["float32"] == f32_launches:
+        fail("serve-w4a16: the float32 logits ran no float32 w4a16_mm")
     if worst > W4_LOGITS_TOL:
         fail(f"serve-w4a16: prefill logits {worst:.3e} from the dequantized "
              f"tree's (above {W4_LOGITS_TOL})")
@@ -4973,13 +5185,17 @@ def phase_serve_w4a16(prompts, peaks) -> dict:
     """Llama-3-8B at full width and depth, W4A16 (`init_params_quantized(
     bits=4)` on the card): memory against the W8A16 tree; the serve cell
     tiered and ample on its first W4A16_LAYERS layers with the serve
-    phase's checks, every quantized matmul launching the unpack kernel
-    once; the unpack kernel at every matrix shape; the prefill logits
-    against the dequantized tree; one decode round's anatomy at full depth.
-    Returns the kernel entry's row with the serve's unpack launches."""
+    phase's checks, every quantized matmul launching the fused int4 matmul
+    once and none the unpack kernel, and the serve's peak memory; the fused
+    kernel at every matrix shape and timed; the unpack kernel (off the
+    matmul path) at every matrix shape; the prefill logits against the
+    dequantized tree; one decode round's anatomy at full depth. Returns
+    {"unpack": the unpack entry's row, "mm": the fused kernel's timed rows,
+    "launches": its launches in the serve, "err": its worst bf16 |Δ|}."""
     from cxl_speckv_tpu_torch.models.configs import llama_3_8b
     from cxl_speckv_tpu_torch.ops import wquant
     from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
     from cxl_speckv_tpu_torch.utils.dispatch import params_byte_size
 
     cfg = llama_3_8b()
@@ -4990,25 +5206,45 @@ def phase_serve_w4a16(prompts, peaks) -> dict:
           f"{INIT_GIB.get('serve', float('nan')):.2f} GiB", flush=True)
     reset_launches()
     calls = wquant.quantized_calls[4]
-    launches, _ = tiered_vs_ample(
-        "serve-w4a16", *first_layers(cfg, params, W4A16_LAYERS), SHORT,
-        prompts, wq="int4")
-    check_windows("serve-w4a16", launches, lambda n: {("int8", 0): n})
+    out = {}
+
+    def serves():
+        out["launches"], _ = tiered_vs_ample(
+            "serve-w4a16", *first_layers(cfg, params, W4A16_LAYERS), SHORT,
+            prompts, wq="int4")
+
+    peak = peak_above_gib(serves)
+    check_windows("serve-w4a16", out["launches"], lambda n: {("int8", 0): n})
+    fused = total(w4a16_mm.launches)
     unpacks = total(w4_unpack.launches)
     calls = wquant.quantized_calls[4] - calls
-    if unpacks != calls or not unpacks:
-        fail(f"serve-w4a16: {unpacks} unpack launches for {calls} quantized "
-             f"matmul calls")
-    print(f"[serve-w4a16] {unpacks} w4_unpack launches == {calls} int4 "
-          f"matmul calls over the tiered and ample serves ({W4A16_LAYERS} "
-          f"layers)", flush=True)
-    row = w4_unpack_checks(params, peaks)
-    row["launches"] = unpacks
+    if fused != calls or not fused or unpacks:
+        fail(f"serve-w4a16: {fused} w4a16_mm launches and {unpacks} "
+             f"w4_unpack launches for {calls} int4 matmul calls")
+    print(f"[serve-w4a16] {fused} w4a16_mm launches "
+          f"({dict(w4a16_mm.launches)}) == {calls} int4 matmul calls, "
+          f"w4_unpack launches 0, over the tiered and ample serves "
+          f"({W4A16_LAYERS} layers); torch.cuda.max_memory_allocated "
+          f"{peak:.3f} GiB above the weights during them", flush=True)
+    head = params["lm_head"]
+    xh = torch.randn(BATCH, head.shape[0], device=DEV, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    pf = peak_above_gib(lambda: w4a16_mm(xh, head.q, head.s))
+    pc = peak_above_gib(lambda: (xh @ w4_unpack(head.q, bf)) * head.s.to(bf))
+    print(f"[serve-w4a16] one lm_head product at {BATCH} rows: peak "
+          f"allocated {pf:.4f} GiB above its inputs fused, {pc:.4f} GiB "
+          f"through the composition it replaced (w4_unpack + matmul + "
+          f"scale)", flush=True)
+    del xh
+    rows = {"launches": fused, "err": w4mm_checks(params)}
+    rows["mm"] = w4mm_timings(params, peaks)
+    rows["unpack"] = w4_unpack_checks(params, peaks)
+    rows["unpack"]["launches"] = unpacks
     w4_logits_check(cfg, params, prompts)
     phase_anatomy(f"Llama-3-8B W4A16 ({cfg.num_layers} layers)", cfg, params,
                   prompts, peaks, matmuls=False, wq="int4")
     del params
-    return row
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -6010,7 +6246,7 @@ def main() -> int:
     timed("native", phase_native, *first_layers(cfg, params, HOST_LAYERS),
           prompts, python_run)
     del params, python_run
-    w4_row = timed("serve-w4a16", phase_serve_w4a16, prompts, peaks)
+    w4_rows = timed("serve-w4a16", phase_serve_w4a16, prompts, peaks)
     gemma_launches, gemma_long_launches = timed("gemma2", phase_gemma, peaks)
     mistral_launches = timed("mistral", phase_mistral)
     gpt_launches = timed("gpt-oss", phase_gpt_oss, peaks)
@@ -6119,19 +6355,41 @@ def main() -> int:
                                     par["rows"][key], par["launches"][key]))
     entries += probe_entries
     entries += script_entries
-    # replaces no pl.pallas_call: the JAX package's int4 weights convert
+    # replace no pl.pallas_call: the JAX package's int4 weights convert
     # inside XLA's matmul fusion (`mm`); no single PyTorch call unpacks
-    # half-split nibbles
+    # half-split nibbles. The unpack kernel is off the matmul path (its
+    # launches in the serve: 0); the fused matmul's launches are its total
+    # over the serve, every shape and row count together
+    w4_unpack_row = w4_rows["unpack"]
     entries.append({
         "name": "w4_unpack llama-3-8b up", "route": "cuda",
         "source": "cxl_speckv_tpu_torch/csrc/w4_unpack.cu",
         "replaces": "none (no pl.pallas_call; XLA fuses the int4 convert in "
                     "cxl_speckv_tpu/ops/wquant.py:186)",
-        "launches": w4_row["launches"], "max_abs_err": w4_row["err"],
-        "ms": w4_row["ms"], "b2b_ms": w4_row["b2b_ms"],
-        "plain_ms": w4_row["plain_ms"], "bound_ms": w4_row["bound_ms"],
-        "bound_by": w4_row["bound_by"], "library_ms": None,
-        "w8_copy_ms": w4_row["w8_copy_ms"]})
+        "launches": w4_unpack_row["launches"],
+        "max_abs_err": w4_unpack_row["err"],
+        "ms": w4_unpack_row["ms"], "b2b_ms": w4_unpack_row["b2b_ms"],
+        "plain_ms": w4_unpack_row["plain_ms"],
+        "bound_ms": w4_unpack_row["bound_ms"],
+        "bound_by": w4_unpack_row["bound_by"], "library_ms": None,
+        "w8_copy_ms": w4_unpack_row["w8_copy_ms"]})
+    for r in w4_rows["mm"]:
+        entries.append({
+            "name": f"w4a16_mm llama-3-8b {r['name']} M={r['M']}",
+            "route": "cuda",
+            "source": "cxl_speckv_tpu_torch/csrc/w4a16_mm.cu",
+            "replaces": "none (no pl.pallas_call; XLA fuses the int4 convert "
+                        "into the matmul in cxl_speckv_tpu/ops/wquant.py:186)",
+            "launches": w4_rows["launches"], "max_abs_err": w4_rows["err"],
+            "ms": r["ms"], "b2b_ms": r["b2b_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_b2b_ms": r["library_b2b_ms"],
+            "library_graph_ms": r["library_graph_ms"],
+            "graph_ms": r["graph_ms"],
+            "composition_ms": r["composition_ms"],
+            "composition_b2b_ms": r["composition_b2b_ms"],
+            "composition_graph_ms": r["composition_graph_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

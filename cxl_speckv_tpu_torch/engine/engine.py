@@ -90,10 +90,11 @@ prefetch predictor keeps its host path (no in-round leg, as the JAX engine)
 and trains synchronously, and the derived `decode_horizon` is rank 0's.
 
 `EngineConfig.weight_dtype` "int8" serves W8A16 and "int4" W4A16 weights
-(`ops/wquant.py`; each int4 matmul unpacks its weight in one launch of
-`ops/w4_unpack.py`'s kernel); a tree passed already quantized serves as it
-is. `CacheConfig.host_store_backend="numpy"` keeps the host tier in
-pageable host memory (`runtime/transfer.py:TransferEngine`), and
+(`ops/wquant.py`; each int4 matmul is one launch of the fused int4 matmul
+of `ops/w4a16_mm.py`, which reads the packed weight once); a tree passed
+already quantized serves as it is. `CacheConfig.host_store_backend=
+"numpy"` keeps the host tier in pageable host memory
+(`runtime/transfer.py:TransferEngine`), and
 `TieredKVCache(native=True)` or `SPECKV_NATIVE=1` runs the C++ residency
 directory (`cxl_speckv_tpu_torch/native`).
 `score_prompts` scores whole prompts offline (`engine/scoring.py`).

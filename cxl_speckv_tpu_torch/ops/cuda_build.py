@@ -42,6 +42,8 @@ SIGNATURES = {
     # W4A16 weights: packed int4 -> the activation dtype (ops/w4_unpack.py)
     "w4_unpack": ("w4_unpack_launch",
                   [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
+    # W4A16 weights: the fused int4 matmul (ops/w4a16_mm.py)
+    "w4a16_mm": ("w4a16_mm_launch", [_P] * 6 + [_I] * 8 + [_P]),
     # the card tests' hold on a stream (utils/card.py:StreamHold)
     "stream_hold": ("stream_hold_launch", [_P, ctypes.c_longlong, _P]),
 }

@@ -12,6 +12,11 @@ It replaces no TPU kernel: the JAX package's int4 weights convert inside
 XLA's matmul fusion. Its plain version `w4_unpack_plain` is
 `unpack_int4(q).to(dtype)`; the wrapper runs it for a tensor on the CPU
 only, and on a CUDA tensor launches the kernel or raises.
+
+Off the matmul path: an int4 matmul runs the fused kernel of
+`ops/w4a16_mm.py`, which never writes the unpacked weight. This kernel
+serves `ops/wquant.take_rows` on an int4 table, which no served tree holds
+(the embedding stays int8).
 """
 
 from __future__ import annotations

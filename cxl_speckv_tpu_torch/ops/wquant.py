@@ -21,11 +21,13 @@ scale [..., 1, out], leading-axis (layer / expert) indexing and layer
 slicing are those of int8. The JAX package stores jnp.int4, which XLA
 packs in HBM.
 
-`mm` and `qeinsum` convert the weight to the activation dtype on every
-call (`x @ q.to(x.dtype) * s`; an int4 weight unpacks in one launch of
-`ops/w4_unpack.w4_unpack`): a full-width temporary copy per call, a known
-cost that a fused kernel would remove. The JAX package runs these products
-outside any Pallas kernel too (XLA fuses its convert).
+At bits 8, `mm` and `qeinsum` convert the weight to the activation dtype
+on every call (`x @ q.to(x.dtype) * s`): a full-width temporary copy per
+call, a known cost that a fused kernel would remove. At bits 4 each call is
+one launch of the fused int4 matmul `ops/w4a16_mm.w4a16_mm`, which reads the
+packed weight once and keeps its values in registers; `qeinsum` takes the
+two MoE expert specs there as its batched form. The JAX package runs these
+products outside any Pallas kernel (XLA fuses its convert).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 
 from cxl_speckv_tpu_torch.ops.quant import pack_int4, unpack_int4
 from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
 
 _QMAX = {8: 127, 4: 7}
 
@@ -162,23 +165,34 @@ def is_quantized(params: dict) -> bool:
 
 
 def operand(w: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weight's integer values in the activation dtype, the matmul's
-    operand: an int8 copy, or one `w4_unpack` launch for int4. Counts the
-    call in `quantized_calls` by bits."""
-    quantized_calls[w.bits] += 1
-    return w4_unpack(w.q, dtype) if w.bits == 4 else w.q.to(dtype)
+    """An int8 weight's values in the activation dtype, the matmul's
+    operand (a full-width copy). Counts the call in `quantized_calls`. An
+    int4 weight has no operand: its matmuls run `w4a16_mm`."""
+    if w.bits != 8:
+        raise ValueError("operand: an int4 weight multiplies in w4a16_mm")
+    quantized_calls[8] += 1
+    return w.q.to(dtype)
 
 
 # quantized matmul calls (`mm`, `qeinsum`) by bits, on any device; on the
-# card every int4 call launches the unpack kernel once
+# card every int4 call launches the fused int4 matmul once
 quantized_calls: Counter = Counter()
+
+# the einsums `qeinsum` runs on an int4 weight (the MoE expert products,
+# models/moe.py): x [E, C, in] against a stack [E, in, out]
+INT4_SPECS = frozenset({"ech,ehi->eci", "eci,eih->ech"})
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a plain tensor or a per-out-column QuantizedTensor."""
+    """x @ w for a plain tensor or a per-out-column QuantizedTensor (an int4
+    matrix: x's leading dims flatten into rows)."""
     if isinstance(w, QuantizedTensor):
         if w.axis != -2:
             raise ValueError(f"mm needs per-out-column scales, axis={w.axis}")
+        if w.bits == 4:
+            quantized_calls[4] += 1
+            y = w4a16_mm(x.reshape(-1, x.shape[-1]), w.q, w.s)
+            return y.reshape(*x.shape[:-1], y.shape[-1])
         return (x @ operand(w, x.dtype)) * w.s.to(x.dtype)
     return x @ w
 
@@ -187,8 +201,17 @@ def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
     """einsum(spec, x, w) where w may be quantized. The einsum contracts
     exactly w's scale axis, and w's kept axes line up with the result's
     last axes as [E, 1, out] against [E, C, out] (the MoE expert einsums
-    "ech,ehi->eci" and "eci,eih->ech"), as in the JAX package."""
+    "ech,ehi->eci" and "eci,eih->ech"), as in the JAX package. An int4
+    weight takes only those two (`INT4_SPECS`, the batched `w4a16_mm`);
+    another spec raises."""
     if isinstance(w, QuantizedTensor):
+        if w.bits == 4:
+            if spec not in INT4_SPECS or w.axis != -2:
+                raise ValueError(f"qeinsum: an int4 weight takes only "
+                                 f"{sorted(INT4_SPECS)} with per-out-column "
+                                 f"scales, got {spec!r} (axis {w.axis})")
+            quantized_calls[4] += 1
+            return w4a16_mm(x, w.q, w.s)
         y = torch.einsum(spec, x, operand(w, x.dtype))
         return y * w.s.squeeze(w.axis).to(x.dtype)[..., None, :]
     return torch.einsum(spec, x, w)

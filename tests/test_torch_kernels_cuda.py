@@ -1411,6 +1411,93 @@ def test_w4_unpack_kernel_equals_plain(dev, shape, dtype):
                        w4_unpack_plain(flat.cpu(), dtype))
 
 
+# the fused int4 matmul's tolerance against its plain version (the same
+# float32 products summed in another order, so the sum rounded to the
+# result's type may differ by a step, and the scaled result by two): bf16 /
+# f16 two steps of that type at |want|, plus 1e-3 of the largest |want| for
+# outputs that cancel; float32 1e-5 of the largest |want|
+W4MM_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def w4mm_close(got, want) -> float:
+    """Max |got - want| over the bound (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    top = float(w.abs().max())
+    if got.dtype == torch.float32:
+        bound = torch.full_like(w, 1e-5 * top)
+    else:
+        # a step at |w| in [2^(e-1), 2^e) is 2^(e-1-mantissa bits)
+        e = torch.frexp(w)[1] - 1 - W4MM_MANTISSA[got.dtype]
+        bound = 2 * torch.ldexp(torch.ones_like(w), e) + 1e-3 * top
+    return float(((g - w).abs() / bound.clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("split", ["planned", "forced"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("shape", [
+    (1, 8, 4096, 2048),     # decode rows, 16-byte copies, planned splits
+    (1, 1, 512, 128),
+    (1, 16, 256, 256),
+    (1, 40, 256, 320),      # 48-row block; a ragged strip (160 of 192)
+    (1, 512, 128, 256),     # 64-row blocks
+    (1, 13, 96, 70),        # packed width 35: byte / element loads
+    (1, 5, 37, 40),         # ragged K
+    (3, 8, 64, 40),         # a batch (expert stack)
+    (4, 17, 128, 128),
+])
+def test_w4a16_mm_kernel_equals_plain(dev, monkeypatch, shape, dtype, split):
+    """The fused kernel against `w4a16_mm_plain` (cuBLAS at full float32
+    reduction), two calls bit-equal, one launch a call; `forced` splits K
+    into as many parts as it has 64-row stages."""
+    from cxl_speckv_tpu_torch.ops import w4a16_mm as wm
+
+    if split == "forced":
+        monkeypatch.setattr(wm, "SPLIT_CTAS_PER_SM", 10 ** 6)
+        monkeypatch.setattr(wm, "MIN_SPLIT_STAGES", 1)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_fp16_reduced_precision_reduction", False)
+    B, M, K, N = shape
+    rng = np.random.RandomState(M + K + N)
+    lead = (B,) if B > 1 else ()
+    q = torch.from_numpy(rng.randint(-128, 128, (*lead, K, N // 2))
+                         .astype(np.int8)).to(dev)
+    s = torch.from_numpy(rng.rand(*lead, 1, N).astype(np.float32) * 0.05
+                         + 0.001).to(dev)
+    x = torch.from_numpy(rng.randn(*lead, M, K).astype(np.float32)).to(
+        dev, dtype)
+    before = sum(wm.w4a16_mm.launches.values())
+    got = wm.w4a16_mm(x, q, s)
+    again = wm.w4a16_mm(x, q, s)
+    torch.cuda.synchronize()
+    assert sum(wm.w4a16_mm.launches.values()) == before + 2
+    assert got.shape == (*lead, M, N) and got.dtype == dtype
+    assert torch.equal(got, again)
+    assert w4mm_close(got, wm.w4a16_mm_plain(x, q, s)) <= 1.0
+    # an x one element past an aligned start takes the element loads
+    xs = torch.cat([x.reshape(-1), x.reshape(-1)[:1]])[1:].view(x.shape)
+    assert w4mm_close(wm.w4a16_mm(xs, q, s),
+                      wm.w4a16_mm_plain(xs, q, s)) <= 1.0
+
+
+def test_w4a16_mm_refuses_on_card(dev):
+    """On a CUDA tensor the wrapper launches or raises; it never runs the
+    plain version."""
+    from cxl_speckv_tpu_torch.ops import w4a16_mm as wm
+
+    q = torch.zeros(64, 32, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 64, device=dev)
+    x = torch.zeros(4, 64, device=dev)
+    before = dict(wm.w4a16_mm.launches)
+    for args in ((x.to(torch.int32), q, s), (x, q.t(), s),
+                 (x, q, s.double()), (x, q.to(torch.uint8), s)):
+        with pytest.raises(ValueError):
+            wm.w4a16_mm(*args)
+    assert dict(wm.w4a16_mm.launches) == before
+
+
 def _tiny_engine(dev_kw, hbm, **cache_kw):
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
@@ -1449,16 +1536,20 @@ def _prompts():
 
 def test_w4a16_engine_on_card(dev):
     """The tiny model at int4 weights on the card: every quantized matmul
-    launches the unpack kernel once, and tiered == ample tokens."""
+    launches the fused int4 matmul once (none the unpack kernel), and
+    tiered == ample tokens."""
     from cxl_speckv_tpu_torch.ops import wquant
     from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
+    from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
 
     ample = _tiny_engine({}, 256, weight_dtype="int4")
     assert ample.params["layers"]["up"].bits == 4
-    calls, launches = wquant.quantized_calls[4], sum(w4_unpack.launches.values())
+    calls, launches = wquant.quantized_calls[4], sum(w4a16_mm.launches.values())
+    unpacks = sum(w4_unpack.launches.values())
     want = ample.generate(_prompts(), max_new_tokens=12)
-    assert (sum(w4_unpack.launches.values()) - launches
+    assert (sum(w4a16_mm.launches.values()) - launches
             == wquant.quantized_calls[4] - calls > 0)
+    assert sum(w4_unpack.launches.values()) == unpacks
     tiered = _tiny_engine({}, 14, weight_dtype="int4")
     tiered.params = ample.params
     assert tiered.generate(_prompts(), max_new_tokens=12) == want
