@@ -12,11 +12,11 @@ Phases, each printing its results; any failure exits non-zero:
 2. build   -- compile every CUDA kernel of the serving path from
               `cxl_speckv_tpu_torch/csrc/` (one nvcc per source, in
               parallel; the W4A16 unpack `w4_unpack.cu` and the fused
-              int4 matmul `w4a16_mm.cu` among them) and the
-              native directory library (g++), print each kernel's
-              registers and spills, and
+              int4 and int8 matmuls `w4a16_mm.cu` / `w8a16_mm.cu` among
+              them) and the native directory library (g++), print each
+              kernel's registers and spills, and
               require tensor-core (HMMA) instructions in the SASS of K2's
-              and the fused int4 matmul's bf16-compute kernels and none in
+              and the fused matmuls' bf16-compute kernels and none in
               their float32 ones;
 3. K1, K2  -- decode and chunk attention kernels vs their plain PyTorch
               versions at the Llama-3-8B attention geometry (Hq 32, Hkv 8,
@@ -79,8 +79,26 @@ Phases, each printing its results; any failure exits non-zero:
               request must finish, the tiered run must migrate both ways,
               and both runs must emit identical tokens;
 7. anatomy -- device time of one served Llama decode round by kernel
-              (torch.profiler) and the W8A16 matmuls of one layer (again
-              for Gemma-2 after its short serve);
+              (torch.profiler; the fused int8 matmul's share) and the W8A16
+              matmuls of one layer, fused against the composition they
+              replaced (an int8 -> bf16 copy a call) and cuBLAS on bf16
+              weights (again for Gemma-2 after its short serve);
+7b. w8a16  -- the fused int8 matmul (`w8a16_mm.cu`) against its plain
+              version (the composition it replaced) at every weight of the
+              served Llama-3-8B (layer 0's q / k / v / o / gate / up / down,
+              lm_head), Gemma-2-9B's tied head (its [256000, 3584] int8
+              embedding read in place) and the expert stacks of
+              Qwen3-30B-A3B and Qwen2-57B-A14B, at 1 / 8 / 40 / 512 rows in
+              bf16 and float32 (two calls bit-equal, the worst ratio to the
+              bound printed); `up`, `down` (over the 32 layers' matrices),
+              lm_head, the tied head and Qwen3's gate / up stack timed at 8
+              / 40 / 512 rows (single launch, back to back, CUDA graph)
+              against the bound, the plain version and cuBLAS on the bf16
+              weight; one lm_head and one tied-head product's peak memory,
+              fused against the composition. Every serve of the script
+              holds the fused kernel's launches to the int8 matmul calls
+              (`quantized_calls[8]`, > 0 on a W8A16 engine) and no
+              `operand()` copy;
 8. serve-int4, serve-mixed -- the same Llama serve, cut to its first 8
               layers (the depth cut keeps the script in time), with INT4 KV,
               and with a per-layer table of INT8 (even layers) and FP8 (odd
@@ -329,7 +347,7 @@ Phases, each printing its results; any failure exits non-zero:
               of the launches with window 128, every launch of this serve
               with sinks (`sink_launches` == `launches`; no other serve
               launches with sinks), no block retired; then its decode-round
-              anatomy with the expert-weight copies' share;
+              anatomy with the fused expert products' time a layer;
 13. qwen3  -- Qwen3-8B at full width, 12 of its 36 layers (per-head q/k
               RMSNorm; the depth cut keeps the script in time):
               16 requests x (64 + 64), batch 8, on 40 tiered HBM blocks
@@ -346,7 +364,7 @@ Phases, each printing its results; any failure exits non-zero:
 15. qwen3-moe -- Qwen3-30B-A3B at full width (128 experts top-8,
               renormalised, dense MoE mode), 8 of its 48 layers: the
               qwen3 cell's serve and checks; then its decode-round anatomy
-              with the expert stacks' copy share;
+              with the fused expert products' time a layer;
 15b. qwen2-moe -- Qwen2-57B-A14B at full width (G 7, q/k/v bias, 64
               experts top-8 without renormalisation, the sigmoid-gated
               shared expert of 20480, dense MoE mode), 4 of its 28 layers:
@@ -728,6 +746,19 @@ def phase_build() -> None:
     if not all(hmma["w4a16_mma_kernel"]) or any(hmma["w4a16_fma_kernel"]):
         fail(f"w4a16_mm: HMMA counts {hmma}: tensor cores must run the "
              f"bf16 / f16 kernels and only them")
+    # the fused int8 matmul: the same, in both weight layouts
+    hmma = {"w8a16_mma_kernel": [], "w8a16_fma_kernel": []}
+    for fn, n in cuda_build.sass_counts("w8a16_mm", "HMMA").items():
+        hmma["w8a16_mma_kernel" if "w8a16_mma_kernel" in fn
+             else "w8a16_fma_kernel"].append(n)
+    print(f"[build] w8a16_mm: HMMA instructions in the SASS of the bf16 / "
+          f"f16 kernels {hmma['w8a16_mma_kernel']}, of the float32 kernels "
+          f"{hmma['w8a16_fma_kernel']}", flush=True)
+    if (len(hmma["w8a16_mma_kernel"]) != 24
+            or not all(hmma["w8a16_mma_kernel"])
+            or any(hmma["w8a16_fma_kernel"])):
+        fail(f"w8a16_mm: HMMA counts {hmma}: tensor cores must run the "
+             f"24 bf16 / f16 kernels and only them")
     # P2: the score and PV products on the tensor cores (HMMA; w8a8's
     # scores IMMA), K by 2-D TMA (UTMALDG) in every P2 kernel, no spills
     p2 = {}
@@ -802,6 +833,7 @@ def kernels():
 def reset_launches() -> None:
     from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
     from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
 
     for fn in kernels().values():
         fn.launches.clear()
@@ -809,6 +841,29 @@ def reset_launches() -> None:
     kernels()["K1"].split_launches.clear()
     w4_unpack.launches.clear()
     w4a16_mm.launches.clear()
+    w8a16_mm.launches.clear()
+    w8a16_mm.tied_launches = 0
+
+
+def w8a16_counts() -> tuple[int, int, int]:
+    """(int8 matmul calls, `w8a16_mm` launches, `operand` calls) so far."""
+    from cxl_speckv_tpu_torch.ops import wquant
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
+
+    return (wquant.quantized_calls[8], total(w8a16_mm.launches),
+            wquant.operand.calls)
+
+
+def check_w8a16(label: str, before: tuple, served: bool) -> int:
+    """Since `before` (`w8a16_counts()`): every int8 matmul call launched
+    the fused int8 matmul once, none took the composition's copy
+    (`operand`), and a W8A16 engine (`served`) made some. Returns the
+    launches."""
+    calls, launches, copies = (a - b for a, b in zip(w8a16_counts(), before))
+    if launches != calls or copies or (served and not calls):
+        fail(f"{label}: {launches} w8a16_mm launches for {calls} int8 "
+             f"matmul calls, {copies} operand() copies")
+    return launches
 
 
 def read_launches(counter: str = "launches") -> dict:
@@ -1749,13 +1804,17 @@ def serve(eng, prompts, gen, kw_of=None):
 
 def serve_each(eng, reqs):
     """Submit `reqs` [(prompt, add_request kwargs)] and serve to the end;
-    returns (outputs in submission order, seconds)."""
+    returns (outputs in submission order, seconds). A W8A16 engine's every
+    int8 matmul must launch the fused int8 matmul (`check_w8a16`)."""
+    before = w8a16_counts()
     ids = [eng.add_request(p, **kw) for p, kw in reqs]
     torch.cuda.synchronize()
     t0 = time.monotonic()
     outs = {o.req_id: o for o in eng.run()}
     torch.cuda.synchronize()
-    return [outs.get(i) for i in ids], time.monotonic() - t0
+    dt = time.monotonic() - t0
+    check_w8a16("serve", before, eng.config.engine.weight_dtype == "int8")
+    return [outs.get(i) for i in ids], dt
 
 
 def first_layers(cfg, params, n: int):
@@ -1904,6 +1963,7 @@ def ample_at_one_split(cfg, params, cell: Cell, prompts, **kv) -> dict:
 
 def phase_serve() -> tuple:
     from cxl_speckv_tpu_torch.models.configs import llama_3_8b
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
 
     cfg = llama_3_8b()
     params = init_model(cfg, "serve", 0)
@@ -1915,7 +1975,13 @@ def phase_serve() -> tuple:
           HORIZON)
     launches, _ = tiered_vs_ample("serve", cfg, params, SHORT, prompts)
     check_windows("serve", launches, lambda n: {("int8", 0): n})
-    return launches, cfg, params, prompts
+    # the fused int8 matmul's launches over the tiered and ample serves
+    # (reset by tiered_vs_ample), each serve's checked against its calls
+    w8 = total(w8a16_mm.launches)
+    print(f"[serve] w8a16_mm launches over the tiered and ample serves {w8} "
+          f"({dict(w8a16_mm.launches)}) == int8 matmul calls, no operand() "
+          f"copy", flush=True)
+    return launches, cfg, params, prompts, w8
 
 
 def check_windows(label, launches, want_split) -> None:
@@ -2459,7 +2525,7 @@ def phase_qwen3_moe(peaks) -> dict:
     """Qwen3-30B-A3B at full width (128 experts top-8, renormalised, the
     dense MoE mode, q/k norm) and QWEN3_MOE_LAYERS of its layers, W8A16
     expert stacks drawn expert by expert, on QWEN3_CELL; then its
-    decode-round anatomy with the expert stacks' int8 -> bf16 copy share."""
+    decode-round anatomy with the fused expert products' time a layer."""
     import dataclasses
 
     from cxl_speckv_tpu_torch.models.configs import qwen3_moe_30b
@@ -2634,12 +2700,15 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
     timed on the host clock, the last one under torch.profiler for the
     device time by kernel (the profiler slows the host, so its own wall
     time is not used); `kv` are the KV scheme arguments of `build_engine`.
-    Then, with `matmuls`, the W8A16 matmuls of one layer (int8 -> bf16
-    copy per call, as `ops.wquant.mm` runs them) against the same
-    products on bf16 weights that are already converted."""
+    For an MoE model, one layer's three expert products through the fused
+    int8 matmul, timed alone. Then, with `matmuls`, the W8A16 matmuls of
+    one layer (the fused int8 matmul, as `ops.wquant.mm` runs them) against
+    the composition it replaced (an int8 -> bf16 copy per call) and the
+    same products on bf16 weights that are already converted."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cxl_speckv_tpu_torch.ops.wquant import mm
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm_plain
+    from cxl_speckv_tpu_torch.ops.wquant import mm, qeinsum
 
     eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kv)
     for p in prompts[:BATCH]:
@@ -2672,7 +2741,8 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
           f"{n_kernels / HORIZON:.0f} kernels a step "
           f"({'profiler saw no device time' if not kernels_us else 'torch.profiler'})",
           flush=True)
-    groups = {"int8->bf16 weight copies and other casts": "copy",
+    groups = {"W8A16 fused matmul (w8a16_mm)": "w8a16_",
+              "copies and casts": "copy",
               "W4A16 weight unpack (w4_unpack)": "unpack",
               "W4A16 fused matmul (w4a16_mm)": "w4a16_",
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
@@ -2686,36 +2756,237 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
     for name, us in sorted(kernels_us.items(), key=lambda it: -it[1])[:10]:
         print(f"[anatomy]   {us / 1e3:9.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}"
               f"  {name[:110]}")
-    if cfg.num_experts:
-        # the dense MoE converts each layer's three int8 expert stacks to
-        # bf16 once a step (ops/wquant.py:qeinsum); timed alone
+    if cfg.num_experts and params["layers"]["gate"].bits == 8:
+        # the dense MoE's three expert products of a layer at a decode
+        # step's BATCH tokens (x expanded over the experts), timed alone:
+        # fused, and the composition it replaced (the stacks' int8 -> bf16
+        # copies, then the products)
         lp = {n: params["layers"][n][0] for n in ("gate", "up", "down")}
-        t_copy = time_ms(lambda: [w.q.to(torch.bfloat16) for w in lp.values()])
+        E, H, I = lp["gate"].q.shape
+        xh = torch.randn(BATCH, H, device=DEV,
+                         dtype=torch.bfloat16)[None].expand(E, BATCH, H)
+        xi = torch.randn(BATCH, I, device=DEV,
+                         dtype=torch.bfloat16)[None].expand(E, BATCH, I)
+        specs = (("ech,ehi->eci", xh, lp["gate"]),
+                 ("ech,ehi->eci", xh, lp["up"]),
+                 ("eci,eih->ech", xi, lp["down"]))
+        t_fused = graph_ms(lambda: [qeinsum(sp, x, w) for sp, x, w in specs])
+        t_comp = graph_ms(lambda: [w8a16_mm_plain(x, w.q, w.s)
+                                   for _, x, w in specs])
+        w_bytes = sum(w.q.numel() + 4 * w.s.numel() for w in lp.values())
         step_ms = busy / HORIZON * 1e3
-        print(f"[anatomy]   expert-weight int8->bf16 copies: {t_copy:.3f} ms "
-              f"a layer (CUDA events, alone) x {cfg.num_layers} layers = "
-              f"{t_copy * cfg.num_layers:.2f} ms = "
-              f"{t_copy * cfg.num_layers / max(step_ms, 1e-12):.1%} of the "
-              f"device time a step", flush=True)
+        print(f"[anatomy]   expert stacks, one layer's three products at "
+              f"{BATCH} tokens (CUDA graph, alone): fused {t_fused:.3f} ms "
+              f"(bound {w_bytes / peaks['hbm'] * 1e3:.3f} ms, bytes) x "
+              f"{cfg.num_layers} layers = {t_fused * cfg.num_layers:.2f} ms = "
+              f"{t_fused * cfg.num_layers / max(step_ms, 1e-12):.1%} of the "
+              f"device time a step; the composition it replaced (int8 -> bf16 "
+              f"copies + products) {t_comp:.3f} ms a layer", flush=True)
+        del xh, xi
     if not matmuls:
         return
 
     lp = {k: v[0] for k, v in params["layers"].items()}
     names = ("q", "k", "v", "o", "gate", "up", "down")
+    bf = torch.bfloat16
     for rows in (BATCH, BATCH * SHORT.chunk):                # decode, prefill
-        x = {n: torch.randn(rows, lp[n].shape[0], device=DEV,
-                            dtype=torch.bfloat16) for n in names}
-        wb = {n: lp[n].q.to(torch.bfloat16) for n in names}
+        x = {n: torch.randn(rows, lp[n].shape[0], device=DEV, dtype=bf)
+             for n in names}
+        wb = {n: lp[n].q.to(bf) for n in names}
         t_mm = time_ms(lambda: [mm(x[n], lp[n]) for n in names])
-        t_bf = time_ms(lambda: [(x[n] @ wb[n]) * lp[n].s.to(torch.bfloat16)
+        t_comp = time_ms(lambda: [w8a16_mm_plain(x[n], lp[n].q, lp[n].s)
+                                  for n in names])
+        t_bf = time_ms(lambda: [(x[n] @ wb[n]) * lp[n].s.to(bf)
                                 for n in names])
         w_bytes = sum(lp[n].q.numel() for n in names)
         print(f"[mm] {model}: one layer's 7 W8A16 matmuls at {rows} rows: "
-              f"{t_mm:.3f} ms with the int8->bf16 copy per call, "
+              f"{t_mm:.3f} ms fused (w8a16_mm), {t_comp:.3f} ms through the "
+              f"composition it replaced (an int8->bf16 copy per call), "
               f"{t_bf:.3f} ms on bf16 weights already converted; int8 "
               f"weight bytes / HBM rate {w_bytes / peaks['hbm'] * 1e3:.3f} "
               f"ms ({cfg.num_layers} layers a step)", flush=True)
         del wb
+
+
+# ---------------------------------------------------------------------------
+# the fused int8 matmul (W8A16's weight path)
+# ---------------------------------------------------------------------------
+
+# checked at W8MM_ROWS rows of x at every weight shape of the served
+# Llama-3-8B (layer 0's seven matrices, lm_head), Gemma-2-9B's tied head and
+# the expert stacks of Qwen3-30B-A3B and Qwen2-57B-A14B, in bf16 and float32,
+# within the fused int4 matmul's bounds (`w4mm_err`); W8MM_TIMED timed at
+# W8MM_TIMED_ROWS
+W8MM_ROWS = (1, 8, 40, 512)
+W8MM_TIMED = ("up", "down", "lm_head", "gemma2-9b tied head",
+              "qwen3-30b-a3b gate/up stack")
+W8MM_TIMED_ROWS = (8, 40, 512)
+
+
+def w8mm_mats(params) -> dict:
+    """{name: (q, s)} of the weights `w8a16_mm` is held to: the served
+    Llama-3-8B's layer 0 and lm_head, a random Gemma-2-9B embedding read
+    as its tied head (`QuantizedTensor.T`'s views of the [V, H] table),
+    random Qwen3-30B-A3B and Qwen2-57B-A14B expert stacks [E, in, out]."""
+    from cxl_speckv_tpu_torch.models.configs import (
+        gemma2_9b,
+        qwen2_moe_57b,
+        qwen3_moe_30b,
+    )
+
+    mats = {n: (params["layers"][n][0].q, params["layers"][n][0].s)
+            for n in ("q", "k", "v", "o", "gate", "up", "down")}
+    mats["lm_head"] = (params["lm_head"].q, params["lm_head"].s)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(23)
+    scales = lambda shape: torch.rand(shape, generator=gen,
+                                      device=DEV) * 0.02 + 1e-3
+    g2 = gemma2_9b()
+    table = torch.randint(-127, 128, (g2.vocab_size, g2.hidden_size),
+                          generator=gen, device=DEV, dtype=torch.int8)
+    mats["gemma2-9b tied head"] = (table.t(), scales((g2.vocab_size, 1)).t())
+    for label, mc in (("qwen3-30b-a3b", qwen3_moe_30b()),
+                      ("qwen2-57b-a14b", qwen2_moe_57b())):
+        E, H, I = mc.num_experts, mc.hidden_size, mc.intermediate_size
+        for name, (k, n) in (("gate/up", (H, I)), ("down", (I, H))):
+            mats[f"{label} {name} stack"] = (
+                torch.randint(-127, 128, (E, k, n), generator=gen,
+                              device=DEV, dtype=torch.int8),
+                scales((E, 1, n)))
+    return mats
+
+
+def w8mm_checks(mats) -> float:
+    """The fused int8 matmul against its plain version at every weight of
+    `mats`, at W8MM_ROWS rows (an expert stack: that many tokens an
+    expert) in bf16 and float32, two calls bit-equal; the worst ratio to
+    the bound printed. Returns the largest bf16 |difference|."""
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm, w8a16_mm_plain
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(24)
+    worst = {torch.bfloat16: (0.0, 0.0, ""), torch.float32: (0.0, 0.0, "")}
+    t0 = time.monotonic()
+    with full_reduction():
+        for name, (q, sc) in mats.items():
+            lead = q.shape[:-2]
+            for dt in worst:
+                for M in W8MM_ROWS:
+                    x = torch.randn((*lead, M, q.shape[-2]), generator=gen,
+                                    device=DEV).to(dt)
+                    got = w8a16_mm(x, q, sc)
+                    again = w8a16_mm(x, q, sc)
+                    want = w8a16_mm_plain(x, q, sc)
+                    torch.cuda.synchronize()
+                    case = f"{name} {tuple(x.shape)} {dt}"
+                    if not torch.equal(got, again):
+                        fail(f"w8a16_mm {case}: two calls differ")
+                    err, ratio = w4mm_err(got, want)
+                    if not ratio <= 1.0:
+                        fail(f"w8a16_mm {case}: max |Δ| {err:.3e} is "
+                             f"{ratio:.2f}x the bound")
+                    worst[dt] = max(worst[dt], (ratio, err, case))
+                    del x, got, again, want
+    bf, f32 = worst[torch.bfloat16], worst[torch.float32]
+    print(f"[w8a16] w8a16_mm == its plain version at {len(mats)} weights "
+          f"({', '.join(mats)}) x rows {W8MM_ROWS}, two calls bit-equal; "
+          f"bf16 worst |Δ| {bf[1]:.3e} ({bf[0]:.3f} of the bound "
+          f"{W4MM_STEPS} bf16 steps at |want| + {W4MM_ABS} max |want|, at "
+          f"{bf[2]}), float32 worst |Δ| {f32[1]:.3e} ({f32[0]:.3f} of the "
+          f"bound {W4MM_F32} max |want|, at {f32[2]}); "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    return bf[1]
+
+
+def w8mm_timed(params, mats, peaks, name: str, M: int) -> dict:
+    """The fused int8 matmul at M bf16 rows against weight `name`, in turn
+    over the 32 layers' matrices of that name for `up` / `down` (one is
+    58.7 MB, past the 50 MB L2), else the one weight of `mats` (an expert
+    stack against one x [M, H] expanded over its experts, as the dense MoE
+    mode serves it): a single launch, back to back and replayed from a CUDA
+    graph, with the bound, the plain version -- the composition the
+    kernel replaced, the weight's int8 -> bf16 copy then the matmul and the
+    scale -- and cuBLAS on the weight already in bf16 (a yardstick the port
+    does not call)."""
+    import itertools
+
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm, w8a16_mm_plain
+    from cxl_speckv_tpu_torch.utils.card import bound_ms
+
+    if name in ("up", "down"):
+        w = params["layers"][name]
+        ws = [(w.q[i], w.s[i]) for i in range(w.q.shape[0])]
+    else:
+        ws = [mats[name]]
+    q0 = ws[0][0]
+    E = q0.shape[0] if q0.ndim == 3 else 1
+    K, N = q0.shape[-2:]
+    bf = torch.bfloat16
+    x = torch.randn(M, K, device=DEV, dtype=bf)
+    if q0.ndim == 3:
+        x = x[None].expand(E, M, K)
+
+    def turns(fn, items):
+        it = itertools.cycle(items)
+        return lambda: fn(*next(it))
+
+    fused = turns(lambda q, s: w8a16_mm(x, q, s), ws)
+    row = {"case": f"w8a16_mm {name} {E} x [{K}, {N}] M={M}", "name": name,
+           "M": M}
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        peaks, E * (K * N + 4 * N + 2 * M * N) + 2 * M * K,
+        {"bf16": 2 * E * M * K * N})
+    row["ms"] = time_ms(fused)
+    row["b2b_ms"] = b2b_ms(fused)
+    row["graph_ms"] = graph_ms(fused)
+    plain = turns(lambda q, s: w8a16_mm_plain(x, q, s), ws)
+    row["plain_ms"] = time_ms(plain)
+    row["plain_b2b_ms"] = b2b_ms(plain)
+    row["plain_graph_ms"] = graph_ms(plain)
+    nlib = min(len(ws), max(2, -(-int(W4MM_LIB_BYTES) // (2 * E * K * N))))
+    wb = [(q.to(bf), s.to(bf)) for q, s in ws[:nlib]]
+    lib = turns(lambda b, _: x @ b, wb)
+    row["library_ms"] = time_ms(lib)
+    row["library_b2b_ms"] = b2b_ms(lib)
+    row["library_graph_ms"] = graph_ms(lib)
+    del wb, x
+    return row
+
+
+def phase_w8a16(params, peaks) -> dict:
+    """The fused int8 matmul on the card: checked against its plain version
+    (`w8mm_checks`), timed (`w8mm_timed`) and its peak memory against the
+    composition's for one lm_head and one Gemma-2 tied-head product at
+    BATCH rows. Returns {"err": the worst bf16 |Δ|, "rows": timed rows}."""
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm, w8a16_mm_plain
+
+    mats = w8mm_mats(params)
+    out = {"err": w8mm_checks(mats)}
+    rows = [w8mm_timed(params, mats, peaks, n, M) for n in W8MM_TIMED
+            for M in W8MM_TIMED_ROWS]
+    for r in rows:
+        print(f"[w8a16] {r['case']}: kernel {r['ms']:.4f} ms, back to back "
+              f"{r['b2b_ms']:.4f}, from a CUDA graph {r['graph_ms']:.4f}; "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+              f"{r['bound_ms'] / r['graph_ms']:.1%} of it from the graph); "
+              f"plain = the composition it replaced {r['plain_ms']:.4f} ms "
+              f"(b2b {r['plain_b2b_ms']:.4f}, graph "
+              f"{r['plain_graph_ms']:.4f}); cuBLAS on the bf16 weight "
+              f"{r['library_ms']:.4f} ms (b2b {r['library_b2b_ms']:.4f}, "
+              f"graph {r['library_graph_ms']:.4f})", flush=True)
+    out["rows"] = rows
+    for name in ("lm_head", "gemma2-9b tied head"):
+        q, sc = mats[name]
+        x = torch.randn(BATCH, q.shape[0], device=DEV, dtype=torch.bfloat16)
+        pf = peak_above_gib(lambda: w8a16_mm(x, q, sc))
+        pc = peak_above_gib(lambda: w8a16_mm_plain(x, q, sc))
+        print(f"[w8a16] one {name} product [{q.shape[0]}, {q.shape[1]}] at "
+              f"{BATCH} rows: peak allocated {pf:.4f} GiB above its inputs "
+              f"fused, {pc:.4f} GiB through the composition it replaced "
+              f"(int8 -> bf16 copy + matmul + scale)", flush=True)
+        del x
+    del mats
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6216,8 +6487,9 @@ def main() -> int:
     gpt_rows = timed("kernels gpt-oss", phase_kernels_gpt_oss, peaks)
     fam_rows = timed("kernels families", phase_kernels_families, peaks)
     probe_entries = timed("anatomy probes", phase_probe, peaks)
-    launches, cfg, params, prompts = timed("serve", phase_serve)
+    launches, cfg, params, prompts, w8_launches = timed("serve", phase_serve)
     timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
+    w8_rows = timed("w8a16", phase_w8a16, params, peaks)
     cut = first_layers(cfg, params, SCHEME_LAYERS)
     int4_launches, mixed_launches = timed(
         "serve-int4, serve-mixed", phase_serve_schemes, *cut, prompts)
@@ -6390,6 +6662,24 @@ def main() -> int:
             "composition_ms": r["composition_ms"],
             "composition_b2b_ms": r["composition_b2b_ms"],
             "composition_graph_ms": r["composition_graph_ms"]})
+    # the fused int8 matmul replaces no pl.pallas_call either: the JAX
+    # package's int8 weights convert inside XLA's matmul fusion (`mm`,
+    # `qeinsum`); launches: the serve phase's tiered and ample serves, every
+    # shape and row count together
+    for r in w8_rows["rows"]:
+        entries.append({
+            "name": f"w8a16_mm {r['name']} M={r['M']}", "route": "cuda",
+            "source": "cxl_speckv_tpu_torch/csrc/w8a16_mm.cu",
+            "replaces": "none (no pl.pallas_call; XLA fuses the int8 convert "
+                        "into the matmul in cxl_speckv_tpu/ops/wquant.py:186)",
+            "launches": w8_launches, "max_abs_err": w8_rows["err"],
+            "ms": r["ms"], "b2b_ms": r["b2b_ms"], "graph_ms": r["graph_ms"],
+            "plain_ms": r["plain_ms"], "plain_b2b_ms": r["plain_b2b_ms"],
+            "plain_graph_ms": r["plain_graph_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_b2b_ms": r["library_b2b_ms"],
+            "library_graph_ms": r["library_graph_ms"]})
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

@@ -42,6 +42,8 @@
 // - epilogue in the composition's rounding: float32 sum, rounded to the
 //   activation type, times the scale rounded to that type, rounded again
 //   (float32: the sum times the scale).
+// The ring, its tile loaders, the product and split-K are shared with the
+// int8 kernel (wq_mm.cuh, w8a16_mm.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,91 +52,38 @@
 
 #include <type_traits>
 
-#include "mma_sync.cuh"
+#include "wq_mm.cuh"
 
 namespace {
 
-// activation kinds (ops/w4a16_mm.py: KINDS)
-constexpr int kF32 = 0;
-constexpr int kF16 = 1;
-constexpr int kBF16 = 2;
+using namespace wq;
 
 constexpr int BK = 64;             // k rows of a stage
 constexpr int NSTAGE = 4;          // ring depth
-constexpr int THREADS = 128;
-constexpr int BP = 128;            // packed columns of a strip
+constexpr int BP = STRIP;          // packed columns of a strip
 
 struct W4Args {
   const void* x;     // [B, M, K] activation kind
   const int8_t* q;   // [B, K, H] packed
-  const float* s;    // [B, N] (N = 2H)
-  void* y;           // [B, M, N] activation kind
-  float* ws;         // [B, splits, M, N] partials (splits > 1)
-  int* cnt;          // per-tile arrival counters, zero between calls
-  int M, K, H, splits, vec;
+  Out o;             // y [B, M, N], s [B, N] (N = 2H), ws, cnt, splits
+  int K, H, vec;
 };
 
+// the bias constants of the nibble conversion
 template <int KIND>
-struct Kind;
+struct Nib;
 template <>
-struct Kind<kBF16> {
-  using T = __nv_bfloat16;
+struct Nib<kBF16> {
   static constexpr uint32_t kMagic = 0x43004300u;   // 128.0, twice
   static constexpr uint32_t kOne = 0x3F803F80u;     // 1.0
   static constexpr uint32_t kBias = 0xC308C308u;    // -136.0 = -(128 + 8)
-  __device__ static T finish(float acc, float sc) {
-    const float a = __bfloat162float(__float2bfloat16_rn(acc));
-    const float b = __bfloat162float(__float2bfloat16_rn(sc));
-    return __float2bfloat16_rn(a * b);
-  }
 };
 template <>
-struct Kind<kF16> {
-  using T = __half;
+struct Nib<kF16> {
   static constexpr uint32_t kMagic = 0x64006400u;   // 1024.0
   static constexpr uint32_t kOne = 0x3C003C00u;     // 1.0
   static constexpr uint32_t kBias = 0xE408E408u;    // -1032.0
-  __device__ static T finish(float acc, float sc) {
-    const float a = __half2float(__float2half_rn(acc));
-    const float b = __half2float(__float2half_rn(sc));
-    return __float2half_rn(a * b);
-  }
 };
-template <>
-struct Kind<kF32> {
-  using T = float;
-  __device__ static T finish(float acc, float sc) { return acc * sc; }
-};
-
-template <typename T>
-struct Raw;                         // the element's bits, for zero fills
-template <>
-struct Raw<__nv_bfloat16> { using R = uint16_t; };
-template <>
-struct Raw<__half> { using R = uint16_t; };
-template <>
-struct Raw<float> { using R = uint32_t; };
-
-// byte offset of q-tile element (row r, packed column c) in shared memory:
-// the 32-byte units of a 128-byte row are XOR-ed with bits 2-3 of r, so
-// that the 32 lanes' words of one fragment read (rows 4t + j, columns 4g of
-// one 32-byte unit) fall in 32 different banks; 16-byte chunks stay whole
-__device__ __forceinline__ int qoff(int r, int c) {
-  return r * BP + (c ^ (((r >> 2) & 3) << 5));
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // one stage: q rows [k0, k0 + BK) x packed columns [p0, p0 + BP), x rows
 // [m0, m0 + MB) x columns [k0, k0 + BK); out of range reads as zero
@@ -142,136 +91,17 @@ template <typename T, int MB, int XS>
 __device__ __forceinline__ void load_stage(uint8_t* sq, T* sx, const T* x,
                                            const int8_t* q, const W4Args& a,
                                            int m0, int p0, int k0) {
-  using R = typename Raw<T>::R;
-  constexpr int CQ = BP / 16;                  // q chunks a row
-  const int tid = threadIdx.x;
-  if (a.vec) {
-    // 16-byte copies (the wrapper checked H % 16, K * sizeof(T) % 16 and
-    // 16-byte aligned bases, so a chunk is wholly in range or wholly out)
-    for (int i = tid; i < BK * CQ; i += THREADS) {
-      const int r = i / CQ, c = (i % CQ) * 16;
-      const bool ok = k0 + r < a.K && p0 + c < a.H;
-      const int8_t* src = ok ? q + (long long)(k0 + r) * a.H + p0 + c : q;
-      cp16(sq + qoff(r, c), src, ok);
-    }
-    constexpr int EPC = 16 / sizeof(T);          // elements a chunk
-    constexpr int CPR = BK / EPC;                // chunks a row
-    for (int i = tid; i < MB * CPR; i += THREADS) {
-      const int r = i / CPR, c = (i % CPR) * EPC;
-      const bool ok = m0 + r < a.M && k0 + c < a.K;
-      const T* src = ok ? x + (long long)(m0 + r) * a.K + k0 + c : x;
-      cp16(sx + r * XS + c, src, ok);
-    }
-  } else {
-    for (int i = tid; i < BK * BP; i += THREADS) {
-      const int r = i / BP, c = i % BP;
-      const bool ok = k0 + r < a.K && p0 + c < a.H;
-      sq[qoff(r, c)] = ok ? q[(long long)(k0 + r) * a.H + p0 + c] : 0;
-    }
-    const R* xr = reinterpret_cast<const R*>(x);
-    R* sr = reinterpret_cast<R*>(sx);
-    for (int i = tid; i < MB * BK; i += THREADS) {
-      const int r = i / BK, c = i % BK;
-      const bool ok = m0 + r < a.M && k0 + c < a.K;
-      sr[r * XS + c] = ok ? xr[(long long)(m0 + r) * a.K + k0 + c] : R(0);
-    }
-  }
+  load_rows<BK>(sq, q, a.K, a.H, k0, p0, a.vec);
+  load_x<T, MB, XS, BK>(sx, x, a.o.M, a.K, m0, k0, a.vec);
 }
 
 // a finished value (or, split, a partial) for output row m, packed column
 // pc, half h (0: column pc, 1: column H + pc)
 template <int KIND>
-__device__ __forceinline__ void put(const W4Args& a, int b, int sp, int m,
-                                    int pc, int h, float v) {
-  if (m >= a.M || pc >= a.H) return;
-  const long long N = 2LL * a.H;
-  const long long n = pc + (long long)h * a.H;
-  if (a.splits == 1) {
-    using T = typename Kind<KIND>::T;
-    T* y = static_cast<T*>(a.y) + ((long long)b * a.M + m) * N + n;
-    *y = Kind<KIND>::finish(v, a.s[b * N + n]);
-  } else {
-    a.ws[(((long long)b * a.splits + sp) * a.M + m) * N + n] = v;
-  }
-}
-
-// split-K: the last CTA of the tile sums the partials in split order and
-// finishes the tile; it resets the tile's counter for the next call. With
-// 16-byte rows (vec) a thread takes four columns at a time, V groups a pass,
-// and keeps the loads of V groups and four splits in flight together
-template <int KIND, int MB>
-__device__ void split_tail(const W4Args& a, int b, int m0, int p0) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  const int tile = (b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0)
-    last = atomicAdd(a.cnt + tile, 1) == a.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  using T = typename Kind<KIND>::T;
-  const long long N = 2LL * a.H;
-  const long long split_stride = (long long)a.M * N;
-  const float* ws = a.ws + (long long)b * a.splits * split_stride;
-  T* y = static_cast<T*>(a.y) + (long long)b * a.M * N;
-  const float* s = a.s + b * N;
-  if (a.vec) {
-    constexpr int G = MB * 2 * BP / 4, V = 4;     // float4 groups a tile
-    static_assert(G % (THREADS * V) == 0, "whole passes");
-    for (int base = 0; base < G; base += THREADS * V) {
-      long long off[V];
-      bool ok[V];
-      float4 v[V];
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        const int e = 4 * (base + i * THREADS + threadIdx.x);
-        const int m = m0 + e / (2 * BP), c = e % (2 * BP);
-        const int pc = p0 + c % BP;
-        ok[i] = m < a.M && pc < a.H;
-        off[i] = m * N + pc + (long long)(c / BP) * a.H;
-        v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll 4
-      for (int j = 0; j < a.splits; ++j) {
-        float4 p[V];
-#pragma unroll
-        for (int i = 0; i < V; ++i)
-          if (ok[i])
-            p[i] = __ldcg(reinterpret_cast<const float4*>(
-                ws + j * split_stride + off[i]));
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          if (!ok[i]) continue;
-          v[i].x += p[i].x;
-          v[i].y += p[i].y;
-          v[i].z += p[i].z;
-          v[i].w += p[i].w;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        if (!ok[i]) continue;
-        const long long o = off[i];
-        const long long n = o % N;
-        y[o] = Kind<KIND>::finish(v[i].x, s[n]);
-        y[o + 1] = Kind<KIND>::finish(v[i].y, s[n + 1]);
-        y[o + 2] = Kind<KIND>::finish(v[i].z, s[n + 2]);
-        y[o + 3] = Kind<KIND>::finish(v[i].w, s[n + 3]);
-      }
-    }
-  } else {
-    for (int e = threadIdx.x; e < MB * 2 * BP; e += THREADS) {
-      const int m = m0 + e / (2 * BP), c = e % (2 * BP);
-      const int pc = p0 + c % BP;
-      if (m >= a.M || pc >= a.H) continue;
-      const long long o = m * N + pc + (long long)(c / BP) * a.H;
-      float v = 0.f;
-      for (int j = 0; j < a.splits; ++j) v += __ldcg(ws + j * split_stride + o);
-      y[o] = Kind<KIND>::finish(v, s[o % N]);
-    }
-  }
-  if (threadIdx.x == 0) a.cnt[tile] = 0;
+__device__ __forceinline__ void put_half(const W4Args& a, int b, int sp,
+                                         int m, int pc, int h, float v) {
+  if (m >= a.o.M || pc >= a.H) return;
+  put<KIND>(a.o, b, sp, m, pc + h * a.H, v);
 }
 
 // two 16-bit values from the offset nibbles at bits [sh, sh + 4) and
@@ -281,30 +111,17 @@ __device__ __forceinline__ uint32_t nib2(uint32_t w) {
   uint32_t r;
   asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n"
       : "=r"(r)
-      : "r"(w >> SH), "r"(0x000F000Fu), "r"(Kind<KIND>::kMagic));
+      : "r"(w >> SH), "r"(0x000F000Fu), "r"(Nib<KIND>::kMagic));
   if constexpr (KIND == kBF16) {
     asm("fma.rn.bf16x2 %0, %0, %1, %2;\n"
         : "+r"(r)
-        : "r"(Kind<KIND>::kOne), "r"(Kind<KIND>::kBias));
+        : "r"(Nib<KIND>::kOne), "r"(Nib<KIND>::kBias));
   } else {
     asm("fma.rn.f16x2 %0, %0, %1, %2;\n"
         : "+r"(r)
-        : "r"(Kind<KIND>::kOne), "r"(Kind<KIND>::kBias));
+        : "r"(Nib<KIND>::kOne), "r"(Nib<KIND>::kBias));
   }
   return r;
-}
-
-template <int KIND>
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  if constexpr (KIND == kBF16) {
-    mma_bf16(c, a, b0, b1);
-  } else {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
 }
 
 // bf16 / f16 activations on the tensor cores. Warp w owns packed columns
@@ -326,11 +143,9 @@ __global__ void __launch_bounds__(THREADS)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int p0 = blockIdx.x * BP, m0 = blockIdx.y * MB;
-  const int b = blockIdx.z / a.splits, sp = blockIdx.z % a.splits;
-  const int kst = (a.K + BK - 1) / BK;
-  const int s0 = (int)((long long)sp * kst / a.splits);
-  const int n = (int)((long long)(sp + 1) * kst / a.splits) - s0;
-  const T* x = static_cast<const T*>(a.x) + (long long)b * a.M * a.K;
+  const int b = blockIdx.z / a.o.splits, sp = blockIdx.z % a.o.splits;
+  const Span span = split_span(a.K, BK, a.o.splits, sp);
+  const T* x = static_cast<const T*>(a.x) + (long long)b * a.o.M * a.K;
   const int8_t* q = a.q + (long long)b * a.K * a.H;
 
   float acc[4][MT][4];
@@ -341,24 +156,13 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[u][mt][i] = 0.f;
 
-#pragma unroll
-  for (int i = 0; i < NSTAGE - 1; ++i) {
-    if (i < n)
-      load_stage<T, MB, XS>(sq + i * QT, sx + i * XT, x, q, a, m0, p0,
-                            (s0 + i) * BK);
-    cp_commit();
-  }
-  for (int it = 0; it < n; ++it) {
-    cp_wait<NSTAGE - 2>();
-    __syncthreads();
-    const int nx = it + NSTAGE - 1;
-    if (nx < n)
-      load_stage<T, MB, XS>(sq + (nx % NSTAGE) * QT,
-                            sx + (nx % NSTAGE) * XT, x, q, a, m0, p0,
-                            (s0 + nx) * BK);
-    cp_commit();
-    const uint8_t* bq = sq + (it % NSTAGE) * QT;
-    const T* bx = sx + (it % NSTAGE) * XT;
+  auto load = [&](int slot, int i) {
+    load_stage<T, MB, XS>(sq + slot * QT, sx + slot * XT, x, q, a, m0, p0,
+                          (span.s0 + i) * BK);
+  };
+  auto step = [&](int slot) {
+    const uint8_t* bq = sq + slot * QT;
+    const T* bx = sx + slot * XT;
 #pragma unroll
     for (int ch = 0; ch < BK / 16; ++ch) {
       // B: x rows, k = 16ch + 4t .. 4t+3 (the permuted k order)
@@ -404,8 +208,8 @@ __global__ void __launch_bounds__(THREADS)
         for (int mt = 0; mt < MT; ++mt)
           mma<KIND>(acc[u][mt], fa[u], xb[mt][0], xb[mt][1]);
     }
-  }
-  cp_wait<0>();
+  };
+  ring<NSTAGE>(span.n, load, step);
 
   // C element i of product u, m-tile mt -> output row, packed column, half
 #pragma unroll
@@ -414,10 +218,11 @@ __global__ void __launch_bounds__(THREADS)
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        put<KIND>(a, b, sp, m0 + mt * 8 + 2 * t + (i & 1),
-                  p0 + 32 * warp + 4 * g + 2 * (u >> 1) + (i >> 1), u & 1,
-                  acc[u][mt][i]);
-  if (a.splits > 1) split_tail<KIND, MB>(a, b, m0, p0);
+        put_half<KIND>(a, b, sp, m0 + mt * 8 + 2 * t + (i & 1),
+                       p0 + 32 * warp + 4 * g + 2 * (u >> 1) + (i >> 1),
+                       u & 1, acc[u][mt][i]);
+  if (a.o.splits > 1)
+    split_tail<KIND, MB, 2>(a.o, b, m0, p0, a.H, a.H, a.vec);
 }
 
 // float32 activations: IEEE FMA on CUDA cores. Thread: packed column
@@ -432,35 +237,23 @@ __global__ void __launch_bounds__(THREADS) w4a16_fma_kernel(const W4Args a) {
 
   const int tid = threadIdx.x;
   const int p0 = blockIdx.x * BP, m0 = blockIdx.y * MB;
-  const int b = blockIdx.z / a.splits, sp = blockIdx.z % a.splits;
-  const int kst = (a.K + BK - 1) / BK;
-  const int s0 = (int)((long long)sp * kst / a.splits);
-  const int n = (int)((long long)(sp + 1) * kst / a.splits) - s0;
-  const float* x = static_cast<const float*>(a.x) + (long long)b * a.M * a.K;
+  const int b = blockIdx.z / a.o.splits, sp = blockIdx.z % a.o.splits;
+  const Span span = split_span(a.K, BK, a.o.splits, sp);
+  const float* x =
+      static_cast<const float*>(a.x) + (long long)b * a.o.M * a.K;
   const int8_t* q = a.q + (long long)b * a.K * a.H;
 
   float acc[MB][2];
 #pragma unroll
   for (int i = 0; i < MB; ++i) acc[i][0] = acc[i][1] = 0.f;
 
-#pragma unroll
-  for (int i = 0; i < NSTAGE - 1; ++i) {
-    if (i < n)
-      load_stage<float, MB, XS>(sq + i * QT, sx + i * XT, x, q, a, m0, p0,
-                                (s0 + i) * BK);
-    cp_commit();
-  }
-  for (int it = 0; it < n; ++it) {
-    cp_wait<NSTAGE - 2>();
-    __syncthreads();
-    const int nx = it + NSTAGE - 1;
-    if (nx < n)
-      load_stage<float, MB, XS>(sq + (nx % NSTAGE) * QT,
-                                sx + (nx % NSTAGE) * XT, x, q, a, m0, p0,
-                                (s0 + nx) * BK);
-    cp_commit();
-    const uint8_t* bq = sq + (it % NSTAGE) * QT;
-    const float* bx = sx + (it % NSTAGE) * XT;
+  auto load = [&](int slot, int i) {
+    load_stage<float, MB, XS>(sq + slot * QT, sx + slot * XT, x, q, a, m0,
+                              p0, (span.s0 + i) * BK);
+  };
+  auto step = [&](int slot) {
+    const uint8_t* bq = sq + slot * QT;
+    const float* bx = sx + slot * XT;
 #pragma unroll 2
     for (int k4 = 0; k4 < BK; k4 += 4) {
       float lo[4], hi[4];
@@ -484,14 +277,15 @@ __global__ void __launch_bounds__(THREADS) w4a16_fma_kernel(const W4Args a) {
         acc[i][1] = fmaf(xv.w, hi[3], acc[i][1]);
       }
     }
-  }
-  cp_wait<0>();
+  };
+  ring<NSTAGE>(span.n, load, step);
 #pragma unroll
   for (int i = 0; i < MB; ++i) {
-    put<kF32>(a, b, sp, m0 + i, p0 + tid, 0, acc[i][0]);
-    put<kF32>(a, b, sp, m0 + i, p0 + tid, 1, acc[i][1]);
+    put_half<kF32>(a, b, sp, m0 + i, p0 + tid, 0, acc[i][0]);
+    put_half<kF32>(a, b, sp, m0 + i, p0 + tid, 1, acc[i][1]);
   }
-  if (a.splits > 1) split_tail<kF32, MB>(a, b, m0, p0);
+  if (a.o.splits > 1)
+    split_tail<kF32, MB, 2>(a.o, b, m0, p0, a.H, a.H, a.vec);
 }
 
 // the kernel configurations (ops/w4a16_mm.py: MMA_BLOCKS, FMA_BLOCK): rows
@@ -533,13 +327,6 @@ int with_cfg(int kind, int cfg, F&& f) {
   }
 }
 
-template <typename C>
-cudaError_t allow_smem() {
-  if (C::SMEM <= 48 * 1024 - 64) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      C::kern(), cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-}
-
 }  // namespace
 
 // x [B, M, K] of kind `kind`, q [B, K, H] int8, s [B, 2H] float32, y
@@ -555,8 +342,9 @@ extern "C" int w4a16_mm_launch(const void* x, const void* q, const void* s,
   if (splits < 1 || B < 1 || M < 1 || K < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   const W4Args a{x, static_cast<const int8_t*>(q),
-                 static_cast<const float*>(s), y, static_cast<float*>(ws),
-                 static_cast<int*>(cnt), M, K, H, splits, vec};
+                 Out{y, static_cast<const float*>(s), static_cast<float*>(ws),
+                     static_cast<int*>(cnt), M, 2 * H, splits},
+                 K, H, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int r = with_cfg(kind, cfg, [&](auto c) -> int {
     using C = decltype(c);

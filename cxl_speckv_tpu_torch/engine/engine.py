@@ -90,8 +90,9 @@ prefetch predictor keeps its host path (no in-round leg, as the JAX engine)
 and trains synchronously, and the derived `decode_horizon` is rank 0's.
 
 `EngineConfig.weight_dtype` "int8" serves W8A16 and "int4" W4A16 weights
-(`ops/wquant.py`; each int4 matmul is one launch of the fused int4 matmul
-of `ops/w4a16_mm.py`, which reads the packed weight once); a tree passed
+(`ops/wquant.py`; each quantized matmul is one launch of the fused int8
+matmul of `ops/w8a16_mm.py` or the fused int4 one of `ops/w4a16_mm.py`,
+which read the stored weight once); a tree passed
 already quantized serves as it is. `CacheConfig.host_store_backend=
 "numpy"` keeps the host tier in pageable host memory
 (`runtime/transfer.py:TransferEngine`), and

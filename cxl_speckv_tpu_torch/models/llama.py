@@ -339,7 +339,9 @@ def _final_logits(x: torch.Tensor, params: Params,
                   config: LlamaConfig) -> torch.Tensor:
     """Logits [..., V] float32; on a tp mesh each rank computes its V/tp
     columns and they are gathered, so that every rank samples from the
-    whole distribution."""
+    whole distribution. A tied W8A16 head is the embedding's [V, H] int8
+    table as it lies (`embed.T` is a view): the fused int8 matmul reads its
+    rows K-contiguous, and nothing is transposed or copied."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
     logits = soft_cap(mm(x, head).float(), config.final_softcap)
     mesh = mesh_of(params)

@@ -21,10 +21,11 @@ Two compute modes, as in the JAX package:
   most N) in arrival order, and a token past an expert's capacity loses
   that expert's share of the output.
 
-The expert products go through `ops.wquant.qeinsum`: PyTorch matmuls at
-W8A16 (a per-call int8 -> activation-dtype copy), one batched launch of the
-fused int4 matmul (`ops/w4a16_mm.py`) at W4A16; the JAX package computes
-them outside any Pallas kernel.
+The expert products go through `ops.wquant.qeinsum`: one batched launch
+of the fused int8 matmul (`ops/w8a16_mm.py`) at W8A16, of the fused int4
+one (`ops/w4a16_mm.py`) at W4A16, over an expert stack [E, in, out]; the
+dense mode's one x expanded over the experts is read in place by the int8
+kernel. The JAX package computes them outside any Pallas kernel.
 
 On a mesh (`parallel/sharding.py`) a rank holds E/ep experts, each with its
 tp slice of the FFN, and the shared expert's tp slice. The router is whole,

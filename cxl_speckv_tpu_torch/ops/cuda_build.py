@@ -44,6 +44,9 @@ SIGNATURES = {
                   [_P, _P, ctypes.c_longlong, _I, _I, _I, _P]),
     # W4A16 weights: the fused int4 matmul (ops/w4a16_mm.py)
     "w4a16_mm": ("w4a16_mm_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    # W8A16 weights: the fused int8 matmul (ops/w8a16_mm.py)
+    "w8a16_mm": ("w8a16_mm_launch",
+                 [_P] * 6 + [_I] * 9 + [ctypes.c_longlong, _P]),
     # the card tests' hold on a stream (utils/card.py:StreamHold)
     "stream_hold": ("stream_hold_launch", [_P, ctypes.c_longlong, _P]),
 }

@@ -60,24 +60,28 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def block(M: int, dtype: torch.dtype) -> tuple[int, int]:
+def block(M: int, dtype: torch.dtype, blocks=MMA_BLOCKS,
+          fma=FMA_BLOCK) -> tuple[int, int]:
     """(rows MB, config id) for x's row count and dtype: the smallest
-    tensor-core block that holds M (the largest beyond 64 rows); float32
-    takes the CUDA-core kernel."""
+    tensor-core block of `blocks` that holds M (the largest beyond them);
+    float32 takes the CUDA-core kernel's `fma`. The defaults are this
+    kernel's; `ops/w8a16_mm.py` passes its own."""
     if dtype == torch.float32:
-        return FMA_BLOCK
-    return next((b for b in MMA_BLOCKS if M <= b[0]), MMA_BLOCKS[-1])
+        return fma
+    return next((b for b in blocks if M <= b[0]), blocks[-1])
 
 
-def plan(M: int, K: int, half: int, batch: int, dtype: torch.dtype,
-         sms: int) -> tuple[int, int, int]:
-    """(config id, rows a CTA, split-K count) for x [batch, M, K] and packed
-    width `half` on a card of `sms` SMs. When the tiles (BP packed columns
-    by MB rows) are fewer than SPLIT_CTAS_PER_SM CTAs an SM, K splits to
-    make up that many, each split keeping MIN_SPLIT_STAGES stages of BK
-    rows."""
-    mb, cfg = block(M, dtype)
-    tiles = batch * cdiv(half, BP) * cdiv(M, mb)
+def plan(M: int, K: int, width: int, batch: int, dtype: torch.dtype,
+         sms: int, blocks=MMA_BLOCKS,
+         fma=FMA_BLOCK) -> tuple[int, int, int]:
+    """(config id, rows a CTA, split-K count) for x [batch, M, K] against a
+    weight of `width` bytes a row (the packed width here; the int8
+    kernel's output width, whose strips are BP columns too) on a card of
+    `sms` SMs. When the tiles (BP columns by MB rows) are fewer than
+    SPLIT_CTAS_PER_SM CTAs an SM, K splits to make up that many, each
+    split keeping MIN_SPLIT_STAGES stages of BK rows."""
+    mb, cfg = block(M, dtype, blocks, fma)
+    tiles = batch * cdiv(width, BP) * cdiv(M, mb)
     target = SPLIT_CTAS_PER_SM * sms
     splits = 1
     if tiles < target:
@@ -89,11 +93,19 @@ def plan(M: int, K: int, half: int, batch: int, dtype: torch.dtype,
 
 _sms: dict[int, int] = {}
 # per (device, stream): the split tiles' arrival counters, zero between
-# calls (the last CTA of a tile resets its counter)
+# calls (the last CTA of a tile resets its counter); the int4 and int8
+# kernels share them, as calls on one stream run one after the other
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _tile_counters(n: int, device: torch.device, stream: int) -> torch.Tensor:
+def sm_count(device: torch.device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device.index]
+
+
+def tile_counters(n: int, device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
@@ -151,16 +163,13 @@ def w4a16_mm(x: torch.Tensor, q: torch.Tensor,
         return y.zero_()
     x = x.contiguous()
     dev = x.device
-    if dev.index not in _sms:
-        _sms[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    cfg, mb, splits = plan(M, K, half, batch, x.dtype, _sms[dev.index])
+    cfg, mb, splits = plan(M, K, half, batch, x.dtype, sm_count(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = cnt = None
     if splits > 1:
         ws = torch.empty(batch * splits * M * 2 * half, dtype=torch.float32,
                          device=dev)
-        cnt = _tile_counters(batch * cdiv(half, BP) * cdiv(M, mb), dev,
+        cnt = tile_counters(batch * cdiv(half, BP) * cdiv(M, mb), dev,
                              stream)
     vec = (half % 16 == 0 and (K * x.element_size()) % 16 == 0
            and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)

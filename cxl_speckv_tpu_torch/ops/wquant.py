@@ -21,13 +21,16 @@ scale [..., 1, out], leading-axis (layer / expert) indexing and layer
 slicing are those of int8. The JAX package stores jnp.int4, which XLA
 packs in HBM.
 
-At bits 8, `mm` and `qeinsum` convert the weight to the activation dtype
-on every call (`x @ q.to(x.dtype) * s`): a full-width temporary copy per
-call, a known cost that a fused kernel would remove. At bits 4 each call is
-one launch of the fused int4 matmul `ops/w4a16_mm.w4a16_mm`, which reads the
-packed weight once and keeps its values in registers; `qeinsum` takes the
-two MoE expert specs there as its batched form. The JAX package runs these
-products outside any Pallas kernel (XLA fuses its convert).
+Every quantized call of `mm` and `qeinsum` is one launch of a fused
+kernel that reads the stored weight once and converts its values to the
+activation dtype in registers: `ops/w8a16_mm.w8a16_mm` at bits 8 (dense
+weights, the tied head read from the embedding's [V, H] rows as they lie,
+and the MoE expert stacks), `ops/w4a16_mm.w4a16_mm` at bits 4. `qeinsum`
+takes the two MoE expert specs (`EXPERT_SPECS`) as the kernels' batched
+form. The JAX package runs these products outside any Pallas kernel (XLA
+fuses its convert). `operand` is the composition the int8 kernel
+replaced, the weight's full-width copy in the activation dtype; nothing
+on the model's path calls it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from cxl_speckv_tpu_torch.ops.quant import pack_int4, unpack_int4
 from cxl_speckv_tpu_torch.ops.w4_unpack import w4_unpack
 from cxl_speckv_tpu_torch.ops.w4a16_mm import w4a16_mm
+from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
 
 _QMAX = {8: 127, 4: 7}
 
@@ -165,55 +169,58 @@ def is_quantized(params: dict) -> bool:
 
 
 def operand(w: QuantizedTensor, dtype: torch.dtype) -> torch.Tensor:
-    """An int8 weight's values in the activation dtype, the matmul's
-    operand (a full-width copy). Counts the call in `quantized_calls`. An
-    int4 weight has no operand: its matmuls run `w4a16_mm`."""
+    """An int8 weight's values in the activation dtype, a full-width copy:
+    the operand of the composition `w8a16_mm` replaced (a yardstick and a
+    reference; no matmul of the port calls it). Counts its calls in
+    `operand.calls`. An int4 weight has no operand: its matmuls run
+    `w4a16_mm`."""
     if w.bits != 8:
         raise ValueError("operand: an int4 weight multiplies in w4a16_mm")
-    quantized_calls[8] += 1
+    operand.calls += 1
     return w.q.to(dtype)
 
 
+operand.calls = 0
+
 # quantized matmul calls (`mm`, `qeinsum`) by bits, on any device; on the
-# card every int4 call launches the fused int4 matmul once
+# card every one launches its fused kernel once (`w8a16_mm` at bits 8,
+# `w4a16_mm` at bits 4)
 quantized_calls: Counter = Counter()
 
-# the einsums `qeinsum` runs on an int4 weight (the MoE expert products,
-# models/moe.py): x [E, C, in] against a stack [E, in, out]
-INT4_SPECS = frozenset({"ech,ehi->eci", "eci,eih->ech"})
+# the einsums `qeinsum` runs on a quantized weight (the MoE expert
+# products, models/moe.py): x [E, C, in] against a stack [E, in, out]
+EXPERT_SPECS = frozenset({"ech,ehi->eci", "eci,eih->ech"})
+
+
+def _fused(bits: int):
+    return w8a16_mm if bits == 8 else w4a16_mm
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a plain tensor or a per-out-column QuantizedTensor (an int4
-    matrix: x's leading dims flatten into rows)."""
+    """x @ w for a plain tensor or a per-out-column QuantizedTensor (x's
+    leading dims flatten into rows). The tied head `embed.T` multiplies
+    from the embedding's own [V, H] storage."""
     if isinstance(w, QuantizedTensor):
         if w.axis != -2:
             raise ValueError(f"mm needs per-out-column scales, axis={w.axis}")
-        if w.bits == 4:
-            quantized_calls[4] += 1
-            y = w4a16_mm(x.reshape(-1, x.shape[-1]), w.q, w.s)
-            return y.reshape(*x.shape[:-1], y.shape[-1])
-        return (x @ operand(w, x.dtype)) * w.s.to(x.dtype)
+        quantized_calls[w.bits] += 1
+        y = _fused(w.bits)(x.reshape(-1, x.shape[-1]), w.q, w.s)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
     return x @ w
 
 
 def qeinsum(spec: str, x: torch.Tensor, w) -> torch.Tensor:
-    """einsum(spec, x, w) where w may be quantized. The einsum contracts
-    exactly w's scale axis, and w's kept axes line up with the result's
-    last axes as [E, 1, out] against [E, C, out] (the MoE expert einsums
-    "ech,ehi->eci" and "eci,eih->ech"), as in the JAX package. An int4
-    weight takes only those two (`INT4_SPECS`, the batched `w4a16_mm`);
-    another spec raises."""
+    """einsum(spec, x, w) where w may be quantized. A quantized weight takes
+    the MoE expert einsums (`EXPERT_SPECS`: x [E, C, in] against a stack
+    [E, in, out] with scales [E, 1, out], as in the JAX package) as its
+    fused kernel's batched form; another spec raises."""
     if isinstance(w, QuantizedTensor):
-        if w.bits == 4:
-            if spec not in INT4_SPECS or w.axis != -2:
-                raise ValueError(f"qeinsum: an int4 weight takes only "
-                                 f"{sorted(INT4_SPECS)} with per-out-column "
-                                 f"scales, got {spec!r} (axis {w.axis})")
-            quantized_calls[4] += 1
-            return w4a16_mm(x, w.q, w.s)
-        y = torch.einsum(spec, x, operand(w, x.dtype))
-        return y * w.s.squeeze(w.axis).to(x.dtype)[..., None, :]
+        if spec not in EXPERT_SPECS or w.axis != -2:
+            raise ValueError(f"qeinsum: an int{w.bits} weight takes only "
+                             f"{sorted(EXPERT_SPECS)} with per-out-column "
+                             f"scales, got {spec!r} (axis {w.axis})")
+        quantized_calls[w.bits] += 1
+        return _fused(w.bits)(x, w.q, w.s)
     return torch.einsum(spec, x, w)
 
 

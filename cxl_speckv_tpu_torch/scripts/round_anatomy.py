@@ -39,9 +39,9 @@ graph, ROADMAP A1) would remove; it is printed as such. On `--device cpu`
 the plain versions run, every time is the host's and busy is "not
 measured".
 
-The port's W8A16 matmul converts each int8 weight to bf16 before a
-bf16 matmul (`ops/wquant.mm`), so its step moves more bytes than the bf16
-arm's, not fewer; where the int8 arm's slope is not below the bf16 arm's,
+The port's W8A16 matmul reads each int8 weight once and converts it in
+registers (`ops/wquant.mm`, `ops/w8a16_mm.py`), as XLA's fusion does for
+the JAX script; where the int8 arm's slope is not below the bf16 arm's,
 the weight stream's rate (and with it the compute floor) prints nan, as
 the JAX arithmetic gives it.
 

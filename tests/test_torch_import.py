@@ -58,7 +58,7 @@ def test_port_imports_no_jax():
                  "prefetcher.controller", "prefetcher.lstm",
                  "utils.dispatch", "scripts.train_predictor",
                  "server", "engine.scoring", "models.checkpoint",
-                 "native", "ops.w4_unpack", "ops.w4a16_mm",
+                 "native", "ops.w4_unpack", "ops.w4a16_mm", "ops.w8a16_mm",
                  "runtime.transfer",
                  *PARALLEL,
                  *(f"scripts.{m}" for m in ("common", *SCRIPTS))):

@@ -1498,6 +1498,126 @@ def test_w4a16_mm_refuses_on_card(dev):
     assert dict(wm.w4a16_mm.launches) == before
 
 
+# the fused int8 matmul's shapes: (form, B, M, K, N). "dense" q [K, N];
+# "tied" q the transposed view of a [N, K] table (the tied head); "batch" a
+# stack [B, K, N]; "expand" a stack against one x expanded over B (the
+# dense MoE mode's stride-0 x)
+W8MM_CASES = [
+    ("dense", 1, 8, 4096, 2048),     # decode rows, 16-byte copies, splits
+    ("dense", 1, 1, 512, 128),
+    ("dense", 1, 16, 256, 256),
+    ("dense", 1, 40, 256, 320),      # 48-row block; a ragged strip
+    ("dense", 1, 512, 128, 256),     # 128-row blocks
+    ("dense", 1, 100, 64, 130),      # a ragged 128-row block, N % 16 != 0
+    ("dense", 1, 13, 96, 70),        # width 70: byte / element loads
+    ("dense", 1, 5, 37, 40),         # ragged K
+    ("tied", 1, 8, 256, 1000),       # a ragged last strip
+    ("tied", 1, 40, 96, 300),
+    ("tied", 1, 512, 128, 256),
+    ("tied", 1, 3, 40, 130),         # K % 16 != 0: byte loads
+    ("batch", 3, 8, 64, 40),
+    ("batch", 4, 17, 128, 128),
+    ("expand", 5, 8, 64, 96),
+]
+
+
+def w8mm_inputs(dev, form, B, M, K, N, dtype, seed=0):
+    rng = np.random.RandomState(seed + M + K + N)
+    lead = (B,) if form in ("batch", "expand") else ()
+    qs = (N, K) if form == "tied" else (*lead, K, N)
+    q = torch.from_numpy(rng.randint(-128, 128, qs).astype(np.int8)).to(dev)
+    if form == "tied":
+        q = q.t()
+    s = torch.from_numpy(rng.rand(*lead, 1, N).astype(np.float32) * 0.05
+                         + 0.001).to(dev)
+    xs = (M, K) if form == "expand" else (*lead, M, K)
+    x = torch.from_numpy(rng.randn(*xs).astype(np.float32)).to(dev, dtype)
+    if form == "expand":
+        x = x[None].expand(B, M, K)
+    return x, q, s
+
+
+@pytest.mark.parametrize("split", ["planned", "forced"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("case", W8MM_CASES,
+                         ids=["-".join(map(str, c)) for c in W8MM_CASES])
+def test_w8a16_mm_kernel_equals_plain(dev, monkeypatch, case, dtype, split):
+    """The fused int8 kernel against `w8a16_mm_plain` (cuBLAS at full
+    float32 reduction) within the int4 kernel's bounds (`w4mm_close`), two
+    calls bit-equal, one launch a call (the tied form counted as such);
+    `forced` splits K into as many parts as it has 64-deep stages."""
+    from cxl_speckv_tpu_torch.ops import w4a16_mm as w4
+    from cxl_speckv_tpu_torch.ops import w8a16_mm as w8
+
+    if split == "forced":
+        monkeypatch.setattr(w4, "SPLIT_CTAS_PER_SM", 10 ** 6)
+        monkeypatch.setattr(w4, "MIN_SPLIT_STAGES", 1)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_fp16_reduced_precision_reduction", False)
+    form, B, M, K, N = case
+    x, q, s = w8mm_inputs(dev, form, B, M, K, N, dtype)
+    before = sum(w8.w8a16_mm.launches.values())
+    tied = w8.w8a16_mm.tied_launches
+    got = w8.w8a16_mm(x, q, s)
+    again = w8.w8a16_mm(x, q, s)
+    torch.cuda.synchronize()
+    assert sum(w8.w8a16_mm.launches.values()) == before + 2
+    assert w8.w8a16_mm.tied_launches == tied + 2 * (form == "tied")
+    assert got.shape == (*x.shape[:-1], N) and got.dtype == dtype
+    assert torch.equal(got, again)
+    assert w4mm_close(got, w8.w8a16_mm_plain(x, q, s)) <= 1.0
+    if form != "expand":
+        # an x one element past an aligned start takes the element loads
+        xs = torch.cat([x.reshape(-1), x.reshape(-1)[:1]])[1:].view(x.shape)
+        assert w4mm_close(w8.w8a16_mm(xs, q, s),
+                          w8.w8a16_mm_plain(xs, q, s)) <= 1.0
+
+
+@pytest.mark.parametrize("M", [8, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("tied", [False, True])
+def test_w8a16_mm_converts_every_byte_exactly(dev, tied, dtype, M):
+    """Every int8 value (-128 .. 127, each in every column) through the
+    kernel's conversion: one-hot rows of x and unit scales give back the
+    weight's rows, bit-equal to `q.to(dtype)` (the products are exact and
+    one is summed with zeros)."""
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
+
+    K = N = 256
+    k = torch.arange(K, device=dev)
+    table = ((k[:, None] + k[None, :]) % 256 - 128).to(torch.int8)  # [K, N]
+    q = table.t().contiguous().t() if tied else table
+    assert q.is_contiguous() != tied
+    rows = torch.arange(M, device=dev) * (K // M)
+    x = torch.nn.functional.one_hot(rows, K).to(dtype)
+    got = w8a16_mm(x, q, torch.ones(1, N, device=dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, table[rows].to(dtype))
+    assert torch.equal(got.to(torch.bfloat16),
+                       table[rows].to(torch.bfloat16))
+
+
+def test_w8a16_mm_refuses_on_card(dev):
+    """On a CUDA tensor the wrapper launches or raises; it never runs the
+    plain version."""
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
+
+    q = torch.zeros(64, 32, dtype=torch.int8, device=dev)
+    s = torch.ones(1, 32, device=dev)
+    x = torch.zeros(4, 64, device=dev)
+    before = dict(w8a16_mm.launches)
+    for args in ((x.to(torch.int32), q, s), (x, q[:, ::2], s[:, ::2]),
+                 (x, q, s.double()), (x, q.to(torch.uint8), s),
+                 (x[:, :32], q, s), (x, q, torch.ones(1, 64, device=dev))):
+        with pytest.raises(ValueError):
+            w8a16_mm(*args)
+    assert dict(w8a16_mm.launches) == before
+
+
 def _tiny_engine(dev_kw, hbm, **cache_kw):
     from cxl_speckv_tpu_torch.config import (
         CacheConfig,
@@ -1510,6 +1630,7 @@ def _tiny_engine(dev_kw, hbm, **cache_kw):
 
     wq = cache_kw.pop("weight_dtype", "int8")
     native = cache_kw.pop("native", False)
+    model = cache_kw.pop("model", None) or tiny_test_config()
     sc = SystemConfig(
         cache=CacheConfig(block_size=8, num_hbm_blocks=hbm,
                           num_host_blocks=256, kv_dtype=KVDtype.INT8,
@@ -1523,8 +1644,7 @@ def _tiny_engine(dev_kw, hbm, **cache_kw):
     if native:                      # the engine's cache reads SPECKV_NATIVE
         os.environ["SPECKV_NATIVE"] = "1"
     try:
-        return Engine(tiny_test_config(), sc, seed=3, enable_lstm=False,
-                      **dev_kw)
+        return Engine(model, sc, seed=3, enable_lstm=False, **dev_kw)
     finally:
         os.environ.pop("SPECKV_NATIVE", None)
 
@@ -1551,6 +1671,35 @@ def test_w4a16_engine_on_card(dev):
             == wquant.quantized_calls[4] - calls > 0)
     assert sum(w4_unpack.launches.values()) == unpacks
     tiered = _tiny_engine({}, 14, weight_dtype="int4")
+    tiered.params = ample.params
+    assert tiered.generate(_prompts(), max_new_tokens=12) == want
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_w8a16_engine_on_card(dev, tied):
+    """The tiny model at int8 weights on the card (float32 activations: the
+    FMA kernel), its head untied or tied to the embedding: every quantized
+    matmul launches the fused int8 matmul once, the tied head in the tied
+    layout, none calls `operand`, and tiered == ample tokens."""
+    import dataclasses
+
+    from cxl_speckv_tpu_torch.ops import wquant
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm
+
+    ample = _tiny_engine({}, 256)
+    if tied:
+        cfg = dataclasses.replace(ample.model_config, tie_embeddings=True)
+        ample = _tiny_engine({}, 256, model=cfg)
+    assert ample.params["layers"]["up"].bits == 8
+    calls, launches = wquant.quantized_calls[8], sum(w8a16_mm.launches.values())
+    tied_launches, copies = w8a16_mm.tied_launches, wquant.operand.calls
+    want = ample.generate(_prompts(), max_new_tokens=12)
+    assert (sum(w8a16_mm.launches.values()) - launches
+            == wquant.quantized_calls[8] - calls > 0)
+    assert (w8a16_mm.tied_launches > tied_launches) == tied
+    assert wquant.operand.calls == copies
+    tiered = _tiny_engine({}, 14, **({"model": ample.model_config}
+                                     if tied else {}))
     tiered.params = ample.params
     assert tiered.generate(_prompts(), max_new_tokens=12) == want
 

@@ -98,7 +98,7 @@ def test_mm_and_qeinsum_route_int4_through_the_wrapper(monkeypatch):
     assert seen == [((10, 24), (24, 20)), ((3, 4, 24), (3, 24, 5)),
                     ((3, 4, 10), (3, 10, 12))]
     assert tw.quantized_calls[4] == calls + 3
-    # int8 weights keep their copy-then-matmul path
+    # int8 weights take the int8 kernel's wrapper, not this one
     i8 = tw.quantize_tensor(torch.ones(24, 40))
     tw.mm(torch.zeros(1, 24), i8)
     assert len(seen) == 3 and tw.quantized_calls[4] == calls + 3
