@@ -78,11 +78,24 @@ Phases, each printing its results; any failure exits non-zero:
               tier), then the same prompts on an ample HBM pool. Every
               request must finish, the tiered run must migrate both ways,
               and both runs must emit identical tokens;
-7. anatomy -- device time of one served Llama decode round by kernel
-              (torch.profiler; the fused int8 matmul's share) and the W8A16
+   Every serve of the script runs the engine's decode rounds as CUDA
+              graphs (`models/round_graph.py`): a key's first round eager,
+              every later one replayed; each serve holds its eager rounds
+              to its new keys, and the script's tally prints at the end;
+7. anatomy -- one served decode round of 8 lanes replayed from its CUDA
+              graph, and the same round eager: host clock, device time
+              (CUDA events around the replay; torch.profiler by kernel),
+              idle share, kernels a step, capture ms, graph pool bytes
+              (the fused int8 matmul's share) and the W8A16
               matmuls of one layer, fused against the composition they
               replaced (an int8 -> bf16 copy a call) and cuBLAS on bf16
               weights (again for Gemma-2 after its short serve);
+7a. graph  -- Llama-3-8B W8A16 at full width and depth, INT8 KV, 8
+              lanes, horizon 32, tiered: 16 of the serve's requests (odd
+              ones sampled) with graph rounds and with eager rounds;
+              tokens and pools bit-equal, one eager round a key; the
+              replays' device ms, decode.program, tok/s, captures, graphs
+              held and pool bytes, and the anatomy's graph and eager step;
 7b. w8a16  -- the fused int8 matmul (`w8a16_mm.cu`) against its plain
               version (the composition it replaced) at every weight of the
               served Llama-3-8B (layer 0's q / k / v / o / gate / up / down,
@@ -470,6 +483,7 @@ import contextlib
 import gc
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -624,7 +638,9 @@ STREAM_TURN1, STREAM_TURN_NEW, STREAM_TURN_GEN = 2048, 64, 32
 PREFETCH_DEPTH = 2
 PCONT_TOL = 1e-4              # in-round continue probability vs the host
 DEFAULT_REQ, DEFAULT_GEN = 8, 32
-FIT_ROUNDS = 4
+# the fit's rounds a depth: the first runs eagerly and the second captures
+# its graph, so the median (decode.program p50) is a replayed round's
+FIT_ROUNDS = 8
 # the migrate phase: the serve cell's split (copy stream) / fused / ample
 # arms; one 16-lane batch each way against `migrate_program` on pools of
 # 64 HBM slots and a 64-slot host tier; the ordering checks hold a stream
@@ -1802,11 +1818,20 @@ def serve(eng, prompts, gen, kw_of=None):
     return {o.req_id: o for o in outs if o is not None}, dt
 
 
+# decode rounds over every serve of the script: replayed from a CUDA graph,
+# and eager (a key's first round, on an engine with graphs)
+GRAPH_TALLY = {"replayed": 0, "eager": 0}
+
+
 def serve_each(eng, reqs):
     """Submit `reqs` [(prompt, add_request kwargs)] and serve to the end;
     returns (outputs in submission order, seconds). A W8A16 engine's every
-    int8 matmul must launch the fused int8 matmul (`check_w8a16`)."""
+    int8 matmul must launch the fused int8 matmul (`check_w8a16`), and an
+    engine with graphs runs eagerly only a key's first round."""
     before = w8a16_counts()
+    graphs = eng.round_graphs
+    if graphs is not None:
+        g0 = (graphs.graph_rounds, graphs.eager_rounds, len(graphs._seen))
     ids = [eng.add_request(p, **kw) for p, kw in reqs]
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -1814,6 +1839,15 @@ def serve_each(eng, reqs):
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
     check_w8a16("serve", before, eng.config.engine.weight_dtype == "int8")
+    if graphs is not None and eng.round_graphs is graphs:
+        replayed, eager, keys = (a - b for a, b in zip(
+            (graphs.graph_rounds, graphs.eager_rounds, len(graphs._seen)),
+            g0))
+        if eager != keys:
+            fail(f"serve: {eager} eager decode rounds for {keys} new keys "
+                 f"({replayed} replayed)")
+        GRAPH_TALLY["replayed"] += replayed
+        GRAPH_TALLY["eager"] += eager
     return [outs.get(i) for i in ids], dt
 
 
@@ -1982,6 +2016,91 @@ def phase_serve() -> tuple:
           f"({dict(w8a16_mm.launches)}) == int8 matmul calls, no operand() "
           f"copy", flush=True)
     return launches, cfg, params, prompts, w8
+
+
+# the [graph] phase: the serve cell's first GRAPH_REQ requests, tiered, odd
+# ones sampled (temperature 0.8, top-p 0.9)
+GRAPH_REQ = 16
+
+
+def phase_graph(cfg, params, prompts, anatomy: dict) -> None:
+    """[graph] Llama-3-8B W8A16 at full width and depth, INT8 KV, 8 lanes,
+    horizon 32, tiered (the serve cell's pool): the same requests served
+    with every decode round after a key's first replayed from its CUDA
+    graph (`models/round_graph.py`) and with the engine's rounds eager
+    (`round_graphs` set aside); tokens (greedy and sampled lanes at one
+    seed) and the pools afterwards must be bit-equal, and the graph
+    engine's rounds replays but for one eager round a key. Prints the
+    replayed rounds' device ms (CUDA events around each replay) beside
+    the round's host time, the capture, the graphs held and their pool,
+    and the anatomy's graph-against-eager step."""
+    kw_of = lambda i: ({"temperature": 0.8, "top_p": 0.9} if i % 2 else {})
+    ps = prompts[:GRAPH_REQ]
+    runs = {}
+    for route in ("graph", "eager"):
+        eng = build_engine(cfg, params, SHORT, SHORT.hbm_tiered,
+                           SHORT.host_tiered)
+        if route == "eager":
+            eng.round_graphs = None
+        else:
+            eng.round_graphs.replay_events = []
+        outs, dt = serve(eng, ps, SHORT.gen, kw_of)
+        torch.cuda.synchronize()
+        st = eng.get_statistics()
+        replay_s = None
+        if route == "graph":
+            replay_s = [a.elapsed_time(b) / 1e3
+                        for a, b in eng.round_graphs.replay_events]
+            keys = len(eng.round_graphs._seen)
+        runs[route] = {"tokens": tokens_in_order(outs),
+                       "pools": [t.clone() for t in eng.kvc.pools],
+                       "stats": st, "dt": dt, "replay_s": replay_s,
+                       "n": sum(len(o.tokens) for o in outs.values())}
+        del eng
+    g, e = runs["graph"], runs["eager"]
+    if g["tokens"] != e["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(g["tokens"], e["tokens"]))
+                if a != b]
+        fail(f"[graph] tokens of graph rounds differ from eager rounds for "
+             f"requests {diff} (odd ones sampled)")
+    if not all(torch.equal(x, y) for x, y in zip(g["pools"], e["pools"])):
+        fail("[graph] pools after the graph rounds differ from the eager "
+             "rounds'")
+    ge, ee = g["stats"]["engine"], e["stats"]["engine"]
+    rounds = g["stats"]["scheduler"]["decode_batches"]
+    if (ge["round_route"] != "graph" or ge["eager_rounds"] != keys
+            or ge["graph_rounds"] + ge["eager_rounds"] != rounds
+            or ge["graph_rounds"] == 0 or ee["graph_rounds"] != 0
+            or ee["eager_rounds"]
+            != e["stats"]["scheduler"]["decode_batches"]):
+        fail(f"[graph] rounds: graph engine {ge}, {keys} keys, {rounds} "
+             f"rounds; eager engine {ee}")
+    replay = g["replay_s"]
+    print(f"[graph] Llama-3-8B W8A16, {cfg.num_layers} layers, INT8 KV, "
+          f"{BATCH} lanes, horizon {HORIZON}, tiered ({SHORT.hbm_tiered} HBM "
+          f"blocks): {GRAPH_REQ} requests (odd ones sampled, T 0.8, top-p "
+          f"0.9): tokens and pools bit-equal, graph rounds against eager "
+          f"rounds; {rounds} rounds = {ge['graph_rounds']} replays + "
+          f"{ge['eager_rounds']} eager ({keys} keys); {ge['graph_captures']} "
+          f"captures in {ge['graph_capture_ms']:.0f} ms, {ge['graphs_held']} "
+          f"graph(s) held, graph pool {ge['graph_pool_bytes'] / 2**20:.1f} "
+          f"MiB", flush=True)
+    print(f"[graph] replayed rounds' device time (CUDA events around each "
+          f"replay): median {statistics.median(replay) * 1e3:.1f} ms a round "
+          f"= {statistics.median(replay) / HORIZON * 1e3:.2f} ms a step over "
+          f"{len(replay)} replays; serve {g['n'] / g['dt']:.1f} tok/s "
+          f"(its eager round and its capture included) against "
+          f"{e['n'] / e['dt']:.1f} eager", flush=True)
+    ag, ae = anatomy["graph"], anatomy["eager"]
+    print(f"[graph] the anatomy's Llama-3-8B round (ample pool): graph "
+          f"{ag['wall'] / HORIZON * 1e3:.2f} host ms a step, "
+          f"{ag['replay'] / HORIZON * 1e3:.2f} device ms a step (CUDA "
+          f"events), {1 - ag['replay'] / ag['wall']:.1%} idle, "
+          f"{ag['n_kernels'] / HORIZON:.0f} kernels a step (profiler); eager "
+          f"{ae['wall'] / HORIZON * 1e3:.2f} host ms a step, "
+          f"{ae['busy'] / HORIZON * 1e3:.2f} device ms a step (profiler), "
+          f"{1 - ae['busy'] / ae['wall']:.1%} idle, "
+          f"{ae['n_kernels'] / HORIZON:.0f} kernels a step", flush=True)
 
 
 def check_windows(label, launches, want_split) -> None:
@@ -2693,54 +2812,107 @@ def phase_phi3_hf() -> dict:
 # where a served decode step spends its time
 # ---------------------------------------------------------------------------
 
-def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
-                  **kv) -> None:
-    """Where a served decode round of `model` spends its time: one group of
-    BATCH lanes (32-token prompts, 3 fused rounds of HORIZON steps), a round
-    timed on the host clock, the last one under torch.profiler for the
-    device time by kernel (the profiler slows the host, so its own wall
-    time is not used); `kv` are the KV scheme arguments of `build_engine`.
-    For an MoE model, one layer's three expert products through the fused
-    int8 matmul, timed alone. Then, with `matmuls`, the W8A16 matmuls of
-    one layer (the fused int8 matmul, as `ops.wquant.mm` runs them) against
-    the composition it replaced (an int8 -> bf16 copy per call) and the
-    same products on bf16 weights that are already converted."""
+def round_profile(eng) -> dict:
+    """One engine step (one decode round of its only group) on the host
+    clock, with the replay's CUDA events when the round replays a graph;
+    then one more under torch.profiler for the device time by kernel (the
+    profiler slows the host, so its own wall time is not used). Device
+    activity only: recording the host ops as well doubles the phase's
+    time (77 s against 38 s for an eager Llama-3-8B round on an H100)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm_plain
-    from cxl_speckv_tpu_torch.ops.wquant import mm, qeinsum
-
-    eng = build_engine(cfg, params, SHORT, SHORT.hbm_ample, 0, **kv)
-    for p in prompts[:BATCH]:
-        eng.add_request(p[:SHORT.max_seq - 4 * HORIZON],
-                        max_new_tokens=3 * HORIZON)
-    eng.step()                          # prefill the group, first round
+    graphs = eng.round_graphs
+    if graphs is not None:
+        graphs.replay_events = []
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    eng.step()                          # second round, host clock
+    eng.step()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    # device activity only: recording the host ops as well doubles the
-    # phase's time (77 s against 38 s for a Llama-3-8B round on an H100)
+    replay = None
+    if graphs is not None:
+        replay = sum(a.elapsed_time(b) for a, b in graphs.replay_events) / 1e3
+        graphs.replay_events = None
+        if replay == 0:
+            fail("anatomy: the timed round replayed no graph")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.step()                      # third round, profiled
+        eng.step()
         torch.cuda.synchronize()
-    eng.run()
     kernels_us: dict[str, float] = {}
     n_kernels = 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels_us[e.key] = kernels_us.get(e.key, 0.0) + e.self_device_time_total
             n_kernels += e.count
-    busy = sum(kernels_us.values()) / 1e6                     # us -> s
+    return {"wall": wall, "replay": replay, "kernels_us": kernels_us,
+            "n_kernels": n_kernels, "busy": sum(kernels_us.values()) / 1e6}
+
+
+# the anatomy's group: BATCH lanes of 32-token prompts, six fused rounds
+# (the key's eager round, the capture, a timed and a profiled replay, a
+# timed and a profiled eager round)
+ANATOMY = Cell(BATCH, 32, 6 * HORIZON, BATCH, 64, hbm_tiered=0)
+
+
+def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
+                  **kv) -> dict:
+    """Where a served decode round of `model` spends its time: one group of
+    BATCH lanes (`ANATOMY`), replayed from its CUDA graph as the engine
+    serves it and, beside it, eager (the engine's `round_graphs` set
+    aside): each round's host clock, the replay's CUDA events, and the
+    device time by kernel (`round_profile`); `kv` are the KV scheme
+    arguments of `build_engine`. For an MoE model, one layer's three
+    expert products through the fused int8 matmul, timed alone. Then, with
+    `matmuls`, the W8A16 matmuls of one layer (the fused int8 matmul, as
+    `ops.wquant.mm` runs them) against the composition it replaced (an
+    int8 -> bf16 copy per call) and the same products on bf16 weights that
+    are already converted. Returns the graph and eager rounds' figures."""
+    from cxl_speckv_tpu_torch.ops.w8a16_mm import w8a16_mm_plain
+    from cxl_speckv_tpu_torch.ops.wquant import mm, qeinsum
+
+    eng = build_engine(cfg, params, ANATOMY, ANATOMY.hbm_ample, 0, **kv)
+    for p in prompts[:BATCH]:
+        eng.add_request(p[:ANATOMY.prompt], max_new_tokens=ANATOMY.gen)
+    eng.step()                          # prefill the group, the eager round
+    eng.step()                          # the capture, and its replay
+    graphs = eng.round_graphs
+    g = round_profile(eng)
+    eng.round_graphs = None             # the same rounds, eager
+    e = round_profile(eng)
+    eng.round_graphs = graphs
+    eng.run()
+    st = eng.get_statistics()["engine"]
+    if st["graph_captures"] != 1 or st["graph_rounds"] < 3:
+        fail(f"anatomy {model}: {st['graph_captures']} captures, "
+             f"{st['graph_rounds']} replays: {st}")
+    seen = "torch.profiler" if g["kernels_us"] else (
+        "the profiler saw no kernel inside the replay")
     print(f"[anatomy] {model}: one fused round, {HORIZON} decode steps of "
-          f"{BATCH} lanes: {wall * 1e3:.1f} ms on the host clock "
-          f"({wall / HORIZON * 1e3:.2f} ms a step); device time "
-          f"{busy * 1e3:.1f} ms ({busy / HORIZON * 1e3:.2f} ms a step) = "
-          f"{busy / wall:.1%} busy, {1 - busy / wall:.1%} idle; "
-          f"{n_kernels / HORIZON:.0f} kernels a step "
-          f"({'profiler saw no device time' if not kernels_us else 'torch.profiler'})",
+          f"{BATCH} lanes, replayed from its CUDA graph: "
+          f"{g['wall'] * 1e3:.1f} ms on the host clock "
+          f"({g['wall'] / HORIZON * 1e3:.2f} ms a step); device "
+          f"{g['replay'] * 1e3:.1f} ms ({g['replay'] / HORIZON * 1e3:.2f} ms "
+          f"a step, CUDA events around the replay) = "
+          f"{g['replay'] / g['wall']:.1%} busy, "
+          f"{1 - g['replay'] / g['wall']:.1%} idle; profiled replay "
+          f"{g['busy'] * 1e3:.1f} ms of kernels, "
+          f"{g['n_kernels'] / HORIZON:.0f} kernels a step ({seen}); capture "
+          f"{st['graph_capture_ms']:.0f} ms, graph pool "
+          f"{st['graph_pool_bytes'] / 2**20:.1f} MiB, "
+          f"{st['graphs_held']} graph(s) held", flush=True)
+    print(f"[anatomy] {model}: the same round eager: {e['wall'] * 1e3:.1f} ms "
+          f"on the host clock ({e['wall'] / HORIZON * 1e3:.2f} ms a step); "
+          f"device time {e['busy'] * 1e3:.1f} ms "
+          f"({e['busy'] / HORIZON * 1e3:.2f} ms a step, torch.profiler) = "
+          f"{e['busy'] / e['wall']:.1%} busy, "
+          f"{1 - e['busy'] / e['wall']:.1%} idle; "
+          f"{e['n_kernels'] / HORIZON:.0f} kernels a step "
+          f"({'profiler saw no device time' if not e['kernels_us'] else 'torch.profiler'})",
           flush=True)
+    prof = g if g["kernels_us"] else e
+    kernels_us, busy = prof["kernels_us"], prof["busy"]
+    print(f"[anatomy]   kernels by group, "
+          f"{'the replayed' if prof is g else 'the eager'} round:")
     groups = {"W8A16 fused matmul (w8a16_mm)": "w8a16_",
               "copies and casts": "copy",
               "W4A16 weight unpack (w4_unpack)": "unpack",
@@ -2748,11 +2920,22 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
               "cuBLAS matmuls": ("nvjet", "gemm", "cutlass"),
               "K1 decode_kernel + its merge (tile_ring::merge_lse)": (
                   "decode_kernel", "merge_lse")}
+    by_group = {}
     for label, keys in groups.items():
-        us = sum(v for k, v in kernels_us.items()
-                 if any(x in k for x in np.atleast_1d(keys)))
+        us = by_group[label] = sum(v for k, v in kernels_us.items()
+                                   if any(x in k for x in np.atleast_1d(keys)))
         print(f"[anatomy]   {label}: {us / 1e3:.2f} ms "
               f"({us / 1e6 / max(busy, 1e-12):.1%} of device time)")
+    # inside the replayed round (None where the profiler saw no kernel
+    # there): K1's mean ms a launch (its merge included), and the fused
+    # int8 matmuls' ms a step
+    L = cfg.num_layers
+    result = {"graph": g, "eager": e, "stats": st,
+              "k1_replay_ms": (by_group["K1 decode_kernel + its merge "
+                                        "(tile_ring::merge_lse)"]
+                               / (HORIZON * L) / 1e3 if prof is g else None),
+              "w8_replay_step_ms": (by_group["W8A16 fused matmul (w8a16_mm)"]
+                                    / HORIZON / 1e3 if prof is g else None)}
     for name, us in sorted(kernels_us.items(), key=lambda it: -it[1])[:10]:
         print(f"[anatomy]   {us / 1e3:9.2f} ms  {us / 1e6 / max(busy, 1e-12):6.1%}"
               f"  {name[:110]}")
@@ -2774,17 +2957,17 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
         t_comp = graph_ms(lambda: [w8a16_mm_plain(x, w.q, w.s)
                                    for _, x, w in specs])
         w_bytes = sum(w.q.numel() + 4 * w.s.numel() for w in lp.values())
-        step_ms = busy / HORIZON * 1e3
+        step_ms = g["replay"] / HORIZON * 1e3
         print(f"[anatomy]   expert stacks, one layer's three products at "
               f"{BATCH} tokens (CUDA graph, alone): fused {t_fused:.3f} ms "
               f"(bound {w_bytes / peaks['hbm'] * 1e3:.3f} ms, bytes) x "
               f"{cfg.num_layers} layers = {t_fused * cfg.num_layers:.2f} ms = "
               f"{t_fused * cfg.num_layers / max(step_ms, 1e-12):.1%} of the "
-              f"device time a step; the composition it replaced (int8 -> bf16 "
+              f"replayed round's device time a step; the composition it replaced (int8 -> bf16 "
               f"copies + products) {t_comp:.3f} ms a layer", flush=True)
         del xh, xi
     if not matmuls:
-        return
+        return result
 
     lp = {k: v[0] for k, v in params["layers"].items()}
     names = ("q", "k", "v", "o", "gate", "up", "down")
@@ -2806,6 +2989,7 @@ def phase_anatomy(model: str, cfg, params, prompts, peaks, matmuls=True,
               f"weight bytes / HBM rate {w_bytes / peaks['hbm'] * 1e3:.3f} "
               f"ms ({cfg.num_layers} layers a step)", flush=True)
         del wb
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -5589,16 +5773,23 @@ def check_k1_points(name: str, rows: dict) -> None:
 
 
 def scripts_round_anatomy() -> None:
+    """The sweep's eager and graph points: K1 launches exact on both
+    routes (the graph's counted once a replay), busy within host."""
     res, _ = run_script("round_anatomy", ["--reps", "1"])
     L = res["layers"]
-    for (arm, h, cb), r in res["points"].items():
-        if r["k1"] != r["calls"] * h * L or r["k2"]:
-            fail(f"round_anatomy {arm} h={h} ctx={cb}: K1 / K2 launches "
-                 f"{r['k1']} / {r['k2']} for {r['calls']} calls x {h} steps "
-                 f"x {L} layers")
-        if r["busy"] is not None and r["busy"] > r["host"]:
-            fail(f"round_anatomy {arm} h={h} ctx={cb}: device busy "
-                 f"{r['busy']} s against host {r['host']} s")
+    for (arm, h, cb), pt in res["points"].items():
+        for route, r in (("eager", pt), ("graph", pt.get("graph"))):
+            if r is None:
+                fail(f"round_anatomy {arm} h={h} ctx={cb}: no graph point")
+            if r["k1"] != r["calls"] * h * L or r["k2"]:
+                fail(f"round_anatomy {arm} {route} h={h} ctx={cb}: K1 / K2 "
+                     f"launches {r['k1']} / {r['k2']} for {r['calls']} "
+                     f"calls x {h} steps x {L} layers")
+            if r["busy"] is not None and r["busy"] > r["host"]:
+                fail(f"round_anatomy {arm} {route} h={h} ctx={cb}: device "
+                     f"busy {r['busy']} s against host {r['host']} s")
+    if res["graph_host"] is None:
+        fail("round_anatomy: no decomposition of the graph rounds")
     if res["host_dispatch_step_s"] is None or res["host_dispatch_step_s"] < 0:
         fail(f"round_anatomy: host dispatch a step on device time "
              f"{res['host_dispatch_step_s']}")
@@ -6488,7 +6679,9 @@ def main() -> int:
     fam_rows = timed("kernels families", phase_kernels_families, peaks)
     probe_entries = timed("anatomy probes", phase_probe, peaks)
     launches, cfg, params, prompts, w8_launches = timed("serve", phase_serve)
-    timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params, prompts, peaks)
+    anatomy = timed("anatomy", phase_anatomy, "Llama-3-8B", cfg, params,
+                    prompts, peaks)
+    timed("graph", phase_graph, cfg, params, prompts, anatomy)
     w8_rows = timed("w8a16", phase_w8a16, params, peaks)
     cut = first_layers(cfg, params, SCHEME_LAYERS)
     int4_launches, mixed_launches = timed(
@@ -6533,6 +6726,9 @@ def main() -> int:
                             total(launches["K1"])),
                kernel_entry("paged_chunk_attention", "K2", main_rows["K2"],
                             total(launches["K2"]))]
+    # K1's mean ms a launch inside the anatomy's replayed Llama-3-8B round
+    # (None where the profiler saw no kernel inside a replay)
+    entries[0]["replay_ms"] = anatomy["k1_replay_ms"]
     for key, kname in (("K1", "paged_attention"),
                        ("K2", "paged_chunk_attention")):
         for tag, window, label in (("win", WINDOW, "sliding"),
@@ -6679,7 +6875,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "library_b2b_ms": r["library_b2b_ms"],
-            "library_graph_ms": r["library_graph_ms"]})
+            "library_graph_ms": r["library_graph_ms"],
+            # every fused int8 matmul of a step inside the anatomy's
+            # replayed Llama-3-8B round
+            "replay_step_ms": anatomy["w8_replay_step_ms"]})
+    print(f"[graph] decode rounds over the script's serves: "
+          f"{GRAPH_TALLY['replayed']} replayed from CUDA graphs, "
+          f"{GRAPH_TALLY['eager']} eager (a key's first round)", flush=True)
     print(f"[done] all phases passed in {time.monotonic() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": entries}))

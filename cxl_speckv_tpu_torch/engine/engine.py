@@ -72,6 +72,16 @@ The engine runs on the card (`device=None` means "cuda" and raises when
 CUDA is absent); pass `device="cpu"` to run the plain attention versions on
 the CPU.
 
+On the card without a mesh, each multi-step decode round is one dispatch:
+the engine owns a `models.round_graph.RoundGraphs` (`round_graphs`), which
+runs a round key's first round eagerly, captures it in a CUDA graph at its
+second and replays it from then on, as the reference jits the round. The
+CPU has no graphs and a mesh rank's collectives run on the host: their
+rounds stay eager, as do prefill, verify and the streamed path.
+`get_statistics()["engine"]` names the route (`round_route`) and counts
+`graph_rounds`, `eager_rounds`, `graph_captures`, `graph_capture_ms`,
+`graphs_held` and `graph_pool_bytes`.
+
 Mesh serving (`SystemConfig.parallel`, dp x ep x tp > 1): one engine a rank
 of an initialized `torch.distributed` world (`parallel/distributed.py`),
 every rank fed the same commands (`parallel/lockstep.py`). Every rank runs
@@ -132,6 +142,7 @@ from cxl_speckv_tpu_torch.models.llama import (
     stream_decode_nblk,
     stream_step_batched,
 )
+from cxl_speckv_tpu_torch.models.round_graph import RoundGraphs
 from cxl_speckv_tpu_torch.ops.quant import storage_width_class
 from cxl_speckv_tpu_torch.ops.wquant import is_quantized, quantize_weights
 from cxl_speckv_tpu_torch.parallel.mesh import Mesh
@@ -298,6 +309,11 @@ class Engine:
                 f"layer_kv_dtypes has {len(lkd)} entries for a "
                 f"{model_config.num_layers}-layer model")
         self.device = resolve_device(device)
+        # the decode rounds' CUDA graphs (None: eager rounds, on the CPU and
+        # on a mesh rank, whose gloo collectives run on the host)
+        on_card = self.device.type == "cuda" and self.mesh is None
+        self.round_graphs = RoundGraphs(self.device) if on_card else None
+        self._eager_rounds = 0
         self.model_config = model_config
         self.config = system_config
         # the scheme new requests quantize with (set_kv_dtype), and the
@@ -390,10 +406,11 @@ class Engine:
                 draft_params = shard_params(draft_params, draft_config,
                                             self.mesh)
                 draft_heads //= tp
-            self.spec = SpecDecoder(draft_config, draft_params, self.kvc,
-                                    gamma=spec_gamma,
-                                    draft_kv_dtype=KVDtype(spec_draft_kv),
-                                    kv_heads=draft_heads)
+            self.spec = SpecDecoder(
+                draft_config, draft_params, self.kvc, gamma=spec_gamma,
+                draft_kv_dtype=KVDtype(spec_draft_kv), kv_heads=draft_heads,
+                graphs=(RoundGraphs(self.device)
+                        if self.round_graphs is not None else None))
         if self.spec is not None:
             self.scheduler.free_seq_hook = self.spec.on_free_seq
         # fused rounds (EngineConfig.fused_rounds): the queued migration
@@ -917,6 +934,8 @@ class Engine:
                     f"{kv_dtype.value} requires an idle engine (live: "
                     f"{busy} requests, {streams} streams, "
                     f"{len(self._sessions)} sessions)")
+            if self.round_graphs is not None:
+                self.round_graphs.clear()    # they read the old pools
             self.kvc.rebuild_storage(kv_dtype)
         self._kv_scheme = kv_dtype
 
@@ -1244,17 +1263,21 @@ class Engine:
             lk = self._group_logprobs_k(group)
             kw = dict(**self._pen_dispatch(group, B), horizon=h,
                       rng_seed=self._rng_seed, logprobs_k=lk)
+            if self.round_graphs is None:
+                self._eager_rounds += 1
             if up_bids or down_bids:
                 self.kvc.order_after_migrations()
                 out = decode_round_fused(
                     self.params, self.model_config, scheme, packed, mig,
-                    self.kvc.pools, self.kvc.store, **kw)
+                    self.kvc.pools, self.kvc.store, graphs=self.round_graphs,
+                    **kw)
                 self.kvc.commit_migration(up_bids, down_bids)
             else:
                 self.kvc.order_round(packed[:, 4:4 + mb])
                 out = decode_multi_packed(
                     self.params, self.model_config, scheme, packed,
-                    self.kvc.pools, **kw, **lstm_kw)
+                    self.kvc.pools, graphs=self.round_graphs, **kw,
+                    **lstm_kw)
             # the round's tokens, logprob tables and continue probabilities
             # in one host copy
             toks, *rest = fetch(*out) if isinstance(out, tuple) else fetch(out)
@@ -1863,6 +1886,7 @@ class Engine:
             scheme = self._req_scheme(r)
             k = (KVDtype.MIXED8 if isinstance(scheme, tuple) else scheme).value
             scheme_tokens[k] = scheme_tokens.get(k, 0) + r.num_tokens
+        eng.update(self._round_statistics())
         return {
             "engine": eng,
             "kv_scheme_current": self._kv_scheme.value,
@@ -1877,6 +1901,23 @@ class Engine:
             **({"mesh": self._mesh_statistics()} if self.mesh is not None
                else {}),
         }
+
+    def _round_statistics(self) -> dict:
+        """How the decode rounds were dispatched: replayed CUDA graphs, or
+        eager (on the CPU, on a mesh rank)."""
+        if self.round_graphs is not None:
+            out = self.round_graphs.statistics()
+            draft = getattr(self.spec, "graphs", None)
+            if draft is not None:
+                # the draft model's proposals, its own cache
+                out.update({f"draft_{k}": v for k, v in
+                            draft.statistics().items() if k != "round_route"})
+            return out
+        return {"round_route": "eager: " + (
+                    "mesh" if self.mesh is not None else self.device.type),
+                "graph_rounds": 0, "eager_rounds": self._eager_rounds,
+                "graph_captures": 0, "graph_capture_ms": 0.0,
+                "graphs_held": 0, "graph_drops": 0, "graph_pool_bytes": 0}
 
     def _mesh_statistics(self) -> dict:
         """The rank's place, the scope of the cache's byte counts (this
@@ -1895,6 +1936,10 @@ class Engine:
 
     def reset_statistics(self) -> None:
         self.stats.reset()
+        self._eager_rounds = 0
+        for graphs in (self.round_graphs, getattr(self.spec, "graphs", None)):
+            if graphs is not None:
+                graphs.reset_statistics()
         self.scheduler.reset_statistics()
         self.prefetcher.reset_statistics()
         self.kvc.reset_statistics()

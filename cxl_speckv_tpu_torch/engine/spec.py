@@ -285,8 +285,11 @@ class SpecDecoder(_AcceptanceMixin):
 
     def __init__(self, draft_config: LlamaConfig, draft_params, target_kvc,
                  gamma: int = 4, draft_kv_dtype: KVDtype = KVDtype.BF16,
-                 kv_heads: int | None = None):
+                 kv_heads: int | None = None, graphs=None):
+        """`graphs`: a `models.round_graph.RoundGraphs` of the draft's own,
+        in which `propose` replays its captured rounds (None: eager)."""
         self.config = draft_config
+        self.graphs = graphs
         self.params = draft_params
         self.kvc = target_kvc
         self.gamma = gamma
@@ -410,8 +413,12 @@ class SpecDecoder(_AcceptanceMixin):
         packed[:, 4:] = tables
         toks, logits = decode_multi_packed(
             self.params, self.config, self.kv_dtype, packed, self.pools,
-            horizon=self.gamma + 1, return_logits=True)
-        self._draft_logits = logits[:, :self.gamma]           # [B, g, V]
+            horizon=self.gamma + 1, return_logits=True, graphs=self.graphs)
+        # a replayed round's logits are the graph's tensor, which its next
+        # replay overwrites
+        logits = logits[:, :self.gamma]                        # [B, g, V]
+        self._draft_logits = (logits.clone() if self.graphs is not None
+                              else logits)
         drafts = toks[:, :self.gamma].cpu().numpy().astype(np.int32)
         self.stats.drafted += int(np.asarray(active).sum()) * self.gamma
         return drafts

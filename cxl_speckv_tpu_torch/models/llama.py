@@ -27,13 +27,17 @@ come split from `models/hf_convert.py` and run as Llama.
 Parameters are a plain dict with the JAX package's tree layout (layer
 weights stacked on a leading [L] axis). PyTorch runs eagerly, so the layer
 scan and the horizon loop are Python loops, and the pools are updated IN
-PLACE (the JAX functions return new pools). Numerics follow the HF
-conventions as the JAX package does: rotate-half RoPE, Llama-3 banded or
-YaRN rope scaling, RMSNorm in float32. Each layer passes its own window
-(`config.layer_windows()[li]`) and the attention softcap to the kernels,
-and rotates with its own inverse frequencies (`layer_ropes`): the layer
-loop is Python, so the JAX package's period-grouped scan has no
-counterpart here.
+PLACE (the JAX functions return new pools). On the card a decode round
+given a cache (`decode_multi_packed(..., graphs=)`,
+`models/round_graph.py`) is captured once in a CUDA graph and replayed,
+one dispatch a round as the reference's jitted round; for that the round
+copies nothing from the host after its one packed upload. Numerics
+follow the HF conventions as the JAX package does: rotate-half RoPE,
+Llama-3 banded or YaRN rope scaling, RMSNorm in float32. Each layer
+passes its own window (`config.layer_windows()[li]`) and the attention
+softcap to the kernels, and rotates with its own inverse frequencies
+(`layer_ropes`): the layer loop is Python, so the JAX package's
+period-grouped scan has no counterpart here.
 
 Attention goes through the kernel wrappers `ops.paged_attention.
 paged_attention` (K1, decode) and `ops.chunk_attention_cuda.
@@ -330,9 +334,16 @@ def _embed(params: Params, config: LlamaConfig,
     if config.embed_scale:
         # sqrt(H) rounded to the activation dtype first, as JAX and HF do
         # (bf16: sqrt(3584) = 59.87 becomes 59.75)
-        x = x * torch.tensor(config.hidden_size ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * _device_scalar(config.hidden_size ** 0.5, x.dtype, x.device)
     return x
+
+
+@functools.cache
+def _device_scalar(value: float, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """`value` as a 0-d tensor of `dtype` on `device`, made once: a round
+    copies nothing from the host after its packed upload."""
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 def _final_logits(x: torch.Tensor, params: Params,
@@ -415,10 +426,17 @@ def pick_rope(freqs, window):
 
 def layer_ropes(config: LlamaConfig, device) -> list[torch.Tensor]:
     """Each layer's inverse frequencies on `device`, by its window
-    (`pick_rope`)."""
+    (`pick_rope`). Built on the CPU and copied once per (config, device)
+    (`_device_ropes`): a decode step copies nothing from the host."""
+    return list(_device_ropes(config, torch.device(device)))
+
+
+@functools.cache
+def _device_ropes(config: LlamaConfig,
+                  device: torch.device) -> tuple[torch.Tensor, ...]:
     glob, loc = (f if f is None else f.to(device)
                  for f in rope_frequency_pair(config))
-    return [pick_rope((glob, loc), w) for w in config.layer_windows()]
+    return tuple(pick_rope((glob, loc), w) for w in config.layer_windows())
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -688,6 +706,49 @@ def _upload(packed: np.ndarray, pen_info, dev) -> torch.Tensor:
     return torch.from_numpy(packed).to(dev)
 
 
+def round_flags(words: np.ndarray) -> tuple[bool, bool]:
+    """(sampled, nucleus) of a round's sampling words (packed column 2),
+    read on the host: whether any lane samples (temperature > 0) and
+    whether a sampling lane filters by top-p. They choose the round's
+    program, as static arguments choose the reference's."""
+    from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
+
+    temps, top_ps = decode_sampling(torch.from_numpy(
+        np.asarray(words, np.int32)))
+    sampled = bool((temps > 0).any())
+    nucleus = sampled and bool(((top_ps > 0) & (top_ps < 1)
+                                & (temps > 0)).any())
+    return sampled, nucleus
+
+
+def round_from_buffer(params: Params, config: LlamaConfig, kv_dtype,
+                      buf: torch.Tensor, pools: Pools,
+                      pen_counts: torch.Tensor | None,
+                      lstm_params: dict | None,
+                      generator: torch.Generator | None, *, width: int,
+                      lstm_cols: int, horizon: int, sampled: bool,
+                      nucleus: bool, return_logits: bool, logprobs_k: int,
+                      lstm_eos: int):
+    """The decode round from its uploaded int32 inputs `buf` [B, width
+    (+ 5 pen_info columns with `pen_counts`)] (the layout of
+    `decode_multi_packed`), on the device alone: the sampling words are
+    decoded from column 2 here, as the reference decodes them in its
+    program. This is what `models/round_graph.py` captures; the eager
+    round runs it too. Returns what `decode_multi` returns."""
+    from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
+
+    temps, top_ps = decode_sampling(buf[:, 2])
+    tw = width - lstm_cols               # end of the block table
+    return decode_multi(params, config, kv_dtype, buf[:, 0], buf[:, 1],
+                        pools, buf[:, 4:tw], generator, temps, top_ps,
+                        buf[:, width:] if pen_counts is not None else None,
+                        pen_counts, lstm_params,
+                        buf[:, tw:width] if lstm_params is not None else None,
+                        horizon=horizon, sampled=sampled, nucleus=nucleus,
+                        return_logits=return_logits, logprobs_k=logprobs_k,
+                        lstm_eos=lstm_eos)
+
+
 def decode_multi_packed(params: Params, config: LlamaConfig,
                         kv_dtype, packed: np.ndarray, pools: Pools,
                         pen_info: np.ndarray | None = None,
@@ -695,7 +756,8 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
                         lstm_params: dict | None = None,
                         *, horizon: int, rng_seed: int = 0,
                         return_logits: bool = False, logprobs_k: int = 0,
-                        lstm_eos: int = -1, lstm_cols: int = 0):
+                        lstm_eos: int = -1, lstm_cols: int = 0,
+                        graphs=None):
     """`decode_multi` with every per-round host input in ONE int32 array
     (one host->device copy per round; pen_info [B, 5] rides the same copy):
 
@@ -705,47 +767,53 @@ def decode_multi_packed(params: Params, config: LlamaConfig,
         `lstm_params` the last `lstm_cols` columns: each lane's bucketed
         history for the round's continue-probability leg.
 
+    With `graphs` (a `models.round_graph.RoundGraphs` on the card) every
+    round of a key after its first replays the key's CUDA graph: the
+    outputs are then the graph's own tensors, overwritten by the next
+    replay of the same key. Other rounds run eagerly (`round_from_buffer`).
     Returns what `decode_multi` returns."""
-    from cxl_speckv_tpu_torch.engine.sampling import decode_sampling
-
     packed = np.asarray(packed, np.int32)
+    sampled, nucleus = round_flags(packed[:, 2])
+    if pen_counts is None:
+        pen_info = None
+    kw = dict(width=packed.shape[1], lstm_cols=lstm_cols, horizon=horizon,
+              sampled=sampled, nucleus=nucleus, return_logits=return_logits,
+              logprobs_k=logprobs_k, lstm_eos=lstm_eos)
+    if graphs is not None:
+        out = graphs.replay(params, config, kv_dtype, packed, pools,
+                            pen_info, pen_counts, lstm_params,
+                            rng_seed=rng_seed, **kw)
+        if out is not None:
+            return out
     dev = pools[0].device
-    temps_h, top_ps_h = decode_sampling(torch.from_numpy(packed[:, 2]))
-    sampled = bool((temps_h > 0).any())
-    nucleus = sampled and bool(((top_ps_h > 0) & (top_ps_h < 1)
-                                & (temps_h > 0)).any())
-    w = packed.shape[1]
-    p = _upload(packed, pen_info if pen_counts is not None else None, dev)
     gen = (seeded_generator(dev, rng_seed, int(packed[0, 3])) if sampled
            else None)
-    tw = w - lstm_cols               # end of the block table
-    return decode_multi(params, config, kv_dtype, p[:, 0], p[:, 1], pools,
-                        p[:, 4:tw], gen, temps_h.to(dev), top_ps_h.to(dev),
-                        p[:, w:] if pen_counts is not None else None,
-                        pen_counts, lstm_params,
-                        p[:, tw:w] if lstm_params is not None else None,
-                        horizon=horizon, sampled=sampled,
-                        nucleus=nucleus, return_logits=return_logits,
-                        logprobs_k=logprobs_k, lstm_eos=lstm_eos)
+    return round_from_buffer(params, config, kv_dtype,
+                             _upload(packed, pen_info, dev), pools,
+                             pen_counts, lstm_params, gen, **kw)
 
 
 def decode_round_fused(params: Params, config: LlamaConfig, kv_dtype,
                        packed: np.ndarray, mig: np.ndarray, pools: Pools,
                        store, pen_info: np.ndarray | None = None,
                        pen_counts: torch.Tensor | None = None, *,
-                       horizon: int, rng_seed: int = 0, logprobs_k: int = 0):
+                       horizon: int, rng_seed: int = 0, logprobs_k: int = 0,
+                       graphs=None):
     """One engine decode round with its migration batch (`mig`, [4, M]
     int32, `runtime.hoststore.pad_migration`): the batch's copies on the
     round's own stream, then `decode_multi_packed` over the updated pools,
     as the JAX `decode_round_fused` runs `migrate_in_graph` and the decode
-    in one program. Pools and the host store update in place; returns what
+    in one program. The batch's copies stay eager (their count varies
+    round to round); with `graphs` the decode replays after them on the
+    same stream. Pools and the host store update in place; returns what
     `decode_multi_packed` returns."""
     from cxl_speckv_tpu_torch.runtime.hoststore import apply_batch
 
     apply_batch(pools, store, mig)
     return decode_multi_packed(params, config, kv_dtype, packed, pools,
                                pen_info, pen_counts, horizon=horizon,
-                               rng_seed=rng_seed, logprobs_k=logprobs_k)
+                               rng_seed=rng_seed, logprobs_k=logprobs_k,
+                               graphs=graphs)
 
 
 # ---------------------------------------------------------------------------

@@ -96,6 +96,7 @@ _sms: dict[int, int] = {}
 # calls (the last CTA of a tile resets its counter); the int4 and int8
 # kernels share them, as calls on one stream run one after the other
 _counters: dict[tuple[int, int], torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 
 
 def sm_count(device: torch.device) -> int:
@@ -109,6 +110,10 @@ def tile_counters(n: int, device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            # a captured decode round (models/round_graph.py) may hold the
+            # smaller buffer's address: it must never be freed and reused
+            _outgrown.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _counters[key] = buf
     return buf

@@ -30,14 +30,18 @@ Each point prints three times for one call of `horizon` steps:
   that `torch.profiler` records in one more call (`common.device_busy_s`),
   at the points the decomposition reads (`profiled_points`),
 
-and the K1 / K2 launches of the point's calls. Then `decompose` runs the
-JAX script's arithmetic twice, on host times and on busy times: dispatch a
-call, the weight stream's rate from the bf16 / int8 slope delta, the KV
-stream's rate from the context slope, and the compute floor. Host minus
-busy a step is the per-step host dispatch that one captured round (CUDA
-graph, ROADMAP A1) would remove; it is printed as such. On `--device cpu`
-the plain versions run, every time is the host's and busy is "not
-measured".
+and the K1 / K2 launches of the point's calls. On the card every point
+runs twice: eagerly (`graphs=None`, the launches dispatched from the host)
+and as the engine runs it, replayed from a CUDA graph
+(`models/round_graph.RoundGraphs`: the key's eager round and its capture
+are the two warm calls). Then `decompose` runs the JAX script's arithmetic
+on the eager host times, the eager busy times and the graph host times:
+dispatch a call, the weight stream's rate from the bf16 / int8 slope delta,
+the KV stream's rate from the context slope, and the compute floor. Eager
+host minus busy a step is the per-step host dispatch; the graph's host
+time a step shows what of it the captured round leaves. On
+`--device cpu` the plain versions run eagerly, every time is the host's
+and busy is "not measured".
 
 The port's W8A16 matmul reads each int8 weight once and converts it in
 registers (`ops/wquant.mm`, `ops/w8a16_mm.py`), as XLA's fusion does for
@@ -197,24 +201,30 @@ def profiled_points(g: dict) -> set:
 
 
 def run_point(params, config, g: dict, horizon: int, ctx_blocks: int,
-              reps: int, device: str, profile: bool = True) -> dict:
+              reps: int, device: str, profile: bool = True,
+              graphed: bool = False) -> dict:
     """One point: a warm call, then `reps` calls timed on the host clock
     and in a CUDA-event window (medians), then on the card with `profile`
-    one profiled call for the device's busy time. Returns seconds a call,
-    the calls made, the K1 / K2 launches they made and the tokens of the
-    last call."""
+    one profiled call for the device's busy time. `graphed`: through a
+    `RoundGraphs` cache, with one more warm call (the key's eager round,
+    then the capture). Returns seconds a call, the calls made, the K1 / K2
+    launches they made and the tokens of the last call."""
     from cxl_speckv_tpu_torch.config import KVDtype
     from cxl_speckv_tpu_torch.models.llama import decode_multi_packed
+    from cxl_speckv_tpu_torch.models.round_graph import RoundGraphs
 
     pk = packed_for(g["B"], g["bs"], g["max_blocks"], g["num_slots"],
                     ctx_blocks)
     pools = fresh_pools(config, g["num_slots"], g["bs"], device)
+    graphs = RoundGraphs(device) if graphed else None
     call = lambda: decode_multi_packed(
-        params, config, KVDtype.INT8, pk, pools,
-        horizon=horizon).cpu().numpy()
+        params, config, KVDtype.INT8, pk, pools, horizon=horizon,
+        graphs=graphs).cpu().numpy()
     k1, k2 = launches()
+    if graphed:
+        call()
     toks, host, window = common.timed_calls(call, device, reps)
-    calls = reps + 1
+    calls = reps + 1 + graphed
     busy = None
     if device == "cuda" and profile:
         toks, busy = common.device_busy_s(call)
@@ -274,40 +284,60 @@ def run(args: argparse.Namespace) -> dict:
           + ", ".join(f"{k} {v:.3f} GB" for k, v in wgb.items()), flush=True)
     points = {}
     profiled = profiled_points(g)
+    routes = ("eager", "graph") if dev == "cuda" else ("eager",)
     for wq, p in arms.items():
         for h in g["horizons"]:
             for cb in g["ctxs"]:
-                r = run_point(p, config, g, h, cb, args.reps, dev,
-                              profile=(wq, h, cb) in profiled)
-                points[(wq, h, cb)] = r
-                busy = ("busy not measured (cpu)" if dev == "cpu" else
-                        f"window {r['window'] * 1e3:8.1f} ms  busy "
-                        + ("not profiled (unused)" if r["busy"] is None
-                           else f"{r['busy'] * 1e3:8.2f} ms"))
-                print(f"{prefix} | {wq:5s} horizon={h:3d} ctx={cb * g['bs']:4d}"
-                      f"tok  host {r['host'] * 1e3:8.1f} ms  {busy}  K1 "
-                      f"{r['k1']} K2 {r['k2']} launches in {r['calls']} calls",
-                      flush=True)
+                for route in routes:
+                    r = run_point(p, config, g, h, cb, args.reps, dev,
+                                  profile=(wq, h, cb) in profiled,
+                                  graphed=route == "graph")
+                    if route == "eager":
+                        points[(wq, h, cb)] = r
+                    else:
+                        points[(wq, h, cb)]["graph"] = r
+                    busy = ("busy not measured (cpu)" if dev == "cpu" else
+                            f"window {r['window'] * 1e3:8.1f} ms  busy "
+                            + ("not profiled (unused)" if r["busy"] is None
+                               else f"{r['busy'] * 1e3:8.2f} ms"))
+                    print(f"{prefix} | {wq:5s} {route:5s} horizon={h:3d} "
+                          f"ctx={cb * g['bs']:4d}tok  host "
+                          f"{r['host'] * 1e3:8.1f} ms  {busy}  K1 {r['k1']} "
+                          f"K2 {r['k2']} launches in {r['calls']} calls",
+                          flush=True)
     out = {"points": points, "weight_gb": wgb, "host": None, "busy": None,
-           "host_dispatch_step_s": None, "layers": config.num_layers}
+           "graph_host": None, "host_dispatch_step_s": None,
+           "layers": config.num_layers}
     if len(g["horizons"]) < 2 or set(arms) != set(ARMS):
         return out
-    for tag in ("host", "busy"):
-        res = {k: v[tag] for k, v in points.items()}
+    for tag in ("host", "busy", "graph_host"):
+        if tag == "graph_host" and "graph" not in routes:
+            continue
+        res = {k: (v["graph"]["host"] if tag == "graph_host" else v[tag])
+               for k, v in points.items()}
         if any(res[k] is None for k in profiled):
             continue
         out[tag] = decompose(res, wgb, kvgb, g["horizons"], g["ctxs"])
-        print_decomposition(f"{tag} time", out[tag], wgb, kvgb, g["B"],
+        label = ("graph host time (replayed rounds)" if tag == "graph_host"
+                 else f"eager {tag} time")
+        print_decomposition(label, out[tag], wgb, kvgb, g["B"],
                             g["bs"], min(g["ctxs"]), config, prefix)
     if out["busy"] is not None:
         h, b = out["host"], out["busy"]
         out["host_dispatch_step_s"] = h["step_s"] - b["step_s"]
-        print(f"{prefix} | # host minus busy: "
+        print(f"{prefix} | # eager host minus busy: "
               f"{out['host_dispatch_step_s'] * 1e3:.2f} ms a step of host "
-              f"dispatch (the eager launches), what one captured round "
-              f"(ROADMAP A1) would remove; a dispatch "
+              f"dispatch (the eager launches); a dispatch "
               f"{(h['dispatch']['int8'] - b['dispatch']['int8']) * 1e3:.2f}"
               f" ms", flush=True)
+    if out["graph_host"] is not None:
+        gh = out["graph_host"]
+        print(f"{prefix} | # graph rounds: {gh['step_s'] * 1e3:.2f} ms a "
+              f"step on the host clock against eager "
+              f"{out['host']['step_s'] * 1e3:.2f} (busy "
+              + (f"{out['busy']['step_s'] * 1e3:.2f}" if out["busy"]
+                 else "not measured") + "); a dispatch "
+              f"{gh['dispatch']['int8'] * 1e3:.2f} ms", flush=True)
     return out
 
 

@@ -10,27 +10,30 @@ step_ms = param_bytes / STREAM_BPS * 1e3 + STEP_FLOOR_MS is one fused
 step's modelled time.
 
 The two step constants are the port's own, from `chip_smoke.py`'s
-`prefetch` phase on one NVIDIA H100 80GB HBM3 at a 700.00 W power limit,
-with every W8A16 matmul one launch of the fused int8 matmul
-(`ops/w8a16_mm.py`, which reads each weight once): a fused decode step of
-Llama-3-8B W8A16 at 8 lanes (a 32-step round's time / 32) took 13.089 ms
-at its first 8 layers (2.798 GB of weights) and 7.574 ms at its first 4
-(1.925 GB). The slope is the rate, 158.3 GB/s. The line through the two
-points falls to -4.583 ms at no weights, because the embedding and head
-(1.05 GB) do not cost what a layer's bytes cost; a negative floor would
-make small models' steps negative, or zero, so the floor is the 8-layer
-step less its 8 layers at the slope's 1.379 ms a layer: 2.06 ms (a second
-run on a slower host gave 25.393 / 7.474 ms, 48.7 GB/s). Both are
-host time more than weight streaming: the eager step launches each
-layer's kernels from the host, and the device is busy 28.7% of a full
-depth round (PERF.md §5). An earlier fit (with the int8 -> bf16 copy
-in every matmul, 32 and 16 layers) gave 269.8 GB/s and 41.0 ms, and a
-second run of it 93.7 GB/s and a floor below zero: the constants are
-known to a factor of about 3. They scale the horizon only: a factor of 2
-in either moves the result by one power of two. With the dispatch cost
-measured on the card (0.0493-0.0675 ms) the rule derives 1 for every
-model the repository serves, with either fit, as the reference's
-docstring says local runtimes do.
+`prefetch` phase (`prefetch_default_arm`) on one NVIDIA H100 80GB HBM3 at
+a 700.00 W power limit. The rate comes from rounds replayed from their
+CUDA graphs (`models/round_graph.py`), so that a step's time is the
+device's and not the host's dispatch: a fused decode step of Llama-3-8B
+W8A16 at 8 lanes (the median of 8 rounds a depth, a replayed one, / 32)
+took 2.816 ms at its first 8 layers (2.798 GB of weights) and 1.551 ms
+at its first 4 (1.925 GB). The slope is the rate, 690.3 GB/s (the
+reference's TPU constant is 700 GB/s; a second run gave 3.320 / 1.802
+ms, 575.4 GB/s); with it the whole 32-layer model (8.03 GB) streams in
+11.6 ms a step, where the anatomy's replayed round measures 11.55 device
+ms. The floor is not re-fitted from these rounds: their line falls to
+-1.237 ms at no weights (the embedding's 1.05 GB is gathered, not
+streamed), and the 8-layer step less its 8 layers at the slope's 0.316
+ms a layer leaves 0.29 ms, which is the replayed step of a model with no
+layers; a small model's step is bound by its launches, not its bytes,
+and with 0.29 ms the rule would fuse 4 steps of the tiny test model at a
+0.05 ms dispatch cost, where the reference derives 1. So the floor stays
+the eager rounds' fit (2.06 ms, the 8-layer step less its 8 layers at
+the slope then, when every launch was dispatched from the host; another
+run gave 48.7 GB/s and -32.0 ms on a slower host). The constants scale
+the horizon only: a factor of 2 in either moves the result by one power
+of two. With the dispatch cost measured on the card (0.0419-0.1856 ms)
+the rule derives 1 for every model the repository serves, as the
+reference's docstring says local runtimes do.
 
 `SPECKV_DISPATCH_MS` pins the dispatch cost without measuring (the
 reference's knob: tests pin it so that a loaded machine cannot change
@@ -46,9 +49,10 @@ import torch
 
 from cxl_speckv_tpu_torch.ops.wquant import QuantizedTensor
 
-# one fused decode step, fitted on an NVIDIA H100 80GB HBM3, 700.00 W
-# power limit (chip_smoke.py, phase "prefetch"; the docstring)
-_STREAM_BPS = 158.3e9         # bytes / s
+# one fused decode step, fitted on an NVIDIA H100 80GB HBM3, 700.00 W power
+# limit (chip_smoke.py, phase "prefetch"; the docstring): the rate from
+# rounds replayed from their CUDA graphs, the floor from eager rounds
+_STREAM_BPS = 690.3e9         # bytes / s
 _STEP_FLOOR_MS = 2.06         # ms
 
 _dispatch_ms_cache: dict[str, float] = {}

@@ -224,6 +224,17 @@ def test_mesh_derived_horizon_is_rank_zeros(served, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_mesh_rounds_are_eager(served, world):
+    """A mesh rank's decode rounds run eagerly (no graph cache: its gloo
+    collectives run on the host), and its statistics say so."""
+    for rec in served["ranks"][world]:
+        got = rec["round_route"]["result"]
+        assert got["route"] == "eager: mesh" and got["cache"]
+        assert got["graph_rounds"] == 0
+        assert got["eager_rounds"] == got["decode_batches"] > 0
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_host_fetch_gathers_what_a_rank_does_not_hold(served, world):
     for r, rec in enumerate(served["ranks"][world]):
         got = rec["host_fetch"]["result"]

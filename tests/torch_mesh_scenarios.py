@@ -367,6 +367,20 @@ def fetched_ranks(world: int) -> dict:
             "own": host_fetch(mine).tolist()}
 
 
+def round_route(weights: str, world: int) -> dict:
+    """How a mesh engine dispatched its decode rounds: eager, its gloo
+    collectives on the host (`Engine._round_statistics`)."""
+    eng = port_maker(weights, meshes(world)[0][1])()
+    submit_all(eng, prompts(2, 9), max_new_tokens=6)
+    port_serve(None)(eng)
+    st = eng.get_statistics()
+    e = st["engine"]
+    return {"route": e["round_route"], "graph_rounds": e["graph_rounds"],
+            "eager_rounds": e["eager_rounds"],
+            "decode_batches": st["scheduler"]["decode_batches"],
+            "cache": eng.round_graphs is None}
+
+
 def run_rank(weights: str, world: int) -> dict:
     """Every scenario of this world on this rank (the world is up)."""
     from cxl_speckv_tpu_torch.scripts import multiproc_serve
@@ -382,6 +396,8 @@ def run_rank(weights: str, world: int) -> dict:
                       "hashes": [], "parallel": None}
     out["host_fetch"] = {"result": fetched_ranks(world), "hashes": [],
                          "parallel": None}
+    out["round_route"] = {"result": round_route(weights, world),
+                          "hashes": [], "parallel": None}
     mode = "tpspan" if world == 2 else "dptp"
     rec = multiproc_serve.serve_rank(mode, "tiny", torch.device("cpu"))
     out["multiproc"] = {"result": rec, "hashes": [], "parallel": None}
